@@ -1,0 +1,137 @@
+"""CLI entry point: the same flags as the JAX package's ``cli.py``.
+
+``python -m neural_enhanced_super_resolution_torch --cli -i img -c cfg.json
+-n N -o out.png`` enhances one image. Directory input (batch serving),
+``--download_models`` and the GUI are not ported yet and say so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import shutil
+import sys
+
+__all__ = ["main", "parse_arguments", "run_cli_mode"]
+
+_NOT_PORTED = ("is not ported to the PyTorch package yet; see ROADMAP.md "
+               "(modules still to port)")
+
+
+def parse_arguments(argv=None):
+    parser = argparse.ArgumentParser(
+        description="NESR on PyTorch/CUDA — Neural Enhanced Super-Resolution",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    parser.add_argument("--gui", action="store_true",
+                        help="Launch the graphical user interface")
+    parser.add_argument("--cli", action="store_true",
+                        help="Run in command line mode")
+    parser.add_argument("--input", "-i", help="Input image path (CLI mode)")
+    parser.add_argument("--output", "-o", help="Output path (CLI mode)")
+    parser.add_argument("--config", "-c",
+                        help="Path to configuration JSON file")
+    parser.add_argument("--iterations", "-n", type=int, default=3,
+                        help="Number of enhancement iterations")
+    parser.add_argument("--upscale_factor", "-u", type=float, default=2.0,
+                        help="Base upscale factor per iteration")
+    parser.add_argument("--device", "-d", default="auto",
+                        choices=["auto", "cpu", "cuda"],
+                        help="Device to run on (cuda raises without a GPU)")
+    parser.add_argument("--prompt", "-p", default=None,
+                        help="Text prompt for diffusion guidance")
+    parser.add_argument("--download_models", action="store_true",
+                        help="Download required models")
+    parser.add_argument("--use_swinir", action="store_true",
+                        help="Enable the SwinIR branch")
+    parser.add_argument("--no_diffusion", action="store_true",
+                        help="Disable the diffusion upscaler")
+    parser.add_argument("--no_esrgan", action="store_true",
+                        help="Disable the ESRGAN upscaler")
+    parser.add_argument("--no_segmentation", action="store_true",
+                        help="Disable segmentation-guided enhancement")
+    parser.add_argument("--intermediate_saves", action="store_true",
+                        help="Save the image after each iteration")
+    parser.add_argument("--bench", action="store_true",
+                        help="Print per-stage timing at the end")
+    return parser.parse_args(argv)
+
+
+def run_cli_mode(args) -> int:
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+
+    print("Starting NESR (PyTorch) in CLI mode")
+    if args.download_models:
+        print(f"Error: --download_models {_NOT_PORTED}")
+        return 2
+    if not args.input:
+        print("Error: Input image path is required in CLI mode.")
+        print("Use --input or -i to specify the input image path.")
+        return 2
+    if os.path.isdir(args.input):
+        print(f"Error: directory input (batch mode) {_NOT_PORTED}")
+        return 2
+
+    config = None
+    if args.config:
+        try:
+            with open(args.config) as f:
+                config = json.load(f)
+            print(f"Loaded configuration from {args.config}")
+        except Exception as exc:  # noqa: BLE001 - clean one-line error
+            print(f"Error loading configuration: {exc}")
+            return 2
+
+    base_config = {
+        "iterations": args.iterations,
+        "upscale_factor": args.upscale_factor,
+        "output_dir": (os.path.dirname(args.output) or "outputs"
+                       if args.output else "outputs"),
+    }
+    if args.use_swinir:
+        base_config["use_swinir"] = True
+    if args.no_diffusion:
+        base_config["use_diffusion"] = False
+    if args.no_esrgan:
+        base_config["use_esrgan"] = False
+    if args.no_segmentation:
+        base_config["segment_enhancement"] = False
+    if args.intermediate_saves:
+        base_config["intermediate_saves"] = True
+    if config:
+        config.update(base_config)  # CLI args win
+    else:
+        config = base_config
+
+    try:
+        pipeline = SuperResolutionPipeline(device=args.device, config=config)
+        output_path = pipeline.enhance_image(args.input, prompt=args.prompt)
+    except Exception as exc:  # noqa: BLE001 - clean one-line error
+        print(f"Error during image enhancement: {exc}")
+        return 1
+    if args.output and output_path != args.output:
+        os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
+        shutil.copy2(output_path, args.output)
+        print(f"Enhanced image saved to: {args.output}")
+    else:
+        print(f"Enhanced image saved to: {output_path}")
+    if args.bench:
+        print("\n".join(pipeline.timer.summary_lines()))
+    return 0
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
+    args = parse_arguments(argv)
+    if args.gui or (not args.cli and not args.input
+                    and not args.download_models):
+        print(f"Error: the GUI {_NOT_PORTED}; use --cli")
+        return 2
+    return run_cli_mode(args)
+
+
+if __name__ == "__main__":  # pragma: no cover
+    sys.exit(main())

@@ -1,0 +1,91 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel here takes NHWC bf16 activations and HWIO bf16 weights
+// (3, 3, Cin, Cout), accumulates in fp32 on the tensor cores with
+// mma.sync m16n8k16 (operands fetched from shared memory by ldmatrix),
+// launches on the caller's stream and allocates nothing. Each C entry
+// point returns cudaGetLastError() so the Python wrapper can raise on a
+// refused launch.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 operands), with
+// g = lane / 4 and t = lane % 4:
+//   A (16 x 16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 8+2t..),
+//                           a3 (g+8, 8+2t..)
+//   B (16 x 8, k x n):      b0 (k 2t..2t+1, n g), b1 (k 8+2t.., n g)
+//   C (16 x 8, fp32):       c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
+// Shared-memory rows are padded by 8 bf16 (16 bytes) so the eight row
+// addresses of one ldmatrix phase fall in distinct banks.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace nesr {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float lrelu(float v) {
+  return v >= 0.f ? v : 0.2f * v;
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// Copy 8 consecutive bf16 values (16 bytes) when `src` is 16-byte aligned
+// and all of them are valid; otherwise copy element-wise with zero fill.
+__device__ __forceinline__ void load8(bf16* dst, const bf16* src, int valid,
+                                      bool aligned) {
+  if (valid >= 8 && aligned) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      dst[i] = i < valid ? src[i] : __float2bfloat16(0.f);
+  }
+}
+
+__device__ __forceinline__ void zero8(bf16* dst) {
+  *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A 16 x 16 bf16 tile at `base` (row pitch `pitch` elements, 16-byte
+// aligned rows) as an A fragment. With `trans`, the tile is read as
+// k x n (rows = k) and comes back as two B fragments: {r0, r1} for
+// columns 0..7 and {r2, r3} for columns 8..15.
+template <bool trans>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* base,
+                                        int pitch) {
+  const int l = threadIdx.x & 31;
+  const uint32_t addr = smem_u32(base + (l & 15) * pitch + (l >> 4) * 8);
+  if (trans) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr)
+        : "memory");
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr)
+        : "memory");
+  }
+}
+
+// c += a (16 x 16) * b (16 x 8), fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+}  // namespace nesr

@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels of the port and their plain versions."""
+
+from neural_enhanced_super_resolution_torch.kernels._build import (
+    KernelError, KernelInputError)
+from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
+    conv3x3, conv3x3_plain)
+from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
+    rdb_fused, rdb_fused_plain)
+
+__all__ = ["KernelError", "KernelInputError", "conv3x3", "conv3x3_plain",
+           "rdb_fused", "rdb_fused_plain"]

@@ -1,0 +1,108 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` into one shared library with a plain
+C interface and loaded with ``ctypes`` — no PyTorch headers, so a build takes
+seconds. The build runs at first use, into ``build/torch_kernels/`` beside the
+package (``NESR_TORCH_BUILD_DIR`` overrides it), and is redone whenever the
+hash of the sources changes. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+__all__ = ["KernelError", "KernelInputError", "load_library", "build_dir",
+           "check", "stream_ptr"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+_lock = threading.Lock()
+_lib = None
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, load or launch."""
+
+
+class KernelInputError(KernelError, ValueError):
+    """A wrapper refused a device tensor its kernel does not take, so the
+    kernel did not launch. A ``ValueError`` to the caller and a
+    ``KernelError`` to the pipeline, whose ladder re-raises it."""
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
+                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
+def build_dir() -> str:
+    return os.environ.get("NESR_TORCH_BUILD_DIR") or os.path.join(
+        os.path.dirname(_PKG), "build", "torch_kernels")
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise KernelError("nvcc not found (set NVCC or put the CUDA toolkit's "
+                      "bin directory on PATH)")
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; cached per process."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = _sources()
+        digest = hashlib.sha256()
+        for path in srcs:
+            with open(path, "rb") as f:
+                digest.update(os.path.basename(path).encode())
+                digest.update(f.read())
+        tag = digest.hexdigest()[:16]
+        out_dir = build_dir()
+        os.makedirs(out_dir, exist_ok=True)
+        so = os.path.join(out_dir, f"libnesr_torch_{tag}.so")
+        if not os.path.exists(so):
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                   "-Xptxas", "-v", "-o", tmp,
+                   *[s for s in srcs if s.endswith(".cu")]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            with open(os.path.join(out_dir, f"build_{tag}.log"), "w") as f:
+                f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise KernelError(f"nvcc failed ({proc.returncode}):\n"
+                                  f"{proc.stderr[-4000:]}")
+            os.replace(tmp, so)
+        try:
+            lib = ctypes.CDLL(so)
+        except OSError as exc:
+            raise KernelError(f"cannot load {so}: {exc}") from exc
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.nesr_conv3x3.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                     vp]
+        lib.nesr_conv3x3.restype = ci
+        lib.nesr_rdb_fused.argtypes = [vp] * 8 + [ci, ci, ci, vp]
+        lib.nesr_rdb_fused.restype = ci
+        _lib = lib
+        return lib
+
+
+def check(name: str, err: int) -> None:
+    if err != 0:
+        raise KernelError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_ptr() -> int:
+    import torch
+    return torch.cuda.current_stream().cuda_stream

@@ -1,0 +1,10 @@
+"""Model layer: RRDBNet and its checkpoints."""
+
+from neural_enhanced_super_resolution_torch.models.rrdbnet import (
+    RRDBNet, RRDBNetConfig, fuse_rdb, pixel_unshuffle)
+from neural_enhanced_super_resolution_torch.models.weights import (
+    init_rrdbnet, load_state_dict, params_from_jax, save_state_dict)
+
+__all__ = ["RRDBNet", "RRDBNetConfig", "fuse_rdb", "pixel_unshuffle",
+           "init_rrdbnet", "load_state_dict", "params_from_jax",
+           "save_state_dict"]

@@ -1,0 +1,253 @@
+"""RRDBNet (the Real-ESRGAN backbone) in PyTorch, NHWC, on the port's kernels.
+
+Counterpart of ``neural_enhanced_super_resolution_tpu/models/rrdbnet.py``.
+Activations are NHWC in the compute dtype (bf16 on the GPU, f32 for parity
+on the CPU); every 3x3 conv goes through K1 (``kernels.conv3x3``), which
+accumulates in fp32. The trunk is one of:
+
+* ``"fused"`` (config ``esrgan_trunk`` unset or ``"xla"``): the source-major
+  fused RDB (``fuse_rdb``), whose five convs per RDB are K1 with no bias and
+  bf16 out, and whose dense-block assembly (PyTorch elementwise ops) makes
+  the same additions in the same order as the JAX package's
+  ``_rdb_fused``;
+* ``"dform"``: one K2 launch (``kernels.rdb_fused``) per RDB, bf16 only;
+* ``"stock"``: the unfused basicsr RDB (``fuse_rdb: false``).
+
+The upsampling head is the stock one (nearest x2 + conv, twice, then
+conv_hr and conv_last): the JAX package's folded head is a TPU matrix-unit
+shape trick and is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
+    conv3x3, conv3x3_plain)
+from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
+    rdb_fused, rdb_fused_plain)
+from neural_enhanced_super_resolution_torch.models.weights import HEAD_CONVS
+
+__all__ = ["RRDBNetConfig", "RRDBNet", "FusedRDB", "pixel_unshuffle",
+           "fuse_rdb", "TRUNKS"]
+
+TRUNKS = ("fused", "dform", "stock")
+
+
+class RRDBNetConfig:
+    """Static architecture hyperparameters (hashable)."""
+
+    def __init__(self, num_in_ch: int = 3, num_out_ch: int = 3, scale: int = 4,
+                 num_feat: int = 64, num_block: int = 23, num_grow_ch: int = 32):
+        if scale not in (1, 2, 4):
+            raise ValueError(f"scale must be 1, 2 or 4, got {scale}")
+        self.num_in_ch = num_in_ch
+        self.num_out_ch = num_out_ch
+        self.scale = scale
+        self.num_feat = num_feat
+        self.num_block = num_block
+        self.num_grow_ch = num_grow_ch
+
+    @property
+    def conv_first_in_ch(self) -> int:
+        # basicsr: scale 2 -> pixel_unshuffle(2), scale 1 -> unshuffle(4).
+        return self.num_in_ch * {1: 16, 2: 4, 4: 1}[self.scale]
+
+    def _key(self):
+        return (self.num_in_ch, self.num_out_ch, self.scale, self.num_feat,
+                self.num_block, self.num_grow_ch)
+
+    def __hash__(self):
+        return hash(self._key())
+
+    def __eq__(self, other):
+        return isinstance(other, RRDBNetConfig) and self._key() == other._key()
+
+    def __repr__(self):
+        return f"RRDBNetConfig{self._key()}"
+
+
+def pixel_unshuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """NHWC pixel-unshuffle with torch channel order (c*r*r + ry*r + rx)."""
+    n, h, w, c = x.shape
+    r = factor
+    x = x.reshape(n, h // r, r, w // r, r, c).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(n, h // r, w // r, c * r * r)
+
+
+def _nearest_x2(x: torch.Tensor) -> torch.Tensor:
+    """F.interpolate(scale_factor=2, mode='nearest') in NHWC."""
+    n, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c)
+    return x.reshape(n, 2 * h, 2 * w, c)
+
+
+def fuse_rdb(ws: list[torch.Tensor], bs: list[torch.Tensor]
+             ) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """Source-major regrouping of one RDB (exact reparameterisation).
+
+    ws: conv1..conv5 HWIO weights (3, 3, nf + k*gc, gc or nf); bs their
+    biases. A dense-block conv over concat([x, x1, .., xk]) is the sum of
+    convs over the segments; grouping by source gives five wide convs
+    w0..w4 with Cout 4g+nf, 3g+nf, 2g+nf, g+nf, nf. Returns (w0..w4, b)
+    with b the concatenated conv1..conv5 biases (4g + nf,).
+    Same math as ``fuse_rrdbnet_params`` of the JAX package, per RDB.
+    """
+    nf, gc = ws[0].shape[2], ws[0].shape[3]
+
+    def seg(w, s):
+        return w[:, :, nf + (s - 1) * gc:nf + s * gc, :]
+
+    w0 = torch.cat([ws[0]] + [w[:, :, :nf, :] for w in ws[1:]], dim=-1)
+    w1 = torch.cat([seg(w, 1) for w in ws[1:]], dim=-1)
+    w2 = torch.cat([seg(w, 2) for w in ws[2:]], dim=-1)
+    w3 = torch.cat([seg(w, 3) for w in ws[3:]], dim=-1)
+    w4 = seg(ws[4], 4)
+    return [w0, w1, w2, w3, w4], torch.cat(list(bs), dim=-1)
+
+
+def _hwio(w_oihw: torch.Tensor) -> torch.Tensor:
+    return w_oihw.permute(2, 3, 1, 0)
+
+
+class _Conv(nn.Module):
+    """One 3x3 conv through K1: HWIO weight in the compute dtype, fp32 bias."""
+
+    def __init__(self, sd: Mapping[str, torch.Tensor], key: str, dtype,
+                 device):
+        super().__init__()
+        self.register_buffer("w", _hwio(sd[f"{key}.weight"]).to(
+            device=device, dtype=dtype).contiguous())
+        self.register_buffer("b", sd[f"{key}.bias"].to(
+            device=device, dtype=torch.float32).contiguous())
+
+    def forward(self, x: torch.Tensor, lrelu: bool = False,
+                plain: bool = False) -> torch.Tensor:
+        conv = conv3x3_plain if plain else conv3x3
+        return conv(x.contiguous(), self.w, self.b, lrelu)
+
+
+class _StockRDB(nn.Module):
+    """basicsr ResidualDenseBlock: 5 dense convs + 0.2-scaled residual."""
+
+    def __init__(self, sd, prefix, dtype, device):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            _Conv(sd, f"{prefix}.conv{i}", dtype, device) for i in range(1, 6))
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        c = x
+        for conv in self.convs[:4]:
+            c = torch.cat([c, conv(c, lrelu=True, plain=plain)], dim=-1)
+        return x + 0.2 * self.convs[4](c, plain=plain)
+
+
+class FusedRDB(nn.Module):
+    """Source-major fused RDB: five K1 convs and an elementwise assembly,
+    or one K2.
+
+    fw: w0..w4 HWIO (from ``fuse_rdb``), fb: the (4g + nf,) biases."""
+
+    def __init__(self, fw, fb, dtype, device, kernel: bool):
+        super().__init__()
+        for i, w in enumerate(fw):
+            self.register_buffer(f"w{i}", w.to(device=device, dtype=dtype)
+                                 .contiguous())
+        self.register_buffer("b", fb.to(device=device, dtype=torch.float32)
+                             .contiguous())
+        self.kernel = kernel
+        self.gc = fw[1].shape[2]
+
+    def weights(self) -> list[torch.Tensor]:
+        return [self.w0, self.w1, self.w2, self.w3, self.w4]
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        if self.kernel:
+            return (rdb_fused_plain if plain else rdb_fused)(
+                x, self.weights(), self.b)
+        conv = conv3x3_plain if plain else conv3x3
+        g, b, dt = self.gc, self.b, x.dtype
+        w = self.weights()
+        c = conv(x, w[0])
+        # Running sums of the later destinations [a2 | a3 | a4 | a5], one
+        # add of each conv's tail per stage, in place: the same additions
+        # in the same order (rounded to dt after each) as the JAX package's
+        # _rdb_fused, which sums c0 + c1 + ... per destination.
+        slots = c[..., g:]
+        xk = F.leaky_relu(c[..., :g] + b[:g], 0.2).to(dt)
+        for k in range(1, 4):
+            c = conv(xk, w[k])
+            lo = (k - 1) * g
+            xk = F.leaky_relu(slots[..., lo:lo + g] + c[..., :g]
+                              + b[k * g:(k + 1) * g], 0.2).to(dt)
+            slots[..., lo + g:] += c[..., g:]
+        x5 = slots[..., 3 * g:] + conv(xk, w[4]) + b[4 * g:]
+        return x + 0.2 * x5.to(dt)
+
+
+class _RRDB(nn.Module):
+    def __init__(self, sd, i, dtype, device, trunk):
+        super().__init__()
+        def mk(prefix):
+            if trunk == "stock":
+                return _StockRDB(sd, prefix, dtype, device)
+            fw, fb = fuse_rdb(
+                [_hwio(sd[f"{prefix}.conv{c}.weight"]).float()
+                 for c in range(1, 6)],
+                [sd[f"{prefix}.conv{c}.bias"].float() for c in range(1, 6)])
+            return FusedRDB(fw, fb, dtype, device, kernel=trunk == "dform")
+
+        self.rdbs = nn.ModuleList(mk(f"body.{i}.rdb{k}") for k in (1, 2, 3))
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        out = x
+        for rdb in self.rdbs:
+            out = rdb(out, plain=plain)
+        return x + 0.2 * out
+
+
+class RRDBNet(nn.Module):
+    """RRDBNet built from a basicsr state dict on an explicit device.
+
+    forward: x (N, H, W, num_in_ch) float in [0, 1] ->
+    (N, H*scale, W*scale, num_out_ch) float32.
+    """
+
+    def __init__(self, cfg: RRDBNetConfig, state_dict: Mapping[str,
+                 torch.Tensor], dtype: torch.dtype = torch.float32,
+                 device: str | torch.device = "cpu", trunk: str = "fused"):
+        super().__init__()
+        if trunk not in TRUNKS:
+            raise ValueError(f"unknown trunk {trunk!r}, one of {TRUNKS}")
+        if trunk == "dform" and dtype != torch.bfloat16:
+            raise ValueError("the dform trunk (K2) runs in bfloat16 only; "
+                             f"got {dtype}")
+        self.cfg, self.dtype, self.trunk = cfg, dtype, trunk
+        sd = state_dict
+        for name in HEAD_CONVS:
+            setattr(self, name, _Conv(sd, name, dtype, device))
+        self.body = nn.ModuleList(_RRDB(sd, i, dtype, device, trunk)
+                                  for i in range(cfg.num_block))
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """plain=True runs every kernel's plain version instead (the
+        reference a kernel run is held against on the card)."""
+        if self.cfg.scale == 2:
+            x = pixel_unshuffle(x, 2)
+        elif self.cfg.scale == 1:
+            x = pixel_unshuffle(x, 4)
+        p = plain
+        feat = self.conv_first(x.to(self.dtype), plain=p)
+        body = feat
+        for block in self.body:
+            body = block(body, plain=p)
+        feat = feat + self.conv_body(body, plain=p)
+        feat = self.conv_up1(_nearest_x2(feat), lrelu=True, plain=p)
+        feat = self.conv_up2(_nearest_x2(feat), lrelu=True, plain=p)
+        out = self.conv_last(self.conv_hr(feat, lrelu=True, plain=p), plain=p)
+        return out.float()

@@ -1,0 +1,120 @@
+"""RRDBNet checkpoints: load, save, convert from the JAX layout, synthesise.
+
+State dicts use the basicsr RRDBNet layout (``conv_first.weight`` OIHW,
+``body.{i}.rdb{k}.conv{c}.weight`` ...), which is what the published
+Real-ESRGAN ``.pth`` files hold under ``params_ema``/``params``.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+logger = logging.getLogger("nesr.weights")
+
+__all__ = ["load_state_dict", "save_state_dict", "params_from_jax",
+           "init_rrdbnet", "HEAD_CONVS"]
+
+HEAD_CONVS = ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr",
+              "conv_last")
+
+
+def load_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """Load a ``.pth``/``.pt`` or ``.safetensors`` file as CPU tensors,
+    unwrapping ``params_ema`` / ``params`` / ``state_dict`` containers."""
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+        return dict(load_file(path))
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict):
+        for key in ("params_ema", "params", "state_dict"):
+            if key in obj and isinstance(obj[key], dict):
+                obj = obj[key]
+                break
+    return {k: torch.as_tensor(v) for k, v in obj.items()}
+
+
+def save_state_dict(sd: Mapping[str, Any], path: str) -> str:
+    """Save a state dict as ``.safetensors`` or as a basicsr ``.pth``
+    (under ``params_ema``)."""
+    tensors = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                                  else v).detach().cpu().contiguous()
+               for k, v in sd.items()}
+    if path.endswith(".safetensors"):
+        from safetensors.torch import save_file
+        save_file(tensors, path)
+    else:
+        torch.save({"params_ema": tensors}, path)
+    return path
+
+
+def params_from_jax(np_params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX package's RRDBNet pytree (HWIO, body stacked on a leading
+    num_block axis, as numpy) -> a basicsr state dict (OIHW, per block).
+
+    The inverse of ``rrdbnet_params_from_state_dict`` in the JAX package's
+    ``models/weights.py``; takes the stock (unfused) layout."""
+    sd: dict[str, torch.Tensor] = {}
+    for name in HEAD_CONVS:
+        p = np_params[name]
+        sd[f"{name}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(p["w"], np.float32)
+                                 .transpose(3, 2, 0, 1)))
+        sd[f"{name}.bias"] = torch.tensor(np.asarray(p["b"], np.float32))
+    body = np_params["body"]
+    if "conv1" not in body["rdb1"]:
+        raise ValueError("params_from_jax takes the stock layout, not a fused "
+                         "one")
+    nb = np.asarray(body["rdb1"]["conv1"]["w"]).shape[0]
+    for i in range(nb):
+        for rdb in ("rdb1", "rdb2", "rdb3"):
+            for ci in range(1, 6):
+                p = body[rdb][f"conv{ci}"]
+                key = f"body.{i}.{rdb}.conv{ci}"
+                sd[f"{key}.weight"] = torch.from_numpy(np.ascontiguousarray(
+                    np.asarray(p["w"][i], np.float32).transpose(3, 2, 0, 1)))
+                sd[f"{key}.bias"] = torch.tensor(
+                    np.asarray(p["b"][i], np.float32))
+    return sd
+
+
+def init_rrdbnet(cfg, generator: torch.Generator) -> dict[str, torch.Tensor]:
+    """Synthetic weights in the basicsr layout, made from ``generator``.
+
+    Head and tail convs use PyTorch's Conv2d default init; the RDB convs use
+    basicsr's ``default_init_weights(scale=0.1)`` shape (Kaiming-normal
+    scaled by 0.1, small biases), so a full-depth random network keeps its
+    activations in range the way a trained one does.
+    """
+    nf, gc = cfg.num_feat, cfg.num_grow_ch
+    sd: dict[str, torch.Tensor] = {}
+
+    def conv(key, cin, cout, body=False):
+        fan_in = cin * 9
+        if body:
+            std = 0.1 * (2.0 / fan_in) ** 0.5
+            w = torch.randn((cout, cin, 3, 3), generator=generator) * std
+            b = (torch.rand((cout,), generator=generator) - 0.5) * 0.02
+        else:
+            bound = fan_in ** -0.5
+            w = (torch.rand((cout, cin, 3, 3), generator=generator) * 2 - 1
+                 ) * bound
+            b = (torch.rand((cout,), generator=generator) * 2 - 1) * bound
+        sd[f"{key}.weight"] = w
+        sd[f"{key}.bias"] = b
+
+    conv("conv_first", cfg.conv_first_in_ch, nf)
+    for i in range(cfg.num_block):
+        for rdb in ("rdb1", "rdb2", "rdb3"):
+            for ci in range(1, 6):
+                conv(f"body.{i}.{rdb}.conv{ci}", nf + (ci - 1) * gc,
+                     gc if ci < 5 else nf, body=True)
+    conv("conv_body", nf, nf)
+    conv("conv_up1", nf, nf)
+    conv("conv_up2", nf, nf)
+    conv("conv_hr", nf, nf)
+    conv("conv_last", nf, cfg.num_out_ch)
+    return sd

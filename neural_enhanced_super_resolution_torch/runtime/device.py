@@ -1,0 +1,50 @@
+"""Device and precision policy.
+
+Counterpart of ``neural_enhanced_super_resolution_tpu/runtime/device.py``,
+with one deliberate difference: a request for ``cuda`` when no GPU is present
+raises instead of falling back to the CPU with a warning. Only ``auto``
+chooses between the two.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["determine_device", "default_compute_dtype", "device_fetch",
+           "torch_dtype"]
+
+
+def determine_device(requested: str = "auto") -> str:
+    """Resolve a requested device to 'cuda' or 'cpu'.
+
+    auto -> cuda when a GPU is visible, else cpu; cuda (or gpu) without a
+    GPU raises RuntimeError; anything else raises ValueError.
+    """
+    requested = (requested or "auto").lower()
+    if requested == "auto":
+        return "cuda" if torch.cuda.is_available() else "cpu"
+    if requested == "cpu":
+        return "cpu"
+    if requested in ("cuda", "gpu"):
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {requested!r} requested but no CUDA "
+                               "GPU is available")
+        return "cuda"
+    raise ValueError(f"unknown device {requested!r} (auto, cuda or cpu)")
+
+
+def default_compute_dtype(device: str) -> str:
+    """bf16 on the GPU (tensor-core native), f32 on the CPU (parity)."""
+    return "bfloat16" if device == "cuda" else "float32"
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def device_fetch(x) -> np.ndarray:
+    """Device -> host copy as a numpy array (numpy input passes through)."""
+    if isinstance(x, np.ndarray):
+        return x
+    return x.detach().cpu().numpy()

@@ -10,7 +10,12 @@ setup(
                  "(JAX/XLA/Pallas)"),
     packages=find_packages(include=[
         "neural_enhanced_super_resolution_tpu",
-        "neural_enhanced_super_resolution_tpu.*", "nesr"]),
+        "neural_enhanced_super_resolution_tpu.*", "nesr",
+        "neural_enhanced_super_resolution_torch",
+        "neural_enhanced_super_resolution_torch.*"]),
+    # the PyTorch port's CUDA kernel sources, built with nvcc at first use
+    package_data={"neural_enhanced_super_resolution_torch": [
+        "csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "numpy", "Pillow",

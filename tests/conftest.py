@@ -33,3 +33,9 @@ def test_image():
 @pytest.fixture()
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU (the port's hand-written kernels); "
+        "skips without one")

@@ -1,0 +1,145 @@
+"""The port's kernel modules: plain versions against the JAX kernels on the
+CPU (the CUDA kernels against their plain versions are in
+``test_torch_cuda.py``).
+
+On the CPU the wrappers run their plain versions, and the JAX Pallas
+kernels run in interpret mode as the JAX package's own tests run them.
+Tolerances: f32 1e-5 absolute (same math, other summation order); bf16
+1e-2 (K1) and 2e-2 (whole RDB) relative to max(1, max|ref|): bf16 rounding
+points differ by at most an ulp at each of the RDB's materialisations.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from neural_enhanced_super_resolution_tpu.kernels.conv3x3 import (
+    conv3x3_lrelu)
+from neural_enhanced_super_resolution_tpu.kernels.rdb_dform import (
+    dform_rdb_weights, rdb_dform_reference)
+from neural_enhanced_super_resolution_tpu.kernels.rdb_pallas import (
+    from_rows_s2d, rearrange_w_rows_s2d, rows_s2d_conv3x3, to_rows_s2d)
+from neural_enhanced_super_resolution_tpu.models import rrdbnet as jr
+from neural_enhanced_super_resolution_torch.kernels import (
+    KernelInputError, conv3x3, conv3x3_plain, rdb_fused, rdb_fused_plain)
+from neural_enhanced_super_resolution_torch.models.rrdbnet import (
+    FusedRDB, fuse_rdb)
+
+
+def _rel(got, ref) -> float:
+    got = np.asarray(torch.as_tensor(got).float() if torch.is_tensor(got)
+                     else got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    assert got.shape == ref.shape
+    return float(np.abs(got - ref).max() / max(1.0, np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("cin,cout,bias,act", [
+    (12, 64, True, False), (32, 64, True, True), (16, 3, True, False)])
+def test_conv3x3_plain_matches_pallas_conv3x3(rng, cin, cout, bias, act):
+    x = rng.standard_normal((2, 13, 16, cin)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout)) * 0.1).astype(np.float32)
+    b = (rng.standard_normal((cout,)) * 0.1).astype(np.float32)
+    if not bias:
+        b = np.zeros_like(b)
+    ref = conv3x3_lrelu(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                        apply_act=act, block_rows=8, interpret=True)
+    got = conv3x3(torch.from_numpy(x), torch.from_numpy(w),
+                  torch.from_numpy(b) if bias else None, act)
+    assert np.abs(got.numpy() - np.asarray(ref)).max() < 1e-5
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 64), (64, 96)])
+def test_conv3x3_plain_matches_pallas_rows_s2d(rng, cin, cout):
+    """Bias-free bf16 conv with bf16 output: the fused trunk's conv."""
+    x = jnp.asarray(rng.standard_normal((2, 10, 16, cin)), jnp.bfloat16)
+    w = (rng.standard_normal((3, 3, cin, cout)) * 0.05).astype(np.float32)
+    wk = jnp.asarray(rearrange_w_rows_s2d(w), jnp.bfloat16)
+    ref = from_rows_s2d(rows_s2d_conv3x3(to_rows_s2d(x), wk, interpret=True))
+    xt = torch.from_numpy(np.asarray(x, np.float32)).bfloat16()
+    got = conv3x3(xt, torch.from_numpy(w).bfloat16())
+    assert got.dtype == torch.bfloat16
+    assert _rel(got, ref) <= 1e-2
+
+
+def _fused_rdb(nf, gc, seed=0):
+    """One RDB's source-major weights (numpy, from a seed): stock conv1..5
+    regrouped by ``fuse_rdb``, exact against the JAX package's fuse."""
+    r = np.random.default_rng(seed)
+    ws, bs = [], []
+    for k in range(5):
+        cin, cout = nf + k * gc, gc if k < 4 else nf
+        ws.append(torch.from_numpy((r.standard_normal((3, 3, cin, cout))
+                                    * (2.0 / (9 * cin)) ** 0.5)
+                                   .astype(np.float32)))
+        bs.append(torch.from_numpy((r.standard_normal(cout) * 0.05)
+                                   .astype(np.float32)))
+    fw, fb = fuse_rdb(ws, bs)
+    return {**{f"w{i}": w.numpy() for i, w in enumerate(fw)}, "b": fb.numpy()}
+
+
+def _torch_rdb(rdb):
+    return ([torch.tensor(rdb[f"w{i}"]).bfloat16() for i in range(5)],
+            torch.tensor(rdb["b"]).float())
+
+
+@pytest.mark.parametrize("nf,gc,h,w", [(8, 4, 24, 16), (64, 32, 32, 48)])
+def test_rdb_fused_plain_matches_dform_reference_v2(rng, nf, gc, h, w):
+    rdb = _fused_rdb(nf, gc)
+    x = jnp.asarray(rng.normal(0, 0.5, (2, h, w, nf)), jnp.bfloat16)
+    ref = from_rows_s2d(jax.jit(rdb_dform_reference, static_argnums=(2, 3))(
+        to_rows_s2d(x), dform_rdb_weights(rdb), gc, True))
+    ws, b = _torch_rdb(rdb)
+    got = rdb_fused(torch.from_numpy(np.asarray(x, np.float32)).bfloat16(),
+                    ws, b)
+    assert got.dtype == torch.bfloat16
+    assert _rel(got, ref) <= 2e-2
+
+
+@pytest.mark.parametrize("nf,gc,h,w", [(8, 4, 24, 16), (64, 32, 32, 48)])
+@pytest.mark.parametrize("kernel", [True, False], ids=["k2", "k1_fused"])
+def test_fused_rdb_matches_jax_rdb_fused(rng, nf, gc, h, w, kernel):
+    """Both port trunks' RDB (one K2 call, or five K1 convs with the
+    elementwise assembly) against the JAX package's production fused RDB
+    in bf16."""
+    rdb = _fused_rdb(nf, gc, seed=1)
+    x = jnp.asarray(rng.normal(0, 0.5, (2, h, w, nf)), jnp.bfloat16)
+    ref = jr._rdb_fused(x, {k: jnp.asarray(v) for k, v in rdb.items()}, gc,
+                        jnp.bfloat16)
+    ws, b = _torch_rdb(rdb)
+    mod = FusedRDB(ws, b, torch.bfloat16, "cpu", kernel=kernel)
+    got = mod(torch.from_numpy(np.asarray(x, np.float32)).bfloat16())
+    assert _rel(got, ref) <= 2e-2
+
+
+def test_cpu_wrappers_take_the_plain_version(rng):
+    x = torch.from_numpy(rng.standard_normal((1, 6, 7, 64)).astype(
+        np.float32)).bfloat16()
+    ws = [torch.zeros((3, 3, cin, cout), dtype=torch.bfloat16)
+          for cin, cout in ((64, 192), (32, 160), (32, 128), (32, 96),
+                            (32, 64))]
+    b = torch.zeros(192)
+    k1, k2 = conv3x3.launches, rdb_fused.launches
+    p1, p2 = conv3x3_plain.calls, rdb_fused_plain.calls
+    torch.testing.assert_close(rdb_fused(x, ws, b), x, rtol=0, atol=0)
+    conv3x3(x, ws[0])
+    assert (conv3x3.launches, rdb_fused.launches) == (k1, k2)
+    assert rdb_fused_plain.calls == p2 + 1
+    assert conv3x3_plain.calls >= p1 + 6
+
+
+def test_wrappers_take_the_plain_version_only_on_the_cpu():
+    """A tensor on any other non-CUDA device gets no silent plain run."""
+    x = torch.empty((1, 6, 7, 64), dtype=torch.bfloat16, device="meta")
+    ws = [torch.empty((3, 3, cin, cout), dtype=torch.bfloat16, device="meta")
+          for cin, cout in ((64, 192), (32, 160), (32, 128), (32, 96),
+                            (32, 64))]
+    calls = (conv3x3_plain.calls, rdb_fused_plain.calls)
+    with pytest.raises(KernelInputError, match="no kernel"):
+        conv3x3(x, ws[0])
+    with pytest.raises(KernelInputError, match="no kernel"):
+        rdb_fused(x, ws, torch.empty(192, device="meta"))
+    assert (conv3x3_plain.calls, rdb_fused_plain.calls) == calls
+

@@ -1,0 +1,230 @@
+"""The port's product path against the JAX package's, on the CPU in float32.
+
+Both pipelines load the same tiny basicsr checkpoint (seeded synthetic
+weights) with the same config and enhance the same image. Bar: uint8
+outputs differ by at most one level on at most 0.5% of pixels, and the
+saved file has the same name. Also: the port imports without JAX, and a
+request for the GPU without one raises instead of moving to the CPU.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+from neural_enhanced_super_resolution_torch import pipeline as torch_pipeline
+from neural_enhanced_super_resolution_torch.cli import main as torch_cli
+from neural_enhanced_super_resolution_torch.kernels import (KernelError,
+                                                            KernelInputError)
+from neural_enhanced_super_resolution_torch.models import (
+    RRDBNetConfig, init_rrdbnet, save_state_dict)
+from neural_enhanced_super_resolution_torch.runtime.config import merge_config
+from neural_enhanced_super_resolution_torch.utils.io import (imread_rgb,
+                                                             imwrite_rgb)
+from neural_enhanced_super_resolution_tpu import (
+    SuperResolutionPipeline as JaxPipeline)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = dict(num_in_ch=12, num_out_ch=3, scale=4, num_feat=8, num_block=2,
+            num_grow_ch=4)
+
+
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    sd = init_rrdbnet(RRDBNetConfig(**TINY), torch.Generator().manual_seed(0))
+    return save_state_dict(sd, str(tmp_path_factory.mktemp("ckpt")
+                                   / "tiny_x4.pth"))
+
+
+def _config(tmp_path, ckpt, who, **overrides):
+    cfg = {"iterations": 1, "use_diffusion": False,
+           "segment_enhancement": False, "denoise_level": 0,
+           "data_parallel": "off", "esrgan_model_path": ckpt,
+           "esrgan_arch": dict(TINY), "output_dir": str(tmp_path / who)}
+    cfg.update(overrides)
+    return cfg
+
+
+def _agree(got, ref):
+    assert got.shape == ref.shape and got.dtype == ref.dtype == np.uint8
+    diff = np.abs(got.astype(int) - ref.astype(int))
+    assert diff.max() <= 1, diff.max()
+    assert np.mean(diff > 0) <= 5e-3, np.mean(diff > 0)
+
+
+@pytest.mark.parametrize("hw,iterations,overrides", [
+    ((40, 36), 1, {}),
+    ((64, 80), 1, dict(max_megapixels=0.001, max_tile_size=48, tile_halo=8)),
+    ((80, 96), 1, dict(max_tile_size=48, tile_halo=8)),
+    ((24, 24), 2, dict(max_tile_size=48, tile_halo=8)),
+], ids=["whole", "tiled_canvas", "streamed_final", "two_iterations"])
+def test_pipeline_matches_jax(tmp_path, ckpt, test_image, hw, iterations,
+                              overrides):
+    src = str(tmp_path / "input.png")
+    imwrite_rgb(src, test_image[:hw[0], :hw[1]])
+    paths, images, stages = {}, {}, {}
+    for who, cls in (("jax", JaxPipeline), ("torch", SuperResolutionPipeline)):
+        seen = []
+        cfg = _config(tmp_path, ckpt, who, iterations=iterations,
+                      progress_callback=lambda s, *a, seen=seen: seen.append(s),
+                      **overrides)
+        paths[who] = cls(device="cpu", config=cfg).enhance_image(src)
+        images[who] = imread_rgb(paths[who])
+        stages[who] = seen
+    assert os.path.basename(paths["torch"]) == os.path.basename(paths["jax"])
+    assert stages["torch"] == stages["jax"]
+    _agree(images["torch"], images["jax"])
+
+
+def test_streamed_final_engages_and_matches_standard_chain(tmp_path, ckpt,
+                                                           test_image):
+    img = np.array(test_image[:80, :96])
+    outs = {}
+    for streamed in (True, False):
+        pipe = SuperResolutionPipeline("cpu", _config(
+            tmp_path, ckpt, "t", max_tile_size=48, tile_halo=8,
+            streamed_output=streamed))
+        outs[streamed] = pipe.enhance_array(img)
+        assert ("esrgan+post/streamed" in pipe.timer.totals) == streamed
+    # tiled sharpening sees each tile's halo, not the whole image: the same
+    # pixels except within the usual tiled-op border band
+    core = (slice(40, -40), slice(40, -40))
+    np.testing.assert_array_equal(outs[True][core], outs[False][core])
+
+
+def test_import_without_jax():
+    code = ("import sys; sys.modules['jax'] = None\n"
+            "import neural_enhanced_super_resolution_torch.pipeline\n"
+            "import neural_enhanced_super_resolution_torch.cli\n"
+            "import neural_enhanced_super_resolution_torch.kernels\n"
+            "assert not any(m == 'jax' or m.startswith('jax.') "
+            "for m, v in sys.modules.items() if v is not None)\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=300)
+
+
+def test_cuda_request_without_gpu_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        SuperResolutionPipeline(device="cuda", config={
+            "use_diffusion": False, "segment_enhancement": False,
+            "denoise_level": 0, "output_dir": str(tmp_path)})
+    pipe = SuperResolutionPipeline(device="auto", config={
+        "use_diffusion": False, "segment_enhancement": False,
+        "denoise_level": 0, "output_dir": str(tmp_path)})
+    assert pipe.device == "cpu" and pipe.config["precision"] == "float32"
+
+
+@pytest.mark.parametrize("key,value", [
+    ("use_diffusion", True), ("segment_enhancement", True),
+    ("use_swinir", True), ("denoise_level", 0.5), ("parity_tiling", True),
+    ("esrgan_trunk", "int8")])
+def test_unported_features_raise(key, value):
+    cfg = {"use_diffusion": False, "segment_enhancement": False,
+           "denoise_level": 0, key: value}
+    with pytest.raises(ValueError, match="ROADMAP"):
+        merge_config("cpu", cfg)
+
+
+def test_cuda_overlay_tiles_like_the_tpu_overlay():
+    from neural_enhanced_super_resolution_tpu.runtime.config import (
+        merge_config as jax_merge)
+    base = {"use_diffusion": False, "segment_enhancement": False,
+            "denoise_level": 0}
+    ours, theirs = merge_config("cuda", base), jax_merge("tpu", base)
+    for key in ("max_megapixels", "max_tile_size", "tile_halo", "tile_batch"):
+        assert ours[key] == theirs[key], key
+    assert ours["tile_tail"] == "bucket" and "prewarm" not in ours
+
+
+def test_dform_trunk_in_float32_raises(tmp_path, ckpt):
+    with pytest.raises(ValueError, match="bfloat16"):
+        SuperResolutionPipeline("cpu", _config(tmp_path, ckpt, "t",
+                                               esrgan_trunk="dform"))
+
+
+@pytest.mark.parametrize("overrides,match", [
+    (dict(precision="float32"), "bfloat16 only"),
+    (dict(precision="bfloat16", esrgan_trunk="dform"), "64 features"),
+], ids=["float32", "dform_narrow_width"])
+def test_gpu_config_the_kernels_cannot_run_raises(tmp_path, ckpt, monkeypatch,
+                                                  overrides, match):
+    """What the kernels do not take is refused up front on the GPU, instead
+    of failing every rung of the ladder down to a bicubic image."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match=match):
+        SuperResolutionPipeline("cuda", _config(tmp_path, ckpt, "t",
+                                                **overrides))._load_models()
+
+
+def test_dform_trunk_bf16_through_the_product_path(tmp_path, ckpt,
+                                                   test_image):
+    """bf16 on the CPU takes every kernel's plain version: the K2 trunk and
+    the K1 trunk give the same picture up to bf16 rounding."""
+    img = np.array(test_image[:40, :40])
+    outs = [SuperResolutionPipeline("cpu", _config(
+        tmp_path, ckpt, "t", precision="bfloat16", esrgan_trunk=trunk)
+    ).enhance_array(img).astype(int) for trunk in (None, "dform")]
+    assert outs[0].shape == (160, 160, 3)
+    assert np.mean(np.abs(outs[0] - outs[1])) < 1.0
+
+
+@pytest.mark.parametrize("fault", [KernelError, KernelInputError])
+@pytest.mark.parametrize("hw", [(40, 40), (150, 136)],
+                         ids=["whole", "streamed"])
+def test_kernel_faults_are_not_hidden_by_the_ladder(tmp_path, ckpt,
+                                                    test_image, monkeypatch,
+                                                    fault, hw):
+    """A kernel that fails, or a wrapper that refuses its input, ends the
+    request instead of falling down the ladder to a bicubic image."""
+    def broken(*args, **kwargs):
+        raise fault("planted kernel fault")
+
+    monkeypatch.setattr(torch_pipeline, "esrgan_step", broken)
+    pipe = SuperResolutionPipeline("cpu", _config(tmp_path, ckpt, "t"))
+    with pytest.raises(fault, match="planted"):
+        pipe.enhance_array(np.array(test_image[:hw[0], :hw[1]]))
+
+
+def test_missing_weights_fall_back_to_bicubic(tmp_path, test_image):
+    pipe = SuperResolutionPipeline("cpu", _config(
+        tmp_path, str(tmp_path / "nonexistent.pth"), "t"))
+    assert pipe.enhance_array(np.array(test_image[:40, :40])).shape == \
+        (80, 80, 3)
+
+
+def test_cancel_raises(tmp_path, ckpt, test_image):
+    from neural_enhanced_super_resolution_torch.pipeline import (
+        EnhancementCancelled)
+    calls = []
+
+    def cancel():
+        calls.append(1)
+        return len(calls) > 1   # let the iteration start, stop mid-tiles
+
+    pipe = SuperResolutionPipeline("cpu", _config(
+        tmp_path, ckpt, "t", max_tile_size=24, tile_batch=1, tile_halo=4,
+        cancel_check=cancel))
+    with pytest.raises(EnhancementCancelled):
+        pipe.enhance_array(np.array(test_image[:64, :64]))
+
+
+def test_cli_single_image_and_clean_errors(tmp_path, ckpt, test_image,
+                                           capsys):
+    src = str(tmp_path / "in.png")
+    imwrite_rgb(src, test_image[:32, :32])
+    cfg = str(tmp_path / "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump(_config(tmp_path, ckpt, "cli"), f)
+    out = str(tmp_path / "res" / "final.png")
+    assert torch_cli(["--cli", "-i", src, "-c", cfg, "-n", "1", "-o", out,
+                      "-d", "cpu"]) == 0
+    assert imread_rgb(out).shape == (128, 128, 3)
+    assert torch_cli(["--cli", "-i", str(tmp_path), "-c", cfg]) == 2
+    assert "not ported" in capsys.readouterr().out
+    assert torch_cli(["--cli"]) == 2
