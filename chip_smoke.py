@@ -2,19 +2,30 @@
 
     python3 chip_smoke.py
 
-Builds the port's hand-written kernels from ``csrc/``, holds each one
-against its plain PyTorch version at the shapes the ESRGAN path gives it,
-runs the full-width 12-channel RRDBNet x4 (64 features, 23 blocks, growth
-32; seeded synthetic weights) on a 4-tile batch with both trunks, then
-drives the product path (the CLI in a subprocess and ``enhance_image`` in
-process) and checks that it went through the kernels. Prints the card,
-every measurement, a JSON line of per-kernel results and, last, a JSON
-status line. Any failure exits non-zero without the status line. Needs no
-JAX and no network; writes only under ``build/chip_smoke/``.
+Builds the port's hand-written kernels from ``csrc/`` (one nvcc per source,
+in parallel) and holds each one against its plain PyTorch version at the
+shapes its path gives it: K1 and K2 on the ESRGAN path, K3 (flash
+attention) on the diffusion path. Then, with seeded synthetic weights:
+
+* the full-width 12-channel RRDBNet x4 (64 features, 23 blocks, growth 32)
+  on a 4-tile batch with both trunks;
+* the full-width SD x4 upscaler (written as a diffusers-layout snapshot):
+  one UNet pass at a 128^2 latent and one VAE decode, with K3 against the
+  same forward on the plain attention;
+* the ESRGAN-only product path (the CLI in a subprocess, ``enhance_image``
+  in process), then ESRGAN + diffusion ensembled (the CLI at 128x128 and
+  ``enhance_image`` on a ragged 104x72 input for two iterations), each path
+  with the launch counts zeroed before it and read after it;
+* both paths on small inputs against the CPU in float32.
+
+Prints the card, every measurement, a JSON line of per-kernel results and,
+last, a JSON status line. Any failure exits non-zero without the status
+line. Needs no JAX and no network; writes only under ``build/chip_smoke/``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -29,7 +40,45 @@ ARCH = dict(num_in_ch=12, num_out_ch=3, scale=4, num_feat=64, num_block=23,
 TILE_BATCH = (4, 268, 268)   # 4 tiles of 256 + 2 * 6 halo (cuda overlay)
 TOL_KERNEL = 1e-2            # max|err| / max(1, max|ref|), per kernel
 TOL_FORWARD = 3e-2           # the same for the full forward
+TOL_FLASH = 2e-2             # K3: max|err| / max|ref|, no floor
+# K3 at the diffusion path's shapes: (label, B, H, Sq, Skv, d). The UNet's
+# self-attention at a 128^2 latent (64^2, 32^2, 16^2 grids), the VAE
+# mid-block (one head, d 512, the whole latent), the ragged lengths of a
+# 104x72 input (52x36 and 13x9 grids) and a VAE-like ragged one, and a
+# cross length.
+FLASH_SHAPES = [("unet 64^2 d64", 1, 8, 4096, 4096, 64),
+                ("unet 32^2 d64", 1, 8, 1024, 1024, 64),
+                ("unet 16^2 d128", 1, 8, 256, 256, 128),
+                ("vae 128^2 d512", 1, 1, 16384, 16384, 512),
+                ("ragged 52x36 d64", 1, 8, 1872, 1872, 64),
+                ("ragged 13x9 d128", 1, 8, 117, 117, 128),
+                ("ragged 4000 d512", 1, 1, 4000, 4000, 512),
+                ("cross 200x330 d64", 1, 8, 200, 330, 64)]
 SEED = 0
+TOL_SD = 3e-2                # full-width UNet / VAE, K3 vs plain attention
+TOL_SD_CPU = 5e-2            # tiny snapshot latents, card bf16 vs CPU f32
+SD_STEPS = 20                # the cuda tier of num_inference_steps
+SD_ATTN_PER_PASS = 16        # self-attentions per SD x4 UNet pass
+PROMPT = "a photo of a lighthouse on a cliff"
+# The CLI in a subprocess, as `python -m <package>` runs it, printing the
+# kernels' launch counts after it returns.
+CLI_COUNTED = (
+    "import json, runpy, sys\n"
+    "from neural_enhanced_super_resolution_torch.kernels import (\n"
+    "    conv3x3, conv3x3_plain, flash_attention, flash_attention_plain)\n"
+    "sys.argv = ['neural_enhanced_super_resolution_torch'] + sys.argv[1:]\n"
+    "rc = 0\n"
+    "try:\n"
+    "    runpy.run_module('neural_enhanced_super_resolution_torch',\n"
+    "                     run_name='__main__', alter_sys=True)\n"
+    "except SystemExit as exc:\n"
+    "    rc = exc.code\n"
+    "print('COUNTS ' + json.dumps({\n"
+    "    'conv3x3': conv3x3.launches,\n"
+    "    'flash_attention': flash_attention.launches,\n"
+    "    'conv3x3_plain': conv3x3_plain.calls,\n"
+    "    'flash_attention_plain': flash_attention_plain.calls}))\n"
+    "sys.exit(rc)\n")
 
 
 def log(*args):
@@ -154,6 +203,56 @@ def check_rdb_fused(torch, gen) -> dict:
     if not r <= TOL_KERNEL:
         raise AssertionError(f"K2: rel err {r} > {TOL_KERNEL}")
     return {"ms": ms, "plain_ms": pms, "max_abs_err": d}
+
+
+def check_flash_attention(torch, gen) -> dict:
+    """K3 against flash_attention_plain at every FLASH_SHAPES shape.
+
+    q and k are drawn with std 2, so the scores have std 4 and each row's
+    softmax is peaked: with std-1 inputs the softmax over thousands of keys
+    is nearly flat, the output is about mean(v), and a kernel that ignored
+    the scores would pass. The error is taken against max|ref| with no
+    floor. One more case puts every real score at -2048 on a ragged Skv: a
+    key past Skv that escaped the bound check (a zero row, score 0) would
+    take all the weight. All shapes are measured before any failure is
+    raised, so a faulty kernel's readings are all printed.
+    """
+    from neural_enhanced_super_resolution_torch.kernels.attention import (
+        flash_attention, flash_attention_plain)
+
+    cases = []
+    for label, b, h, sq, skv, d in FLASH_SHAPES:
+        cases.append((label, _rnd(torch, gen, b, h, sq, d, scale=2.0),
+                      _rnd(torch, gen, b, h, skv, d, scale=2.0),
+                      _rnd(torch, gen, b, h, skv, d)))
+    bh, sq, skv, d = (1, 2), 100, 100, 64
+    cases.append(("padded keys, scores -2048",
+                  torch.full((*bh, sq, d), 16.0, device="cuda",
+                             dtype=torch.bfloat16),
+                  torch.full((*bh, skv, d), -16.0, device="cuda",
+                             dtype=torch.bfloat16),
+                  _rnd(torch, gen, *bh, skv, d)))
+    worst, timed, failed = 0.0, {}, []
+    for label, q, k, v in cases:
+        got = flash_attention(q, k, v)
+        ref = flash_attention_plain(q, k, v)
+        err = (got.float() - ref.float()).abs().max().item()
+        rel = err / ref.float().abs().max().item()
+        ms = cuda_ms(lambda: flash_attention(q, k, v))
+        pms = cuda_ms(lambda: flash_attention_plain(q, k, v))
+        log(f"K3 flash_attention {label} q {tuple(q.shape)} Skv "
+            f"{k.shape[2]}: max_abs_err {err:.6g} rel {rel:.3g} (tol "
+            f"{TOL_FLASH}, of max|ref| {ref.float().abs().max().item():.4g})"
+            f" kernel {ms:.4f} ms plain {pms:.4f} ms")
+        if not rel <= TOL_FLASH:
+            failed.append(f"{label}: rel {rel}")
+        worst = max(worst, err)
+        timed[label] = {"ms": ms, "plain_ms": pms}
+        del got, ref
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"K3 disagrees with its plain version: {failed}")
+    return dict(timed["unet 64^2 d64"], max_abs_err=worst)
 
 
 def check_forward(torch, gen, sd, name: str) -> None:
@@ -308,6 +407,234 @@ def check_against_cpu(torch, np, ckpt: str) -> None:
             raise AssertionError(f"small-input agreement: PSNR {psnr}")
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """Route attention_auto to flash_attention_plain: the reference forward
+    a K3 forward is held against (outside the counted paths)."""
+    from neural_enhanced_super_resolution_torch.kernels import attention
+    kernel = attention.flash_attention
+    attention.flash_attention = attention.flash_attention_plain
+    try:
+        yield
+    finally:
+        attention.flash_attention = kernel
+
+
+def write_sd_snapshot(torch) -> str:
+    """The SD x4 upscaler at its published widths, seeded fan-in weights in
+    bf16, as a diffusers-layout snapshot."""
+    from neural_enhanced_super_resolution_torch.models.diffusion import (
+        CLIPTextConfig, UNetConfig, VAEConfig)
+    from neural_enhanced_super_resolution_torch.models.diffusion.specs import (
+        write_synthetic_snapshot)
+    path = os.path.join(OUT, "sd_x4_synthetic")
+    t0 = time.perf_counter()
+    write_synthetic_snapshot(
+        path, (UNetConfig(), VAEConfig(), CLIPTextConfig()),
+        torch.Generator("cuda").manual_seed(SEED), torch.bfloat16)
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+    log(f"SD x4 synthetic snapshot (full width, fan-in init, bf16): "
+        f"{size / 1e9:.3f} GB written in {time.perf_counter() - t0:.2f} s")
+    return path
+
+
+def check_diffusion_forward(torch, snap: str, name: str) -> None:
+    """One full-width UNet pass (batch 1, 7x128x128, one timestep, a
+    77-token context) and one VAE decode of a 128^2 latent, with K3 against
+    the same forward on the plain attention (TF32 off). Bar: TOL_SD of
+    max|ref|."""
+    from neural_enhanced_super_resolution_torch.models.diffusion import (
+        load_upscale_pipeline, unet_forward, vae_decode)
+    t0 = time.perf_counter()
+    pipe = load_upscale_pipeline(snap, device="cuda")
+    log(f"SD x4 snapshot loaded to the card in {time.perf_counter() - t0:.2f}"
+        " s")
+    gen = torch.Generator("cuda").manual_seed(SEED + 2)
+    x = torch.randn((1, 128, 128, 7), generator=gen, device="cuda")
+    ctx = pipe.encode_prompt(PROMPT)[1:]
+    labels = torch.tensor([20], device="cuda")
+    lat = torch.randn((1, 128, 128, 4), generator=gen, device="cuda") / \
+        pipe.vae.cfg.scaling_factor
+    runs = {
+        "UNet pass 1x128x128x7, t 500": lambda: unet_forward(
+            pipe.unet, x, 500, ctx, labels),
+        "VAE decode 1x128x128x4 -> 512^2": lambda: vae_decode(pipe.vae, lat)}
+    for label, fn in runs.items():
+        got = fn()
+        with plain_attention():
+            ref = fn()
+            pms = cuda_ms(fn, reps=3)
+        ms = cuda_ms(fn, reps=3)
+        err = (got - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        log(f"SD x4 {label}: max_abs_err {err:.6g} rel {rel:.3g} vs plain "
+            f"attention (tol {TOL_SD}; max|ref| "
+            f"{ref.abs().max().item():.4g}); with K3 {ms:.2f} ms, plain "
+            f"attention {pms:.2f} ms on {name}")
+        if not (rel <= TOL_SD and torch.isfinite(got).all()):
+            raise AssertionError(f"SD x4 {label}: rel err {rel}")
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def _sd_counts():
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv3x3, conv3x3_plain, flash_attention, flash_attention_plain)
+    return {"conv3x3": conv3x3.launches,
+            "flash_attention": flash_attention.launches,
+            "conv3x3_plain": conv3x3_plain.calls,
+            "flash_attention_plain": flash_attention_plain.calls}
+
+
+def _check_sd_request(np, label, src, out, iters, counts, runs, stages):
+    """What every diffusion request must show: 4x per iteration, a picture
+    that is neither constant nor saturated everywhere, K3 launched exactly
+    SD_ATTN_PER_PASS x 2 (split CFG) x steps + 1 (VAE) times per diffusion
+    run, K1 launched, no plain attention, the diffusion sub-stages timed."""
+    want = (src.shape[0] * 4 ** iters, src.shape[1] * 4 ** iters, 3)
+    k3 = runs * (SD_ATTN_PER_PASS * 2 * SD_STEPS + 1)
+    saturated = float(np.mean((out == 0) | (out == 255)))
+    log(f"{label}: {src.shape[:2]} -> {out.shape[:2]}, output std "
+        f"{out.std():.2f}, saturated share {saturated:.3f}; counts {counts}"
+        f" (K3 expected {k3})")
+    problems = []
+    if out.shape != want or out.std() == 0 or saturated == 1.0:
+        problems.append(f"output {out.shape} (want {want}), std {out.std()}")
+    if counts["flash_attention"] != k3 or counts["conv3x3"] == 0:
+        problems.append(f"launches {counts}, K3 expected {k3}")
+    if counts["flash_attention_plain"] or counts["conv3x3_plain"]:
+        problems.append(f"plain versions ran on the card: {counts}")
+    missing = {"diffusion/clip", "diffusion/denoise", "diffusion/vae"} - \
+        set(stages)
+    if missing:
+        problems.append(f"StageTimer lacks {sorted(missing)}")
+    if problems:
+        raise AssertionError(f"{label}: {problems}")
+
+
+def drive_diffusion_path(torch, np, ckpt: str, snap: str) -> dict:
+    """ESRGAN (K1) and the SD x4 upscaler (K3) ensembled through the product
+    path: the CLI at 128x128 -n 1, then enhance_image on a ragged 104x72
+    input -n 2 with a 0.05 MP diffusion cap (iteration 2 skips diffusion and
+    takes the streamed ESRGAN final)."""
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv3x3, conv3x3_plain, flash_attention, flash_attention_plain)
+    from neural_enhanced_super_resolution_torch.utils.io import (imread_rgb,
+                                                                 imwrite_rgb)
+
+    base = {"use_diffusion": True, "diffusion_model_path": snap,
+            "segment_enhancement": False, "denoise_level": 0,
+            "esrgan_model_path": ckpt, "sd_stage_detail": True,
+            "output_dir": os.path.join(OUT, "sd_out")}
+    rng = np.random.default_rng(SEED + 3)
+    paths = {}
+    for label, (hh, ww) in (("sd_128", (128, 128)), ("sd_104x72", (72, 104))):
+        small = rng.integers(0, 256, (hh // 8 + 1, ww // 8 + 1, 3),
+                             dtype=np.uint8)
+        paths[label] = os.path.join(OUT, f"{label}.png")
+        imwrite_rgb(paths[label],
+                    np.kron(small, np.ones((8, 8, 1), np.uint8))[:hh, :ww])
+    total = dict.fromkeys(_sd_counts(), 0)
+
+    cli_cfg = os.path.join(OUT, "sd_cli_config.json")
+    with open(cli_cfg, "w") as f:
+        json.dump(base, f)
+    cli_out = os.path.join(OUT, "sd_cli", "result.png")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_COUNTED, "--cli", "-i", paths["sd_128"],
+         "-c", cli_cfg, "-n", "1", "-o", cli_out, "-d", "cuda", "-p", PROMPT,
+         "--bench"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    log(f"SD CLI subprocess: rc {proc.returncode} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if proc.returncode != 0:
+        raise AssertionError("SD CLI failed:\n" + proc.stdout[-3000:]
+                             + proc.stderr[-3000:])
+    lines = proc.stdout.splitlines()
+    counts = json.loads(next(line for line in lines
+                             if line.startswith("COUNTS "))[7:])
+    log("SD CLI StageTimer (--bench):")
+    stages = []
+    for line in lines:
+        if line.startswith("  ") and "s (" in line:
+            log(line)
+            stages.append(line.split()[0])
+    _check_sd_request(np, "SD CLI 128x128 -n 1", imread_rgb(paths["sd_128"]),
+                      imread_rgb(cli_out), 1, counts, 1, stages)
+    for key in total:
+        total[key] += counts[key]
+
+    pipe = SuperResolutionPipeline("cuda", dict(
+        base, iterations=2, diffusion_max_megapixels=0.05))
+    pipe._load_models()   # set-up: weights to the card before the window
+    if set(pipe.models) != {"esrgan", "diffusion"}:
+        raise AssertionError(f"models loaded: {sorted(pipe.models)}")
+    conv3x3.launches = flash_attention.launches = 0
+    conv3x3_plain.calls = flash_attention_plain.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_path = pipe.enhance_image(paths["sd_104x72"], prompt=PROMPT)
+    wall = time.perf_counter() - t0
+    counts = _sd_counts()
+    log(f"SD request sd_104x72.png -n 2 in process: {wall:.3f} s; StageTimer:")
+    for line in pipe.timer.summary_lines():
+        log(line)
+    _check_sd_request(np, "SD enhance_image 104x72 -n 2",
+                      imread_rgb(paths["sd_104x72"]), imread_rgb(out_path), 2,
+                      counts, 1, pipe.timer.totals)
+    if "esrgan+post/streamed" not in pipe.timer.totals:
+        raise AssertionError("iteration 2 did not take the streamed final")
+    for key in total:
+        total[key] += counts[key]
+    return total
+
+
+def check_diffusion_against_cpu(torch, np) -> None:
+    """The diffusion branch on the tiny snapshot of tests/test_diffusion.py
+    (written by the port's specs): trace_latents with the same injected
+    noise, 3 DDIM steps, card bf16 against CPU f32. Latents: max|err| /
+    max|ref| <= TOL_SD_CPU; the final uint8: PSNR >= 30 dB."""
+    from neural_enhanced_super_resolution_torch.models.diffusion import (
+        CLIPTextConfig, UNetConfig, VAEConfig, load_upscale_pipeline)
+    from neural_enhanced_super_resolution_torch.models.diffusion.specs import (
+        write_synthetic_snapshot)
+    path = write_synthetic_snapshot(
+        os.path.join(OUT, "sd_tiny"),
+        (UNetConfig(sample_size=16, in_channels=7, out_channels=4,
+                    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+                    up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
+                    block_out_channels=(8, 16), layers_per_block=1,
+                    cross_attention_dim=16, attention_head_dim=2,
+                    num_class_embeds=50, norm_num_groups=4),
+         VAEConfig(block_out_channels=(8, 16), layers_per_block=1,
+                   latent_channels=4, norm_num_groups=4),
+         CLIPTextConfig(vocab_size=100, hidden_size=16, intermediate_size=32,
+                        num_hidden_layers=2, num_attention_heads=2,
+                        max_position_embeddings=12)),
+        torch.Generator().manual_seed(SEED), torch.float32, init="fixed")
+    rng = np.random.default_rng(SEED + 4)
+    h, w = 24, 40   # ragged attention lengths: 12x20 (UNet), 24x40 (VAE)
+    args = ("a photo", rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+            rng.standard_normal((h, w, 3)).astype(np.float32),
+            rng.standard_normal((h, w, 4)).astype(np.float32))
+    ref_lats, ref = load_upscale_pipeline(
+        path, device="cpu", compute_dtype="float32").trace_latents(
+            *args, num_inference_steps=3)
+    lats, got = load_upscale_pipeline(path, device="cuda").trace_latents(
+        *args, num_inference_steps=3)
+    err = np.abs(lats - ref_lats).max() / np.abs(ref_lats).max()
+    mse = float(np.mean((got.astype(np.float64) - ref) ** 2))
+    psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+    log(f"tiny SD x4 {h}x{w}, 3 DDIM steps, card bf16 vs CPU f32: latents "
+        f"max|err|/max|ref| {err:.4g} (bar {TOL_SD_CPU}), output PSNR "
+        f"{psnr:.2f} dB (bar 30 dB), max diff "
+        f"{np.abs(got.astype(int) - ref.astype(int)).max()}")
+    if not (err <= TOL_SD_CPU and psnr >= 30.0 and got.shape == ref.shape):
+        raise AssertionError(f"tiny SD agreement: latents {err}, PSNR {psnr}")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -345,17 +672,27 @@ def main() -> int:
 
     build_kernels()
     results = {"conv3x3": check_conv3x3(torch, gen),
-               "rdb_fused": check_rdb_fused(torch, gen)}
+               "rdb_fused": check_rdb_fused(torch, gen),
+               "flash_attention": check_flash_attention(torch, gen)}
     sd = init_rrdbnet(RRDBNetConfig(**ARCH), torch.Generator().manual_seed(
         SEED))
     check_forward(torch, gen, sd, name)
     ckpt = save_state_dict(sd, os.path.join(OUT, "synthetic_x4_12ch.pth"))
+    snap = write_sd_snapshot(torch)
+    check_diffusion_forward(torch, snap, name)
     counts = drive_product_path(torch, np, ckpt)
+    sd_counts = drive_diffusion_path(torch, np, ckpt, snap)
     check_against_cpu(torch, np, ckpt)
+    check_diffusion_against_cpu(torch, np)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    sources = {"conv3x3": "csrc/conv3x3.cu", "rdb_fused": "csrc/rdb_fused.cu"}
+    # Launches: each path's count, zeroed before it and read after it.
+    launches = {"conv3x3": counts["conv3x3"] + sd_counts["conv3x3"],
+                "rdb_fused": counts["rdb_fused"],
+                "flash_attention": sd_counts["flash_attention"]}
+    sources = {"conv3x3": "csrc/conv3x3.cu", "rdb_fused": "csrc/rdb_fused.cu",
+               "flash_attention": "csrc/flash_attn.cu"}
     # K1 also carries the math of kernels/conv3x3.py:106 and
     # kernels/conv3x3_v2.py:103; rows_s2d_conv3x3 is the one whose shapes
     # the default trunk runs.
@@ -363,13 +700,15 @@ def main() -> int:
         "conv3x3": "neural_enhanced_super_resolution_tpu/kernels/"
                    "rdb_pallas.py:190",
         "rdb_fused": "neural_enhanced_super_resolution_tpu/kernels/"
-                     "rdb_dform.py:575"}
+                     "rdb_dform.py:575",
+        "flash_attention": "neural_enhanced_super_resolution_tpu/kernels/"
+                           "attention.py:125"}
     kernels = [{"name": k, "route": "cuda",
                 "source": f"{PKG}/{sources[k]}", "replaces": replaces[k],
-                "launches": counts[k],
+                "launches": launches[k],
                 "max_abs_err": results[k]["max_abs_err"],
                 "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"]}
-               for k in ("conv3x3", "rdb_fused")]
+               for k in ("conv3x3", "rdb_fused", "flash_attention")]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` into one shared library with a plain
-C interface and loaded with ``ctypes`` — no PyTorch headers, so a build takes
-seconds. The build runs at first use, into ``build/torch_kernels/`` beside the
-package (``NESR_TORCH_BUILD_DIR`` overrides it), and is redone whenever the
-hash of the sources changes. Nothing here runs at import time.
+Each ``.cu`` is compiled by its own ``nvcc``, all started together, and the
+objects are linked into one shared library with a plain C interface, loaded
+with ``ctypes`` — no PyTorch headers, so a build takes seconds. The build
+runs at first use, into ``build/torch_kernels/`` beside the package
+(``NESR_TORCH_BUILD_DIR`` overrides it), and is redone whenever the hash of
+the sources changes. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -55,6 +56,48 @@ def _nvcc() -> str:
                       "bin directory on PATH)")
 
 
+def _compile(srcs: list[str], out_dir: str, tag: str, so: str) -> None:
+    """One nvcc per ``.cu``, all started together, then one link."""
+    nvcc, arch = _nvcc(), ["-gencode", "arch=compute_90a,code=sm_90a"]
+    work = f"{so}.{os.getpid()}.d"
+    os.makedirs(work, exist_ok=True)
+    jobs = []
+    for src in (s for s in srcs if s.endswith(".cu")):
+        stem = os.path.splitext(os.path.basename(src))[0]
+        obj, log = (os.path.join(work, stem + ext) for ext in (".o", ".log"))
+        cmd = [nvcc, *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-c", src, "-o", obj]
+        with open(log, "w") as f:
+            f.write(" ".join(cmd) + "\n")
+            f.flush()
+            jobs.append((obj, log, subprocess.Popen(
+                cmd, stdout=f, stderr=subprocess.STDOUT)))
+    failed = []
+    with open(os.path.join(out_dir, f"build_{tag}.log"), "w") as out:
+        for obj, log, proc in jobs:
+            rc = proc.wait()
+            with open(log) as f:
+                text = f.read()
+            out.write(text)
+            if rc != 0:
+                failed.append(f"{os.path.basename(obj)} ({rc}):\n"
+                              f"{text[-4000:]}")
+        if not failed:
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = [nvcc, *arch, "-shared", "-o", tmp,
+                   *(obj for obj, _, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            out.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n"
+                              f"{proc.stderr[-4000:]}")
+            else:
+                os.replace(tmp, so)
+    shutil.rmtree(work, ignore_errors=True)
+    if failed:
+        raise KernelError("nvcc failed: " + "\n".join(failed))
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
     global _lib
@@ -72,18 +115,7 @@ def load_library() -> ctypes.CDLL:
         os.makedirs(out_dir, exist_ok=True)
         so = os.path.join(out_dir, f"libnesr_torch_{tag}.so")
         if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp,
-                   *[s for s in srcs if s.endswith(".cu")]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            with open(os.path.join(out_dir, f"build_{tag}.log"), "w") as f:
-                f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise KernelError(f"nvcc failed ({proc.returncode}):\n"
-                                  f"{proc.stderr[-4000:]}")
-            os.replace(tmp, so)
+            _compile(srcs, out_dir, tag, so)
         try:
             lib = ctypes.CDLL(so)
         except OSError as exc:
@@ -94,6 +126,9 @@ def load_library() -> ctypes.CDLL:
         lib.nesr_conv3x3.restype = ci
         lib.nesr_rdb_fused.argtypes = [vp] * 8 + [ci, ci, ci, vp]
         lib.nesr_rdb_fused.restype = ci
+        lib.nesr_flash_attn.argtypes = [vp] * 4 + [ci] * 5 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, vp]
+        lib.nesr_flash_attn.restype = ci
         _lib = lib
         return lib
 

@@ -1,0 +1,142 @@
+"""K3: flash attention (non-causal, unmasked) and the attention dispatcher.
+
+``flash_attention`` launches the hand-written Hopper kernel
+(``csrc/flash_attn.cu``) on a CUDA tensor and takes the plain PyTorch
+version ``flash_attention_plain`` only for a tensor on the CPU. It replaces
+the JAX package's Pallas ``kernels/attention.py:flash_attention`` (both of
+its lowerings, ``_flash_kernel`` and ``_flash_kernel_kvgrid``).
+
+``attention_auto`` is the diffusion stack's self-attention entry: packed
+heads (B, S, H*d) in, float32 out. Unlike the JAX package, which gates the
+kernel on a TPU-measured minimum length of 1024 tokens, every unmasked call
+goes to ``flash_attention``; a masked call (only CLIP's causal tower) takes
+the plain ``layers.attention``, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from neural_enhanced_super_resolution_torch.kernels import _build
+from neural_enhanced_super_resolution_torch.kernels._build import (
+    KernelInputError)
+
+__all__ = ["flash_attention", "flash_attention_plain", "attention_auto"]
+
+MAX_HEAD_DIM = 512  # the kernel's widest head dim (csrc/flash_attn.cu)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """The plain version: the kernel's math over one KV block.
+
+    Operands rounded to ``q.dtype``, scores in fp32 scaled by 1/sqrt(d),
+    unnormalised P = exp(S - max) rounded to ``q.dtype`` for P v with fp32
+    accumulation, l summed from the fp32 P, output (P v) / l in
+    ``q.dtype``."""
+    flash_attention_plain.calls += 1
+    if q.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dt = q.dtype
+    s = torch.matmul(q.float(), k.to(dt).float().transpose(-1, -2))
+    s = s * (1.0 / math.sqrt(q.shape[-1]))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p.to(dt).float(), v.to(dt).float()) / l
+    return out.to(dt)
+
+
+flash_attention_plain.calls = 0
+
+
+def _check(name: str, t: torch.Tensor, dev: torch.device) -> None:
+    if t.dtype != torch.bfloat16:
+        raise KernelInputError(f"flash_attention: {name} must be bf16, got "
+                               f"{t.dtype}")
+    if t.device != dev:
+        raise KernelInputError(f"flash_attention: {name} on {t.device}, "
+                               f"q on {dev}")
+    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]):
+        raise KernelInputError(
+            f"flash_attention: {name} needs a contiguous head dim and batch,"
+            f" head and sequence strides that are multiples of 8, got "
+            f"{t.stride()}")
+    if t.data_ptr() % 16:
+        raise KernelInputError(f"flash_attention: {name} is not 16-byte "
+                               "aligned")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v, (B, H, Sq, d) x (B, H, Skv, d) ->
+    (B, H, Sq, d); Sq may differ from Skv.
+
+    On the GPU: bf16 operands on one device, d a multiple of 8 up to 512,
+    the last dim contiguous and the other strides multiples of 8 (so
+    transposed views of packed projections go in without a copy). The
+    output takes q's layout. Anything else raises ``KernelInputError``.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    if not q.is_cuda:
+        raise KernelInputError(f"flash_attention: no kernel for device "
+                               f"{q.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise KernelInputError(f"flash_attention: bad shapes q "
+                               f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                               f"{tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise KernelInputError(f"flash_attention: q {tuple(q.shape)} and k "
+                               f"{tuple(k.shape)} do not match")
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM or min(b, h, sq, skv) < 1:
+        raise KernelInputError(f"flash_attention: unsupported shape q "
+                               f"{tuple(q.shape)}, Skv {skv}")
+    if b * h > 65535:
+        raise KernelInputError(f"flash_attention: {b * h} (batch, head) "
+                               "pairs, at most 65535")
+    out = torch.empty_like(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        _check(name, t, q.device)
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q, k, v, out) for s in t.stride()[:3]))
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        err = lib.nesr_flash_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, sq, skv, d, strides, 1.0 / math.sqrt(d),
+            _build.stream_ptr())
+    _build.check("flash_attention", err)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def attention_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   num_heads: int, mask: torch.Tensor | None = None,
+                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Multi-head attention over packed heads (B, Sq, D) x (B, Skv, D).
+
+    Unmasked: casts to ``dtype`` and runs ``flash_attention`` on
+    (B, H, S, d) views of the packed tensors (no transpose copies); the
+    output is float32 (B, Sq, D). Masked: the plain ``layers.attention``.
+    """
+    from neural_enhanced_super_resolution_torch.models.diffusion.layers import (
+        attention)
+
+    if mask is not None:
+        return attention(q, k, v, num_heads, mask=mask, dtype=dtype)
+    b, sq, dm = q.shape
+    hd = dm // num_heads
+
+    def heads(t):
+        return t.to(dtype).reshape(b, t.shape[1], num_heads, hd).transpose(1, 2)
+
+    out = flash_attention(heads(q), heads(k), heads(v))
+    return out.transpose(1, 2).reshape(b, sq, dm).float()

@@ -1,0 +1,22 @@
+"""The Stable Diffusion x4 upscaler on PyTorch: CLIP text, UNet, VAE decoder,
+schedulers, and the pipeline that runs them (the JAX package's
+``models/diffusion`` without ``cfg_shard`` and ``vae_encode``)."""
+
+from neural_enhanced_super_resolution_torch.models.diffusion.clip_text import (
+    CLIPTextConfig, CLIPTextModel, clip_text_forward)
+from neural_enhanced_super_resolution_torch.models.diffusion.pipeline import (
+    UpscalePipeline, build_module, load_upscale_pipeline)
+from neural_enhanced_super_resolution_torch.models.diffusion.scheduler import (
+    DDIMScheduler, DDPMScheduler)
+from neural_enhanced_super_resolution_torch.models.diffusion.unet import (
+    UNet2DConditionModel, UNetConfig, unet_forward)
+from neural_enhanced_super_resolution_torch.models.diffusion.vae import (
+    AutoencoderKLDecoder, VAEConfig, vae_decode)
+
+__all__ = [
+    "UpscalePipeline", "load_upscale_pipeline", "build_module",
+    "DDPMScheduler", "DDIMScheduler",
+    "UNetConfig", "UNet2DConditionModel", "unet_forward",
+    "VAEConfig", "AutoencoderKLDecoder", "vae_decode",
+    "CLIPTextConfig", "CLIPTextModel", "clip_text_forward",
+]

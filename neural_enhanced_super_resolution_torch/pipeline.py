@@ -1,11 +1,14 @@
-"""SuperResolutionPipeline on PyTorch: the ESRGAN-only product path.
+"""SuperResolutionPipeline on PyTorch: ESRGAN and the SD x4 upscaler.
 
 Counterpart of ``neural_enhanced_super_resolution_tpu/pipeline.py`` with the
 same constructor, config keys, ``enhance_image`` / ``enhance_array``
 contract, progress and image callbacks, cooperative cancellation and output
 naming (``{name}_enhanced_x{scale}{ext}``). Per iteration: CLAHE contrast ->
-tiled ESRGAN (RRDBNet on the port's kernels) -> adaptive sharpen; the last
-iteration runs ESRGAN + sharpen per tile and streams the tiles to the host.
+tiled ESRGAN (RRDBNet on K1/K2) and the Stable Diffusion x4 upscaler (its
+self-attention on K3), one after the other on the one device -> ensemble ->
+adaptive sharpen. An input above ``diffusion_max_megapixels`` skips
+diffusion; a last iteration with ESRGAN as the only branch runs ESRGAN +
+sharpen per tile and streams the tiles to the host.
 
 The graceful-degradation ladder (primary -> 3-channel -> tiled-3ch(256) ->
 bicubic) is kept for ordinary failures, but a kernel failure or a wrapper's
@@ -28,6 +31,8 @@ import torch.nn.functional as F
 from neural_enhanced_super_resolution_torch.kernels import KernelError
 from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
     KERNEL_GC, KERNEL_NF)
+from neural_enhanced_super_resolution_torch.models.diffusion.pipeline import (
+    load_upscale_pipeline)
 from neural_enhanced_super_resolution_torch.models.rrdbnet import (
     RRDBNet, RRDBNetConfig)
 from neural_enhanced_super_resolution_torch.models.weights import (
@@ -109,7 +114,8 @@ def esrgan_step(model: RRDBNet, tiles_u8: torch.Tensor,
 
 
 class SuperResolutionPipeline:
-    """Iterative super-resolution with ESRGAN (reference-compatible API)."""
+    """Iterative super-resolution with ESRGAN and the SD x4 upscaler
+    (reference-compatible API)."""
 
     def __init__(self, device: str = "auto", config: dict | None = None):
         self.device = determine_device(device)
@@ -152,6 +158,10 @@ class SuperResolutionPipeline:
                              for c in candidates if c.endswith(".pth")]
 
     def _load_models(self):
+        self._load_esrgan()
+        self._load_diffusion()
+
+    def _load_esrgan(self):
         cfg = self.config
         if not cfg["use_esrgan"] or "esrgan" in self.models:
             return
@@ -201,6 +211,22 @@ class SuperResolutionPipeline:
         self.models["esrgan"] = {"model": model, "cfg": model_cfg}
         logger.info("Real-ESRGAN model loaded (%s trunk, %s)", trunk,
                     cfg["precision"])
+
+    def _load_diffusion(self):
+        cfg = self.config
+        if not cfg["use_diffusion"] or "diffusion" in self.models:
+            return
+        try:
+            logger.info("Loading Stable Diffusion upscaler...")
+            self.models["diffusion"] = load_upscale_pipeline(
+                cfg.get("diffusion_model_path"), device=self.device,
+                compute_dtype=cfg["precision"],
+                cfg_split=cfg.get("sd_cfg_split"))
+            logger.info("Stable Diffusion upscaler loaded successfully")
+        except Exception as exc:  # noqa: BLE001 - ladder: branch disabled
+            _reraise(exc, "diffusion model load")
+            logger.error("Error loading Stable Diffusion upscaler: %s", exc)
+            cfg["use_diffusion"] = False
 
     # ------------------------------------------------------------ helpers --
 
@@ -335,6 +361,44 @@ class SuperResolutionPipeline:
         logger.warning("All ESRGAN methods failed, using bicubic upscaling")
         return self._bicubic_upscale(image, self.config["upscale_factor"])
 
+    def _diffusion_capped(self, image) -> bool:
+        """Above ``diffusion_max_megapixels`` the branch is skipped: the
+        4x-grown canvas of a later iteration would run O(tokens^2)
+        attention."""
+        cap = self.config.get("diffusion_max_megapixels")
+        return bool(cap) and (int(image.shape[0]) * int(image.shape[1])
+                              / 1e6 > float(cap))
+
+    def _apply_diffusion(self, image, prompt):
+        """The SD x4 upscaler on an (H, W, 3) uint8 device tensor; None when
+        the branch is off or the input is above ``diffusion_max_megapixels``.
+        A kernel or CUDA fault propagates (``_reraise``): a broken K3 must
+        not come out as an ESRGAN-only image."""
+        if "diffusion" not in self.models:
+            return None
+        try:
+            if self._diffusion_capped(image):
+                logger.info(
+                    "Skipping diffusion for %.2f MP input (> %.2f MP cap; "
+                    "set diffusion_max_megapixels=None to force)",
+                    image.shape[0] * image.shape[1] / 1e6,
+                    float(self.config["diffusion_max_megapixels"]))
+                return None
+            detail = (os.environ.get("NESR_SD_STAGE_DETAIL") == "1"
+                      or self.config.get("sd_stage_detail"))
+            pipe = self.models["diffusion"]
+            pipe.timer = self.timer if detail else None
+            steps = self.config.get("num_inference_steps")
+            if steps is None:
+                # the reference's tiers by device: cuda 20, cpu 10
+                steps = {"cuda": 20}.get(self.device, 10)
+            return pipe(prompt=prompt, image=image, noise_level=20,
+                        num_inference_steps=steps, guidance_scale=7.5)
+        except Exception as exc:  # noqa: BLE001 - ladder: branch skipped
+            _reraise(exc, "diffusion")
+            logger.warning("Diffusion-based upscaling failed: %s", exc)
+            return None
+
     def _postprocess_image(self, image):
         if self.config["adaptive_sharpening"]:
             try:
@@ -356,6 +420,9 @@ class SuperResolutionPipeline:
             return False
         if not (cfg["use_esrgan"] and "esrgan" in self.models):
             return False
+        if (cfg["use_diffusion"] and "diffusion" in self.models
+                and not self._diffusion_capped(image)):
+            return False  # diffusion joins this iteration's ensemble
         if cfg.get("memory_efficient"):
             return False
         h, w = int(image.shape[0]), int(image.shape[1])
@@ -391,12 +458,14 @@ class SuperResolutionPipeline:
 
     def enhance_array(self, image: np.ndarray, prompt: str | None = None,
                       iterations: int | None = None) -> np.ndarray:
-        """Array in, array out (RGB uint8). ``prompt`` is accepted for API
-        compatibility; it only steers the diffusion branch."""
+        """Array in, array out (RGB uint8). ``prompt`` steers the diffusion
+        branch."""
         self._load_models()
         if not self.models:
             logger.warning("No models were loaded. Using basic upscaling only.")
         iterations = iterations or self.config["iterations"]
+        if prompt is None and self.config["use_diffusion"]:
+            prompt = "a high resolution, detailed photograph"
         current = torch.tensor(np.asarray(image), device=self.device)
         detail = os.environ.get("NESR_STAGE_DETAIL") == "1"
         for iteration in range(iterations):
@@ -437,6 +506,15 @@ class SuperResolutionPipeline:
                                    "Applying Real-ESRGAN upscaling")
                     with self._stage("esrgan"):
                         result = self._apply_esrgan(current)
+                    if result is not None:
+                        upscaled.append(result)
+                if self.config["use_diffusion"] and "diffusion" in self.models:
+                    logger.info("Applying diffusion-based upscaling...")
+                    self._callback("Diffusion", iteration, iterations,
+                                   "Applying diffusion-based upscaling with "
+                                   f"prompt: {prompt}")
+                    with self._stage("diffusion"):
+                        result = self._apply_diffusion(current, prompt)
                     if result is not None:
                         upscaled.append(result)
                 self._callback("Ensemble", iteration, iterations,

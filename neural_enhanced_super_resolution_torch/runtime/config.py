@@ -5,12 +5,17 @@ overlay, and a guard for the features this port does not carry yet.
 ``neural_enhanced_super_resolution_tpu/runtime/config.py`` so JSON configs
 written for it work unchanged. The ``cuda`` overlay takes the tile geometry
 of that package's ``tpu`` overlay (tile above 8 MP, 256-px tiles, 6-px halo,
-16 tiles per batch), so both packages tile an image identically; it does not
-take that overlay's remote-host workarounds (``tile_tail: "full"``,
-``prewarm``, ``fallback_to_cpu``).
+16 tiles per batch), so both packages tile an image identically, and its
+diffusion cap (``diffusion_max_megapixels`` 0.27, just above a 512x512
+input: attention grows with the square of the latent area, and the canvas
+grows 4x per iteration); it does not take that overlay's remote-host
+workarounds (``tile_tail: "full"``, ``prewarm``, ``fallback_to_cpu``).
 
-``merge_config`` raises ``ValueError`` for a feature that is not ported yet,
-naming the ROADMAP item that will bring it, instead of turning it off.
+``merge_config`` raises ``ValueError`` for a feature that is not ported yet
+(segmentation, SwinIR, NL-means denoise, parity tiling, the int8 trunk),
+naming the ROADMAP item that will bring it, instead of turning it off. The
+defaults turn segmentation and denoise on, so a config for this package
+sets ``segment_enhancement: false`` and ``denoise_level: 0``.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ def default_config() -> dict[str, Any]:
                 "tile_halo": 6,
                 "tile_batch": 16,
                 "half_precision": True,
+                "diffusion_max_megapixels": 0.27,
             },
             "cpu": {
                 "max_megapixels": 2,
@@ -82,8 +88,6 @@ def default_config() -> dict[str, Any]:
 
 # (predicate on the merged config, what is missing, where ROADMAP queues it)
 _NOT_PORTED = (
-    (lambda c: c["use_diffusion"], "use_diffusion (the diffusion branch)",
-     "slice 3, diffusion with K3 flash attention"),
     (lambda c: c["segment_enhancement"], "segment_enhancement (SegFormer)",
      "slice 4, segmentation"),
     (lambda c: c.get("use_swinir"), "use_swinir (SwinIR)",

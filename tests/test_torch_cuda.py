@@ -6,8 +6,10 @@ machine with the card and without JAX it runs as
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerance: max|kernel - plain| <= 1e-2 * max(1, max|plain|) per kernel
-(bf16 outputs; the two sum in another order), 3e-2 for a whole forward.
+Tolerance: max|kernel - plain| <= 1e-2 * max(1, max|plain|) per conv
+kernel (bf16 outputs; the two sum in another order), 3e-2 for a whole
+forward; K3 (flash attention) 2e-2 of max|plain| with no floor, on q and k
+of std 2 so that each softmax row is peaked.
 """
 
 import numpy as np
@@ -15,8 +17,8 @@ import pytest
 import torch
 
 from neural_enhanced_super_resolution_torch.kernels import (
-    KernelError, KernelInputError, conv3x3, conv3x3_plain, rdb_fused,
-    rdb_fused_plain)
+    KernelError, KernelInputError, attention_auto, conv3x3, conv3x3_plain,
+    flash_attention, flash_attention_plain, rdb_fused, rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.models import (
     RRDBNet, RRDBNetConfig, init_rrdbnet, save_state_dict)
 
@@ -148,3 +150,100 @@ def test_product_path_goes_through_the_kernels(cuda, tmp_path, trunk):
          rdb_fused_plain.calls), counts))
     assert k1 > 0 and (k2 > 0) == (trunk == "dform")
     assert p1 == 0 and p2 == 0
+
+
+def _qkv(cuda, b, h, sq, skv, d, seed):
+    g = torch.Generator().manual_seed(seed)
+    return tuple((torch.randn(shape, generator=g) * scale).to(
+        cuda, torch.bfloat16) for shape, scale in (
+            ((b, h, sq, d), 2.0), ((b, h, skv, d), 2.0), ((b, h, skv, d), 1.0)))
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", [
+    (1, 8, 256, 256, 64), (2, 4, 300, 300, 64), (1, 2, 200, 330, 128),
+    (1, 1, 1000, 1000, 512), (1, 2, 240, 240, 8), (1, 1, 960, 960, 16),
+    (1, 2, 70, 45, 256)])
+def test_flash_attention_kernel_matches_plain(cuda, b, h, sq, skv, d):
+    q, k, v = _qkv(cuda, b, h, sq, skv, d, seed=sq)
+    launches, calls = flash_attention.launches, flash_attention_plain.calls
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_plain.calls) == (
+        launches + 1, calls)
+    ref = flash_attention_plain(q, k, v).float()
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert ((got.float() - ref).abs().max() / ref.abs().max()).item() <= 2e-2
+
+
+def test_flash_attention_kernel_masks_padded_keys(cuda):
+    """Every real score -2048 on a ragged Skv: uniform over the real keys."""
+    q = torch.full((1, 2, 100, 64), 16.0, device=cuda, dtype=torch.bfloat16)
+    k = torch.full((1, 2, 100, 64), -16.0, device=cuda, dtype=torch.bfloat16)
+    v = torch.randn((1, 2, 100, 64), generator=torch.Generator().manual_seed(
+        0)).to(cuda, torch.bfloat16)
+    want = v.float().mean(dim=2, keepdim=True).expand(1, 2, 100, 64)
+    assert (flash_attention(q, k, v).float() - want).abs().max() <= 2e-3
+
+
+def test_attention_auto_runs_the_kernel_on_packed_views(cuda):
+    """(B, S, H*d) projections go to K3 as (B, H, S, d) views; f32 out."""
+    g = torch.Generator().manual_seed(1)
+    q, k, v = ((torch.randn((2, 333, 256), generator=g) * 2).to(cuda)
+               for _ in range(3))
+    launches = flash_attention.launches
+    out = attention_auto(q, k, v, 4)
+    assert flash_attention.launches == launches + 1
+    assert out.dtype == torch.float32 and out.shape == (2, 333, 256)
+    heads = [t.to(torch.bfloat16).view(2, 333, 4, 64).transpose(1, 2)
+             for t in (q, k, v)]
+    ref = flash_attention_plain(*heads).transpose(1, 2).reshape(2, 333, 256)
+    assert ((out - ref.float()).abs().max() / ref.float().abs().max()
+            ).item() <= 2e-2
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 2, 64, 64, 64, seed=2)
+    with pytest.raises(KernelInputError):
+        flash_attention(q.float(), k, v)                 # f32
+    with pytest.raises(KernelInputError):
+        flash_attention(q[..., :12], k[..., :12], v[..., :12])  # d % 8
+    with pytest.raises(KernelInputError):
+        flash_attention(q, k[:, :, :32], v)              # k, v differ
+    with pytest.raises(KernelInputError):
+        big = torch.zeros((1, 1, 8, 1024), device=cuda, dtype=torch.bfloat16)
+        flash_attention(big, big, big)                   # d > 512
+    with pytest.raises(KernelInputError):
+        flash_attention(q[:, :, :, 1:9], k[..., :8], v[..., :8])  # alignment
+
+
+def test_diffusion_product_path_goes_through_k3(cuda, tmp_path):
+    """The tiny SD x4 snapshot through enhance_array on the card: K3 runs
+    every self-attention (4 per UNet pass, 2 passes a step, and the VAE's),
+    never the plain version."""
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    from neural_enhanced_super_resolution_torch.models.diffusion import (
+        CLIPTextConfig, UNetConfig, VAEConfig)
+    from neural_enhanced_super_resolution_torch.models.diffusion.specs import (
+        write_synthetic_snapshot)
+    snap = write_synthetic_snapshot(str(tmp_path / "sd"), (
+        UNetConfig(block_out_channels=(8, 16), layers_per_block=1,
+                   down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+                   up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
+                   cross_attention_dim=16, attention_head_dim=2,
+                   num_class_embeds=50, norm_num_groups=4),
+        VAEConfig(block_out_channels=(8, 16), layers_per_block=1,
+                  norm_num_groups=4),
+        CLIPTextConfig(vocab_size=100, hidden_size=16, intermediate_size=32,
+                       num_hidden_layers=2, num_attention_heads=2,
+                       max_position_embeddings=12)),
+        torch.Generator().manual_seed(0), init="fixed")
+    pipe = SuperResolutionPipeline("cuda", {
+        "use_esrgan": False, "segment_enhancement": False, "denoise_level": 0,
+        "iterations": 1, "diffusion_model_path": snap,
+        "num_inference_steps": 3, "output_dir": str(tmp_path / "out")})
+    launches, calls = flash_attention.launches, flash_attention_plain.calls
+    img = np.random.default_rng(3).integers(0, 256, (24, 40, 3), np.uint8)
+    out = pipe.enhance_array(img)
+    assert out.shape == (48, 80, 3)
+    assert flash_attention.launches - launches == 4 * 2 * 3 + 1
+    assert flash_attention_plain.calls == calls

@@ -121,8 +121,8 @@ def test_cuda_request_without_gpu_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("use_diffusion", True), ("segment_enhancement", True),
-    ("use_swinir", True), ("denoise_level", 0.5), ("parity_tiling", True),
+    ("segment_enhancement", True), ("use_swinir", True),
+    ("denoise_level", 0.5), ("parity_tiling", True),
     ("esrgan_trunk", "int8")])
 def test_unported_features_raise(key, value):
     cfg = {"use_diffusion": False, "segment_enhancement": False,

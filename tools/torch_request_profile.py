@@ -51,6 +51,12 @@ def breakdown(prof) -> tuple[float, list[str]]:
             name = "K1 conv3x3_kernel"
         elif "rdb_fused_kernel" in k:
             name = "K2 rdb_fused_kernel"
+        elif "flash_attn_kernel" in k:
+            name = "K3 flash_attn_kernel"
+        elif any(s in k.lower() for s in ("conv", "fprop", "dgrad")):
+            name = "cuDNN conv"
+        elif any(s in k.lower() for s in ("gemm", "nvjet", "cutlass")):
+            name = "cuBLAS GEMM"
         elif "Memcpy" in k:
             name = "memcpy " + k.split("(")[-1].rstrip(")")
         elif "elementwise" in k or "reduce" in k:
