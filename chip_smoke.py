@@ -85,6 +85,20 @@ def log(*args):
     print(*args, flush=True)
 
 
+# The least time an H100 SXM could take for a function (NVIDIA's data sheet:
+# 989 TFLOP/s dense bf16 on the tensor cores, 3.35 TB/s of HBM): the larger
+# of its operations over the peak rate and its bytes (each input read once,
+# each output written once) over the memory rate.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def rel_err(got, ref) -> tuple[float, float]:
     d = (got.float() - ref.float()).abs().max().item()
     return d, d / max(1.0, ref.float().abs().max().item())
@@ -133,10 +147,13 @@ def check_conv3x3(torch, gen) -> dict:
     n, h, w = TILE_BATCH
     result = {}
     # (label, N, H, W, Cin, Cout, bias, lrelu): conv_first, the fused
-    # trunk's widest and narrowest convs, conv_body, the head at 2x and
-    # 4x, conv_last.
+    # trunk's five convs w0..w4, conv_body, the head at 2x and 4x,
+    # conv_last.
     shapes = [("conv_first 12->64", n, h, w, 12, 64, True, False),
               ("trunk w0 64->192", n, h, w, 64, 192, False, False),
+              ("trunk w1 32->160", n, h, w, 32, 160, False, False),
+              ("trunk w2 32->128", n, h, w, 32, 128, False, False),
+              ("trunk w3 32->96", n, h, w, 32, 96, False, False),
               ("trunk w4 32->64", n, h, w, 32, 64, False, False),
               ("conv_body 64->64", n, h, w, 64, 64, True, False),
               ("conv_up1 2x 64->64", n, 2 * h, 2 * w, 64, 64, True, True),
@@ -159,14 +176,21 @@ def check_conv3x3(torch, gen) -> dict:
             memory_format=torch.channels_last)
         bc = b.to(torch.bfloat16) if bias else None
         cms = cuda_ms(lambda: F.conv2d(xc, wc, bc, padding=1))
+        pix = nn_ * hh * ww
+        bms, by = bound(2.0 * pix * cout * 9 * cin,
+                        2.0 * (pix * (cin + cout) + 9 * cin * cout)
+                        + (4.0 * cout if bias else 0.0))
         log(f"K1 conv3x3 {label} {tuple(x.shape)}: max_abs_err {d:.6g} "
             f"rel {r:.3g} (tol {TOL_KERNEL}) kernel {ms:.4f} ms "
-            f"plain {pms:.4f} ms (cuDNN bf16 conv {cms:.4f} ms)")
+            f"plain {pms:.4f} ms cuDNN bf16 conv {cms:.4f} ms bound "
+            f"{bms:.4f} ms ({by}); kernel/cuDNN {ms / cms:.3f}, "
+            f"bound/kernel {bms / ms:.3f}")
         if not r <= TOL_KERNEL:
             raise AssertionError(f"K1 {label}: rel err {r} > {TOL_KERNEL}")
         k1_err = max(k1_err, d)
         if label.startswith("trunk w0"):
-            result = {"ms": ms, "plain_ms": pms}
+            result = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                      "bound_by": by, "library_ms": cms}
         del x, got, ref
     result["max_abs_err"] = k1_err
     return result
@@ -196,13 +220,21 @@ def check_rdb_fused(torch, gen) -> dict:
     branch = (ref.float() - x.float()).abs().max().item()
     ms = cuda_ms(lambda: rdb_fused(x, ws, bb))
     pms = cuda_ms(lambda: rdb_fused_plain(x, ws, bb))
+    # The RDB's own work: its five convs' operations (not the kernel's
+    # halo recompute); x in and out, the weights and biases once.
+    pix = n * h * w
+    bms, by = bound(2.0 * pix * 9 * sum(t.shape[2] * t.shape[3] for t in ws),
+                    2.0 * (2 * pix * 64 + sum(t.numel() for t in ws))
+                    + 4.0 * 192)
     log(f"K2 rdb_fused {tuple(x.shape)}: max_abs_err {d:.6g} rel {r:.3g} "
         f"(tol {TOL_KERNEL}; max|ref| {ref.float().abs().max().item():.4g},"
         f" max|0.2*x5| {branch:.4g}, err/branch {d / branch:.3g}) "
-        f"kernel {ms:.4f} ms plain {pms:.4f} ms")
+        f"kernel {ms:.4f} ms plain {pms:.4f} ms bound {bms:.4f} ms ({by}); "
+        "no single PyTorch call computes a whole RDB")
     if not r <= TOL_KERNEL:
         raise AssertionError(f"K2: rel err {r} > {TOL_KERNEL}")
-    return {"ms": ms, "plain_ms": pms, "max_abs_err": d}
+    return {"ms": ms, "plain_ms": pms, "max_abs_err": d, "bound_ms": bms,
+            "bound_by": by, "library_ms": None}
 
 
 def check_flash_attention(torch, gen) -> dict:
@@ -232,6 +264,7 @@ def check_flash_attention(torch, gen) -> dict:
                   torch.full((*bh, skv, d), -16.0, device="cuda",
                              dtype=torch.bfloat16),
                   _rnd(torch, gen, *bh, skv, d)))
+    import torch.nn.functional as F
     worst, timed, failed = 0.0, {}, []
     for label, q, k, v in cases:
         got = flash_attention(q, k, v)
@@ -240,14 +273,21 @@ def check_flash_attention(torch, gen) -> dict:
         rel = err / ref.float().abs().max().item()
         ms = cuda_ms(lambda: flash_attention(q, k, v))
         pms = cuda_ms(lambda: flash_attention_plain(q, k, v))
+        # For scale only: PyTorch's fused attention on the same tensors.
+        sms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        (b, hh, sq, d), skv = q.shape, k.shape[2]
+        bms, by = bound(4.0 * b * hh * sq * skv * d,
+                        2.0 * b * hh * d * (2 * sq + 2 * skv))
         log(f"K3 flash_attention {label} q {tuple(q.shape)} Skv "
-            f"{k.shape[2]}: max_abs_err {err:.6g} rel {rel:.3g} (tol "
+            f"{skv}: max_abs_err {err:.6g} rel {rel:.3g} (tol "
             f"{TOL_FLASH}, of max|ref| {ref.float().abs().max().item():.4g})"
-            f" kernel {ms:.4f} ms plain {pms:.4f} ms")
+            f" kernel {ms:.4f} ms plain {pms:.4f} ms SDPA {sms:.4f} ms bound"
+            f" {bms:.4f} ms ({by}); kernel/SDPA {ms / sms:.3f}")
         if not rel <= TOL_FLASH:
             failed.append(f"{label}: rel {rel}")
         worst = max(worst, err)
-        timed[label] = {"ms": ms, "plain_ms": pms}
+        timed[label] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                        "bound_by": by, "library_ms": sms}
         del got, ref
     torch.cuda.empty_cache()
     if failed:
@@ -703,11 +743,14 @@ def main() -> int:
                      "rdb_dform.py:575",
         "flash_attention": "neural_enhanced_super_resolution_tpu/kernels/"
                            "attention.py:125"}
+    # ms, plain_ms, bound_ms and library_ms at one shape a kernel: K1 at
+    # trunk w0, K2 on the tile batch, K3 at the UNet's 64^2 self-attention.
     kernels = [{"name": k, "route": "cuda",
                 "source": f"{PKG}/{sources[k]}", "replaces": replaces[k],
                 "launches": launches[k],
-                "max_abs_err": results[k]["max_abs_err"],
-                "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"]}
+                **{key: results[k][key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
                for k in ("conv3x3", "rdb_fused", "flash_attention")]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

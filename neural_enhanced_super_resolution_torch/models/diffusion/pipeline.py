@@ -251,7 +251,12 @@ def load_upscale_pipeline(path: str | None = None, device="cpu",
     if os.path.isdir(tok_dir):
         from neural_enhanced_super_resolution_torch.models.diffusion.tokenizer \
             import ClipBpeTokenizer
-        tokenizer = ClipBpeTokenizer.from_pretrained(tok_dir)
+        # As the JAX package does: a tokenizer/ that fails to load is
+        # logged, and _tokenize takes its word-hash fallback.
+        try:
+            tokenizer = ClipBpeTokenizer.from_pretrained(tok_dir)
+        except Exception as exc:
+            logger.warning("tokenizer load failed: %s", exc)
 
     mi_path = os.path.join(path, "model_index.json")
     model_index = read_json(mi_path) if os.path.exists(mi_path) else {}

@@ -439,6 +439,30 @@ def test_load_pipeline_from_deprecated_attention_keys(tiny_snapshot,
                        vae_decode(new_pipe.vae, lat))
 
 
+def test_broken_tokenizer_falls_back_as_in_jax(tiny_snapshot, tmp_path,
+                                               caplog):
+    """A snapshot whose tokenizer/ fails to load (empty vocab.json) loads in
+    both packages, each logging the failure, and both tokenize a prompt to
+    the same word-hash ids."""
+    import logging
+    import shutil
+    snap = str(tmp_path / "broken_tok")
+    shutil.copytree(tiny_snapshot, snap)
+    os.makedirs(os.path.join(snap, "tokenizer"))
+    open(os.path.join(snap, "tokenizer", "vocab.json"), "w").close()
+    open(os.path.join(snap, "tokenizer", "merges.txt"), "w").close()
+    with caplog.at_level(logging.WARNING):
+        port = load_upscale_pipeline(snap, compute_dtype="float32")
+        ref = jax_load_pipeline(snap, compute_dtype="float32")
+    assert port.tokenizer is None and ref.tokenizer is None
+    assert sum("tokenizer load failed" in r.getMessage()
+               for r in caplog.records) == 2
+    for prompt in ("a photo of a lighthouse on a cliff", ""):
+        got = port._tokenize(prompt)
+        assert got.shape == (1, CLIP["max_position_embeddings"])
+        np.testing.assert_array_equal(got, np.asarray(ref._tokenize(prompt)))
+
+
 def test_missing_tensor_fails_strict_load(tiny_snapshot, tmp_path):
     import shutil
     snap = str(tmp_path / "broken")
