@@ -142,7 +142,7 @@ def check_conv3x3(torch, gen) -> dict:
     """K1 at every conv shape of the path, against conv3x3_plain."""
     import torch.nn.functional as F
     from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-        conv3x3, conv3x3_plain)
+        conv3x3, conv3x3_plain, pack_conv3x3_weights)
 
     n, h, w = TILE_BATCH
     result = {}
@@ -165,10 +165,12 @@ def check_conv3x3(torch, gen) -> dict:
         wt = _rnd(torch, gen, 3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5)
         b = (_rnd(torch, gen, cout, scale=0.1, dtype=torch.float32)
              if bias else None)
-        got = conv3x3(x, wt, b, act)
+        # Packed once, as the model does at build; timed without packing.
+        wpk = pack_conv3x3_weights(wt)
+        got = conv3x3(x, wt, b, act, packed=wpk)
         ref = conv3x3_plain(x, wt, b, act)
         d, r = rel_err(got, ref)
-        ms = cuda_ms(lambda: conv3x3(x, wt, b, act))
+        ms = cuda_ms(lambda: conv3x3(x, wt, b, act, packed=wpk))
         pms = cuda_ms(lambda: conv3x3_plain(x, wt, b, act))
         # For scale only: the library's bf16 conv (cuDNN, channels_last).
         xc = x.permute(0, 3, 1, 2)

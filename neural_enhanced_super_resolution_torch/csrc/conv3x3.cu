@@ -9,181 +9,312 @@
 // The rows-s2d layout and its 4/3 FLOP tax are TPU artifacts and are not
 // ported: this kernel works on plain NHWC.
 //
-// What bounds it on an H100: the trunk convs (Cin 32/64, Cout 64..192) do
-// 2*9*Cin FLOPs per output channel per pixel against 2*Cin bytes read, so
-// with the 3x3 input reuse held in shared memory they sit above the bf16
-// ridge (~295 FLOP/byte) and are tensor-core bound; with mma.sync the
-// next limit is shared-memory bandwidth for the operand fetches. The design
-// is an implicit GEMM: a block owns a 16x16-pixel output tile and 64 output
-// channels, stages the input patch (1-px halo, 64 input channels per pass)
-// and the three taps of one kernel row at a time in shared memory, every
-// input byte read from device memory about once per block. Each of the
-// eight warps owns two output rows (two 16-pixel M fragments) and all 64
-// channels (eight n8 fragments), so one B fetch feeds two MMAs. Rows of
-// both operands are padded by 16 bytes, which makes every ldmatrix phase
-// bank-conflict free. SAME zero padding is done by bounds checks while the
-// patch is staged, never by a padded copy. Any Cin and Cout work.
-// Not yet: cp.async/TMA pipelining of the staging, and wgmma.
+// What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s), on the path's
+// 4 x 268 x 268 tile batch: trunk w0 (64->192) and conv_body (64->64) are
+// bound by their operations (64.3 and 21.9 us), the Cin-32 trunk convs
+// w1..w4 (->160/128/96/64) by their bytes, mostly the bf16 output (32.9
+// down to 16.5 us); conv_last (64->3) by its input bytes.
+//
+// Design: an implicit GEMM, M = output pixels, N = output channels, K =
+// 9 taps x Cin. A block owns a TH x 16-pixel output tile and every output
+// channel (N up to 256 in one pass; above that, blockIdx.y walks N tiles),
+// so the input patch is staged once, not once per 64 channels.
+//  * The patch ((TH+2) x 18 pixels, 1-px SAME halo, up to 64 channels a
+//    pass, 32 when Cin is 32) arrives by cp.async with zero-fill for the
+//    halo, the ragged edge and the channels past Cin. Its pixel pitch is
+//    padded by 16 bytes, so each 8-row ldmatrix phase is conflict free.
+//  * The weights are packed once on the host (kernels/conv3x3.py,
+//    pack_conv3x3_weights) into the exact shared-memory image of each
+//    (channel pass, tap) slab, so one cp.async.bulk per slab moves it,
+//    into a ring of STAGES slots with full/empty mbarriers: the copy of
+//    slab s+STAGES-1 runs under the MMAs of slab s.
+//  * The epilogue adds the bias, applies LeakyReLU, rounds to bf16 once,
+//    stages the tile in shared memory (reusing the ring) and writes it
+//    with 16-byte coalesced stores.
+//  * Each warp owns one 16-pixel output row and all N channels (N/2 fp32
+//    accumulators a thread): mma.sync m16n8k16, A and B by ldmatrix.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TH = 16;             // output rows per block, two per warp
-constexpr int TW = 16;             // output cols per block = MMA M
-constexpr int KC = 64;             // input channels per pass
-constexpr int NC = 64;             // output channels per block
-constexpr int NWARP = TH / 2;
-constexpr int THREADS = NWARP * 32;
-constexpr int PP = KC + 8;         // patch pixel pitch (elements)
-constexpr int WP = NC + 8;         // weight row pitch (elements)
-constexpr int PATCH_ELEMS = (TH + 2) * (TW + 2) * PP;
-constexpr int W_ELEMS = 3 * KC * WP;   // the three taps of one kernel row
-constexpr int SMEM_BYTES = (PATCH_ELEMS + W_ELEMS) * 2;
-
 using nesr::bf16;
 
-__global__ void __launch_bounds__(THREADS, 2)
-conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-               const float* __restrict__ bias, bf16* __restrict__ y,
-               int H, int W, int Cin, int Cout, int lrelu, int tiles_x) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* patch = reinterpret_cast<bf16*>(smem);
-  bf16* wsm = patch + PATCH_ELEMS;
+constexpr int TW = 16;       // output columns per tile = one warp's M rows
+constexpr int KCMAX = 64;    // input channels per pass
+constexpr int STAGES = 4;    // weight-slab ring depth
 
-  const int tx = blockIdx.x % tiles_x;
-  const int ty = blockIdx.x / tiles_x;
-  const int n0 = blockIdx.y * NC;
-  const int n = blockIdx.z;
-  const int oy = ty * TH, ox = tx * TW;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool w_vec = (Cout % 8) == 0;
-  const bool x_vec = (Cin % 8) == 0;
+// Per output width N: warpgroups a block (4 warps, 4 output rows each) and
+// blocks an SM. Up to N = 128 two 2-warpgroup blocks share an SM; above,
+// the accumulators need more registers than that leaves, and one block of
+// three warpgroups takes the SM.
+template <int N>
+struct Cfg {
+  static constexpr int NWG = N > 128 ? 3 : 2;
+  static constexpr int WARPS = NWG * 4;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int TH = WARPS;           // one output row a warp
+  static constexpr int MIN_BLOCKS = N > 128 ? 1 : 2;
+};
 
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+struct Params {
+  const bf16* x;
+  const bf16* wp;      // packed weights (pack_conv3x3_weights)
+  const float* bias;   // may be null
+  bf16* y;
+  int H, W, Cin, Cout, kp;   // kp: Cin rounded up to 16
+  int lrelu, tiles_x, vec;   // vec: channels a patch copy (8, 4, 2 or 1)
+};
 
-  for (int c0 = 0; c0 < Cin; c0 += KC) {
-    const int cc = min(KC, Cin - c0);
-    const int kp = (cc + 15) / 16 * 16;
-    __syncthreads();  // previous pass done with patch / wsm
-    // Stage the input patch: (TH+2) x (TW+2) pixels x KC channels.
-    for (int it = threadIdx.x; it < (TH + 2) * (TW + 2) * (KC / 8);
-         it += THREADS) {
-      const int g = it % (KC / 8);
-      const int p = it / (KC / 8);
-      const int py = p / (TW + 2), px = p % (TW + 2);
-      const int gy = oy - 1 + py, gx = ox - 1 + px;
-      bf16* dst = patch + p * PP + g * 8;
-      const int valid = cc - g * 8;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && valid > 0) {
-        const bf16* src =
-            x + ((size_t)(n * H + gy) * W + gx) * Cin + c0 + g * 8;
-        nesr::load8(dst, src, valid, x_vec);
-      } else {
-        nesr::zero8(dst);
-      }
-    }
-    for (int ky = 0; ky < 3; ++ky) {
-      if (ky > 0) __syncthreads();  // previous kernel row done with wsm
-      // Stage the weights of taps (ky, 0..2): KC input x NC output channels.
-      for (int it = threadIdx.x; it < 3 * KC * (NC / 8); it += THREADS) {
-        const int j8 = (it % (NC / 8)) * 8;
-        const int rest = it / (NC / 8);
-        const int ci = rest % KC;
-        const int kx = rest / KC;
-        bf16* dst = wsm + (kx * KC + ci) * WP + j8;
-        const int valid = Cout - (n0 + j8);
-        if (ci < cc && valid > 0) {
-          const bf16* src =
-              w + ((size_t)(ky * 3 + kx) * Cin + c0 + ci) * Cout + n0 + j8;
-          nesr::load8(dst, src, valid, w_vec);
-        } else {
-          nesr::zero8(dst);
-        }
-      }
-      __syncthreads();
-      for (int kx = 0; kx < 3; ++kx) {
-        for (int k0 = 0; k0 < kp; k0 += 16) {
-          uint32_t a[2][4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            nesr::ldsm_x4<false>(
-                a[i], patch + ((2 * warp + i + ky) * (TW + 2) + kx) * PP + k0,
-                PP);
-#pragma unroll
-          for (int nb = 0; nb < 4; ++nb) {
-            if (n0 + nb * 16 < Cout) {
-              uint32_t b[4];
-              nesr::ldsm_x4<true>(b, wsm + (kx * KC + k0) * WP + nb * 16, WP);
-#pragma unroll
-              for (int i = 0; i < 2; ++i) {
-                nesr::mma_bf16(acc[i][2 * nb], a[i], b[0], b[1]);
-                nesr::mma_bf16(acc[i][2 * nb + 1], a[i], b[2], b[3]);
-              }
-            }
-          }
-        }
-      }
-    }
+__host__ __device__ constexpr int round_up(int a, int b) {
+  return (a + b - 1) / b * b;
+}
+
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+
+template <int N>
+struct Smem {
+  // [ring | epilogue tile] [patch] [full bars] [empty bars]
+  static constexpr int TH = Cfg<N>::TH;
+  static __host__ __device__ int slab_elems(int kp) {
+    return imin(KCMAX, kp) * N;
   }
+  static __host__ __device__ int patch_off(int kp) {
+    const int ring = STAGES * slab_elems(kp) * 2;
+    const int epi = TH * TW * (N + 8) * 2;
+    return round_up(ring > epi ? ring : epi, 128);
+  }
+  static __host__ __device__ int pitch(int kp) { return imin(KCMAX, kp) + 8; }
+  static __host__ __device__ int bar_off(int kp) {
+    return round_up(patch_off(kp) + (TH + 2) * (TW + 2) * pitch(kp) * 2, 16);
+  }
+  static __host__ __device__ int bytes(int kp) {
+    return bar_off(kp) + 2 * STAGES * 8;
+  }
+};
 
-  // Epilogue straight from the accumulators: pixel column g or g+8 of the
-  // warp's row, channels 2t and 2t+1 of each n8 fragment.
-  const int g = lane / 4, t = lane % 4;
-  const bool pair_ok = (Cout % 2) == 0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int gy = oy + 2 * warp + i;
-    if (gy >= H) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int co = n0 + j * 8 + 2 * t;
-      if (co >= Cout) continue;
-      const bool two = co + 1 < Cout;
-      const float b0 = bias != nullptr ? bias[co] : 0.f;
-      const float b1 = (bias != nullptr && two) ? bias[co + 1] : 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gx = ox + g + 8 * h;
-        if (gx >= W) continue;
-        float v0 = acc[i][j][2 * h] + b0;
-        float v1 = acc[i][j][2 * h + 1] + b1;
-        if (lrelu) {
-          v0 = nesr::lrelu(v0);
-          v1 = nesr::lrelu(v1);
-        }
-        bf16* out = y + ((size_t)(n * H + gy) * W + gx) * Cout + co;
-        if (two && pair_ok) {
-          *reinterpret_cast<__nv_bfloat162*>(out) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          out[0] = __float2bfloat16(v0);
-          if (two) out[1] = __float2bfloat16(v1);
-        }
-      }
+// Stage channels [c0, c0 + kc) of the (TH+2) x (TW+2) input patch, VEC
+// channels a copy, zero-filling out-of-image pixels and channels >= Cin.
+template <int N, int VEC>
+__device__ void stage_patch(const Params& p, bf16* patch, int pitch, int n,
+                            int oy, int ox, int c0, int kc) {
+  constexpr int TH = Cfg<N>::TH;
+  const int nv = kc / VEC;
+  for (int it = threadIdx.x; it < (TH + 2) * (TW + 2) * nv;
+       it += Cfg<N>::THREADS) {
+    const int v = it % nv, px = it / nv;
+    const int gy = oy - 1 + px / (TW + 2), gx = ox - 1 + px % (TW + 2);
+    const int ch = c0 + v * VEC;
+    const bool ok = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W && ch < p.Cin;
+    const bf16* src =
+        ok ? p.x + ((size_t)(n * p.H + gy) * p.W + gx) * p.Cin + ch : p.x;
+    bf16* dst = patch + px * pitch + v * VEC;
+    if constexpr (VEC == 1) {
+      *dst = ok ? *src : __float2bfloat16(0.f);
+    } else {
+      nesr::cp_async_zfill<VEC * 2>(dst, src, ok ? VEC * 2 : 0);
     }
   }
 }
 
-}  // namespace
+template <int N>
+__global__ void __launch_bounds__(Cfg<N>::THREADS, Cfg<N>::MIN_BLOCKS)
+conv3x3_kernel(const Params p) {
+  using C = Cfg<N>;
+  using S = Smem<N>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* patch = reinterpret_cast<bf16*>(smem + S::patch_off(p.kp));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::bar_off(p.kp));
+  uint64_t* empty = full + STAGES;
 
-extern "C" int nesr_conv3x3(const void* x, const void* w, const void* bias,
-                            void* y, int N, int H, int W, int Cin, int Cout,
-                            int lrelu, void* stream) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tx = blockIdx.x % p.tiles_x, ty = blockIdx.x / p.tiles_x;
+  const int nt = blockIdx.y, n = blockIdx.z;
+  const int oy = ty * C::TH, ox = tx * TW;
+  const int pitch = S::pitch(p.kp);
+  const int slab = S::slab_elems(p.kp);
+  const int nchunks = (p.kp + KCMAX - 1) / KCMAX;
+  const int T = 9 * nchunks;   // slabs: (channel pass, tap)
+  const bf16* wp = p.wp + (size_t)nt * 9 * p.kp * N;
+
+  // Slab i = (pass c, tap t): kc x N elements at (9 * 64 * c + t * kc) * N.
+  auto issue = [&](int i) {
+    const int c = i / 9, t = i % 9;
+    const int kc = min(KCMAX, p.kp - c * KCMAX);
+    nesr::bulk_load(ring + (i % STAGES) * slab,
+                    wp + (size_t)(9 * KCMAX * c + t * kc) * N,
+                    (uint32_t)(kc * N * 2), &full[i % STAGES]);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      nesr::mbar_init(&full[s], 1);
+      nesr::mbar_init(&empty[s], C::WARPS);
+    }
+    nesr::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < STAGES && i < T; ++i) issue(i);
+
+  float acc[N / 2];
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) acc[e] = 0.f;
+
+  for (int i = 0; i < T; ++i) {
+    const int c = i / 9, t = i % 9;
+    const int kc = min(KCMAX, p.kp - c * KCMAX);
+    if (t == 0) {
+      if (c > 0) __syncthreads();   // every warp done with the last pass
+      switch (p.vec) {
+        case 8: stage_patch<N, 8>(p, patch, pitch, n, oy, ox, c * KCMAX, kc);
+                break;
+        case 4: stage_patch<N, 4>(p, patch, pitch, n, oy, ox, c * KCMAX, kc);
+                break;
+        case 2: stage_patch<N, 2>(p, patch, pitch, n, oy, ox, c * KCMAX, kc);
+                break;
+        default: stage_patch<N, 1>(p, patch, pitch, n, oy, ox, c * KCMAX,
+                                   kc);
+      }
+      nesr::cp_async_wait_all();
+      __syncthreads();
+    }
+    const int s = i % STAGES;
+    nesr::mbar_wait(&full[s], (i / STAGES) & 1);
+    __syncwarp();
+    const bf16* arow =
+        patch + ((warp + t / 3) * (TW + 2) + t % 3) * pitch;
+    const bf16* bs = ring + s * slab;
+#pragma unroll
+    for (int kk = 0; kk < KCMAX / 16; ++kk) {
+      if (kk * 16 < kc) {
+        uint32_t a[4];
+        nesr::ldsm_x4<false>(a, arow + kk * 16, pitch);
+        // B core matrix (n-group j, k-half h) at ((2j + h) * 8 + row) * 8.
+        const bf16* bk = bs + kk * 16 * N;
+#pragma unroll
+        for (int j = 0; j + 1 < N / 8; j += 2) {
+          uint32_t b[4];
+          nesr::ldsm_x4_at(b, bk + ((2 * j + lane / 8) * 8 + lane % 8) * 8);
+          nesr::mma_bf16(*reinterpret_cast<float(*)[4]>(&acc[4 * j]), a,
+                         b[0], b[1]);
+          nesr::mma_bf16(*reinterpret_cast<float(*)[4]>(&acc[4 * j + 4]), a,
+                         b[2], b[3]);
+        }
+        if constexpr ((N / 8) % 2 == 1) {
+          constexpr int j = N / 8 - 1;
+          uint32_t b[2];
+          nesr::ldsm_x2_at(b, bk + ((2 * j + (lane / 8) % 2) * 8 + lane % 8)
+                                       * 8);
+          nesr::mma_bf16(*reinterpret_cast<float(*)[4]>(&acc[4 * j]), a,
+                         b[0], b[1]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) nesr::mbar_arrive(&empty[s]);
+    // Refill the slot slab i-1 used, once every warp is done with it.
+    if (tid == 0 && i >= 1 && i - 1 + STAGES < T) {
+      nesr::mbar_wait(&empty[(i - 1) % STAGES], ((i - 1) / STAGES) & 1);
+      issue(i - 1 + STAGES);
+    }
+    __syncwarp();
+  }
+
+  // Epilogue: bias, LeakyReLU, one bf16 rounding; the tile through shared
+  // memory (the ring, now idle: every slab was consumed) with a row pitch
+  // of N + 8, then 16-byte stores.
+  __syncthreads();
+  bf16* tile = ring;
+  const int g = lane / 4, q = lane % 4;
+  const int co0 = nt * N;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int co = co0 + 8 * j + 2 * q;
+    const float b0 = (p.bias != nullptr && co < p.Cout) ? p.bias[co] : 0.f;
+    const float b1 =
+        (p.bias != nullptr && co + 1 < p.Cout) ? p.bias[co + 1] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = acc[4 * j + 2 * h] + b0, v1 = acc[4 * j + 2 * h + 1] + b1;
+      if (p.lrelu) {
+        v0 = nesr::lrelu(v0);
+        v1 = nesr::lrelu(v1);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(
+          tile + (warp * TW + g + 8 * h) * (N + 8) + 8 * j + 2 * q) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+  }
+  __syncthreads();
+  const int nvalid = min(N, p.Cout - co0);
+  if (p.Cout % 8 == 0) {
+    const int nv = nvalid / 8;
+    for (int it = tid; it < C::TH * TW * nv; it += C::THREADS) {
+      const int v = it % nv, px = it / nv;
+      const int gy = oy + px / TW, gx = ox + px % TW;
+      if (gy < p.H && gx < p.W)
+        *reinterpret_cast<uint4*>(
+            p.y + ((size_t)(n * p.H + gy) * p.W + gx) * p.Cout + co0 + 8 * v) =
+            *reinterpret_cast<const uint4*>(tile + px * (N + 8) + 8 * v);
+    }
+  } else {
+    for (int it = tid; it < C::TH * TW * nvalid; it += C::THREADS) {
+      const int v = it % nvalid, px = it / nvalid;
+      const int gy = oy + px / TW, gx = ox + px % TW;
+      if (gy < p.H && gx < p.W)
+        p.y[((size_t)(n * p.H + gy) * p.W + gx) * p.Cout + co0 + v] =
+            tile[px * (N + 8) + v];
+    }
+  }
+}
+
+template <int N>
+int launch(const Params& p, int batch, cudaStream_t stream) {
+  using C = Cfg<N>;
+  const int smem = Smem<N>::bytes(p.kp);
   // Set per call: the attribute is per device, and the call is cheap.
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      conv3x3_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles_x = (W + TW - 1) / TW;
-  const int tiles_y = (H + TH - 1) / TH;
-  dim3 grid(tiles_x * tiles_y, (Cout + NC - 1) / NC, N);
-  conv3x3_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w, (const float*)bias, (bf16*)y, H, W,
-      Cin, Cout, lrelu, tiles_x);
+  const int tiles_y = (p.H + C::TH - 1) / C::TH;
+  const int n_tiles = (p.Cout + N - 1) / N;
+  dim3 grid(p.tiles_x * tiles_y, n_tiles, batch);
+  conv3x3_kernel<N><<<grid, C::THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// n_width: the instantiation the weights were packed for (one of 8, 16, 32,
+// 64, 96, 128, 160, 192, 256; kernels/conv3x3.py:tile_width).
+extern "C" int nesr_conv3x3(const void* x, const void* wp, const void* bias,
+                            void* y, int N, int H, int W, int Cin, int Cout,
+                            int n_width, int lrelu, void* stream) {
+  Params p;
+  p.x = (const bf16*)x;
+  p.wp = (const bf16*)wp;
+  p.bias = (const float*)bias;
+  p.y = (bf16*)y;
+  p.H = H;
+  p.W = W;
+  p.Cin = Cin;
+  p.Cout = Cout;
+  p.kp = round_up(Cin, 16);
+  p.lrelu = lrelu;
+  p.tiles_x = (W + TW - 1) / TW;
+  p.vec = Cin % 8 == 0 ? 8 : Cin % 4 == 0 ? 4 : Cin % 2 == 0 ? 2 : 1;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n_width) {
+    case 8: return launch<8>(p, N, s);
+    case 16: return launch<16>(p, N, s);
+    case 32: return launch<32>(p, N, s);
+    case 64: return launch<64>(p, N, s);
+    case 96: return launch<96>(p, N, s);
+    case 128: return launch<128>(p, N, s);
+    case 160: return launch<160>(p, N, s);
+    case 192: return launch<192>(p, N, s);
+    case 256: return launch<256>(p, N, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

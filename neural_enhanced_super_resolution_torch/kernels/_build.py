@@ -121,8 +121,7 @@ def load_library() -> ctypes.CDLL:
         except OSError as exc:
             raise KernelError(f"cannot load {so}: {exc}") from exc
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.nesr_conv3x3.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                     vp]
+        lib.nesr_conv3x3.argtypes = [vp] * 4 + [ci] * 7 + [vp]
         lib.nesr_conv3x3.restype = ci
         lib.nesr_rdb_fused.argtypes = [vp] * 8 + [ci, ci, ci, vp]
         lib.nesr_rdb_fused.restype = ci

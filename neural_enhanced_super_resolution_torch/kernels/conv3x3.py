@@ -6,6 +6,10 @@ a tensor on the CPU. It replaces the JAX package's three conv Pallas kernels
 (``kernels/conv3x3.py:conv3x3_lrelu``, ``kernels/conv3x3_v2.py``,
 ``kernels/rdb_pallas.py:rows_s2d_conv3x3``). Layout is NHWC at the
 interface, weights HWIO (3, 3, Cin, Cout) as in the JAX package.
+
+The kernel reads its weights pre-packed by ``pack_conv3x3_weights`` into the
+image of its shared-memory slabs; models pack once at build and pass the
+buffer as ``packed``, and a call without it packs on the fly.
 """
 
 from __future__ import annotations
@@ -17,7 +21,51 @@ from neural_enhanced_super_resolution_torch.kernels import _build
 from neural_enhanced_super_resolution_torch.kernels._build import (
     KernelInputError)
 
-__all__ = ["conv3x3", "conv3x3_plain"]
+__all__ = ["conv3x3", "conv3x3_plain", "pack_conv3x3_weights", "tile_width",
+           "TILE_WIDTHS"]
+
+# The kernel's instantiations: the output-channel width N of one block.
+TILE_WIDTHS = (8, 16, 32, 64, 96, 128, 160, 192, 256)
+K_CHUNK = 64   # input channels a pass; Cin is padded to a multiple of 16
+
+
+def tile_width(cout: int) -> tuple[int, int]:
+    """(N, tiles): Cout is split into ``tiles`` = ceil(Cout / 256) equal
+    tiles, each rounded up to the next instantiation N (extra columns are
+    zero weights)."""
+    tiles = -(-cout // TILE_WIDTHS[-1])
+    return next(n for n in TILE_WIDTHS if n >= -(-cout // tiles)), tiles
+
+
+def pack_conv3x3_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO weights (3, 3, Cin, Cout) -> the kernel's flat bf16 image.
+
+    With N, tiles = ``tile_width(Cout)`` and Kp = Cin rounded up to 16, the
+    buffer holds tiles x 9 x Kp x N values, zero past Cin and Cout. Per
+    N tile, the input channels go in passes of up to 64 (the last one
+    Kp - 64c wide), and each (pass c, tap t = 3 ky + kx) is one contiguous
+    slab of kc x N values, at (9 * 64 * c + t * kc) * N. A slab is what the
+    kernel copies into shared memory: its 16-channel k-steps s follow each
+    other (16 N values each), and a k-step is N/8 x 2 core matrices of 8 x 8
+    values, core (j, h) at (2j + h) * 64 holding output channels 8j + r
+    (row r) by input channels 16s + 8h + k (column k). That is B of
+    ``wgmma`` K-major with no swizzle: leading (K) byte offset 128, stride
+    (N) byte offset 256 (``csrc/common.cuh:wgmma_desc``).
+    """
+    _, _, cin, cout = w.shape
+    nw, tiles = tile_width(cout)
+    kp = -(-cin // 16) * 16
+    wz = torch.zeros((3, 3, kp, tiles * nw), dtype=torch.bfloat16,
+                     device=w.device)
+    wz[:, :, :cin, :cout] = w
+    wz = wz.reshape(9, kp, tiles, nw)
+    passes = []
+    for c0 in range(0, kp, K_CHUNK):
+        kc = min(K_CHUNK, kp - c0)
+        s = wz[:, c0:c0 + kc].reshape(9, kc // 16, 2, 8, tiles, nw // 8, 8)
+        # (tap, step, h, k, tile, j, r) -> (tile, tap, step, j, h, r, k)
+        passes.append(s.permute(4, 0, 1, 5, 2, 6, 3).reshape(tiles, -1))
+    return torch.cat(passes, dim=1).reshape(-1).contiguous()
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
@@ -45,12 +93,14 @@ conv3x3_plain.calls = 0
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor,
             bias: torch.Tensor | None = None,
-            lrelu: bool = False) -> torch.Tensor:
+            lrelu: bool = False,
+            packed: torch.Tensor | None = None) -> torch.Tensor:
     """SAME 3x3 conv. x (N, H, W, Cin), w (3, 3, Cin, Cout), bias (Cout,).
 
     On the GPU: x and w bf16, bias fp32 (or None), all contiguous on one
-    device; returns (N, H, W, Cout) bf16. Anything else raises
-    ``KernelInputError``.
+    device, x 16-byte aligned; ``packed`` is ``pack_conv3x3_weights(w)``
+    (made here when None). Returns (N, H, W, Cout) bf16. Anything else
+    raises ``KernelInputError``.
     """
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, bias, lrelu)
@@ -66,6 +116,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
         raise KernelInputError("conv3x3: x and w must be contiguous")
     if w.device != x.device:
         raise KernelInputError("conv3x3: x and w on different devices")
+    if x.data_ptr() % 16:
+        raise KernelInputError("conv3x3: x must be 16-byte aligned")
     n, h, wd, cin = x.shape
     cout = w.shape[3]
     if bias is not None:
@@ -75,13 +127,21 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
                                    f"fp32 ({cout},) tensor on {x.device}")
     if n > 65535 or min(n, h, wd, cin, cout) < 1:
         raise KernelInputError(f"conv3x3: unsupported shape {tuple(x.shape)}")
+    nw, tiles = tile_width(cout)
+    if packed is None:
+        packed = pack_conv3x3_weights(w)
+    if (packed.dtype != torch.bfloat16 or packed.device != x.device
+            or not packed.is_contiguous() or packed.data_ptr() % 16
+            or packed.numel() != tiles * 9 * (-(-cin // 16) * 16) * nw):
+        raise KernelInputError("conv3x3: packed is not "
+                               "pack_conv3x3_weights(w) on the device")
     lib = _build.load_library()
     y = torch.empty((n, h, wd, cout), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.nesr_conv3x3(
-            x.data_ptr(), w.data_ptr(),
+            x.data_ptr(), packed.data_ptr(),
             bias.data_ptr() if bias is not None else None, y.data_ptr(),
-            n, h, wd, cin, cout, int(bool(lrelu)), _build.stream_ptr())
+            n, h, wd, cin, cout, nw, int(bool(lrelu)), _build.stream_ptr())
     _build.check("conv3x3", err)
     conv3x3.launches += 1
     return y

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-    conv3x3, conv3x3_plain)
+    conv3x3, conv3x3_plain, pack_conv3x3_weights)
 from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
     rdb_fused, rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.models.weights import HEAD_CONVS
@@ -114,21 +114,34 @@ def _hwio(w_oihw: torch.Tensor) -> torch.Tensor:
     return w_oihw.permute(2, 3, 1, 0)
 
 
+def _packed(w: torch.Tensor) -> torch.Tensor | None:
+    """K1's packed weights, made once at build for a model on the card
+    (the CPU runs the plain version, which takes HWIO)."""
+    return pack_conv3x3_weights(w) if w.is_cuda else None
+
+
+def _k1(x, w, b, lrelu, packed, plain):
+    if plain:
+        return conv3x3_plain(x, w, b, lrelu)
+    return conv3x3(x, w, b, lrelu, packed=packed)
+
+
 class _Conv(nn.Module):
-    """One 3x3 conv through K1: HWIO weight in the compute dtype, fp32 bias."""
+    """One 3x3 conv through K1: HWIO weight in the compute dtype, its packed
+    image on the card, fp32 bias."""
 
     def __init__(self, sd: Mapping[str, torch.Tensor], key: str, dtype,
                  device):
         super().__init__()
         self.register_buffer("w", _hwio(sd[f"{key}.weight"]).to(
             device=device, dtype=dtype).contiguous())
+        self.register_buffer("wp", _packed(self.w))
         self.register_buffer("b", sd[f"{key}.bias"].to(
             device=device, dtype=torch.float32).contiguous())
 
     def forward(self, x: torch.Tensor, lrelu: bool = False,
                 plain: bool = False) -> torch.Tensor:
-        conv = conv3x3_plain if plain else conv3x3
-        return conv(x.contiguous(), self.w, self.b, lrelu)
+        return _k1(x.contiguous(), self.w, self.b, lrelu, self.wp, plain)
 
 
 class _StockRDB(nn.Module):
@@ -150,13 +163,16 @@ class FusedRDB(nn.Module):
     """Source-major fused RDB: five K1 convs and an elementwise assembly,
     or one K2.
 
-    fw: w0..w4 HWIO (from ``fuse_rdb``), fb: the (4g + nf,) biases."""
+    fw: w0..w4 HWIO (from ``fuse_rdb``), fb: the (4g + nf,) biases. On
+    the K1 trunk, p0..p4 are their packed images."""
 
     def __init__(self, fw, fb, dtype, device, kernel: bool):
         super().__init__()
         for i, w in enumerate(fw):
             self.register_buffer(f"w{i}", w.to(device=device, dtype=dtype)
                                  .contiguous())
+            self.register_buffer(f"p{i}", None if kernel else _packed(
+                getattr(self, f"w{i}")))
         self.register_buffer("b", fb.to(device=device, dtype=torch.float32)
                              .contiguous())
         self.kernel = kernel
@@ -169,10 +185,14 @@ class FusedRDB(nn.Module):
         if self.kernel:
             return (rdb_fused_plain if plain else rdb_fused)(
                 x, self.weights(), self.b)
-        conv = conv3x3_plain if plain else conv3x3
         g, b, dt = self.gc, self.b, x.dtype
         w = self.weights()
-        c = conv(x, w[0])
+        p = [self.p0, self.p1, self.p2, self.p3, self.p4]
+
+        def conv(t, k):
+            return _k1(t, w[k], None, False, p[k], plain)
+
+        c = conv(x, 0)
         # Running sums of the later destinations [a2 | a3 | a4 | a5], one
         # add of each conv's tail per stage, in place: the same additions
         # in the same order (rounded to dt after each) as the JAX package's
@@ -180,12 +200,12 @@ class FusedRDB(nn.Module):
         slots = c[..., g:]
         xk = F.leaky_relu(c[..., :g] + b[:g], 0.2).to(dt)
         for k in range(1, 4):
-            c = conv(xk, w[k])
+            c = conv(xk, k)
             lo = (k - 1) * g
             xk = F.leaky_relu(slots[..., lo:lo + g] + c[..., :g]
                               + b[k * g:(k + 1) * g], 0.2).to(dt)
             slots[..., lo + g:] += c[..., g:]
-        x5 = slots[..., 3 * g:] + conv(xk, w[4]) + b[4 * g:]
+        x5 = slots[..., 3 * g:] + conv(xk, 4) + b[4 * g:]
         return x + 0.2 * x5.to(dt)
 
 

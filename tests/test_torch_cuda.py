@@ -54,7 +54,12 @@ def _rdb_args(cuda, shape, seed):
 @pytest.mark.parametrize("n,h,w,cin,cout,bias,act", [
     (2, 37, 45, 12, 64, True, False), (1, 40, 33, 64, 192, False, False),
     (1, 30, 50, 32, 160, False, False), (2, 21, 19, 64, 3, True, False),
-    (1, 18, 70, 64, 64, True, True), (1, 9, 9, 130, 32, True, True)])
+    (1, 18, 70, 64, 64, True, True), (1, 9, 9, 130, 32, True, True),
+    (1, 33, 47, 32, 128, False, False), (2, 17, 29, 32, 96, False, False),
+    (1, 26, 31, 32, 64, False, False), (1, 7, 5, 8, 24, True, True),
+    (2, 19, 21, 3, 64, True, False), (1, 11, 13, 130, 300, True, False)],
+    ids=["conv_first", "w0", "w1", "conv_last", "head_lrelu",
+         "two_passes", "w2", "w3", "w4", "tiny", "cin3", "two_n_tiles"])
 def test_conv3x3_kernel_matches_plain(cuda, n, h, w, cin, cout, bias, act):
     g = torch.Generator().manual_seed(0)
     x = torch.randn((n, h, w, cin), generator=g).to(cuda, torch.bfloat16)
@@ -67,6 +72,23 @@ def test_conv3x3_kernel_matches_plain(cuda, n, h, w, cin, cout, bias, act):
     assert (conv3x3.launches, conv3x3_plain.calls) == (launches + 1, calls)
     assert got.dtype == torch.bfloat16
     assert _rel(got, conv3x3_plain(x, wt, b, act)) <= 1e-2
+
+
+def test_conv3x3_takes_weights_packed_at_build(cuda):
+    """The model path's packed buffer gives the same output as packing in
+    the call; a buffer packed for other shapes is refused."""
+    from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
+        pack_conv3x3_weights)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((1, 20, 24, 32), generator=g).to(cuda, torch.bfloat16)
+    wt = (torch.randn((3, 3, 32, 160), generator=g) * 0.1).to(
+        cuda, torch.bfloat16)
+    packed = pack_conv3x3_weights(wt)
+    assert torch.equal(conv3x3(x, wt, packed=packed), conv3x3(x, wt))
+    with pytest.raises(KernelInputError, match="packed"):
+        conv3x3(x, wt, packed=packed[:-8])
+    with pytest.raises(KernelInputError, match="packed"):
+        conv3x3(x, wt, packed=packed.float())
 
 
 @pytest.mark.parametrize("shape", [(1, 8, 8, 64), (2, 37, 45, 64),

@@ -24,6 +24,8 @@ from neural_enhanced_super_resolution_tpu.kernels.rdb_pallas import (
 from neural_enhanced_super_resolution_tpu.models import rrdbnet as jr
 from neural_enhanced_super_resolution_torch.kernels import (
     KernelInputError, conv3x3, conv3x3_plain, rdb_fused, rdb_fused_plain)
+from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
+    TILE_WIDTHS, pack_conv3x3_weights, tile_width)
 from neural_enhanced_super_resolution_torch.models.rrdbnet import (
     FusedRDB, fuse_rdb)
 
@@ -62,6 +64,69 @@ def test_conv3x3_plain_matches_pallas_rows_s2d(rng, cin, cout):
     got = conv3x3(xt, torch.from_numpy(w).bfloat16())
     assert got.dtype == torch.bfloat16
     assert _rel(got, ref) <= 1e-2
+
+
+def _unpack_by_descriptor(packed, cin, cout, lbo=128, sbo=256):
+    """Read K1's packed weights back to HWIO the way the kernel's wgmma
+    does: slab (tile, pass c, tap t) at (tile * 9 * Kp + 9 * 64 * c +
+    t * kc) * N elements, k-step s of a slab at s * 16 * N, and within a
+    k-step element (k, n) at byte (n // 8) * SBO + (n % 8) * 16 +
+    (k // 8) * LBO + (k % 8) * 2 from the descriptor's start (K-major, no
+    swizzle). Returns (HWIO padded to (3, 3, Kp, tiles * N), how many
+    times each packed element was read)."""
+    nw, tiles = tile_width(cout)
+    kp = -(-cin // 16) * 16
+    flat = packed.view(torch.int16)
+    out = torch.zeros((3, 3, kp, tiles * nw), dtype=torch.int16)
+    hits = torch.zeros(flat.numel(), dtype=torch.int64)
+    k = torch.arange(16).view(16, 1)
+    n = torch.arange(nw).view(1, nw)
+    inner = ((n // 8) * sbo + (n % 8) * 16 + (k // 8) * lbo
+             + (k % 8) * 2) // 2
+    for tile in range(tiles):
+        for c0 in range(0, kp, 64):
+            kc = min(64, kp - c0)
+            for t in range(9):
+                slab = (tile * 9 * kp + 9 * c0 + t * kc) * nw
+                for s in range(kc // 16):
+                    idx = slab + s * 16 * nw + inner
+                    ci = c0 + 16 * s
+                    out[t // 3, t % 3, ci:ci + 16,
+                        tile * nw:(tile + 1) * nw] = flat[idx]
+                    hits.index_add_(0, idx.reshape(-1),
+                                    torch.ones(idx.numel(), dtype=torch.int64))
+    return out.view(torch.bfloat16), hits
+
+
+@pytest.mark.parametrize("cin,cout", [
+    (12, 64), (64, 192), (32, 160), (32, 128), (32, 96), (32, 64), (64, 64),
+    (64, 3), (8, 24), (130, 300)],
+    ids=["conv_first", "w0", "w1", "w2", "w3", "w4", "conv_body",
+         "conv_last", "tiny_nf8_gc4", "two_passes_two_tiles"])
+def test_pack_conv3x3_weights_matches_descriptor_layout(rng, cin, cout):
+    """K1's weight image, read back through the wgmma descriptor's
+    addressing, is the HWIO weight, zero-padded past Cin and Cout, and
+    every packed element is read exactly once."""
+    w = torch.from_numpy(rng.standard_normal((3, 3, cin, cout)).astype(
+        np.float32)).bfloat16()
+    packed = pack_conv3x3_weights(w)
+    nw, tiles = tile_width(cout)
+    kp = -(-cin // 16) * 16
+    assert nw in TILE_WIDTHS and nw % 8 == 0 and tiles * nw >= cout
+    assert packed.dtype == torch.bfloat16 and packed.dim() == 1
+    assert packed.numel() == tiles * 9 * kp * nw
+    got, hits = _unpack_by_descriptor(packed, cin, cout)
+    assert torch.equal(got[:, :, :cin, :cout], w)
+    assert not got[:, :, cin:].any() and not got[:, :, :, cout:].any()
+    assert torch.equal(hits, torch.ones_like(hits))
+
+
+@pytest.mark.parametrize("cout,want", [(3, (8, 1)), (24, (32, 1)),
+                                       (64, (64, 1)), (160, (160, 1)),
+                                       (192, (192, 1)), (256, (256, 1)),
+                                       (300, (160, 2)), (520, (192, 3))])
+def test_tile_width(cout, want):
+    assert tile_width(cout) == want
 
 
 def _fused_rdb(nf, gc, seed=0):
