@@ -126,11 +126,27 @@ def card_line() -> str:
 
 
 def build_kernels() -> None:
+    """Builds the kernels and checks in K1's SASS that every instantiation
+    issues wgmma (HGMMA)."""
     from neural_enhanced_super_resolution_torch.kernels import _build
     t0 = time.perf_counter()
     _build.load_library()
     log(f"kernel build+load: {time.perf_counter() - t0:.3f} s "
         f"(nvcc sm_90a, {_build.build_dir()})")
+    sass = subprocess.run(
+        [_build.cuda_tool("cuobjdump"), "--dump-sass",
+         _build.library_path()], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    hgmma = {}
+    for func in sass.split("Function : ")[1:]:
+        name = func.split(None, 1)[0]
+        if "conv3x3_kernel" in name:
+            width = name.split("conv3x3_kernelILi", 1)[1].split("E", 1)[0]
+            hgmma[int(width)] = func.count("HGMMA")
+    log(f"K1 SASS: HGMMA instructions per instantiation (N: count) "
+        f"{dict(sorted(hgmma.items()))}")
+    if not hgmma or min(hgmma.values()) == 0:
+        raise AssertionError(f"K1 does not issue wgmma: {hgmma}")
 
 
 def _rnd(torch, gen, *shape, scale=1.0, dtype=None):

@@ -1,9 +1,10 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
 // Every kernel here takes NHWC bf16 activations and HWIO bf16 weights
-// (3, 3, Cin, Cout), accumulates in fp32 on the tensor cores with
-// mma.sync m16n8k16 (operands fetched from shared memory by ldmatrix),
-// launches on the caller's stream and allocates nothing. Each C entry
+// (3, 3, Cin, Cout; K1 takes them pre-packed), accumulates in fp32 on the
+// tensor cores with mma.sync m16n8k16 (operands fetched from shared memory
+// by ldmatrix; K2, K3) or wgmma (K1, helpers at the end), launches on the
+// caller's stream and allocates nothing. Each C entry
 // point returns cudaGetLastError() so the Python wrapper can raise on a
 // refused launch.
 //
@@ -150,20 +151,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// ldmatrix x4 / x2 with each lane's own row address (lanes 8i..8i+7 give
-// the rows of matrix i).
-__device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2_at(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)) : "memory");
-}
-
 // wgmma matrix descriptor of a K-major operand with no swizzle: the
 // operand is made of 8 x 16-byte core matrices (8 rows of 8 bf16 along
 // K, 128 contiguous bytes); `lbo` is the byte distance between core
@@ -178,9 +165,16 @@ __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_commit_and_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n"
-               "wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most `pending` of this warpgroup's committed groups are in
+// flight.
+template <int pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(pending)
+               : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of an accumulator across

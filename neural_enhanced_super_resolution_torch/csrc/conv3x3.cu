@@ -31,29 +31,33 @@
 //  * The epilogue adds the bias, applies LeakyReLU, rounds to bf16 once,
 //    stages the tile in shared memory (reusing the ring) and writes it
 //    with 16-byte coalesced stores.
-//  * Each warp owns one 16-pixel output row and all N channels (N/2 fp32
-//    accumulators a thread): mma.sync m16n8k16, A and B by ldmatrix.
+//  * Each warpgroup issues wgmma.mma_async m64nNk16 (N an immediate: the
+//    kernel is templated on N, Cout rounds up to the next instantiation
+//    with zero weight columns): A, its four warps' 16-pixel output rows,
+//    from registers (ldmatrix of the padded patch), B from the ring by
+//    descriptor. N/2 fp32 accumulators a thread; a slot is released once
+//    the warpgroup's MMAs that read it have retired.
 #include "common.cuh"
+#include "wgmma_rs.cuh"
 
 namespace {
 
 using nesr::bf16;
 
-constexpr int TW = 16;       // output columns per tile = one warp's M rows
-constexpr int KCMAX = 64;    // input channels per pass
-constexpr int STAGES = 4;    // weight-slab ring depth
+constexpr int TW = 16;   // output columns per tile = one warp's M rows
 
-// Per output width N: warpgroups a block (4 warps, 4 output rows each) and
-// blocks an SM. Up to N = 128 two 2-warpgroup blocks share an SM; above,
-// the accumulators need more registers than that leaves, and one block of
-// three warpgroups takes the SM.
+// Per output width N: warpgroups a block (4 warps, one output row a warp),
+// blocks an SM and ring depth. Up to N = 128 two 2-warpgroup blocks share
+// an SM; above, the accumulators need more registers than that leaves, and
+// one block of three warpgroups takes the SM with a deeper ring.
 template <int N>
 struct Cfg {
   static constexpr int NWG = N > 128 ? 3 : 2;
   static constexpr int WARPS = NWG * 4;
   static constexpr int THREADS = WARPS * 32;
-  static constexpr int TH = WARPS;           // one output row a warp
+  static constexpr int TH = WARPS;
   static constexpr int MIN_BLOCKS = N > 128 ? 1 : 2;
+  static constexpr int STAGES = N > 192 ? 5 : N > 128 ? 6 : 4;
 };
 
 struct Params {
@@ -61,7 +65,7 @@ struct Params {
   const bf16* wp;      // packed weights (pack_conv3x3_weights)
   const float* bias;   // may be null
   bf16* y;
-  int H, W, Cin, Cout, kp;   // kp: Cin rounded up to 16
+  int H, W, Cin, Cout, kp;   // kp: Cin rounded up to the pass width
   int lrelu, tiles_x, vec;   // vec: channels a patch copy (8, 4, 2 or 1)
 };
 
@@ -69,27 +73,19 @@ __host__ __device__ constexpr int round_up(int a, int b) {
   return (a + b - 1) / b * b;
 }
 
-__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
-
-template <int N>
+// Shared memory: [ring | epilogue tile] [patch] [full bars] [empty bars].
+// A pass is KS k-steps of 16 input channels (KC = 16 KS); the patch pixel
+// pitch is KC + 8, which keeps each 8-row ldmatrix phase conflict free.
+template <int N, int KS>
 struct Smem {
-  // [ring | epilogue tile] [patch] [full bars] [empty bars]
-  static constexpr int TH = Cfg<N>::TH;
-  static __host__ __device__ int slab_elems(int kp) {
-    return imin(KCMAX, kp) * N;
-  }
-  static __host__ __device__ int patch_off(int kp) {
-    const int ring = STAGES * slab_elems(kp) * 2;
-    const int epi = TH * TW * (N + 8) * 2;
-    return round_up(ring > epi ? ring : epi, 128);
-  }
-  static __host__ __device__ int pitch(int kp) { return imin(KCMAX, kp) + 8; }
-  static __host__ __device__ int bar_off(int kp) {
-    return round_up(patch_off(kp) + (TH + 2) * (TW + 2) * pitch(kp) * 2, 16);
-  }
-  static __host__ __device__ int bytes(int kp) {
-    return bar_off(kp) + 2 * STAGES * 8;
-  }
+  static constexpr int TH = Cfg<N>::TH, STAGES = Cfg<N>::STAGES;
+  static constexpr int KC = 16 * KS, PITCH = KC + 8, SLAB = KC * N;
+  static constexpr int RING = STAGES * SLAB * 2;
+  static constexpr int EPI = TH * TW * (N + 8) * 2;
+  static constexpr int PATCH_OFF = round_up(RING > EPI ? RING : EPI, 128);
+  static constexpr int BAR_OFF =
+      round_up(PATCH_OFF + (TH + 2) * (TW + 2) * PITCH * 2, 16);
+  static constexpr int BYTES = BAR_OFF + 2 * STAGES * 8;
 };
 
 // Stage channels [c0, c0 + kc) of the (TH+2) x (TW+2) input patch, VEC
@@ -116,34 +112,33 @@ __device__ void stage_patch(const Params& p, bf16* patch, int pitch, int n,
   }
 }
 
-template <int N>
+template <int N, int KS>
 __global__ void __launch_bounds__(Cfg<N>::THREADS, Cfg<N>::MIN_BLOCKS)
 conv3x3_kernel(const Params p) {
   using C = Cfg<N>;
-  using S = Smem<N>;
+  using S = Smem<N, KS>;
+  constexpr int STAGES = C::STAGES;
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
-  bf16* patch = reinterpret_cast<bf16*>(smem + S::patch_off(p.kp));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::bar_off(p.kp));
+  bf16* patch = reinterpret_cast<bf16*>(smem + S::PATCH_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
   uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int tx = blockIdx.x % p.tiles_x, ty = blockIdx.x / p.tiles_x;
   const int nt = blockIdx.y, n = blockIdx.z;
   const int oy = ty * C::TH, ox = tx * TW;
-  const int pitch = S::pitch(p.kp);
-  const int slab = S::slab_elems(p.kp);
-  const int nchunks = (p.kp + KCMAX - 1) / KCMAX;
-  const int T = 9 * nchunks;   // slabs: (channel pass, tap)
+  const int T = 9 * (p.kp / S::KC);   // slabs: (channel pass, tap)
+  // Slab i = (pass i / 9, tap i % 9), contiguous in that order.
   const bf16* wp = p.wp + (size_t)nt * 9 * p.kp * N;
-
-  // Slab i = (pass c, tap t): kc x N elements at (9 * 64 * c + t * kc) * N.
   auto issue = [&](int i) {
-    const int c = i / 9, t = i % 9;
-    const int kc = min(KCMAX, p.kp - c * KCMAX);
-    nesr::bulk_load(ring + (i % STAGES) * slab,
-                    wp + (size_t)(9 * KCMAX * c + t * kc) * N,
-                    (uint32_t)(kc * N * 2), &full[i % STAGES]);
+    nesr::bulk_load(ring + (i % STAGES) * S::SLAB, wp + (size_t)i * S::SLAB,
+                    S::SLAB * 2, &full[i % STAGES]);
+  };
+  // Warp `warp` is done with slab i (its MMAs retired): one arrival a warp.
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) nesr::mbar_arrive(&empty[i % STAGES]);
   };
 
   if (tid == 0) {
@@ -160,66 +155,62 @@ conv3x3_kernel(const Params p) {
   float acc[N / 2];
 #pragma unroll
   for (int e = 0; e < N / 2; ++e) acc[e] = 0.f;
+  // A fragments, double-buffered by tap parity: the MMAs of tap t-1 may
+  // still read one set while tap t's ldmatrix fills the other.
+  uint32_t a[2][KS][4];
 
-  for (int i = 0; i < T; ++i) {
-    const int c = i / 9, t = i % 9;
-    const int kc = min(KCMAX, p.kp - c * KCMAX);
-    if (t == 0) {
-      if (c > 0) __syncthreads();   // every warp done with the last pass
-      switch (p.vec) {
-        case 8: stage_patch<N, 8>(p, patch, pitch, n, oy, ox, c * KCMAX, kc);
-                break;
-        case 4: stage_patch<N, 4>(p, patch, pitch, n, oy, ox, c * KCMAX, kc);
-                break;
-        case 2: stage_patch<N, 2>(p, patch, pitch, n, oy, ox, c * KCMAX, kc);
-                break;
-        default: stage_patch<N, 1>(p, patch, pitch, n, oy, ox, c * KCMAX,
-                                   kc);
-      }
-      nesr::cp_async_wait_all();
-      __syncthreads();
+  for (int c0 = 0; c0 < p.kp; c0 += S::KC) {
+    if (c0 > 0) __syncthreads();   // every warp done reading the last pass
+    switch (p.vec) {
+      case 8: stage_patch<N, 8>(p, patch, S::PITCH, n, oy, ox, c0, S::KC);
+              break;
+      case 4: stage_patch<N, 4>(p, patch, S::PITCH, n, oy, ox, c0, S::KC);
+              break;
+      case 2: stage_patch<N, 2>(p, patch, S::PITCH, n, oy, ox, c0, S::KC);
+              break;
+      default: stage_patch<N, 1>(p, patch, S::PITCH, n, oy, ox, c0, S::KC);
     }
-    const int s = i % STAGES;
-    nesr::mbar_wait(&full[s], (i / STAGES) & 1);
-    __syncwarp();
-    const bf16* arow =
-        patch + ((warp + t / 3) * (TW + 2) + t % 3) * pitch;
-    const bf16* bs = ring + s * slab;
+    nesr::cp_async_wait_all();
+    __syncthreads();
+    const int i0 = 9 * (c0 / S::KC);
 #pragma unroll
-    for (int kk = 0; kk < KCMAX / 16; ++kk) {
-      if (kk * 16 < kc) {
-        uint32_t a[4];
-        nesr::ldsm_x4<false>(a, arow + kk * 16, pitch);
-        // B core matrix (n-group j, k-half h) at ((2j + h) * 8 + row) * 8.
-        const bf16* bk = bs + kk * 16 * N;
+    for (int t = 0; t < 9; ++t) {
+      const int i = i0 + t;
+      nesr::mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+      __syncwarp();
+      // A: this warp's 16 pixels (its output row, shifted by the tap) x 16
+      // channels a k-step; B: the slab's k-steps by descriptor (K-major, no
+      // swizzle, core matrices 128 bytes apart along K, 256 along N).
+      const bf16* arow =
+          patch + ((warp + t / 3) * (TW + 2) + t % 3) * S::PITCH;
+      const bf16* bs = ring + (i % STAGES) * S::SLAB;
 #pragma unroll
-        for (int j = 0; j + 1 < N / 8; j += 2) {
-          uint32_t b[4];
-          nesr::ldsm_x4_at(b, bk + ((2 * j + lane / 8) * 8 + lane % 8) * 8);
-          nesr::mma_bf16(*reinterpret_cast<float(*)[4]>(&acc[4 * j]), a,
-                         b[0], b[1]);
-          nesr::mma_bf16(*reinterpret_cast<float(*)[4]>(&acc[4 * j + 4]), a,
-                         b[2], b[3]);
-        }
-        if constexpr ((N / 8) % 2 == 1) {
-          constexpr int j = N / 8 - 1;
-          uint32_t b[2];
-          nesr::ldsm_x2_at(b, bk + ((2 * j + (lane / 8) % 2) * 8 + lane % 8)
-                                       * 8);
-          nesr::mma_bf16(*reinterpret_cast<float(*)[4]>(&acc[4 * j]), a,
-                         b[0], b[1]);
-        }
+      for (int kk = 0; kk < KS; ++kk)
+        nesr::ldsm_x4<false>(a[t & 1][kk], arow + kk * 16, S::PITCH);
+      nesr::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        nesr::wgmma_rs<N>(acc, a[t & 1][kk],
+                          nesr::wgmma_desc(bs + kk * 16 * N, 128, 256));
+      nesr::wgmma_commit();
+      // Tap t-1's MMAs have retired once at most this tap's group is in
+      // flight: its slot goes back to the ring.
+      if (t > 0) {
+        nesr::wgmma_wait<1>();
+        release(i - 1);
       }
+      // Refill the slot of slab i-2, which every warp released one tap ago.
+      if (tid == 0 && i >= 2 && i - 2 + STAGES < T) {
+        nesr::mbar_wait(&empty[(i - 2) % STAGES], ((i - 2) / STAGES) & 1);
+        issue(i - 2 + STAGES);
+      }
+      __syncwarp();
     }
-    __syncwarp();
-    if (lane == 0) nesr::mbar_arrive(&empty[s]);
-    // Refill the slot slab i-1 used, once every warp is done with it.
-    if (tid == 0 && i >= 1 && i - 1 + STAGES < T) {
-      nesr::mbar_wait(&empty[(i - 1) % STAGES], ((i - 1) / STAGES) & 1);
-      issue(i - 1 + STAGES);
-    }
-    __syncwarp();
+    nesr::wgmma_wait<0>();
+    release(i0 + 8);
   }
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) nesr::reg_fence(acc[e]);
 
   // Epilogue: bias, LeakyReLU, one bf16 rounding; the tile through shared
   // memory (the ring, now idle: every slab was consumed) with a row pitch
@@ -269,28 +260,42 @@ conv3x3_kernel(const Params p) {
   }
 }
 
-template <int N>
+template <int N, int KS>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   using C = Cfg<N>;
-  const int smem = Smem<N>::bytes(p.kp);
+  constexpr int smem = Smem<N, KS>::BYTES;
+  static_assert(smem <= 227 * 1024, "K1 tile does not fit shared memory");
   // Set per call: the attribute is per device, and the call is cheap.
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      conv3x3_kernel<N, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles_y = (p.H + C::TH - 1) / C::TH;
   const int n_tiles = (p.Cout + N - 1) / N;
   dim3 grid(p.tiles_x * tiles_y, n_tiles, batch);
-  conv3x3_kernel<N><<<grid, C::THREADS, smem, stream>>>(p);
+  conv3x3_kernel<N, KS><<<grid, C::THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int N>
+int launch_ks(const Params& p, int ks, int batch, cudaStream_t stream) {
+  switch (ks) {
+    case 1: return launch<N, 1>(p, batch, stream);
+    case 2: return launch<N, 2>(p, batch, stream);
+    default: return launch<N, 4>(p, batch, stream);
+  }
 }
 
 }  // namespace
 
 // n_width: the instantiation the weights were packed for (one of 8, 16, 32,
-// 64, 96, 128, 160, 192, 256; kernels/conv3x3.py:tile_width).
+// 64, 96, 128, 160, 192, 256). A pass is 16, 32 or 64 input channels as
+// Cin is at most 16, at most 32 or more; Cin is padded to a whole number of
+// passes (kernels/conv3x3.py: tile_width, pass_width).
 extern "C" int nesr_conv3x3(const void* x, const void* wp, const void* bias,
                             void* y, int N, int H, int W, int Cin, int Cout,
                             int n_width, int lrelu, void* stream) {
+  const int ks = Cin <= 16 ? 1 : Cin <= 32 ? 2 : 4;
   Params p;
   p.x = (const bf16*)x;
   p.wp = (const bf16*)wp;
@@ -300,21 +305,21 @@ extern "C" int nesr_conv3x3(const void* x, const void* wp, const void* bias,
   p.W = W;
   p.Cin = Cin;
   p.Cout = Cout;
-  p.kp = round_up(Cin, 16);
+  p.kp = round_up(Cin, 16 * ks);
   p.lrelu = lrelu;
   p.tiles_x = (W + TW - 1) / TW;
   p.vec = Cin % 8 == 0 ? 8 : Cin % 4 == 0 ? 4 : Cin % 2 == 0 ? 2 : 1;
   cudaStream_t s = (cudaStream_t)stream;
   switch (n_width) {
-    case 8: return launch<8>(p, N, s);
-    case 16: return launch<16>(p, N, s);
-    case 32: return launch<32>(p, N, s);
-    case 64: return launch<64>(p, N, s);
-    case 96: return launch<96>(p, N, s);
-    case 128: return launch<128>(p, N, s);
-    case 160: return launch<160>(p, N, s);
-    case 192: return launch<192>(p, N, s);
-    case 256: return launch<256>(p, N, s);
+    case 8: return launch_ks<8>(p, ks, N, s);
+    case 16: return launch_ks<16>(p, ks, N, s);
+    case 32: return launch_ks<32>(p, ks, N, s);
+    case 64: return launch_ks<64>(p, ks, N, s);
+    case 96: return launch_ks<96>(p, ks, N, s);
+    case 128: return launch_ks<128>(p, ks, N, s);
+    case 160: return launch_ks<160>(p, ks, N, s);
+    case 192: return launch_ks<192>(p, ks, N, s);
+    case 256: return launch_ks<256>(p, ks, N, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

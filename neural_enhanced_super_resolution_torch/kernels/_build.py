@@ -19,12 +19,13 @@ import subprocess
 import threading
 
 __all__ = ["KernelError", "KernelInputError", "load_library", "build_dir",
-           "check", "stream_ptr"]
+           "library_path", "cuda_tool", "check", "stream_ptr"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _lock = threading.Lock()
 _lib = None
+_lib_path = None
 
 
 class KernelError(RuntimeError):
@@ -54,6 +55,15 @@ def _nvcc() -> str:
             return cand
     raise KernelError("nvcc not found (set NVCC or put the CUDA toolkit's "
                       "bin directory on PATH)")
+
+
+def cuda_tool(name: str) -> str:
+    """A binary of the CUDA toolkit that builds the kernels (``cuobjdump``,
+    ``nvdisasm``): the one beside nvcc."""
+    path = os.path.join(os.path.dirname(_nvcc()), name)
+    if not os.path.exists(path):
+        raise KernelError(f"{name} not found beside nvcc ({path})")
+    return path
 
 
 def _compile(srcs: list[str], out_dir: str, tag: str, so: str) -> None:
@@ -100,7 +110,7 @@ def _compile(srcs: list[str], out_dir: str, tag: str, so: str) -> None:
 
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
-    global _lib
+    global _lib, _lib_path
     with _lock:
         if _lib is not None:
             return _lib
@@ -128,8 +138,14 @@ def load_library() -> ctypes.CDLL:
         lib.nesr_flash_attn.argtypes = [vp] * 4 + [ci] * 5 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, vp]
         lib.nesr_flash_attn.restype = ci
-        _lib = lib
+        _lib, _lib_path = lib, so
         return lib
+
+
+def library_path() -> str:
+    """The shared library ``load_library`` built and loaded."""
+    load_library()
+    return _lib_path
 
 
 def check(name: str, err: int) -> None:

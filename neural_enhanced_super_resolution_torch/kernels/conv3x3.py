@@ -21,12 +21,23 @@ from neural_enhanced_super_resolution_torch.kernels import _build
 from neural_enhanced_super_resolution_torch.kernels._build import (
     KernelInputError)
 
-__all__ = ["conv3x3", "conv3x3_plain", "pack_conv3x3_weights", "tile_width",
-           "TILE_WIDTHS"]
+__all__ = ["conv3x3", "conv3x3_plain", "pack_conv3x3_weights", "pass_width",
+           "tile_width", "TILE_WIDTHS"]
 
 # The kernel's instantiations: the output-channel width N of one block.
 TILE_WIDTHS = (8, 16, 32, 64, 96, 128, 160, 192, 256)
-K_CHUNK = 64   # input channels a pass; Cin is padded to a multiple of 16
+
+
+def pass_width(cin: int) -> int:
+    """Input channels the kernel takes a pass: 16, 32 or 64 as Cin is at
+    most 16, at most 32, or more. Cin is zero-padded to a whole number of
+    passes (Kp), so a Cin-32 conv stages no zero channels."""
+    return 16 if cin <= 16 else 32 if cin <= 32 else 64
+
+
+def _padded_cin(cin: int) -> int:
+    kc = pass_width(cin)
+    return -(-cin // kc) * kc
 
 
 def tile_width(cout: int) -> tuple[int, int]:
@@ -40,32 +51,26 @@ def tile_width(cout: int) -> tuple[int, int]:
 def pack_conv3x3_weights(w: torch.Tensor) -> torch.Tensor:
     """HWIO weights (3, 3, Cin, Cout) -> the kernel's flat bf16 image.
 
-    With N, tiles = ``tile_width(Cout)`` and Kp = Cin rounded up to 16, the
-    buffer holds tiles x 9 x Kp x N values, zero past Cin and Cout. Per
-    N tile, the input channels go in passes of up to 64 (the last one
-    Kp - 64c wide), and each (pass c, tap t = 3 ky + kx) is one contiguous
-    slab of kc x N values, at (9 * 64 * c + t * kc) * N. A slab is what the
-    kernel copies into shared memory: its 16-channel k-steps s follow each
-    other (16 N values each), and a k-step is N/8 x 2 core matrices of 8 x 8
-    values, core (j, h) at (2j + h) * 64 holding output channels 8j + r
-    (row r) by input channels 16s + 8h + k (column k). That is B of
-    ``wgmma`` K-major with no swizzle: leading (K) byte offset 128, stride
-    (N) byte offset 256 (``csrc/common.cuh:wgmma_desc``).
+    With N, tiles = ``tile_width(Cout)``, kc = ``pass_width(Cin)`` and Kp
+    = Cin rounded up to kc, the buffer holds tiles x 9 x Kp x N values, zero
+    past Cin and Cout. Per N tile, slab i = (pass i // 9, tap i % 9, tap =
+    3 ky + kx) is kc x N contiguous values at i * kc * N: what the kernel
+    copies into shared memory with one bulk copy. In a slab the 16-channel
+    k-steps s follow each other (16 N values each), and a k-step is N/8 x 2
+    core matrices of 8 x 8 values, core (j, h) at (2j + h) * 64 holding
+    output channels 8j + r (row r) by input channels 16s + 8h + k (column
+    k). That is B of ``wgmma`` K-major with no swizzle: leading (K) byte
+    offset 128, stride (N) byte offset 256 (``csrc/common.cuh:wgmma_desc``).
     """
     _, _, cin, cout = w.shape
     nw, tiles = tile_width(cout)
-    kp = -(-cin // 16) * 16
+    kc, kp = pass_width(cin), _padded_cin(cin)
     wz = torch.zeros((3, 3, kp, tiles * nw), dtype=torch.bfloat16,
                      device=w.device)
     wz[:, :, :cin, :cout] = w
-    wz = wz.reshape(9, kp, tiles, nw)
-    passes = []
-    for c0 in range(0, kp, K_CHUNK):
-        kc = min(K_CHUNK, kp - c0)
-        s = wz[:, c0:c0 + kc].reshape(9, kc // 16, 2, 8, tiles, nw // 8, 8)
-        # (tap, step, h, k, tile, j, r) -> (tile, tap, step, j, h, r, k)
-        passes.append(s.permute(4, 0, 1, 5, 2, 6, 3).reshape(tiles, -1))
-    return torch.cat(passes, dim=1).reshape(-1).contiguous()
+    s = wz.reshape(9, kp // kc, kc // 16, 2, 8, tiles, nw // 8, 8)
+    # (tap, pass, step, h, k, tile, j, r) -> (tile, pass, tap, step, j, h, r, k)
+    return s.permute(5, 1, 0, 2, 6, 3, 7, 4).reshape(-1).contiguous()
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
@@ -132,7 +137,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
         packed = pack_conv3x3_weights(w)
     if (packed.dtype != torch.bfloat16 or packed.device != x.device
             or not packed.is_contiguous() or packed.data_ptr() % 16
-            or packed.numel() != tiles * 9 * (-(-cin // 16) * 16) * nw):
+            or packed.numel() != tiles * 9 * _padded_cin(cin) * nw):
         raise KernelInputError("conv3x3: packed is not "
                                "pack_conv3x3_weights(w) on the device")
     lib = _build.load_library()

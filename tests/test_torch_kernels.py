@@ -25,7 +25,7 @@ from neural_enhanced_super_resolution_tpu.models import rrdbnet as jr
 from neural_enhanced_super_resolution_torch.kernels import (
     KernelInputError, conv3x3, conv3x3_plain, rdb_fused, rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-    TILE_WIDTHS, pack_conv3x3_weights, tile_width)
+    TILE_WIDTHS, pack_conv3x3_weights, pass_width, tile_width)
 from neural_enhanced_super_resolution_torch.models.rrdbnet import (
     FusedRDB, fuse_rdb)
 
@@ -68,14 +68,16 @@ def test_conv3x3_plain_matches_pallas_rows_s2d(rng, cin, cout):
 
 def _unpack_by_descriptor(packed, cin, cout, lbo=128, sbo=256):
     """Read K1's packed weights back to HWIO the way the kernel's wgmma
-    does: slab (tile, pass c, tap t) at (tile * 9 * Kp + 9 * 64 * c +
-    t * kc) * N elements, k-step s of a slab at s * 16 * N, and within a
-    k-step element (k, n) at byte (n // 8) * SBO + (n % 8) * 16 +
-    (k // 8) * LBO + (k % 8) * 2 from the descriptor's start (K-major, no
-    swizzle). Returns (HWIO padded to (3, 3, Kp, tiles * N), how many
-    times each packed element was read)."""
+    does: with kc = pass_width(Cin) and Kp = Cin padded to kc, slab i =
+    (pass i // 9, tap i % 9) of N tile `tile` at (tile * 9 * Kp + i * kc)
+    * N elements, k-step s of a slab at s * 16 * N, and within a k-step
+    element (k, n) at byte (n // 8) * SBO + (n % 8) * 16 + (k // 8) * LBO
+    + (k % 8) * 2 from the descriptor's start (K-major, no swizzle).
+    Returns (HWIO padded to (3, 3, Kp, tiles * N), how many times each
+    packed element was read)."""
     nw, tiles = tile_width(cout)
-    kp = -(-cin // 16) * 16
+    kc = pass_width(cin)
+    kp = -(-cin // kc) * kc
     flat = packed.view(torch.int16)
     out = torch.zeros((3, 3, kp, tiles * nw), dtype=torch.int16)
     hits = torch.zeros(flat.numel(), dtype=torch.int64)
@@ -84,17 +86,14 @@ def _unpack_by_descriptor(packed, cin, cout, lbo=128, sbo=256):
     inner = ((n // 8) * sbo + (n % 8) * 16 + (k // 8) * lbo
              + (k % 8) * 2) // 2
     for tile in range(tiles):
-        for c0 in range(0, kp, 64):
-            kc = min(64, kp - c0)
-            for t in range(9):
-                slab = (tile * 9 * kp + 9 * c0 + t * kc) * nw
-                for s in range(kc // 16):
-                    idx = slab + s * 16 * nw + inner
-                    ci = c0 + 16 * s
-                    out[t // 3, t % 3, ci:ci + 16,
-                        tile * nw:(tile + 1) * nw] = flat[idx]
-                    hits.index_add_(0, idx.reshape(-1),
-                                    torch.ones(idx.numel(), dtype=torch.int64))
+        for i in range(9 * kp // kc):
+            c0, t = i // 9 * kc, i % 9
+            for s in range(kc // 16):
+                idx = (tile * 9 * kp + i * kc + s * 16) * nw + inner
+                out[t // 3, t % 3, c0 + 16 * s:c0 + 16 * s + 16,
+                    tile * nw:(tile + 1) * nw] = flat[idx]
+                hits.index_add_(0, idx.reshape(-1),
+                                torch.ones(idx.numel(), dtype=torch.int64))
     return out.view(torch.bfloat16), hits
 
 
@@ -111,8 +110,9 @@ def test_pack_conv3x3_weights_matches_descriptor_layout(rng, cin, cout):
         np.float32)).bfloat16()
     packed = pack_conv3x3_weights(w)
     nw, tiles = tile_width(cout)
-    kp = -(-cin // 16) * 16
+    kp = -(-cin // pass_width(cin)) * pass_width(cin)
     assert nw in TILE_WIDTHS and nw % 8 == 0 and tiles * nw >= cout
+    assert kp == {12: 16, 8: 16, 32: 32, 64: 64, 130: 192}[cin]
     assert packed.dtype == torch.bfloat16 and packed.dim() == 1
     assert packed.numel() == tiles * 9 * kp * nw
     got, hits = _unpack_by_descriptor(packed, cin, cout)
