@@ -141,10 +141,11 @@ def build_kernels() -> None:
     for func in sass.split("Function : ")[1:]:
         name = func.split(None, 1)[0]
         if "conv3x3_kernel" in name:
-            width = name.split("conv3x3_kernelILi", 1)[1].split("E", 1)[0]
-            hgmma[int(width)] = func.count("HGMMA")
-    log(f"K1 SASS: HGMMA instructions per instantiation (N: count) "
-        f"{dict(sorted(hgmma.items()))}")
+            # conv3x3_kernel<N, KS>: ..._kernelILi<N>ELi<KS>E...
+            n, ks = name.split("conv3x3_kernelILi", 1)[1].split("ELi")[:2]
+            hgmma[f"{n}/{ks.split('E')[0]}"] = func.count("HGMMA")
+    log(f"K1 SASS: HGMMA instructions per instantiation (N/KS: count) "
+        f"{hgmma}")
     if not hgmma or min(hgmma.values()) == 0:
         raise AssertionError(f"K1 does not issue wgmma: {hgmma}")
 

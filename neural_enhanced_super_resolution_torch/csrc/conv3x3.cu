@@ -46,13 +46,14 @@ using nesr::bf16;
 
 constexpr int TW = 16;   // output columns per tile = one warp's M rows
 
-// Per output width N: warpgroups a block (4 warps, one output row a warp),
-// blocks an SM and ring depth. Up to N = 128 two 2-warpgroup blocks share
-// an SM; above, the accumulators need more registers than that leaves, and
-// one block of three warpgroups takes the SM with a deeper ring.
+// Two warpgroups a block (4 warps each, one 16-pixel output row a warp:
+// 8 x 16-pixel tiles). Up to N = 128 two blocks share an SM (at most 128
+// registers a thread); above, the N/2 accumulators and two sets of A
+// fragments need more, and one block takes the SM (up to 255 registers,
+// no spills) with a deeper ring.
 template <int N>
 struct Cfg {
-  static constexpr int NWG = N > 128 ? 3 : 2;
+  static constexpr int NWG = 2;
   static constexpr int WARPS = NWG * 4;
   static constexpr int THREADS = WARPS * 32;
   static constexpr int TH = WARPS;

@@ -9,7 +9,9 @@ seeded synthetic weights and prints:
 1. the card (``nvidia-smi`` name and power limit);
 2. for each trunk (K1 fused, K2 dform), one forward on four 268x268 tiles:
    the unprofiled wall clock and a ``torch.profiler`` split of device time
-   by kernel group;
+   by kernel group (K1 split into the trunk's convs and the head's by
+   instantiation; the elementwise group is the fused trunk's assembly plus
+   the head's residual add, nearest-x2 copies and casts);
 3. for each trunk, ``enhance_image`` on a seeded 1024x768 PNG at ``-n 1``:
    three wall clocks after a warm-up, the ``StageTimer`` stages, and one
    profiled run's device-busy share of its wall clock;
@@ -30,6 +32,10 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "build", "probe_out")
+# K1's instantiations (output width, k-steps a pass) that the full-width
+# fused trunk's five convs w0..w4 run and no head conv does: 64->192,
+# 32->160, 32->128, 32->96, 32->64.
+K1_TRUNK = {"192,4", "160,2", "128,2", "96,2", "64,2"}
 
 
 def smi(query: str) -> str:
@@ -48,7 +54,9 @@ def breakdown(prof) -> tuple[float, list[str]]:
             continue
         k = e.key
         if "conv3x3_kernel" in k:
-            name = "K1 conv3x3_kernel"
+            inst = k.split("conv3x3_kernel<", 1)[-1].split(">", 1)[0]
+            part = "trunk" if inst.replace(" ", "") in K1_TRUNK else "head"
+            name = f"K1 {part} conv3x3_kernel"
         elif "rdb_fused_kernel" in k:
             name = "K2 rdb_fused_kernel"
         elif "flash_attn_kernel" in k:
