@@ -47,19 +47,13 @@ using nesr::bf16;
 constexpr int TW = 16;   // output columns per tile = one warp's M rows
 
 // Two warpgroups a block (4 warps each, one 16-pixel output row a warp:
-// 8 x 16-pixel tiles). Up to N = 128 two blocks share an SM (at most 128
-// registers a thread); above, the N/2 accumulators and two sets of A
-// fragments need more, and one block takes the SM (up to 255 registers,
-// no spills) with a deeper ring.
-template <int N>
-struct Cfg {
-  static constexpr int NWG = 2;
-  static constexpr int WARPS = NWG * 4;
-  static constexpr int THREADS = WARPS * 32;
-  static constexpr int TH = WARPS;
-  static constexpr int MIN_BLOCKS = N > 128 ? 1 : 2;
-  static constexpr int STAGES = N > 192 ? 5 : N > 128 ? 6 : 4;
-};
+// 8 x 16-pixel tiles), two blocks an SM (at most 128 registers a thread:
+// N/2 <= 64 accumulators and two sets of A fragments).
+constexpr int NWG = 2;
+constexpr int WARPS = NWG * 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int TH = WARPS;
+constexpr int SM_SMEM = 233472;   // shared memory of an H100 SM (228 KB)
 
 struct Params {
   const bf16* x;
@@ -68,36 +62,40 @@ struct Params {
   bf16* y;
   int H, W, Cin, Cout, kp;   // kp: Cin rounded up to the pass width
   int lrelu, tiles_x, vec;   // vec: channels a patch copy (8, 4, 2 or 1)
+  int n_tiles;               // Cout in N-wide tiles, walked in the block
 };
 
 __host__ __device__ constexpr int round_up(int a, int b) {
   return (a + b - 1) / b * b;
 }
 
-// Shared memory: [ring | epilogue tile] [patch] [full bars] [empty bars].
-// A pass is KS k-steps of 16 input channels (KC = 16 KS); the patch pixel
-// pitch is KC + 8, which keeps each 8-row ldmatrix phase conflict free.
+// Shared memory: [weight ring] [output tile] [patch] [full bars] [empty
+// bars]. A pass is KS k-steps of 16 input channels (KC = 16 KS); the patch
+// pixel pitch is KC + 8 and the output row pitch N + 8, so each 8-row
+// ldmatrix phase and each fragment store is conflict free. The ring has
+// four slots, or three where four would keep two blocks off one SM.
 template <int N, int KS>
 struct Smem {
-  static constexpr int TH = Cfg<N>::TH, STAGES = Cfg<N>::STAGES;
   static constexpr int KC = 16 * KS, PITCH = KC + 8, SLAB = KC * N;
-  static constexpr int RING = STAGES * SLAB * 2;
-  static constexpr int EPI = TH * TW * (N + 8) * 2;
-  static constexpr int PATCH_OFF = round_up(RING > EPI ? RING : EPI, 128);
-  static constexpr int BAR_OFF =
-      round_up(PATCH_OFF + (TH + 2) * (TW + 2) * PITCH * 2, 16);
+  static constexpr int OUT = TH * TW * (N + 8) * 2;
+  static constexpr int PATCH = round_up((TH + 2) * (TW + 2) * PITCH * 2, 16);
+  static constexpr int STAGES =
+      2 * (4 * SLAB * 2 + OUT + PATCH + 64 + 1024) <= SM_SMEM ? 4 : 3;
+  static constexpr int OUT_OFF = STAGES * SLAB * 2;
+  static constexpr int PATCH_OFF = OUT_OFF + OUT;
+  static constexpr int BAR_OFF = PATCH_OFF + PATCH;
   static constexpr int BYTES = BAR_OFF + 2 * STAGES * 8;
+  // two blocks an SM, each with 1 KB the hardware keeps
+  static_assert(2 * (BYTES + 1024) <= SM_SMEM, "K1: two blocks an SM");
 };
 
 // Stage channels [c0, c0 + kc) of the (TH+2) x (TW+2) input patch, VEC
 // channels a copy, zero-filling out-of-image pixels and channels >= Cin.
-template <int N, int VEC>
+template <int VEC>
 __device__ void stage_patch(const Params& p, bf16* patch, int pitch, int n,
                             int oy, int ox, int c0, int kc) {
-  constexpr int TH = Cfg<N>::TH;
   const int nv = kc / VEC;
-  for (int it = threadIdx.x; it < (TH + 2) * (TW + 2) * nv;
-       it += Cfg<N>::THREADS) {
+  for (int it = threadIdx.x; it < (TH + 2) * (TW + 2) * nv; it += THREADS) {
     const int v = it % nv, px = it / nv;
     const int gy = oy - 1 + px / (TW + 2), gx = ox - 1 + px % (TW + 2);
     const int ch = c0 + v * VEC;
@@ -114,167 +112,175 @@ __device__ void stage_patch(const Params& p, bf16* patch, int pitch, int n,
 }
 
 template <int N, int KS>
-__global__ void __launch_bounds__(Cfg<N>::THREADS, Cfg<N>::MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, 2)
 conv3x3_kernel(const Params p) {
-  using C = Cfg<N>;
   using S = Smem<N, KS>;
-  constexpr int STAGES = C::STAGES;
+  constexpr int STAGES = S::STAGES;
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* out = reinterpret_cast<bf16*>(smem + S::OUT_OFF);
   bf16* patch = reinterpret_cast<bf16*>(smem + S::PATCH_OFF);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
   uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int tx = blockIdx.x % p.tiles_x, ty = blockIdx.x / p.tiles_x;
-  const int nt = blockIdx.y, n = blockIdx.z;
-  const int oy = ty * C::TH, ox = tx * TW;
-  const int T = 9 * (p.kp / S::KC);   // slabs: (channel pass, tap)
-  // Slab i = (pass i / 9, tap i % 9), contiguous in that order.
-  const bf16* wp = p.wp + (size_t)nt * 9 * p.kp * N;
-  auto issue = [&](int i) {
-    nesr::bulk_load(ring + (i % STAGES) * S::SLAB, wp + (size_t)i * S::SLAB,
-                    S::SLAB * 2, &full[i % STAGES]);
+  const int n = blockIdx.z;
+  const int oy = ty * TH, ox = tx * TW;
+  const int npass = p.kp / S::KC;
+  // Slabs g = (N tile, pass, tap), contiguous in that order in p.wp.
+  const int total = p.n_tiles * 9 * npass;
+  auto issue = [&](int g) {
+    nesr::bulk_load(ring + (g % STAGES) * S::SLAB, p.wp + (size_t)g * S::SLAB,
+                    S::SLAB * 2, &full[g % STAGES]);
   };
-  // Warp `warp` is done with slab i (its MMAs retired): one arrival a warp.
-  auto release = [&](int i) {
+  // Warp `warp` is done with slab g (its MMAs retired): one arrival a warp.
+  auto release = [&](int g) {
     __syncwarp();
-    if (lane == 0) nesr::mbar_arrive(&empty[i % STAGES]);
+    if (lane == 0) nesr::mbar_arrive(&empty[g % STAGES]);
   };
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       nesr::mbar_init(&full[s], 1);
-      nesr::mbar_init(&empty[s], C::WARPS);
+      nesr::mbar_init(&empty[s], WARPS);
     }
     nesr::mbar_init_fence();
   }
   __syncthreads();
   if (tid == 0)
-    for (int i = 0; i < STAGES && i < T; ++i) issue(i);
+    for (int g = 0; g < STAGES && g < total; ++g) issue(g);
 
   float acc[N / 2];
-#pragma unroll
-  for (int e = 0; e < N / 2; ++e) acc[e] = 0.f;
   // A fragments, double-buffered by tap parity: the MMAs of tap t-1 may
   // still read one set while tap t's ldmatrix fills the other.
   uint32_t a[2][KS][4];
+  const int frow = lane / 4, q = lane % 4;   // accumulator row, column pair
 
-  for (int c0 = 0; c0 < p.kp; c0 += S::KC) {
-    if (c0 > 0) __syncthreads();   // every warp done reading the last pass
-    switch (p.vec) {
-      case 8: stage_patch<N, 8>(p, patch, S::PITCH, n, oy, ox, c0, S::KC);
-              break;
-      case 4: stage_patch<N, 4>(p, patch, S::PITCH, n, oy, ox, c0, S::KC);
-              break;
-      case 2: stage_patch<N, 2>(p, patch, S::PITCH, n, oy, ox, c0, S::KC);
-              break;
-      default: stage_patch<N, 1>(p, patch, S::PITCH, n, oy, ox, c0, S::KC);
+  for (int nt = 0; nt < p.n_tiles; ++nt) {
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0.f;
+    for (int c = 0; c < npass; ++c) {
+      // The patch of a pass is staged once and serves every N tile when
+      // there is one pass; with more, each pass is staged again.
+      if (nt == 0 || npass > 1) {
+        if (nt + c > 0) __syncthreads();   // every warp done reading it
+        switch (p.vec) {
+          case 8: stage_patch<8>(p, patch, S::PITCH, n, oy, ox, c * S::KC,
+                                 S::KC);
+                  break;
+          case 4: stage_patch<4>(p, patch, S::PITCH, n, oy, ox, c * S::KC,
+                                 S::KC);
+                  break;
+          case 2: stage_patch<2>(p, patch, S::PITCH, n, oy, ox, c * S::KC,
+                                 S::KC);
+                  break;
+          default: stage_patch<1>(p, patch, S::PITCH, n, oy, ox, c * S::KC,
+                                  S::KC);
+        }
+        nesr::cp_async_wait_all();
+        __syncthreads();
+      }
+      const int g0 = (nt * npass + c) * 9;
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const int g = g0 + t;
+        nesr::mbar_wait(&full[g % STAGES], (g / STAGES) & 1);
+        __syncwarp();
+        // A: this warp's 16 pixels (its output row, shifted by the tap) x
+        // 16 channels a k-step; B: the slab's k-steps by descriptor
+        // (K-major, no swizzle, core matrices 128 bytes apart along K, 256
+        // along N).
+        const bf16* arow =
+            patch + ((warp + t / 3) * (TW + 2) + t % 3) * S::PITCH;
+        const bf16* bs = ring + (g % STAGES) * S::SLAB;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          nesr::ldsm_x4<false>(a[t & 1][kk], arow + kk * 16, S::PITCH);
+        nesr::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          nesr::wgmma_rs<N>(acc, a[t & 1][kk],
+                            nesr::wgmma_desc(bs + kk * 16 * N, 128, 256));
+        nesr::wgmma_commit();
+        // Tap t-1's MMAs have retired once at most this tap's group is in
+        // flight: its slot goes back to the ring.
+        if (t > 0) {
+          nesr::wgmma_wait<1>();
+          release(g - 1);
+        }
+        // Refill the slot of slab g-2, which every warp released one tap
+        // ago.
+        if (tid == 0 && g >= 2 && g - 2 + STAGES < total) {
+          nesr::mbar_wait(&empty[(g - 2) % STAGES], ((g - 2) / STAGES) & 1);
+          issue(g - 2 + STAGES);
+        }
+        __syncwarp();
+      }
+      nesr::wgmma_wait<0>();
+      release(g0 + 8);
     }
-    nesr::cp_async_wait_all();
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) nesr::reg_fence(acc[e]);
+
+    // Epilogue of this N tile: bias, LeakyReLU, one bf16 rounding; the
+    // tile through its own shared buffer, then 16-byte stores, which drain
+    // under the next N tile's MMAs.
+    __syncthreads();   // every warp done storing the last N tile
+    const int co0 = nt * N;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int co = co0 + 8 * j + 2 * q;
+      const float b0 = (p.bias != nullptr && co < p.Cout) ? p.bias[co] : 0.f;
+      const float b1 =
+          (p.bias != nullptr && co + 1 < p.Cout) ? p.bias[co + 1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = acc[4 * j + 2 * h] + b0, v1 = acc[4 * j + 2 * h + 1] + b1;
+        if (p.lrelu) {
+          v0 = nesr::lrelu(v0);
+          v1 = nesr::lrelu(v1);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + (warp * TW + frow + 8 * h) * (N + 8) + 8 * j + 2 * q) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
     __syncthreads();
-    const int i0 = 9 * (c0 / S::KC);
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const int i = i0 + t;
-      nesr::mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
-      __syncwarp();
-      // A: this warp's 16 pixels (its output row, shifted by the tap) x 16
-      // channels a k-step; B: the slab's k-steps by descriptor (K-major, no
-      // swizzle, core matrices 128 bytes apart along K, 256 along N).
-      const bf16* arow =
-          patch + ((warp + t / 3) * (TW + 2) + t % 3) * S::PITCH;
-      const bf16* bs = ring + (i % STAGES) * S::SLAB;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        nesr::ldsm_x4<false>(a[t & 1][kk], arow + kk * 16, S::PITCH);
-      nesr::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        nesr::wgmma_rs<N>(acc, a[t & 1][kk],
-                          nesr::wgmma_desc(bs + kk * 16 * N, 128, 256));
-      nesr::wgmma_commit();
-      // Tap t-1's MMAs have retired once at most this tap's group is in
-      // flight: its slot goes back to the ring.
-      if (t > 0) {
-        nesr::wgmma_wait<1>();
-        release(i - 1);
+    const int nvalid = min(N, p.Cout - co0);
+    bf16* y = p.y + (size_t)n * p.H * p.W * p.Cout + co0;
+    if (p.Cout % 8 == 0) {
+      const int nv = nvalid / 8;
+      for (int it = tid; it < TH * TW * nv; it += THREADS) {
+        const int v = it % nv, px = it / nv;
+        const int gy = oy + px / TW, gx = ox + px % TW;
+        if (gy < p.H && gx < p.W)
+          *reinterpret_cast<uint4*>(y + ((size_t)gy * p.W + gx) * p.Cout +
+                                    8 * v) =
+              *reinterpret_cast<const uint4*>(out + px * (N + 8) + 8 * v);
       }
-      // Refill the slot of slab i-2, which every warp released one tap ago.
-      if (tid == 0 && i >= 2 && i - 2 + STAGES < T) {
-        nesr::mbar_wait(&empty[(i - 2) % STAGES], ((i - 2) / STAGES) & 1);
-        issue(i - 2 + STAGES);
+    } else {
+      for (int it = tid; it < TH * TW * nvalid; it += THREADS) {
+        const int v = it % nvalid, px = it / nvalid;
+        const int gy = oy + px / TW, gx = ox + px % TW;
+        if (gy < p.H && gx < p.W)
+          y[((size_t)gy * p.W + gx) * p.Cout + v] = out[px * (N + 8) + v];
       }
-      __syncwarp();
-    }
-    nesr::wgmma_wait<0>();
-    release(i0 + 8);
-  }
-#pragma unroll
-  for (int e = 0; e < N / 2; ++e) nesr::reg_fence(acc[e]);
-
-  // Epilogue: bias, LeakyReLU, one bf16 rounding; the tile through shared
-  // memory (the ring, now idle: every slab was consumed) with a row pitch
-  // of N + 8, then 16-byte stores.
-  __syncthreads();
-  bf16* tile = ring;
-  const int g = lane / 4, q = lane % 4;
-  const int co0 = nt * N;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    const int co = co0 + 8 * j + 2 * q;
-    const float b0 = (p.bias != nullptr && co < p.Cout) ? p.bias[co] : 0.f;
-    const float b1 =
-        (p.bias != nullptr && co + 1 < p.Cout) ? p.bias[co + 1] : 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v0 = acc[4 * j + 2 * h] + b0, v1 = acc[4 * j + 2 * h + 1] + b1;
-      if (p.lrelu) {
-        v0 = nesr::lrelu(v0);
-        v1 = nesr::lrelu(v1);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(
-          tile + (warp * TW + g + 8 * h) * (N + 8) + 8 * j + 2 * q) =
-          __floats2bfloat162_rn(v0, v1);
-    }
-  }
-  __syncthreads();
-  const int nvalid = min(N, p.Cout - co0);
-  if (p.Cout % 8 == 0) {
-    const int nv = nvalid / 8;
-    for (int it = tid; it < C::TH * TW * nv; it += C::THREADS) {
-      const int v = it % nv, px = it / nv;
-      const int gy = oy + px / TW, gx = ox + px % TW;
-      if (gy < p.H && gx < p.W)
-        *reinterpret_cast<uint4*>(
-            p.y + ((size_t)(n * p.H + gy) * p.W + gx) * p.Cout + co0 + 8 * v) =
-            *reinterpret_cast<const uint4*>(tile + px * (N + 8) + 8 * v);
-    }
-  } else {
-    for (int it = tid; it < C::TH * TW * nvalid; it += C::THREADS) {
-      const int v = it % nvalid, px = it / nvalid;
-      const int gy = oy + px / TW, gx = ox + px % TW;
-      if (gy < p.H && gx < p.W)
-        p.y[((size_t)(n * p.H + gy) * p.W + gx) * p.Cout + co0 + v] =
-            tile[px * (N + 8) + v];
     }
   }
 }
 
 template <int N, int KS>
 int launch(const Params& p, int batch, cudaStream_t stream) {
-  using C = Cfg<N>;
   constexpr int smem = Smem<N, KS>::BYTES;
-  static_assert(smem <= 227 * 1024, "K1 tile does not fit shared memory");
   // Set per call: the attribute is per device, and the call is cheap.
   cudaError_t err = cudaFuncSetAttribute(
       conv3x3_kernel<N, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles_y = (p.H + C::TH - 1) / C::TH;
-  const int n_tiles = (p.Cout + N - 1) / N;
-  dim3 grid(p.tiles_x * tiles_y, n_tiles, batch);
-  conv3x3_kernel<N, KS><<<grid, C::THREADS, smem, stream>>>(p);
+  const int tiles_y = (p.H + TH - 1) / TH;
+  dim3 grid(p.tiles_x * tiles_y, 1, batch);
+  conv3x3_kernel<N, KS><<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -289,10 +295,11 @@ int launch_ks(const Params& p, int ks, int batch, cudaStream_t stream) {
 
 }  // namespace
 
-// n_width: the instantiation the weights were packed for (one of 8, 16, 32,
-// 64, 96, 128, 160, 192, 256). A pass is 16, 32 or 64 input channels as
-// Cin is at most 16, at most 32 or more; Cin is padded to a whole number of
-// passes (kernels/conv3x3.py: tile_width, pass_width).
+// n_width: the tile width the weights were packed for (one of 8, 16, 32,
+// 64, 80, 96, 128); Cout is ceil(Cout / n_width) such tiles. A pass is 16,
+// 32 or 64 input channels as Cin is at most 16, at most 32 or more; Cin is
+// padded to a whole number of passes (kernels/conv3x3.py: tile_width,
+// pass_width).
 extern "C" int nesr_conv3x3(const void* x, const void* wp, const void* bias,
                             void* y, int N, int H, int W, int Cin, int Cout,
                             int n_width, int lrelu, void* stream) {
@@ -310,17 +317,16 @@ extern "C" int nesr_conv3x3(const void* x, const void* wp, const void* bias,
   p.lrelu = lrelu;
   p.tiles_x = (W + TW - 1) / TW;
   p.vec = Cin % 8 == 0 ? 8 : Cin % 4 == 0 ? 4 : Cin % 2 == 0 ? 2 : 1;
+  p.n_tiles = (Cout + n_width - 1) / n_width;
   cudaStream_t s = (cudaStream_t)stream;
   switch (n_width) {
     case 8: return launch_ks<8>(p, ks, N, s);
     case 16: return launch_ks<16>(p, ks, N, s);
     case 32: return launch_ks<32>(p, ks, N, s);
     case 64: return launch_ks<64>(p, ks, N, s);
+    case 80: return launch_ks<80>(p, ks, N, s);
     case 96: return launch_ks<96>(p, ks, N, s);
     case 128: return launch_ks<128>(p, ks, N, s);
-    case 160: return launch_ks<160>(p, ks, N, s);
-    case 192: return launch_ks<192>(p, ks, N, s);
-    case 256: return launch_ks<256>(p, ks, N, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -24,8 +24,9 @@ from neural_enhanced_super_resolution_torch.kernels._build import (
 __all__ = ["conv3x3", "conv3x3_plain", "pack_conv3x3_weights", "pass_width",
            "tile_width", "TILE_WIDTHS"]
 
-# The kernel's instantiations: the output-channel width N of one block.
-TILE_WIDTHS = (8, 16, 32, 64, 96, 128, 160, 192, 256)
+# The kernel's instantiations: the output-channel width N of one tile; a
+# block walks Cout's tiles one after the other.
+TILE_WIDTHS = (8, 16, 32, 64, 80, 96, 128)
 
 
 def pass_width(cin: int) -> int:
@@ -41,7 +42,7 @@ def _padded_cin(cin: int) -> int:
 
 
 def tile_width(cout: int) -> tuple[int, int]:
-    """(N, tiles): Cout is split into ``tiles`` = ceil(Cout / 256) equal
+    """(N, tiles): Cout is split into ``tiles`` = ceil(Cout / 128) equal
     tiles, each rounded up to the next instantiation N (extra columns are
     zero weights)."""
     tiles = -(-cout // TILE_WIDTHS[-1])

@@ -122,9 +122,9 @@ def test_pack_conv3x3_weights_matches_descriptor_layout(rng, cin, cout):
 
 
 @pytest.mark.parametrize("cout,want", [(3, (8, 1)), (24, (32, 1)),
-                                       (64, (64, 1)), (160, (160, 1)),
-                                       (192, (192, 1)), (256, (256, 1)),
-                                       (300, (160, 2)), (520, (192, 3))])
+                                       (64, (64, 1)), (128, (128, 1)),
+                                       (160, (80, 2)), (192, (96, 2)),
+                                       (256, (128, 2)), (300, (128, 3))])
 def test_tile_width(cout, want):
     assert tile_width(cout) == want
 

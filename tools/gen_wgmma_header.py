@@ -7,15 +7,15 @@ The header holds one inline-PTX wrapper per output width N of
 and B read from shared memory through a matrix descriptor. N is an
 immediate of the instruction and every one of the N/2 fp32 accumulators a
 thread holds is an operand of its own, so each width is written out; this
-script is the one place that spells them. Re-run it after changing WIDTHS
-(K1's instantiations, ``kernels/conv3x3.py:TILE_WIDTHS``).
+script is the one place that spells them. WIDTHS are K1's tile widths
+(``kernels/conv3x3.py:TILE_WIDTHS``); re-run after changing them.
 """
 
 from __future__ import annotations
 
 import os
 
-WIDTHS = (8, 16, 32, 64, 96, 128, 160, 192, 256)
+WIDTHS = (8, 16, 32, 64, 80, 96, 128)
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "neural_enhanced_super_resolution_torch", "csrc",
     "wgmma_rs.cuh")

@@ -6,8 +6,8 @@ taken out, on one CUDA GPU.
 Copies ``csrc/`` into ``build/k1_ablation/<variant>/``, edits each copy's
 ``conv3x3.cu`` as listed in VARIANTS (the edits are textual; a variant
 whose text no longer matches fails loudly), builds each copy with its own
-nvcc (all at once), and times every variant at the fused trunk's w0 and
-w2 and at conv_body on the 4 x 268 x 268 tile batch, with CUDA events
+nvcc (all at once), and times every variant at the fused trunk's w0, w2
+and w4 and at conv_body on the 4 x 268 x 268 tile batch, with CUDA events
 over REPS launches after a warm-up, in the order base, variants, base.
 The variants compute wrong outputs on purpose; only their times mean
 anything. Prints the card (name, power limit) and one line per variant.
@@ -29,35 +29,32 @@ OUT = os.path.join(ROOT, "build", "k1_ablation")
 REPS = 20
 # (label, Cin, Cout) at the tile batch.
 SHAPES = [("w0 64->192", 64, 192), ("w2 32->128", 32, 128),
-          ("conv_body 64->64", 64, 64)]
-KEEP_WIDTHS = (64, 128, 192)   # instantiations the shapes need
+          ("w4 32->64", 32, 64), ("conv_body 64->64", 64, 64)]
+KEEP_WIDTHS = (64, 96, 128)   # instantiations the shapes need
 # variant: [(old text, new text), ...] applied to conv3x3.cu, each to every
 # place the old text appears
 VARIANTS = {
     "base": [],
     # the output's global stores skipped (the tile still goes through
     # shared memory, so the MMAs stay live)
-    "no_store": [("      if (gy < p.H && gx < p.W)\n        *reinterpret_cast<uint4*>(",
-                  "      if (gy < p.H && gx < p.W && p.Cout < 0)\n"
-                  "        *reinterpret_cast<uint4*>(")],
+    "no_store": [("        if (gy < p.H && gx < p.W)\n"
+                  "          *reinterpret_cast<uint4*>(",
+                  "        if (gy < p.H && gx < p.W && p.Cout < 0)\n"
+                  "          *reinterpret_cast<uint4*>(")],
     # the MMAs skipped (loads, barriers and ldmatrix kept)
-    "no_mma": [("        nesr::wgmma_rs<N>(acc,",
-                "        if (p.Cout < 0) nesr::wgmma_rs<N>(acc,")],
+    "no_mma": [("          nesr::wgmma_rs<N>(acc,",
+                "          if (p.Cout < 0) nesr::wgmma_rs<N>(acc,")],
     # the input patch not loaded (its buffer read as it is)
     "no_patch": [("      nesr::cp_async_zfill<VEC * 2>(",
                   "      if (p.Cout < 0) nesr::cp_async_zfill<VEC * 2>(")],
     # the weight slabs not copied (each slot's barrier completed at once)
-    "no_weights": [("    nesr::bulk_load(ring + (i % STAGES) * S::SLAB, "
-                    "wp + (size_t)i * S::SLAB,\n"
-                    "                    S::SLAB * 2, &full[i % STAGES]);",
-                    "    nesr::mbar_arrive(&full[i % STAGES]);")],
+    "no_weights": [("    nesr::bulk_load(ring + (g % STAGES) * S::SLAB, "
+                    "p.wp + (size_t)g * S::SLAB,\n"
+                    "                    S::SLAB * 2, &full[g % STAGES]);",
+                    "    nesr::mbar_arrive(&full[g % STAGES]);")],
     # one set of A fragments, each tap waiting for its own MMAs
     "single_a": [("a[t & 1]", "a[0]"),
                  ("nesr::wgmma_wait<1>();", "nesr::wgmma_wait<0>();")],
-    # three ring slots at every width
-    "three_stages": [("static constexpr int STAGES = N > 192 ? 5 : "
-                      "N > 128 ? 6 : 4;",
-                      "static constexpr int STAGES = 3;")],
 }
 
 
