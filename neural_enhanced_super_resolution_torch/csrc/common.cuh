@@ -120,45 +120,54 @@ __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+// The helpers below take shared-memory addresses (smem_u32) as 32-bit
+// integers, so a kernel computes them once and adds constant offsets.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
+               :: "r"(bar) : "memory");
 }
 
 // Blocks until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   uint32_t done = 0;
   do {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   } while (!done);
 }
 
 // One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
 // from global to shared memory that completes a transaction on `bar`;
 // the issuing thread arrives on `bar` and announces the bytes first.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+               :: "r"(bar), "r"(bytes) : "memory");
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// ldmatrix x4 (not transposed) with this lane's own row address.
+__device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr) : "memory");
 }
 
 // wgmma matrix descriptor of a K-major operand with no swizzle: the
 // operand is made of 8 x 16-byte core matrices (8 rows of 8 bf16 along
 // K, 128 contiguous bytes); `lbo` is the byte distance between core
 // matrices next to each other along K, `sbo` along the rows (M or N).
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

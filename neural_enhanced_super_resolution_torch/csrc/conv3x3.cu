@@ -130,14 +130,21 @@ conv3x3_kernel(const Params p) {
   const int npass = p.kp / S::KC;
   // Slabs g = (N tile, pass, tap), contiguous in that order in p.wp.
   const int total = p.n_tiles * 9 * npass;
+  // Shared addresses: the ring, the barriers, and this lane's ldmatrix row
+  // (patch pixel (warp, lane % 16), channel 8 (lane / 16)) at tap (0, 0).
+  const uint32_t ring_s = nesr::smem_u32(ring);
+  const uint32_t full_s = nesr::smem_u32(full), empty_s = full_s + 8 * STAGES;
+  const uint32_t a_s = nesr::smem_u32(patch) +
+      ((warp * (TW + 2) + lane % 16) * S::PITCH + lane / 16 * 8) * 2;
   auto issue = [&](int g) {
-    nesr::bulk_load(ring + (g % STAGES) * S::SLAB, p.wp + (size_t)g * S::SLAB,
-                    S::SLAB * 2, &full[g % STAGES]);
+    const int s = g % STAGES;
+    nesr::bulk_load(ring_s + s * S::SLAB * 2, p.wp + (size_t)g * S::SLAB,
+                    S::SLAB * 2, full_s + 8 * s);
   };
   // Warp `warp` is done with slab g (its MMAs retired): one arrival a warp.
   auto release = [&](int g) {
     __syncwarp();
-    if (lane == 0) nesr::mbar_arrive(&empty[g % STAGES]);
+    if (lane == 0) nesr::mbar_arrive(empty_s + 8 * (g % STAGES));
   };
 
   if (tid == 0) {
@@ -184,24 +191,23 @@ conv3x3_kernel(const Params p) {
       const int g0 = (nt * npass + c) * 9;
 #pragma unroll
       for (int t = 0; t < 9; ++t) {
-        const int g = g0 + t;
-        nesr::mbar_wait(&full[g % STAGES], (g / STAGES) & 1);
+        const int g = g0 + t, s = g % STAGES;
+        nesr::mbar_wait(full_s + 8 * s, (g / STAGES) & 1);
         __syncwarp();
         // A: this warp's 16 pixels (its output row, shifted by the tap) x
         // 16 channels a k-step; B: the slab's k-steps by descriptor
         // (K-major, no swizzle, core matrices 128 bytes apart along K, 256
         // along N).
-        const bf16* arow =
-            patch + ((warp + t / 3) * (TW + 2) + t % 3) * S::PITCH;
-        const bf16* bs = ring + (g % STAGES) * S::SLAB;
+        const int tap_off = ((t / 3) * (TW + 2) + t % 3) * S::PITCH * 2;
+        const uint32_t bs = ring_s + s * S::SLAB * 2;
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk)
-          nesr::ldsm_x4<false>(a[t & 1][kk], arow + kk * 16, S::PITCH);
+          nesr::ldsm_x4_at(a[t & 1][kk], a_s + tap_off + kk * 32);
         nesr::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk)
           nesr::wgmma_rs<N>(acc, a[t & 1][kk],
-                            nesr::wgmma_desc(bs + kk * 16 * N, 128, 256));
+                            nesr::wgmma_desc(bs + kk * 32 * N, 128, 256));
         nesr::wgmma_commit();
         // Tap t-1's MMAs have retired once at most this tap's group is in
         // flight: its slot goes back to the ring.
@@ -212,7 +218,8 @@ conv3x3_kernel(const Params p) {
         // Refill the slot of slab g-2, which every warp released one tap
         // ago.
         if (tid == 0 && g >= 2 && g - 2 + STAGES < total) {
-          nesr::mbar_wait(&empty[(g - 2) % STAGES], ((g - 2) / STAGES) & 1);
+          nesr::mbar_wait(empty_s + 8 * ((g - 2) % STAGES),
+                          ((g - 2) / STAGES) & 1);
           issue(g - 2 + STAGES);
         }
         __syncwarp();

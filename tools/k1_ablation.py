@@ -48,10 +48,10 @@ VARIANTS = {
     "no_patch": [("      nesr::cp_async_zfill<VEC * 2>(",
                   "      if (p.Cout < 0) nesr::cp_async_zfill<VEC * 2>(")],
     # the weight slabs not copied (each slot's barrier completed at once)
-    "no_weights": [("    nesr::bulk_load(ring + (g % STAGES) * S::SLAB, "
+    "no_weights": [("    nesr::bulk_load(ring_s + s * S::SLAB * 2, "
                     "p.wp + (size_t)g * S::SLAB,\n"
-                    "                    S::SLAB * 2, &full[g % STAGES]);",
-                    "    nesr::mbar_arrive(&full[g % STAGES]);")],
+                    "                    S::SLAB * 2, full_s + 8 * s);",
+                    "    nesr::mbar_arrive(full_s + 8 * s);")],
     # one set of A fragments, each tap waiting for its own MMAs
     "single_a": [("a[t & 1]", "a[0]"),
                  ("nesr::wgmma_wait<1>();", "nesr::wgmma_wait<0>();")],
