@@ -10,7 +10,10 @@ nvcc (all at once), and times every variant at the fused trunk's w0, w2
 and w4 and at conv_body on the 4 x 268 x 268 tile batch, with CUDA events
 over REPS launches after a warm-up, in the order base, variants, base.
 The variants compute wrong outputs on purpose; only their times mean
-anything. Prints the card (name, power limit) and one line per variant.
+anything. One more copy stamps the GPU's clock (thread 0 of each block)
+at each phase of a block, and the median phase times are printed for
+each shape. Prints the card (name, power limit) and one line per variant
+and shape.
 """
 
 from __future__ import annotations
@@ -58,6 +61,36 @@ VARIANTS = {
 }
 
 
+# A copy of K1 that stamps %globaltimer (thread 0 of each block) at its
+# phases: 0 start, 1 patch staged, 2 first slab in, 3 / 5 N tile 0 / 1's
+# taps done, 4 / 6 N tile 0 / 1's stores issued.
+TRACE_EDITS = [
+    ('#include "wgmma_rs.cuh"\n',
+     '#include "wgmma_rs.cuh"\n'
+     "__device__ unsigned long long k1_trace[1 << 20];\n"
+     'extern "C" int k1_trace_copy(void* host, int n) {\n'
+     "  return (int)cudaMemcpyFromSymbol(host, k1_trace, n * 8);\n}\n"
+     "#define K1_MARK(i) if (threadIdx.x == 0) { unsigned long long t_; "
+     'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); '
+     "k1_trace[(blockIdx.z * gridDim.x + blockIdx.x) * 8 + (i)] = t_; }\n"),
+    ("  constexpr int STAGES = S::STAGES;\n",
+     "  constexpr int STAGES = S::STAGES;\n  K1_MARK(0);\n"),
+    ("        nesr::cp_async_wait_all();\n        __syncthreads();\n      }\n",
+     "        nesr::cp_async_wait_all();\n        __syncthreads();\n      }\n"
+     "      if (nt == 0) K1_MARK(1);\n"),
+    ("        nesr::mbar_wait(full_s + 8 * s, (g / STAGES) & 1);\n",
+     "        nesr::mbar_wait(full_s + 8 * s, (g / STAGES) & 1);\n"
+     "        if (g == 0) K1_MARK(2);\n"),
+    ("      release(g0 + 8);\n    }\n",
+     "      release(g0 + 8);\n    }\n    if (nt < 2) K1_MARK(3 + 2 * nt);\n"),
+    ("          y[((size_t)gy * p.W + gx) * p.Cout + v] = "
+     "out[px * (N + 8) + v];\n      }\n    }\n",
+     "          y[((size_t)gy * p.W + gx) * p.Cout + v] = "
+     "out[px * (N + 8) + v];\n      }\n    }\n"
+     "    if (nt < 2) K1_MARK(4 + 2 * nt);\n"),
+]
+
+
 def _nvcc() -> str:
     sys.path.insert(0, ROOT)
     from neural_enhanced_super_resolution_torch.kernels import _build
@@ -99,7 +132,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    jobs = {name: _prepare(name, edits) for name, edits in VARIANTS.items()}
+    jobs = {name: _prepare(name, edits) for name, edits in
+            [*VARIANTS.items(), ("trace", TRACE_EDITS)]}
     libs = {}
     for name, (so, proc) in jobs.items():
         log = proc.communicate()[0]
@@ -141,6 +175,34 @@ def main() -> int:
         e1.record()
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / REPS
+
+    trace = libs.pop("trace")
+    trace.k1_trace_copy.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    trace.k1_trace_copy.restype = ctypes.c_int
+    for case in cases:
+        label, cin, cout, x, packed, y = case
+        for _ in range(3):
+            run(trace, cin, cout, x, packed, y)
+        torch.cuda.synchronize()
+        blocks = (-(-w // 16)) * (-(-h // 8)) * n
+        stamps = torch.zeros(blocks * 8, dtype=torch.int64)
+        if trace.k1_trace_copy(stamps.data_ptr(), blocks * 8):
+            raise SystemExit("trace copy failed")
+        st = stamps.view(blocks, 8).double() / 1e3   # us
+        parts = [("start->patch", 0, 1), ("patch->slab0", 1, 2),
+                 ("taps N tile 0", 2, 3), ("stores N tile 0", 3, 4),
+                 ("taps N tile 1", 4, 5), ("stores N tile 1", 5, 6)]
+        # a stamp older than the block's start is left from another shape
+        fresh = [bool((st[:, b] >= st[:, a]).all() and
+                      (st[:, a] >= st[:, 0]).all()) for _, a, b in parts]
+        out = [f"{name} {(st[:, b] - st[:, a]).median().item():.2f}"
+               for (name, a, b), ok in zip(parts, fresh) if ok]
+        last = 6 if fresh[4] and fresh[5] else 4
+        print(f"K1 trace {label}: {blocks} blocks over "
+              f"{st[:, last].max().item() - st[:, 0].min().item():.1f} us; "
+              f"median us a block "
+              f"{(st[:, last] - st[:, 0]).median().item():.2f} = "
+              + ", ".join(out), flush=True)
 
     order = list(VARIANTS) + ["base"]
     for i, name in enumerate(order):

@@ -32,10 +32,9 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "build", "probe_out")
-# K1's instantiations (output width, k-steps a pass) that the full-width
-# fused trunk's five convs w0..w4 run and no head conv does: 64->192,
-# 32->160, 32->128, 32->96, 32->64.
-K1_TRUNK = {"192,4", "160,2", "128,2", "96,2", "64,2"}
+# The fused trunk's five convs w0..w4 at full width (Cin, Cout); no head
+# conv shares K1's instantiation (tile width, k-steps a pass) with them.
+TRUNK_CONVS = ((64, 192), (32, 160), (32, 128), (32, 96), (32, 64))
 
 
 def smi(query: str) -> str:
@@ -47,6 +46,10 @@ def smi(query: str) -> str:
 def breakdown(prof) -> tuple[float, list[str]]:
     """Device time of a profile, grouped by kernel family."""
     from torch.autograd import DeviceType
+    from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
+        pass_width, tile_width)
+    k1_trunk = {f"{tile_width(cout)[0]},{pass_width(cin) // 16}"
+                for cin, cout in TRUNK_CONVS}
     groups: dict[str, tuple[float, int]] = {}
     for e in prof.key_averages():
         # StageTimer's "nesr/<stage>" ranges are annotations, not kernels
@@ -55,7 +58,7 @@ def breakdown(prof) -> tuple[float, list[str]]:
         k = e.key
         if "conv3x3_kernel" in k:
             inst = k.split("conv3x3_kernel<", 1)[-1].split(">", 1)[0]
-            part = "trunk" if inst.replace(" ", "") in K1_TRUNK else "head"
+            part = "trunk" if inst.replace(" ", "") in k1_trunk else "head"
             name = f"K1 {part} conv3x3_kernel"
         elif "rdb_fused_kernel" in k:
             name = "K2 rdb_fused_kernel"
