@@ -3,9 +3,13 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from ``csrc/`` (one nvcc per source,
-in parallel) and holds each one against its plain PyTorch version at the
-shapes its path gives it: K1 and K2 on the ESRGAN path, K3 (flash
-attention) on the diffusion path. Then, with seeded synthetic weights:
+in parallel), checks in the library's SASS that every K1 instantiation
+issues ``wgmma`` (HGMMA), and holds each kernel against its plain PyTorch
+version at the shapes its path gives it: K1 and K2 on the ESRGAN path, K3
+(flash attention) on the diffusion path. Beside each kernel's time it
+prints its bound at the H100's peak rates and, for scale, the PyTorch call
+that computes the same function (cuDNN's bf16 conv for K1, SDPA for K3;
+none exists for K2). Then, with seeded synthetic weights:
 
 * the full-width 12-channel RRDBNet x4 (64 features, 23 blocks, growth 32)
   on a 4-tile batch with both trunks;

@@ -152,6 +152,13 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
+// Prefetch `bytes` (a multiple of 16, 16-byte aligned) of global memory
+// into L2.
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+               :: "l"(src), "r"(bytes) : "memory");
+}
+
 // ldmatrix x4 (not transposed) with this lane's own row address.
 __device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(

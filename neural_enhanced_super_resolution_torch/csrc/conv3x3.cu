@@ -10,33 +10,41 @@
 // ported: this kernel works on plain NHWC.
 //
 // What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s), on the path's
-// 4 x 268 x 268 tile batch: trunk w0 (64->192) and conv_body (64->64) are
-// bound by their operations (64.3 and 21.9 us), the Cin-32 trunk convs
-// w1..w4 (->160/128/96/64) by their bytes, mostly the bf16 output (32.9
-// down to 16.5 us); conv_last (64->3) by its input bytes.
+// 4 x 268 x 268 tile batch: trunk w0 (64->192) by its operations (64.3
+// us); the Cin-32 trunk convs w1..w4 (->160/128/96/64) and conv_body by
+// their bytes, mostly the bf16 output (33.0 down to 16.5 us); the head at
+// 2x/4x and conv_last (64->3) by their bytes too. In practice each block
+// spends about half its life loading its patch and storing its tile, the
+// rest in MMAs that keep the tensor cores near full while two blocks share
+// an SM (PERF.md, tools/k1_ablation.py).
 //
 // Design: an implicit GEMM, M = output pixels, N = output channels, K =
-// 9 taps x Cin. A block owns a TH x 16-pixel output tile and every output
-// channel (N up to 256 in one pass; above that, blockIdx.y walks N tiles),
-// so the input patch is staged once, not once per 64 channels.
-//  * The patch ((TH+2) x 18 pixels, 1-px SAME halo, up to 64 channels a
-//    pass, 32 when Cin is 32) arrives by cp.async with zero-fill for the
-//    halo, the ragged edge and the channels past Cin. Its pixel pitch is
-//    padded by 16 bytes, so each 8-row ldmatrix phase is conflict free.
+// 9 taps x Cin. A block (two warpgroups, one 16-pixel output row a warp)
+// owns an 8 x 16-pixel output tile and every output channel, walked in
+// tiles of at most N = 128 (w0's 192 as 2 x 96): the input patch is staged
+// once for all of them, the first tile's stores drain under the second
+// tile's MMAs, and N/2 <= 64 accumulators let two blocks share an SM.
+//  * The patch (10 x 18 pixels, 1-px SAME halo, 16/32/64 channels a pass
+//    as Cin is <= 16, <= 32 or more, so a Cin-32 conv stages no zeros)
+//    arrives by cp.async with zero-fill for the halo, the ragged edge and
+//    the channels past Cin. Its pixel pitch is padded by 16 bytes, so each
+//    8-row ldmatrix phase is conflict free. Each block also prefetches into
+//    L2 the patch of the block one wave later, whose loads then skip HBM.
 //  * The weights are packed once on the host (kernels/conv3x3.py,
 //    pack_conv3x3_weights) into the exact shared-memory image of each
-//    (channel pass, tap) slab, so one cp.async.bulk per slab moves it,
-//    into a ring of STAGES slots with full/empty mbarriers: the copy of
-//    slab s+STAGES-1 runs under the MMAs of slab s.
-//  * The epilogue adds the bias, applies LeakyReLU, rounds to bf16 once,
-//    stages the tile in shared memory (reusing the ring) and writes it
-//    with 16-byte coalesced stores.
+//    (N tile, pass, tap) slab, so one cp.async.bulk moves a slab, with no
+//    index math, into a ring of 3-4 slots with full/empty mbarriers;
+//    thread 0 refills a slot two taps after its last reader released it.
 //  * Each warpgroup issues wgmma.mma_async m64nNk16 (N an immediate: the
-//    kernel is templated on N, Cout rounds up to the next instantiation
-//    with zero weight columns): A, its four warps' 16-pixel output rows,
-//    from registers (ldmatrix of the padded patch), B from the ring by
-//    descriptor. N/2 fp32 accumulators a thread; a slot is released once
-//    the warpgroup's MMAs that read it have retired.
+//    kernel is templated on N and the pass width; Cout rounds up to the
+//    next instantiation with zero weight columns): A, its four warps'
+//    16-pixel output rows, from registers (ldmatrix of the patch, two sets
+//    alternating by tap so tap t loads while tap t-1 multiplies), B from
+//    the ring by descriptor. A slot goes back to the ring only after the
+//    MMAs that read it have retired (wgmma.wait_group 1).
+//  * The epilogue adds the bias, applies LeakyReLU, rounds to bf16 once,
+//    stages the tile in its own shared buffer and writes it with 16-byte
+//    coalesced stores.
 #include "common.cuh"
 #include "wgmma_rs.cuh"
 
@@ -61,8 +69,9 @@ struct Params {
   const float* bias;   // may be null
   bf16* y;
   int H, W, Cin, Cout, kp;   // kp: Cin rounded up to the pass width
-  int lrelu, tiles_x, vec;   // vec: channels a patch copy (8, 4, 2 or 1)
+  int lrelu, tiles_x, vec;   // vec: channels a patch copy (8, 4 or 1)
   int n_tiles;               // Cout in N-wide tiles, walked in the block
+  int wave;                  // blocks the card runs at once (2 an SM)
 };
 
 __host__ __device__ constexpr int round_up(int a, int b) {
@@ -117,7 +126,6 @@ conv3x3_kernel(const Params p) {
   using S = Smem<N, KS>;
   constexpr int STAGES = S::STAGES;
   extern __shared__ __align__(1024) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
   bf16* out = reinterpret_cast<bf16*>(smem + S::OUT_OFF);
   bf16* patch = reinterpret_cast<bf16*>(smem + S::PATCH_OFF);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
@@ -132,7 +140,7 @@ conv3x3_kernel(const Params p) {
   const int total = p.n_tiles * 9 * npass;
   // Shared addresses: the ring, the barriers, and this lane's ldmatrix row
   // (patch pixel (warp, lane % 16), channel 8 (lane / 16)) at tap (0, 0).
-  const uint32_t ring_s = nesr::smem_u32(ring);
+  const uint32_t ring_s = nesr::smem_u32(smem);
   const uint32_t full_s = nesr::smem_u32(full), empty_s = full_s + 8 * STAGES;
   const uint32_t a_s = nesr::smem_u32(patch) +
       ((warp * (TW + 2) + lane % 16) * S::PITCH + lane / 16 * 8) * 2;
@@ -157,6 +165,20 @@ conv3x3_kernel(const Params p) {
   __syncthreads();
   if (tid == 0)
     for (int g = 0; g < STAGES && g < total; ++g) issue(g);
+  // Warm L2 with the patch of the block one wave later (blocks start in
+  // order of their index): one bulk prefetch a patch row, so that block's
+  // cp.async finds its input in L2 instead of HBM.
+  const int later = blockIdx.z * gridDim.x + blockIdx.x + p.wave;
+  if (warp == 0 && lane < TH + 2 && p.vec == 8 &&
+      later < gridDim.x * gridDim.z) {
+    const int lx = later % gridDim.x, ln = later / gridDim.x;
+    const int gy = lx / p.tiles_x * TH - 1 + lane;
+    const int x0 = max(lx % p.tiles_x * TW - 1, 0);
+    const int x1 = min(lx % p.tiles_x * TW + TW + 1, p.W);
+    if (gy >= 0 && gy < p.H)
+      nesr::prefetch_l2(p.x + ((size_t)(ln * p.H + gy) * p.W + x0) * p.Cin,
+                        (x1 - x0) * p.Cin * 2);
+  }
 
   float acc[N / 2];
   // A fragments, double-buffered by tap parity: the MMAs of tap t-1 may
@@ -177,9 +199,6 @@ conv3x3_kernel(const Params p) {
                                  S::KC);
                   break;
           case 4: stage_patch<4>(p, patch, S::PITCH, n, oy, ox, c * S::KC,
-                                 S::KC);
-                  break;
-          case 2: stage_patch<2>(p, patch, S::PITCH, n, oy, ox, c * S::KC,
                                  S::KC);
                   break;
           default: stage_patch<1>(p, patch, S::PITCH, n, oy, ox, c * S::KC,
@@ -287,7 +306,14 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   const int tiles_y = (p.H + TH - 1) / TH;
   dim3 grid(p.tiles_x * tiles_y, 1, batch);
-  conv3x3_kernel<N, KS><<<grid, THREADS, smem, stream>>>(p);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  Params q = p;
+  q.wave = 2 * sms;
+  conv3x3_kernel<N, KS><<<grid, THREADS, smem, stream>>>(q);
   return (int)cudaGetLastError();
 }
 
@@ -323,7 +349,7 @@ extern "C" int nesr_conv3x3(const void* x, const void* wp, const void* bias,
   p.kp = round_up(Cin, 16 * ks);
   p.lrelu = lrelu;
   p.tiles_x = (W + TW - 1) / TW;
-  p.vec = Cin % 8 == 0 ? 8 : Cin % 4 == 0 ? 4 : Cin % 2 == 0 ? 2 : 1;
+  p.vec = Cin % 8 == 0 ? 8 : Cin % 4 == 0 ? 4 : 1;
   p.n_tiles = (Cout + n_width - 1) / n_width;
   cudaStream_t s = (cudaStream_t)stream;
   switch (n_width) {
