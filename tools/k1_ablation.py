@@ -55,6 +55,10 @@ VARIANTS = {
                     "p.wp + (size_t)g * S::SLAB,\n"
                     "                    S::SLAB * 2, full_s + 8 * s);",
                     "    nesr::mbar_arrive(full_s + 8 * s);")],
+    # three blocks an SM (85 registers) for N <= 64 with <= 32-channel passes
+    "narrow_three_blocks": [("__global__ void __launch_bounds__(THREADS, 2)",
+                             "__global__ void __launch_bounds__(THREADS, "
+                             "N <= 64 && KS <= 2 ? 3 : 2)")],
     # one set of A fragments, each tap waiting for its own MMAs
     "single_a": [("a[t & 1]", "a[0]"),
                  ("nesr::wgmma_wait<1>();", "nesr::wgmma_wait<0>();")],
