@@ -38,7 +38,8 @@ def parse_arguments(argv=None):
                         help="Base upscale factor per iteration")
     parser.add_argument("--device", "-d", default="auto",
                         choices=["auto", "cpu", "cuda"],
-                        help="Device to run on (cuda raises without a GPU)")
+                        help="Device to run on (auto and cuda mean the GPU "
+                             "and raise without one)")
     parser.add_argument("--prompt", "-p", default=None,
                         help="Text prompt for diffusion guidance")
     parser.add_argument("--download_models", action="store_true",

@@ -212,7 +212,7 @@ def build_module(cls, cfg, state_dict: dict, dtype: torch.dtype, device):
     return materialize(module, state_dict, dtype, device)
 
 
-def load_upscale_pipeline(path: str | None = None, device="cpu",
+def load_upscale_pipeline(path: str | None = None, device="cuda",
                           compute_dtype: str = "bfloat16",
                           cfg_split: bool | None = None) -> UpscalePipeline:
     """Load a diffusers-layout snapshot of the x4 upscaler onto ``device``.

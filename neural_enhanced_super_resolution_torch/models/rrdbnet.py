@@ -239,7 +239,7 @@ class RRDBNet(nn.Module):
 
     def __init__(self, cfg: RRDBNetConfig, state_dict: Mapping[str,
                  torch.Tensor], dtype: torch.dtype = torch.float32,
-                 device: str | torch.device = "cpu", trunk: str = "fused"):
+                 device: str | torch.device = "cuda", trunk: str = "fused"):
         super().__init__()
         if trunk not in TRUNKS:
             raise ValueError(f"unknown trunk {trunk!r}, one of {TRUNKS}")

@@ -1,9 +1,9 @@
 """Device and precision policy.
 
 Counterpart of ``neural_enhanced_super_resolution_tpu/runtime/device.py``,
-with one deliberate difference: a request for ``cuda`` when no GPU is present
-raises instead of falling back to the CPU with a warning. Only ``auto``
-chooses between the two.
+with one deliberate difference: nothing falls back to the CPU. ``auto`` and
+``cuda`` both mean the GPU and raise when none is present; the CPU runs
+only when ``cpu`` is asked for.
 """
 
 from __future__ import annotations
@@ -18,15 +18,13 @@ __all__ = ["determine_device", "default_compute_dtype", "device_fetch",
 def determine_device(requested: str = "auto") -> str:
     """Resolve a requested device to 'cuda' or 'cpu'.
 
-    auto -> cuda when a GPU is visible, else cpu; cuda (or gpu) without a
-    GPU raises RuntimeError; anything else raises ValueError.
+    auto, cuda or gpu -> cuda, and RuntimeError when no GPU is visible;
+    cpu -> cpu; anything else raises ValueError.
     """
     requested = (requested or "auto").lower()
-    if requested == "auto":
-        return "cuda" if torch.cuda.is_available() else "cpu"
     if requested == "cpu":
         return "cpu"
-    if requested in ("cuda", "gpu"):
+    if requested in ("auto", "cuda", "gpu"):
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {requested!r} requested but no CUDA "
                                "GPU is available")

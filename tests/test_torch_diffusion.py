@@ -371,7 +371,8 @@ def test_trace_latents_matches_jax(tiny_snapshot):
     ref_lats, ref = jax_load_pipeline(
         tiny_snapshot, compute_dtype="float32").trace_latents(
             *args, num_inference_steps=3)
-    pipe = load_upscale_pipeline(tiny_snapshot, compute_dtype="float32")
+    pipe = load_upscale_pipeline(tiny_snapshot, device="cpu",
+                                 compute_dtype="float32")
     assert pipe.cfg_split
     lats, out = pipe.trace_latents(*args, num_inference_steps=3)
     assert lats.shape == ref_lats.shape == (3, 8, 12, 4)
@@ -387,8 +388,8 @@ def test_split_cfg_matches_batched(tiny_snapshot, scheduler):
     img = np.random.default_rng(9).integers(0, 256, (8, 8, 3), dtype=np.uint8)
     outs = []
     for split in (True, False):
-        pipe = load_upscale_pipeline(tiny_snapshot, compute_dtype="float32",
-                                     cfg_split=split)
+        pipe = load_upscale_pipeline(tiny_snapshot, device="cpu",
+                                     compute_dtype="float32", cfg_split=split)
         if scheduler == "ddpm":
             pipe.scheduler = DDPMScheduler()
         outs.append(pipe("a photo", img, num_inference_steps=3).numpy())
@@ -397,7 +398,8 @@ def test_split_cfg_matches_batched(tiny_snapshot, scheduler):
 
 
 def test_pipeline_seed_determinism_and_noise_guard(tiny_snapshot):
-    pipe = load_upscale_pipeline(tiny_snapshot, compute_dtype="float32")
+    pipe = load_upscale_pipeline(tiny_snapshot, device="cpu",
+                                 compute_dtype="float32")
     img = np.random.default_rng(10).integers(0, 256, (8, 8, 3),
                                              dtype=np.uint8)
     a, b = (pipe("a photo", img, num_inference_steps=2, seed=s)
@@ -432,8 +434,10 @@ def test_load_pipeline_from_deprecated_attention_keys(tiny_snapshot,
     old["encoder.conv_in.weight"] = torch.zeros(8, 3, 3, 3)
     assert any(".query." in k for k in old)
     torch.save(old, path)
-    new_pipe = load_upscale_pipeline(tiny_snapshot, compute_dtype="float32")
-    old_pipe = load_upscale_pipeline(snap, compute_dtype="float32")
+    new_pipe = load_upscale_pipeline(tiny_snapshot, device="cpu",
+                                     compute_dtype="float32")
+    old_pipe = load_upscale_pipeline(snap, device="cpu",
+                                     compute_dtype="float32")
     lat = torch.randn((1, 6, 6, 4), generator=torch.Generator().manual_seed(0))
     assert torch.equal(vae_decode(old_pipe.vae, lat),
                        vae_decode(new_pipe.vae, lat))
@@ -452,7 +456,8 @@ def test_broken_tokenizer_falls_back_as_in_jax(tiny_snapshot, tmp_path,
     open(os.path.join(snap, "tokenizer", "vocab.json"), "w").close()
     open(os.path.join(snap, "tokenizer", "merges.txt"), "w").close()
     with caplog.at_level(logging.WARNING):
-        port = load_upscale_pipeline(snap, compute_dtype="float32")
+        port = load_upscale_pipeline(snap, device="cpu",
+                                     compute_dtype="float32")
         ref = jax_load_pipeline(snap, compute_dtype="float32")
     assert port.tokenizer is None and ref.tokenizer is None
     assert sum("tokenizer load failed" in r.getMessage()
@@ -472,7 +477,7 @@ def test_missing_tensor_fails_strict_load(tiny_snapshot, tmp_path):
     del sd["conv_out.bias"]
     torch.save(sd, path)
     with pytest.raises(RuntimeError, match="conv_out.bias"):
-        load_upscale_pipeline(snap, compute_dtype="float32")
+        load_upscale_pipeline(snap, device="cpu", compute_dtype="float32")
 
 
 # ----------------------------------------------------------- product path ---

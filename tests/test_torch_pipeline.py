@@ -108,15 +108,29 @@ def test_import_without_jax():
                    timeout=300)
 
 
-def test_cuda_request_without_gpu_raises(tmp_path, monkeypatch):
+def test_cuda_request_without_gpu_raises(tmp_path, ckpt, test_image,
+                                         monkeypatch, capsys):
+    """Without a GPU, "cuda", "auto" and the defaults of the pipeline and
+    the CLI raise; nothing moves to the CPU unless "cpu" is asked for."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = {"use_diffusion": False, "segment_enhancement": False,
+           "denoise_level": 0, "output_dir": str(tmp_path)}
+    for device in ("cuda", "auto"):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            SuperResolutionPipeline(device=device, config=cfg)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
-        SuperResolutionPipeline(device="cuda", config={
-            "use_diffusion": False, "segment_enhancement": False,
-            "denoise_level": 0, "output_dir": str(tmp_path)})
-    pipe = SuperResolutionPipeline(device="auto", config={
-        "use_diffusion": False, "segment_enhancement": False,
-        "denoise_level": 0, "output_dir": str(tmp_path)})
+        SuperResolutionPipeline(config=cfg)
+    src = str(tmp_path / "in.png")
+    imwrite_rgb(src, test_image[:16, :16])
+    cfg_path = str(tmp_path / "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(_config(tmp_path, ckpt, "cli"), f)
+    out = str(tmp_path / "res" / "final.png")
+    assert torch_cli(["--cli", "-i", src, "-c", cfg_path, "-n", "1",
+                      "-o", out]) == 1
+    assert "no CUDA GPU" in capsys.readouterr().out
+    assert not os.path.exists(out)
+    pipe = SuperResolutionPipeline(device="cpu", config=cfg)
     assert pipe.device == "cpu" and pipe.config["precision"] == "float32"
 
 
