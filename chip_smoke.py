@@ -122,6 +122,39 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time a call: the durations of the kernels (and copies) that
+    ``reps`` calls ran on the card, from torch.profiler, over ``reps``.
+    Host dispatch and the gaps between kernels are not in it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / 1e3 / reps
+
+
+def wall_ms(fn, reps: int = 10) -> float:
+    """Host clock a call over ``reps`` calls ended by a synchronize: what
+    a caller waits, dispatch included."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -141,17 +174,23 @@ def build_kernels() -> None:
         [_build.cuda_tool("cuobjdump"), "--dump-sass",
          _build.library_path()], capture_output=True, text=True, check=True,
         timeout=300).stdout
-    hgmma = {}
+    hgmma = {"K1": {}, "K3": {}}
     for func in sass.split("Function : ")[1:]:
         name = func.split(None, 1)[0]
-        if "conv3x3_kernel" in name:
-            # conv3x3_kernel<N, KS>: ..._kernelILi<N>ELi<KS>E...
-            n, ks = name.split("conv3x3_kernelILi", 1)[1].split("ELi")[:2]
-            hgmma[f"{n}/{ks.split('E')[0]}"] = func.count("HGMMA")
-    log(f"K1 SASS: HGMMA instructions per instantiation (N/KS: count) "
-        f"{hgmma}")
-    if not hgmma or min(hgmma.values()) == 0:
-        raise AssertionError(f"K1 does not issue wgmma: {hgmma}")
+        for kernel, tag in (("conv3x3_kernel", "K1"), ("flash_narrow", "K3"),
+                            ("flash_wide", "K3")):
+            if kernel in name:
+                # kernel<A, B>: ..._kernelILi<A>ELi<B>E...
+                args = [p.split("E")[0] for p in
+                        name.split(kernel + "I", 1)[1].split("Li")[1:]]
+                hgmma[tag][f"{kernel}<{','.join(args)}>"] = func.count(
+                    "HGMMA")
+    for tag, want in (("K1", 21), ("K3", 6)):
+        log(f"{tag} SASS: HGMMA instructions per instantiation "
+            f"{hgmma[tag]}")
+        if len(hgmma[tag]) != want or min(hgmma[tag].values()) == 0:
+            raise AssertionError(f"{tag}: {want} instantiations must issue "
+                                 f"wgmma: {hgmma[tag]}")
 
 
 def _rnd(torch, gen, *shape, scale=1.0, dtype=None):
@@ -294,23 +333,28 @@ def check_flash_attention(torch, gen) -> dict:
         ref = flash_attention_plain(q, k, v)
         err = (got.float() - ref.float()).abs().max().item()
         rel = err / ref.float().abs().max().item()
-        ms = cuda_ms(lambda: flash_attention(q, k, v))
-        pms = cuda_ms(lambda: flash_attention_plain(q, k, v))
-        # For scale only: PyTorch's fused attention on the same tensors.
-        sms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        # Device time (kernel durations) and the wall a call, each beside
+        # PyTorch's fused attention on the same tensors (for scale only).
+        ms = device_ms(lambda: flash_attention(q, k, v))
+        wms = wall_ms(lambda: flash_attention(q, k, v))
+        pms = device_ms(lambda: flash_attention_plain(q, k, v), reps=3)
+        sms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        swms = wall_ms(lambda: F.scaled_dot_product_attention(q, k, v))
         (b, hh, sq, d), skv = q.shape, k.shape[2]
         bms, by = bound(4.0 * b * hh * sq * skv * d,
                         2.0 * b * hh * d * (2 * sq + 2 * skv))
         log(f"K3 flash_attention {label} q {tuple(q.shape)} Skv "
             f"{skv}: max_abs_err {err:.6g} rel {rel:.3g} (tol "
             f"{TOL_FLASH}, of max|ref| {ref.float().abs().max().item():.4g})"
-            f" kernel {ms:.4f} ms plain {pms:.4f} ms SDPA {sms:.4f} ms bound"
-            f" {bms:.4f} ms ({by}); kernel/SDPA {ms / sms:.3f}")
+            f" device ms: kernel {ms:.4f} SDPA {sms:.4f} plain {pms:.4f} "
+            f"bound {bms:.4f} ({by}); kernel/SDPA {ms / sms:.3f}, "
+            f"bound/kernel {bms / ms:.3f}; wall ms a call: kernel {wms:.4f} "
+            f"SDPA {swms:.4f}")
         if not rel <= TOL_FLASH:
             failed.append(f"{label}: rel {rel}")
         worst = max(worst, err)
         timed[label] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
-                        "bound_by": by, "library_ms": sms}
+                        "bound_by": by, "library_ms": sms, "wall_ms": wms}
         del got, ref
     torch.cuda.empty_cache()
     if failed:
@@ -528,13 +572,16 @@ def check_diffusion_forward(torch, snap: str, name: str) -> None:
         with plain_attention():
             ref = fn()
             pms = cuda_ms(fn, reps=3)
+            pdev = device_ms(fn, reps=2)
         ms = cuda_ms(fn, reps=3)
+        dev = device_ms(fn, reps=2)
         err = (got - ref).abs().max().item()
         rel = err / ref.abs().max().item()
         log(f"SD x4 {label}: max_abs_err {err:.6g} rel {rel:.3g} vs plain "
             f"attention (tol {TOL_SD}; max|ref| "
-            f"{ref.abs().max().item():.4g}); with K3 {ms:.2f} ms, plain "
-            f"attention {pms:.2f} ms on {name}")
+            f"{ref.abs().max().item():.4g}); with K3 {ms:.2f} ms "
+            f"(device {dev:.2f} ms), plain attention {pms:.2f} ms (device "
+            f"{pdev:.2f} ms) on {name}")
         if not (rel <= TOL_SD and torch.isfinite(got).all()):
             raise AssertionError(f"SD x4 {label}: rel err {rel}")
     del pipe

@@ -1,10 +1,11 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// Every kernel here takes NHWC bf16 activations and HWIO bf16 weights
-// (3, 3, Cin, Cout; K1 takes them pre-packed), accumulates in fp32 on the
-// tensor cores with mma.sync m16n8k16 (operands fetched from shared memory
-// by ldmatrix; K2, K3) or wgmma (K1, helpers at the end), launches on the
-// caller's stream and allocates nothing. Each C entry
+// The conv kernels take NHWC bf16 activations and HWIO bf16 weights
+// (3, 3, Cin, Cout; K1 takes them pre-packed); K3 takes strided
+// (batch, head, sequence, head dim) bf16 views. All accumulate in fp32 on
+// the tensor cores with mma.sync m16n8k16 (operands fetched from shared
+// memory by ldmatrix; K2) or wgmma (K1, K3; helpers at the end), launch on
+// the caller's stream and allocate nothing. Each C entry
 // point returns cudaGetLastError() so the Python wrapper can raise on a
 // refused launch.
 //
@@ -89,7 +90,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// ---- Hopper: asynchronous copies, mbarriers, wgmma (K1) ----------------
+// ---- Hopper: asynchronous copies, mbarriers, wgmma (K1, K3) ------------
 
 // cp.async of BYTES (4, 8 or 16) from global to shared; the bytes past
 // `src_bytes` (0 or BYTES) are zero-filled, so a SAME-padding halo or a
@@ -105,6 +106,26 @@ __device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
                  :: "r"(smem_u32(dst)), "l"(src), "n"(BYTES), "r"(src_bytes)
                  : "memory");
   }
+}
+
+// 16-byte cp.async to a shared address, zero-filled past `src_bytes`.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// Arrives on `bar` once every cp.async this thread issued before it has
+// landed; counts as one of the barrier's expected arrivals.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Orders this thread's view of shared memory written through ordinary
+// stores or cp.async before reads by the async proxy (wgmma operands).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {

@@ -46,7 +46,7 @@
 //    stages the tile in its own shared buffer and writes it with 16-byte
 //    coalesced stores.
 #include "common.cuh"
-#include "wgmma_rs.cuh"
+#include "wgmma.cuh"
 
 namespace {
 

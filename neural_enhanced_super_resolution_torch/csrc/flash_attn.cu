@@ -8,56 +8,160 @@
 // via flash_attention / _flash_attention_body (:125, :139). The math is
 // theirs: bf16 operands, S = q k^T accumulated in fp32 and scaled by
 // 1/sqrt(d) in fp32, online softmax with the running max m and sum l in
-// fp32, P = exp(S - m) rounded to bf16 for P v with fp32 accumulation,
-// o = acc / l rounded to bf16. The two TPU lowerings exist for the VMEM
-// budget; here one kernel always streams KV. Keys at or past Skv are masked
-// by a bounds check on the score (exact), not by the TPU code's extra
-// -1e9 feature column, and K and V rows past Skv are staged as zeros.
+// fp32, P = exp(S - m) rounded to bf16 for P v with fp32 accumulation, l
+// summed from the fp32 P, o = acc / l rounded to bf16. The two TPU
+// lowerings exist for the VMEM budget; here every form streams KV. Keys at
+// or past Skv are masked by a bounds check on the score (exact), not by
+// the TPU code's extra -1e9 feature column, and K and V rows past Skv (and
+// Q rows past Sq) are staged as zeros.
 //
-// What bounds it on an H100: at the diffusion shapes (S 117..16384, d 8..512)
-// attention does 4 d FLOPs per score against one score never written to
-// device memory, so a flash kernel is tensor-core bound; with mma.sync and
-// unpipelined staging the limits are issue rate and the shared-memory
-// operand fetches. Design (FA2): a block owns 64 query rows of one
-// (batch, head), 4 warps of 16 rows each; it walks KV in tiles of 64 keys
-// staged in shared memory with rows padded by 16 bytes (every ldmatrix
-// phase bank-conflict free); each warp computes its 16 x 64 score tile with
-// mma.sync m16n8k16, keeps it in registers, rescales and reuses it as the A
-// operand of P v (the accumulator layout of S is the A layout of P). The
-// head dim is padded to a power of two DP in [16, 512] with zero columns.
+// What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s; 16 exponentials
+// a clock an SM): at the diffusion shapes (S 117..16384, d 8..512) a score
+// costs 4 d tensor-core FLOPs and one exponential and is never written to
+// device memory, so attention is bound by its operations. At d = 64 the
+// exponentials alone take as long as the matrix products at the tensor
+// cores' peak, so the softmax has to overlap the MMAs. At d = 512 a
+// 64-query block streams every K and V row once, 64 FLOPs a byte read from
+// L2: the blocks' K/V traffic through L2 is the second limit.
 //
-// The output accumulator of a warp is 16 x DV fp32 in registers. For
-// d = 512 (the VAE mid-block: one head over the whole latent grid) a 16 x
-// 512 accumulator would be 256 registers a thread, more than a thread has.
-// So the output columns are split across blocks in slices of DV = 128
-// (blockIdx.z): each slice's block recomputes the full 512-wide S = q k^T
-// and multiplies P only by its 128 columns of V. At d = 512 that is 4x the
-// QK^T FLOPs, 2.5x the attention's FLOPs in all, for registers that fit
-// (about 64 accumulator registers a thread at DV = 128) and no shared-memory
-// exchange between warps. d <= 128 runs as one slice.
+// Design, shared by both forms: a block owns 64 query rows of one (batch,
+// head); one producer warp stages Q once and K and V tiles into shared
+// memory by 16-byte cp.async with zero fill, written straight into
+// wgmma's no-swizzle core-matrix layout (8 rows x 16 bytes, 128 contiguous
+// bytes a core matrix, tile_off), and signals each tile on an mbarrier
+// (cp.async.mbarrier.arrive); consumers release a buffer on an mbarrier
+// once the MMAs that read it have retired. cp.async rather than TMA: the
+// views are strided with head dims that are not multiples of 64 (8, 24,
+// 72 ...), rows past Skv must be zero, and a tensor map per call would
+// cost a host encode on a host-bound loop. S = Q K^T runs as wgmma with
+// both operands from shared memory (Q and K K-major); P V reads V in its
+// natural key-major layout as a transposed B (imm-trans-b).
+//
+// Narrow form, d <= 128 (the UNet, 640 launches a request): one consumer
+// warpgroup computes S (m64 x BK keys) into registers, the online softmax
+// in registers, turns the S accumulator into P's A fragments in place and
+// issues P V from registers (wgmma RS, B = V transposed) into its 64 x DP
+// accumulator, while the producer keeps a 2-3 stage K/V ring in flight.
+// Two blocks share an SM, so one block's softmax overlaps the other's MMAs.
+//
+// Wide form, d in (128, 512] (the VAE mid-block, d = 512): each score tile
+// is computed once per KV tile. Q (64 x 512) stays in shared memory; one
+// warpgroup computes S (m64n64, 32 k-steps) and the softmax and writes P
+// (bf16, double-buffered) and each row's rescale factor alpha to shared
+// memory; d/128 warpgroups each own 128 output columns (64 fp32
+// accumulators a thread), rescale them by alpha and run P V on their V
+// slice. K_{j+1} lands while P V_j runs, and S_{j+1} overlaps P V_j.
 //
 // q, k, v and o are addressed through (batch, head, sequence) strides in
 // elements with the head dim contiguous, so (B, S, H, d) views of packed
 // (B, S, H*d) projections are read and written in place. The wrapper
 // (kernels/attention.py) checks: bf16, d % 8 == 0, d <= 512, strides and
 // base pointers 16-byte aligned.
-// Not yet: cp.async/TMA double buffering of the K/V tiles, wgmma.
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;              // query rows per block, 16 per warp
-constexpr int BK = 64;              // keys per KV tile
-constexpr int NWARP = BQ / 16;
-constexpr int THREADS = NWARP * 32;
-
 using nesr::bf16;
 
-template <int DP, int DV>
-constexpr int smem_bytes() {
-  return (BQ * (DP + 8) + BK * (DP + 8) + BK * (DV + 8)) * 2;
+constexpr int BQ = 64;             // query rows a block
+constexpr int SM_SMEM = 233472;    // shared memory of an H100 SM (228 KB)
+
+struct Args {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* o;
+  int H, Sq, Skv, D;
+  long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
+  float scale;
+};
+
+// Byte offset of element (r, c) of an R x DP bf16 tile in the no-swizzle
+// core-matrix layout: row group r / 8 holds DP / 8 core matrices side by
+// side along the columns; core matrix (r / 8, c / 8) is 8 rows of 16
+// bytes. As a K-major operand (rows = M or N, columns = K) a k-step of 16
+// columns starts 256 bytes further, with LBO 128 (along K) and SBO 16 DP
+// (along the rows); as a transposed B (rows = K, columns = N) a k-step of
+// 16 rows starts 32 DP bytes further, with LBO 16 DP and SBO 128.
+template <int DP>
+__device__ __forceinline__ uint32_t tile_off(int r, int c) {
+  return ((r >> 3) * (DP / 8) + (c >> 3)) * 128 + (r & 7) * 16 + (c & 7) * 2;
+}
+
+template <int DP>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  return nesr::wgmma_desc(tile + kk * 256, 128, 16 * DP);
+}
+
+template <int DP>
+__device__ __forceinline__ uint64_t trans_desc(uint32_t tile, int kk) {
+  return nesr::wgmma_desc(tile + kk * 32 * DP, 16 * DP, 128);
+}
+
+// cp.async rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a strided
+// bf16 source into the ROWS x DP tile at shared address `dst`, zero-filling
+// rows >= nrows and columns >= D; thread i of n. Eight consecutive threads
+// fill one core matrix.
+template <int ROWS, int DP, int COLS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          long long row_stride, int r0,
+                                          int nrows, int c0, int D, int i,
+                                          int n) {
+  constexpr int CH = COLS / 8;
+#pragma unroll 4
+  for (int it = i; it < ROWS * CH; it += n) {
+    const int r = (it & 7) + (it >> 3) / CH * 8;
+    const int c = c0 + (it >> 3) % CH * 8;
+    const bool ok = r0 + r < nrows && c < D;
+    const bf16* s = ok ? src + (long long)(r0 + r) * row_stride + c : src;
+    nesr::cp_async16(dst + tile_off<DP>(r, c), s, ok ? 16 : 0);
+  }
+}
+
+// Online softmax of one score tile held as a wgmma accumulator: s[4j + e]
+// is row g (e < 2) or g + 8 of this warp's 16, key 8j + 2t + (e & 1).
+// Scales in fp32, masks keys >= Skv, updates the running max m and this
+// thread's share of l, turns s into P = exp(s - m) and returns each row's
+// rescale factor in alpha.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int kv0,
+                                             int Skv, float scale, int t) {
+  float tmax[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  const bool ragged = kv0 + BK > Skv;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * scale;
+      if (ragged && kv0 + 8 * j + 2 * t + (e & 1) >= Skv) x = -CUDART_INF_F;
+      s[4 * j + e] = x;
+      tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+    }
+  }
+  float rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+    const float m_new = fmaxf(m[i], tmax[i]);
+    alpha[i] = __expf(m[i] - m_new);
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = __expf(s[4 * j + e] - m[e >> 1]);
+      rsum[e >> 1] += s[4 * j + e];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rsum[i];
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -65,176 +169,349 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Stage `rows` x `cols` (cols a multiple of 8) bf16 from rows r0.. of a
-// strided source into shared memory (pitch `pitch`); row r >= nrows or
-// column c >= ncols is written as zero.
-__device__ __forceinline__ void stage(bf16* dst, int pitch, const bf16* src,
-                                      long long row_stride, int r0, int nrows,
-                                      int c0, int ncols, int rows, int cols) {
-  const int chunks = cols / 8;
-  for (int it = threadIdx.x; it < rows * chunks; it += THREADS) {
-    const int r = it / chunks;
-    const int c = (it % chunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < nrows && c0 + c < ncols)
-      val = *reinterpret_cast<const uint4*>(
-          src + (long long)(r0 + r) * row_stride + c0 + c);
-    *reinterpret_cast<uint4*>(dst + r * pitch + c) = val;
-  }
-}
-
-template <int DP, int DV>
-__global__ void __launch_bounds__(THREADS)
-flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                  int Sq, int Skv, int D, long long qsb, long long qsh,
-                  long long qss, long long ksb, long long ksh, long long kss,
-                  long long vsb, long long vsh, long long vss, long long osb,
-                  long long osh, long long oss, float scale) {
-  constexpr int QP = DP + 8, KP = DP + 8, VP = DV + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + BQ * QP;
-  bf16* vs = ks + BK * KP;
-
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int dv0 = blockIdx.z * DV;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-
-  const bf16* qb = q + b * qsb + h * qsh;
-  const bf16* kb = k + b * ksb + h * ksh;
-  const bf16* vb = v + b * vsb + h * vsh;
-  stage(qs, QP, qb, qss, q0, Sq, 0, D, BQ, DP);
-
-  // Row g of the warp's 16 is index 0, row g + 8 index 1.
-  float m_run[2] = {-1e30f, -1e30f};
-  float l_run[2] = {0.f, 0.f};  // this thread's share; quad-summed at the end
-  float acc[DV / 8][4];
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int nkv = (Skv + BK - 1) / BK;
-  for (int kt = 0; kt < nkv; ++kt) {
-    const int kv0 = kt * BK;
-    __syncthreads();  // the previous tile is consumed (and Q is staged)
-    stage(ks, KP, kb, kss, kv0, Skv, 0, D, BK, DP);
-    stage(vs, VP, vb, vss, kv0, Skv, dv0, D, BK, DV);
-    __syncthreads();
-
-    // S = q k^T for the warp's 16 rows x 64 keys; s[j] holds keys 8j..8j+7.
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t a[4];
-      nesr::ldsm_x4<false>(a, qs + warp * 16 * QP + kk * 16, QP);
-#pragma unroll
-      for (int nb = 0; nb < BK / 16; ++nb) {
-        uint32_t bk[4];  // keys nb*16 + 0..7: (bk[0], bk[2]); + 8..15: (1, 3)
-        nesr::ldsm_x4<false>(bk, ks + nb * 16 * KP + kk * 16, KP);
-        nesr::mma_bf16(s[2 * nb], a, bk[0], bk[2]);
-        nesr::mma_bf16(s[2 * nb + 1], a, bk[1], bk[3]);
-      }
-    }
-
-    // Scale in fp32, mask keys past Skv, online softmax.
-    float tmax[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + j * 8 + 2 * t + (e & 1);
-        s[j][e] = key < Skv ? s[j][e] * scale : -CUDART_INF_F;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], s[j][e]);
-      }
-    }
-    float alpha[2], rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
-      const float m_new = fmaxf(m_run[i], tmax[i]);
-      alpha[i] = __expf(m_run[i] - m_new);
-      m_run[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = __expf(s[j][e] - m_run[e >> 1]);
-        rsum[e >> 1] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + rsum[i];
-#pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // acc += P v over the tile's 64 keys, P rounded to bf16.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int nb = 0; nb < DV / 16; ++nb) {
-        uint32_t bv[4];
-        nesr::ldsm_x4<true>(bv, vs + kk * 16 * VP + nb * 16, VP);
-        nesr::mma_bf16(acc[2 * nb], a, bv[0], bv[1]);
-        nesr::mma_bf16(acc[2 * nb + 1], a, bv[2], bv[3]);
-      }
-    }
-  }
-
-  // o = acc / l: row g (and g + 8), columns 2t, 2t + 1 of each n8 fragment.
-  bf16* ob = o + b * osb + h * osh;
+// o[row, c0 + 8n + 2t, +1] = acc / l for this thread's rows g and g + 8 of
+// its warp's 16 (row0 = the first of them); l is this thread's share.
+template <int N>
+__device__ __forceinline__ void store_rows(const Args& a, const float (&acc)[N / 2],
+                                           float (&l)[2], int row0, int c0,
+                                           int t) {
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  bf16* ob = a.o + b * a.osb + h * a.osh;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    float l = l_run[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int row = q0 + warp * 16 + g + 8 * i;
-    if (row >= Sq) continue;
+    const int row = row0 + 8 * i;
+    if (row >= a.Sq) continue;
+    const float inv = 1.f / l[i];
 #pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
-      const int col = dv0 + n * 8 + 2 * t;
-      if (col >= D) continue;  // D % 8 == 0: col + 1 < D as well
-      *reinterpret_cast<__nv_bfloat162*>(ob + row * oss + col) =
-          __floats2bfloat162_rn(acc[n][2 * i] / l, acc[n][2 * i + 1] / l);
+    for (int n = 0; n < N / 8; ++n) {
+      const int col = c0 + n * 8 + 2 * t;
+      if (col >= a.D) continue;   // D % 8 == 0: col + 1 < D as well
+      *reinterpret_cast<__nv_bfloat162*>(ob + row * a.oss + col) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * i] * inv,
+                                acc[4 * n + 2 * i + 1] * inv);
     }
   }
 }
 
-template <int DP, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Sq, int Skv, int D, const long long* st, float scale,
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Every warp of a group is done with a buffer: one arrival a warp.
+__device__ __forceinline__ void warp_arrive(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) nesr::mbar_arrive(bar);
+}
+
+// ---- Narrow form: d <= 128 ------------------------------------------------
+
+constexpr int NARROW_THREADS = 160;   // one consumer warpgroup + a producer
+
+template <int DP, int BK>
+struct Narrow {
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;   // one K or V tile
+  // Three ring stages where two blocks an SM still fit, else two.
+  static constexpr int STAGES =
+      2 * (Q_BYTES + 6 * KV_BYTES + 128 + 1024) <= SM_SMEM ? 3 : 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  // barriers: Q, then K full, V full and empty per stage
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES);
+  static_assert(2 * (BYTES + 1024) <= SM_SMEM, "K3: two blocks an SM");
+};
+
+template <int DP, int BK>
+__global__ void __launch_bounds__(NARROW_THREADS, 2)
+flash_narrow(const Args a) {
+  using L = Narrow<DP, BK>;
+  constexpr int ST = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = nesr::smem_u32(smem);
+  const uint32_t q_s = base, k_s = base + L::K_OFF, v_s = base + L::V_OFF;
+  const uint32_t q_bar = base + L::BAR_OFF;
+  const uint32_t kfull = q_bar + 8, vfull = kfull + 8 * ST,
+                 empty = vfull + 8 * ST;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int nkv = (a.Skv + BK - 1) / BK;
+
+  if (tid == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+    nesr::mbar_init(&bars[0], 32);
+    for (int s = 0; s < ST; ++s) {
+      nesr::mbar_init(&bars[1 + s], 32);
+      nesr::mbar_init(&bars[1 + ST + s], 32);
+      nesr::mbar_init(&bars[1 + 2 * ST + s], 4);
+    }
+    nesr::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {   // producer: Q once, then the K/V ring
+    load_tile<BQ, DP, DP>(q_s, a.q + b * a.qsb + h * a.qsh, a.qss, q0, a.Sq,
+                          0, a.D, lane, 32);
+    nesr::cp_async_arrive(q_bar);
+    const bf16* kb = a.k + b * a.ksb + h * a.ksh;
+    const bf16* vb = a.v + b * a.vsb + h * a.vsh;
+    for (int j = 0; j < nkv; ++j) {
+      const int s = j % ST;
+      if (j >= ST) nesr::mbar_wait(empty + 8 * s, (j / ST - 1) & 1);
+      load_tile<BK, DP, DP>(k_s + s * L::KV_BYTES, kb, a.kss, j * BK, a.Skv,
+                            0, a.D, lane, 32);
+      nesr::cp_async_arrive(kfull + 8 * s);
+      load_tile<BK, DP, DP>(v_s + s * L::KV_BYTES, vb, a.vss, j * BK, a.Skv,
+                            0, a.D, lane, 32);
+      nesr::cp_async_arrive(vfull + 8 * s);
+    }
+    nesr::cp_async_wait_all();
+    return;
+  }
+
+  const int g = lane / 4, t = lane % 4;
+  float acc[DP / 2];
+#pragma unroll
+  for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  nesr::mbar_wait(q_bar, 0);
+  for (int j = 0; j < nkv; ++j) {
+    const int s = j % ST, par = (j / ST) & 1;
+    nesr::mbar_wait(kfull + 8 * s, par);
+    nesr::fence_proxy_async();
+    float sc[BK / 2];
+    nesr::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      nesr::wgmma_ss<BK>(sc, kmajor_desc<DP>(q_s, kk),
+                         kmajor_desc<DP>(k_s + s * L::KV_BYTES, kk), kk > 0);
+    nesr::wgmma_commit();
+    nesr::wgmma_wait<0>();   // S_j, and P V_{j-1} before it, have retired
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) nesr::reg_fence(sc[e]);
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) nesr::reg_fence(acc[e]);
+    if (j > 0) warp_arrive(empty + 8 * ((j - 1) % ST));
+
+    float alpha[2];
+    softmax_tile<BK>(sc, m, l, alpha, j * BK, a.Skv, a.scale, t);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      acc[4 * n] *= alpha[0];
+      acc[4 * n + 1] *= alpha[0];
+      acc[4 * n + 2] *= alpha[1];
+      acc[4 * n + 3] *= alpha[1];
+    }
+    // The S accumulator of keys 16kk..16kk+15 is P's A fragment for k-step
+    // kk: (g, 2t), (g + 8, 2t), (g, 8 + 2t), (g + 8, 8 + 2t).
+    uint32_t p[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      p[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      p[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      p[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      p[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    nesr::mbar_wait(vfull + 8 * s, par);
+    nesr::fence_proxy_async();
+    nesr::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      nesr::wgmma_rs_tb<DP>(acc, p[kk],
+                            trans_desc<DP>(v_s + s * L::KV_BYTES, kk));
+    nesr::wgmma_commit();
+  }
+  nesr::wgmma_wait<0>();
+#pragma unroll
+  for (int e = 0; e < DP / 2; ++e) nesr::reg_fence(acc[e]);
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  store_rows<DP>(a, acc, l, q0 + 16 * warp + g, 0, t);
+}
+
+// ---- Wide form: 128 < d <= 512 --------------------------------------------
+
+template <int DP>
+struct Wide {
+  static constexpr int BK = 64;
+  static constexpr int NPV = DP / 128;   // P V warpgroups, 128 columns each
+  static constexpr int THREADS = 128 * (1 + NPV);
+  static constexpr int T_BYTES = BQ * DP * 2;   // Q, a K tile, a V tile
+  static constexpr int P_BYTES = BQ * BK * 2;
+  static constexpr int K_OFF = T_BYTES, V_OFF = 2 * T_BYTES;
+  static constexpr int P_OFF = 3 * T_BYTES;               // two P buffers
+  static constexpr int A_OFF = P_OFF + 2 * P_BYTES;       // two alpha rows
+  static constexpr int L_OFF = A_OFF + 2 * BQ * 4;        // l per row
+  // barriers: K full, P full x2, P empty x2, l, V full per slice
+  static constexpr int BAR_OFF = L_OFF + BQ * 4;
+  static constexpr int BYTES = BAR_OFF + 8 * (6 + NPV);
+  static_assert(BYTES + 1024 <= SM_SMEM, "K3: the wide form's buffers");
+};
+
+// bar.sync on a named barrier that the `n` threads of one warpgroup share.
+__device__ __forceinline__ void group_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// No producer warp: the S warpgroup loads Q and each K tile, and each P V
+// warpgroup its own 128 columns of each V tile, right after the MMAs that
+// read the buffer before have retired; at d = 512 the five warpgroups keep
+// 96 registers a thread, enough for P V's 64 accumulators.
+template <int DP>
+__global__ void __launch_bounds__(Wide<DP>::THREADS, 1)
+flash_wide(const Args a) {
+  using L = Wide<DP>;
+  constexpr int BK = L::BK;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = nesr::smem_u32(smem);
+  const uint32_t q_s = base, k_s = base + L::K_OFF, v_s = base + L::V_OFF;
+  const uint32_t p_s = base + L::P_OFF;
+  float* alpha_s = reinterpret_cast<float*>(smem + L::A_OFF);
+  float* l_s = reinterpret_cast<float*>(smem + L::L_OFF);
+  const uint32_t kfull = base + L::BAR_OFF, pfull = kfull + 8,
+                 pempty = kfull + 24, l_bar = kfull + 40, vfull = kfull + 48;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, i = tid % 128;
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int nkv = (a.Skv + BK - 1) / BK;
+
+  if (tid == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+    const int counts[6] = {128, 4, 4, 4 * L::NPV, 4 * L::NPV, 4};
+    for (int n = 0; n < 6; ++n) nesr::mbar_init(&bars[n], counts[n]);
+    for (int c = 0; c < L::NPV; ++c) nesr::mbar_init(&bars[6 + c], 128);
+    nesr::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int g = lane / 4, t = lane % 4, wrow = 16 * (warp % 4);
+  if (wg == 0) {   // S = Q K^T and the online softmax
+    const bf16* kb = a.k + b * a.ksb + h * a.ksh;
+    load_tile<BQ, DP, DP>(q_s, a.q + b * a.qsb + h * a.qsh, a.qss, q0, a.Sq,
+                          0, a.D, i, 128);
+    load_tile<BK, DP, DP>(k_s, kb, a.kss, 0, a.Skv, 0, a.D, i, 128);
+    nesr::cp_async_arrive(kfull);
+    float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+    for (int j = 0; j < nkv; ++j) {
+      nesr::mbar_wait(kfull, j & 1);
+      nesr::fence_proxy_async();
+      float sc[BK / 2];
+      nesr::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        nesr::wgmma_ss<BK>(sc, kmajor_desc<DP>(q_s, kk),
+                           kmajor_desc<DP>(k_s, kk), kk > 0);
+      nesr::wgmma_commit();
+      nesr::wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) nesr::reg_fence(sc[e]);
+      group_sync(1, 128);   // every warp's MMAs are done with K_j
+      if (j + 1 < nkv) {
+        load_tile<BK, DP, DP>(k_s, kb, a.kss, (j + 1) * BK, a.Skv, 0, a.D, i,
+                              128);
+        nesr::cp_async_arrive(kfull);
+      }
+
+      float alpha[2];
+      softmax_tile<BK>(sc, m, l, alpha, j * BK, a.Skv, a.scale, t);
+      const int pb = j & 1;
+      if (j >= 2) nesr::mbar_wait(pempty + 8 * pb, ((j >> 1) - 1) & 1);
+      unsigned char* pt = smem + L::P_OFF + pb * L::P_BYTES;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<uint32_t*>(
+              pt + tile_off<BK>(wrow + g + 8 * r, 8 * n + 2 * t)) =
+              pack_bf16(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]);
+      }
+      if (t == 0) {
+        alpha_s[pb * BQ + wrow + g] = alpha[0];
+        alpha_s[pb * BQ + wrow + g + 8] = alpha[1];
+      }
+      nesr::fence_proxy_async();
+      warp_arrive(pfull + 8 * pb);
+    }
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+    if (t == 0) {
+      l_s[wrow + g] = l[0];
+      l_s[wrow + g + 8] = l[1];
+    }
+    warp_arrive(l_bar);
+    return;
+  }
+
+  // P V on columns [c0, c0 + 128)
+  const int c = wg - 1, c0 = 128 * c;
+  const uint32_t my_vfull = vfull + 8 * c;
+  const bf16* vb = a.v + b * a.vsb + h * a.vsh;
+  load_tile<BK, DP, 128>(v_s, vb, a.vss, 0, a.Skv, c0, a.D, i, 128);
+  nesr::cp_async_arrive(my_vfull);
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+  for (int j = 0; j < nkv; ++j) {
+    const int pb = j & 1;
+    nesr::mbar_wait(pfull + 8 * pb, (j >> 1) & 1);
+    const float a0 = alpha_s[pb * BQ + wrow + g];
+    const float a1 = alpha_s[pb * BQ + wrow + g + 8];
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      acc[4 * n] *= a0;
+      acc[4 * n + 1] *= a0;
+      acc[4 * n + 2] *= a1;
+      acc[4 * n + 3] *= a1;
+    }
+    nesr::mbar_wait(my_vfull, j & 1);
+    nesr::fence_proxy_async();
+    nesr::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      nesr::wgmma_ss_tb<128>(acc,
+                             kmajor_desc<BK>(p_s + pb * L::P_BYTES, kk),
+                             trans_desc<DP>(v_s + c0 / 8 * 128, kk));
+    nesr::wgmma_commit();
+    nesr::wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < 64; ++e) nesr::reg_fence(acc[e]);
+    group_sync(2 + c, 128);   // every warp's MMAs are done with P_j, V_j
+    warp_arrive(pempty + 8 * pb);
+    if (j + 1 < nkv) {
+      load_tile<BK, DP, 128>(v_s, vb, a.vss, (j + 1) * BK, a.Skv, c0, a.D, i,
+                             128);
+      nesr::cp_async_arrive(my_vfull);
+    }
+  }
+  nesr::mbar_wait(l_bar, 0);
+  float l[2] = {l_s[wrow + g], l_s[wrow + g + 8]};
+  store_rows<128>(a, acc, l, q0 + wrow + g, c0, t);
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, int threads, int smem, const Args& a, int B,
            cudaStream_t stream) {
-  constexpr int smem = smem_bytes<DP, DV>();
   // Set per call: the attribute is per device, and the call is cheap.
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_kernel<DP, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H, (D + DV - 1) / DV);
-  flash_attn_kernel<DP, DV><<<grid, THREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, H, Sq, Skv, D,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], scale);
+  dim3 grid((a.Sq + BQ - 1) / BQ, B * a.H);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int DP, int BK>
+int launch_narrow(const Args& a, int B, cudaStream_t s) {
+  return launch(flash_narrow<DP, BK>, NARROW_THREADS, Narrow<DP, BK>::BYTES,
+                a, B, s);
+}
+
+template <int DP>
+int launch_wide(const Args& a, int B, cudaStream_t s) {
+  return launch(flash_wide<DP>, Wide<DP>::THREADS, Wide<DP>::BYTES, a, B, s);
 }
 
 }  // namespace
@@ -242,20 +519,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // strides: 12 element strides, (batch, head, sequence) for q, k, v, o.
 extern "C" int nesr_flash_attn(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int Sq, int Skv, int D,
-                               const long long* strides, float scale,
+                               const long long* st, float scale,
                                void* stream) {
+  const Args a{(const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
+               H, Sq, Skv, D, st[0], st[1], st[2], st[3], st[4], st[5],
+               st[6], st[7], st[8], st[9], st[10], st[11], scale};
   cudaStream_t s = (cudaStream_t)stream;
-  if (D <= 16) return launch<16, 16>(q, k, v, o, B, H, Sq, Skv, D, strides,
-                                     scale, s);
-  if (D <= 32) return launch<32, 32>(q, k, v, o, B, H, Sq, Skv, D, strides,
-                                     scale, s);
-  if (D <= 64) return launch<64, 64>(q, k, v, o, B, H, Sq, Skv, D, strides,
-                                     scale, s);
-  if (D <= 128) return launch<128, 128>(q, k, v, o, B, H, Sq, Skv, D, strides,
-                                        scale, s);
-  if (D <= 256) return launch<256, 128>(q, k, v, o, B, H, Sq, Skv, D, strides,
-                                        scale, s);
-  if (D <= 512) return launch<512, 128>(q, k, v, o, B, H, Sq, Skv, D, strides,
-                                        scale, s);
+  if (D <= 16) return launch_narrow<16, 128>(a, B, s);
+  if (D <= 32) return launch_narrow<32, 128>(a, B, s);
+  if (D <= 64) return launch_narrow<64, 128>(a, B, s);
+  if (D <= 128) return launch_narrow<128, 64>(a, B, s);
+  if (D <= 256) return launch_wide<256>(a, B, s);
+  if (D <= 512) return launch_wide<512>(a, B, s);
   return (int)cudaErrorInvalidValue;
 }

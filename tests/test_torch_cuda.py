@@ -184,8 +184,12 @@ def _qkv(cuda, b, h, sq, skv, d, seed):
 @pytest.mark.parametrize("b,h,sq,skv,d", [
     (1, 8, 256, 256, 64), (2, 4, 300, 300, 64), (1, 2, 200, 330, 128),
     (1, 1, 1000, 1000, 512), (1, 2, 240, 240, 8), (1, 1, 960, 960, 16),
-    (1, 2, 70, 45, 256)])
+    (1, 2, 70, 45, 256), (1, 2, 130, 190, 24), (2, 1, 100, 257, 72),
+    (1, 2, 77, 150, 136), (1, 1, 333, 200, 264), (1, 1, 1000, 4000, 512)])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, sq, skv, d):
+    """Both forms (d <= 128 narrow, above it wide) at head dims padded to
+    16..512, query counts off the 64-row block and key counts off the key
+    tile (64 or 128), d = 512 over 4000 keys, several (batch, head) pairs."""
     q, k, v = _qkv(cuda, b, h, sq, skv, d, seed=sq)
     launches, calls = flash_attention.launches, flash_attention_plain.calls
     got = flash_attention(q, k, v)
@@ -207,18 +211,20 @@ def test_flash_attention_kernel_masks_padded_keys(cuda):
     assert (flash_attention(q, k, v).float() - want).abs().max() <= 2e-3
 
 
-def test_attention_auto_runs_the_kernel_on_packed_views(cuda):
+@pytest.mark.parametrize("dm,heads", [(256, 4), (272, 2), (1024, 2)],
+                         ids=["d64", "d136", "d512"])
+def test_attention_auto_runs_the_kernel_on_packed_views(cuda, dm, heads):
     """(B, S, H*d) projections go to K3 as (B, H, S, d) views; f32 out."""
     g = torch.Generator().manual_seed(1)
-    q, k, v = ((torch.randn((2, 333, 256), generator=g) * 2).to(cuda)
+    q, k, v = ((torch.randn((2, 333, dm), generator=g) * 2).to(cuda)
                for _ in range(3))
     launches = flash_attention.launches
-    out = attention_auto(q, k, v, 4)
+    out = attention_auto(q, k, v, heads)
     assert flash_attention.launches == launches + 1
-    assert out.dtype == torch.float32 and out.shape == (2, 333, 256)
-    heads = [t.to(torch.bfloat16).view(2, 333, 4, 64).transpose(1, 2)
-             for t in (q, k, v)]
-    ref = flash_attention_plain(*heads).transpose(1, 2).reshape(2, 333, 256)
+    assert out.dtype == torch.float32 and out.shape == (2, 333, dm)
+    views = [t.to(torch.bfloat16).view(2, 333, heads, dm // heads
+                                       ).transpose(1, 2) for t in (q, k, v)]
+    ref = flash_attention_plain(*views).transpose(1, 2).reshape(2, 333, dm)
     assert ((out - ref.float()).abs().max() / ref.float().abs().max()
             ).item() <= 2e-2
 

@@ -69,8 +69,8 @@ VARIANTS = {
 # phases: 0 start, 1 patch staged, 2 first slab in, 3 / 5 N tile 0 / 1's
 # taps done, 4 / 6 N tile 0 / 1's stores issued.
 TRACE_EDITS = [
-    ('#include "wgmma_rs.cuh"\n',
-     '#include "wgmma_rs.cuh"\n'
+    ('#include "wgmma.cuh"\n',
+     '#include "wgmma.cuh"\n'
      "__device__ unsigned long long k1_trace[1 << 20];\n"
      'extern "C" int k1_trace_copy(void* host, int n) {\n'
      "  return (int)cudaMemcpyFromSymbol(host, k1_trace, n * 8);\n}\n"
