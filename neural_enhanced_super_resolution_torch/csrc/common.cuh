@@ -108,22 +108,8 @@ __device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
   }
 }
 
-// 16-byte cp.async to a shared address, zero-filled past `src_bytes`.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-// Arrives on `bar` once every cp.async this thread issued before it has
-// landed; counts as one of the barrier's expected arrivals.
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// Orders this thread's view of shared memory written through ordinary
-// stores or cp.async before reads by the async proxy (wgmma operands).
+// Orders this thread's ordinary stores to shared memory before reads by
+// the async proxy (wgmma operands).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -171,6 +157,25 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Announces `bytes` of copies that will complete on `bar`, and arrives.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// One TMA box of a 4-d tensor map (a __grid_constant__ kernel parameter)
+// at coordinates (x0, x1, x2, x3), inner first, into shared memory; the
+// box's bytes complete a transaction on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            int x0, int x1, int x2, int x3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(x1),
+         "r"(x2), "r"(x3), "r"(bar) : "memory");
 }
 
 // Prefetch `bytes` (a multiple of 16, 16-byte aligned) of global memory

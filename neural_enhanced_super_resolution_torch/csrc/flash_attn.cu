@@ -57,6 +57,8 @@
 // (B, S, H*d) projections are read and written in place. The wrapper
 // (kernels/attention.py) checks: bf16, d % 8 == 0, d <= 512, strides and
 // base pointers 16-byte aligned.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -66,59 +68,79 @@ namespace {
 
 using nesr::bf16;
 
-constexpr int BQ = 64;             // query rows a block
+constexpr int BQ = 64;             // query rows a warpgroup
 constexpr int SM_SMEM = 233472;    // shared memory of an H100 SM (228 KB)
 
 struct Args {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
   bf16* o;
   int H, Sq, Skv, D;
-  long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
+  long long osb, osh, oss;
   float scale;
+  // 1 where a tensor map's coordinates are (column, row, head, batch), 0
+  // where they are (column, head, row, batch): q, k, v
+  int s_inner[3];
 };
 
-// Byte offset of element (r, c) of an R x DP bf16 tile in the no-swizzle
-// core-matrix layout: row group r / 8 holds DP / 8 core matrices side by
-// side along the columns; core matrix (r / 8, c / 8) is 8 rows of 16
-// bytes. As a K-major operand (rows = M or N, columns = K) a k-step of 16
-// columns starts 256 bytes further, with LBO 128 (along K) and SBO 16 DP
-// (along the rows); as a transposed B (rows = K, columns = N) a k-step of
-// 16 rows starts 32 DP bytes further, with LBO 16 DP and SBO 128.
+// A tile of ROWS x DP bf16 as TMA writes it: DP / CW boxes one after the
+// other, each ROWS rows of 2 CW bytes with the 16-byte chunks of every
+// 8-row atom swizzled over 2 CW bytes. CW is 64 columns (128 bytes, the
+// widest swizzle) or DP where DP is narrower.
 template <int DP>
-__device__ __forceinline__ uint32_t tile_off(int r, int c) {
-  return ((r >> 3) * (DP / 8) + (c >> 3)) * 128 + (r & 7) * 16 + (c & 7) * 2;
+__host__ __device__ constexpr int box_cols() { return DP < 64 ? DP : 64; }
+
+// wgmma descriptor layout field for a swizzle span of 2 CW bytes.
+template <int CW>
+__host__ __device__ constexpr uint64_t swizzle_mode() {
+  return CW == 64 ? 1ull : CW == 32 ? 2ull : 3ull;   // 128B, 64B, 32B
 }
 
-template <int DP>
+// Q or K as a K-major operand (rows = M or N, columns = K): k-step kk (16
+// columns) starts in box 16kk / CW, 32 (kk mod CW / 16) bytes into the
+// swizzle atom; 8-row groups are 16 CW bytes apart (SBO).
+template <int DP, int ROWS>
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
-  return nesr::wgmma_desc(tile + kk * 256, 128, 16 * DP);
+  constexpr int CW = box_cols<DP>();
+  const uint32_t addr =
+      tile + (kk * 16 / CW) * ROWS * CW * 2 + (kk * 16 % CW) * 2;
+  return nesr::wgmma_desc(addr, 16, 16 * CW) | (swizzle_mode<CW>() << 62);
 }
 
-template <int DP>
+// V as a transposed B (rows = keys = K, columns = N): k-step kk is 16 rows
+// on; the boxes of CW columns are ROWS x 2 CW bytes apart along N (LBO),
+// 8-row groups 16 CW bytes apart (SBO).
+template <int DP, int ROWS>
 __device__ __forceinline__ uint64_t trans_desc(uint32_t tile, int kk) {
-  return nesr::wgmma_desc(tile + kk * 32 * DP, 16 * DP, 128);
+  constexpr int CW = box_cols<DP>();
+  return nesr::wgmma_desc(tile + kk * 32 * CW, ROWS * CW * 2, 16 * CW) |
+         (swizzle_mode<CW>() << 62);
 }
 
-// cp.async rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a strided
-// bf16 source into the ROWS x DP tile at shared address `dst`, zero-filling
-// rows >= nrows and columns >= D; thread i of n. Eight consecutive threads
-// fill one core matrix.
-template <int ROWS, int DP, int COLS>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
-                                          long long row_stride, int r0,
-                                          int nrows, int c0, int D, int i,
-                                          int n) {
-  constexpr int CH = COLS / 8;
-#pragma unroll 4
-  for (int it = i; it < ROWS * CH; it += n) {
-    const int r = (it & 7) + (it >> 3) / CH * 8;
-    const int c = c0 + (it >> 3) % CH * 8;
-    const bool ok = r0 + r < nrows && c < D;
-    const bf16* s = ok ? src + (long long)(r0 + r) * row_stride + c : src;
-    nesr::cp_async16(dst + tile_off<DP>(r, c), s, ok ? 16 : 0);
-  }
+// P (wide form) as a K-major A written by the softmax warpgroup, no
+// swizzle: core matrix (r / 8, c / 8) of 8 rows x 16 bytes at
+// ((r / 8) COLS / 8 + c / 8) 128 bytes; a k-step is 256 bytes on, LBO 128
+// (along K), SBO 16 COLS (along M).
+template <int COLS>
+__device__ __forceinline__ uint32_t p_off(int r, int c) {
+  return ((r >> 3) * (COLS / 8) + (c >> 3)) * 128 + (r & 7) * 16 + (c & 7) * 2;
+}
+
+template <int COLS>
+__device__ __forceinline__ uint64_t p_desc(uint32_t tile, int kk) {
+  return nesr::wgmma_desc(tile + kk * 256, 128, 16 * COLS);
+}
+
+// Boxes [box0, box0 + nbox) of rows [r0, r0 + ROWS) of (batch b, head h)
+// into the tile at `tile` (TMA zero-fills rows past the sequence and
+// columns past D); completes on `bar`, whose expected bytes the caller
+// has announced.
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t tile, const CUtensorMap* map,
+                                          int s_inner, int r0, int b, int h,
+                                          uint32_t bar, int box0, int nbox) {
+  constexpr int CW = box_cols<DP>();
+  const int x1 = s_inner ? r0 : h, x2 = s_inner ? h : r0;
+  for (int i = box0; i < box0 + nbox; ++i)
+    nesr::tma_load_4d(tile + i * ROWS * CW * 2, map, i * CW, x1, x2, b, bar);
 }
 
 // Online softmax of one score tile held as a wgmma accumulator: s[4j + e]
@@ -206,27 +228,37 @@ __device__ __forceinline__ void warp_arrive(uint32_t bar) {
 
 // ---- Narrow form: d <= 128 ------------------------------------------------
 
-constexpr int NARROW_THREADS = 160;   // one consumer warpgroup + a producer
+constexpr int ring_stages(int fixed, int stage, int blocks) {
+  return blocks * (fixed + 4 * stage + 1152) <= SM_SMEM   ? 4
+         : blocks * (fixed + 3 * stage + 1152) <= SM_SMEM ? 3
+                                                          : 2;
+}
 
-template <int DP, int BK>
+// NCW consumer warpgroups (64 query rows each) and one producer warp.
+template <int DP, int BK, int NCW>
 struct Narrow {
-  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int THREADS = 128 * NCW + 32;
+  // Two blocks an SM where the registers allow (d <= 64), else one.
+  static constexpr int BLOCKS = DP <= 64 ? 2 : 1;
+  static constexpr int Q_BYTES = 64 * NCW * DP * 2;
   static constexpr int KV_BYTES = BK * DP * 2;   // one K or V tile
-  // Three ring stages where two blocks an SM still fit, else two.
-  static constexpr int STAGES =
-      2 * (Q_BYTES + 6 * KV_BYTES + 128 + 1024) <= SM_SMEM ? 3 : 2;
+  // The deepest ring (2..4 stages) that keeps BLOCKS blocks on an SM.
+  static constexpr int STAGES = ring_stages(Q_BYTES, 2 * KV_BYTES, BLOCKS);
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   // barriers: Q, then K full, V full and empty per stage
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES);
-  static_assert(2 * (BYTES + 1024) <= SM_SMEM, "K3: two blocks an SM");
+  static_assert(BLOCKS * (BYTES + 1024) <= SM_SMEM, "K3: narrow ring");
 };
 
-template <int DP, int BK>
-__global__ void __launch_bounds__(NARROW_THREADS, 2)
-flash_narrow(const Args a) {
-  using L = Narrow<DP, BK>;
+template <int DP, int BK, int NCW>
+__global__ void __launch_bounds__(Narrow<DP, BK, NCW>::THREADS,
+                                  Narrow<DP, BK, NCW>::BLOCKS)
+flash_narrow(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, const Args a) {
+  using L = Narrow<DP, BK, NCW>;
   constexpr int ST = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = nesr::smem_u32(smem);
@@ -235,43 +267,42 @@ flash_narrow(const Args a) {
   const uint32_t kfull = q_bar + 8, vfull = kfull + 8 * ST,
                  empty = vfull + 8 * ST;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * 64 * NCW;
   const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
   const int nkv = (a.Skv + BK - 1) / BK;
 
   if (tid == 0) {
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-    nesr::mbar_init(&bars[0], 32);
-    for (int s = 0; s < ST; ++s) {
-      nesr::mbar_init(&bars[1 + s], 32);
-      nesr::mbar_init(&bars[1 + ST + s], 32);
-      nesr::mbar_init(&bars[1 + 2 * ST + s], 4);
-    }
+    for (int s = 0; s < 1 + 2 * ST; ++s) nesr::mbar_init(&bars[s], 1);
+    for (int s = 0; s < ST; ++s)
+      nesr::mbar_init(&bars[1 + 2 * ST + s], 4 * NCW);
     nesr::mbar_init_fence();
   }
   __syncthreads();
 
-  if (warp == 4) {   // producer: Q once, then the K/V ring
-    load_tile<BQ, DP, DP>(q_s, a.q + b * a.qsb + h * a.qsh, a.qss, q0, a.Sq,
-                          0, a.D, lane, 32);
-    nesr::cp_async_arrive(q_bar);
-    const bf16* kb = a.k + b * a.ksb + h * a.ksh;
-    const bf16* vb = a.v + b * a.vsb + h * a.vsh;
-    for (int j = 0; j < nkv; ++j) {
-      const int s = j % ST;
-      if (j >= ST) nesr::mbar_wait(empty + 8 * s, (j / ST - 1) & 1);
-      load_tile<BK, DP, DP>(k_s + s * L::KV_BYTES, kb, a.kss, j * BK, a.Skv,
-                            0, a.D, lane, 32);
-      nesr::cp_async_arrive(kfull + 8 * s);
-      load_tile<BK, DP, DP>(v_s + s * L::KV_BYTES, vb, a.vss, j * BK, a.Skv,
-                            0, a.D, lane, 32);
-      nesr::cp_async_arrive(vfull + 8 * s);
+  if (warp == 4 * NCW) {   // producer (one thread): Q once, the K/V ring
+    if (lane == 0) {
+      constexpr int NBOX = DP / box_cols<DP>();
+      nesr::mbar_expect_tx(q_bar, L::Q_BYTES);
+      load_tile<DP, 64 * NCW>(q_s, &tq, a.s_inner[0], q0, b, h, q_bar, 0,
+                              NBOX);
+      for (int j = 0; j < nkv; ++j) {
+        const int s = j % ST;
+        if (j >= ST) nesr::mbar_wait(empty + 8 * s, (j / ST - 1) & 1);
+        nesr::mbar_expect_tx(kfull + 8 * s, L::KV_BYTES);
+        load_tile<DP, BK>(k_s + s * L::KV_BYTES, &tk, a.s_inner[1], j * BK,
+                          b, h, kfull + 8 * s, 0, NBOX);
+        nesr::mbar_expect_tx(vfull + 8 * s, L::KV_BYTES);
+        load_tile<DP, BK>(v_s + s * L::KV_BYTES, &tv, a.s_inner[2], j * BK,
+                          b, h, vfull + 8 * s, 0, NBOX);
+      }
     }
-    nesr::cp_async_wait_all();
     return;
   }
 
-  const int g = lane / 4, t = lane % 4;
+  // Consumer warpgroup wg: query rows q0 + 64 wg .. + 63.
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const uint32_t my_q = q_s + wg * 64 * box_cols<DP>() * 2;
   float acc[DP / 2];
 #pragma unroll
   for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
@@ -280,13 +311,13 @@ flash_narrow(const Args a) {
   for (int j = 0; j < nkv; ++j) {
     const int s = j % ST, par = (j / ST) & 1;
     nesr::mbar_wait(kfull + 8 * s, par);
-    nesr::fence_proxy_async();
     float sc[BK / 2];
     nesr::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      nesr::wgmma_ss<BK>(sc, kmajor_desc<DP>(q_s, kk),
-                         kmajor_desc<DP>(k_s + s * L::KV_BYTES, kk), kk > 0);
+      nesr::wgmma_ss<BK>(sc, kmajor_desc<DP, 64 * NCW>(my_q, kk),
+                         kmajor_desc<DP, BK>(k_s + s * L::KV_BYTES, kk),
+                         kk > 0);
     nesr::wgmma_commit();
     nesr::wgmma_wait<0>();   // S_j, and P V_{j-1} before it, have retired
 #pragma unroll
@@ -315,12 +346,11 @@ flash_narrow(const Args a) {
       p[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
     nesr::mbar_wait(vfull + 8 * s, par);
-    nesr::fence_proxy_async();
     nesr::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
       nesr::wgmma_rs_tb<DP>(acc, p[kk],
-                            trans_desc<DP>(v_s + s * L::KV_BYTES, kk));
+                            trans_desc<DP, BK>(v_s + s * L::KV_BYTES, kk));
     nesr::wgmma_commit();
   }
   nesr::wgmma_wait<0>();
@@ -330,7 +360,6 @@ flash_narrow(const Args a) {
   l[1] = quad_sum(l[1]);
   store_rows<DP>(a, acc, l, q0 + 16 * warp + g, 0, t);
 }
-
 // ---- Wide form: 128 < d <= 512 --------------------------------------------
 
 template <int DP>
@@ -361,7 +390,9 @@ __device__ __forceinline__ void group_sync(int id, int n) {
 // 96 registers a thread, enough for P V's 64 accumulators.
 template <int DP>
 __global__ void __launch_bounds__(Wide<DP>::THREADS, 1)
-flash_wide(const Args a) {
+flash_wide(const __grid_constant__ CUtensorMap tq,
+           const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv, const Args a) {
   using L = Wide<DP>;
   constexpr int BK = L::BK;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -380,39 +411,38 @@ flash_wide(const Args a) {
 
   if (tid == 0) {
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-    const int counts[6] = {128, 4, 4, 4 * L::NPV, 4 * L::NPV, 4};
+    const int counts[6] = {1, 4, 4, 4 * L::NPV, 4 * L::NPV, 4};
     for (int n = 0; n < 6; ++n) nesr::mbar_init(&bars[n], counts[n]);
-    for (int c = 0; c < L::NPV; ++c) nesr::mbar_init(&bars[6 + c], 128);
+    for (int c = 0; c < L::NPV; ++c) nesr::mbar_init(&bars[6 + c], 1);
     nesr::mbar_init_fence();
   }
   __syncthreads();
 
   const int g = lane / 4, t = lane % 4, wrow = 16 * (warp % 4);
   if (wg == 0) {   // S = Q K^T and the online softmax
-    const bf16* kb = a.k + b * a.ksb + h * a.ksh;
-    load_tile<BQ, DP, DP>(q_s, a.q + b * a.qsb + h * a.qsh, a.qss, q0, a.Sq,
-                          0, a.D, i, 128);
-    load_tile<BK, DP, DP>(k_s, kb, a.kss, 0, a.Skv, 0, a.D, i, 128);
-    nesr::cp_async_arrive(kfull);
+    if (i == 0) {
+      nesr::mbar_expect_tx(kfull, 2 * L::T_BYTES);
+      load_tile<DP, BQ>(q_s, &tq, a.s_inner[0], q0, b, h, kfull, 0, DP / 64);
+      load_tile<DP, BK>(k_s, &tk, a.s_inner[1], 0, b, h, kfull, 0, DP / 64);
+    }
     float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
     for (int j = 0; j < nkv; ++j) {
       nesr::mbar_wait(kfull, j & 1);
-      nesr::fence_proxy_async();
       float sc[BK / 2];
       nesr::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        nesr::wgmma_ss<BK>(sc, kmajor_desc<DP>(q_s, kk),
-                           kmajor_desc<DP>(k_s, kk), kk > 0);
+        nesr::wgmma_ss<BK>(sc, kmajor_desc<DP, BQ>(q_s, kk),
+                           kmajor_desc<DP, BK>(k_s, kk), kk > 0);
       nesr::wgmma_commit();
       nesr::wgmma_wait<0>();
 #pragma unroll
       for (int e = 0; e < BK / 2; ++e) nesr::reg_fence(sc[e]);
       group_sync(1, 128);   // every warp's MMAs are done with K_j
-      if (j + 1 < nkv) {
-        load_tile<BK, DP, DP>(k_s, kb, a.kss, (j + 1) * BK, a.Skv, 0, a.D, i,
-                              128);
-        nesr::cp_async_arrive(kfull);
+      if (i == 0 && j + 1 < nkv) {
+        nesr::mbar_expect_tx(kfull, L::T_BYTES);
+        load_tile<DP, BK>(k_s, &tk, a.s_inner[1], (j + 1) * BK, b, h, kfull,
+                          0, DP / 64);
       }
 
       float alpha[2];
@@ -425,7 +455,7 @@ flash_wide(const Args a) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
           *reinterpret_cast<uint32_t*>(
-              pt + tile_off<BK>(wrow + g + 8 * r, 8 * n + 2 * t)) =
+              pt + p_off<BK>(wrow + g + 8 * r, 8 * n + 2 * t)) =
               pack_bf16(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]);
       }
       if (t == 0) {
@@ -448,9 +478,11 @@ flash_wide(const Args a) {
   // P V on columns [c0, c0 + 128)
   const int c = wg - 1, c0 = 128 * c;
   const uint32_t my_vfull = vfull + 8 * c;
-  const bf16* vb = a.v + b * a.vsb + h * a.vsh;
-  load_tile<BK, DP, 128>(v_s, vb, a.vss, 0, a.Skv, c0, a.D, i, 128);
-  nesr::cp_async_arrive(my_vfull);
+  // this slice's V: boxes 2c and 2c + 1 of each tile
+  if (i == 0) {
+    nesr::mbar_expect_tx(my_vfull, L::T_BYTES / L::NPV);
+    load_tile<DP, BK>(v_s, &tv, a.s_inner[2], 0, b, h, my_vfull, 2 * c, 2);
+  }
   float acc[64];
 #pragma unroll
   for (int e = 0; e < 64; ++e) acc[e] = 0.f;
@@ -467,23 +499,21 @@ flash_wide(const Args a) {
       acc[4 * n + 3] *= a1;
     }
     nesr::mbar_wait(my_vfull, j & 1);
-    nesr::fence_proxy_async();
     nesr::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      nesr::wgmma_ss_tb<128>(acc,
-                             kmajor_desc<BK>(p_s + pb * L::P_BYTES, kk),
-                             trans_desc<DP>(v_s + c0 / 8 * 128, kk));
+      nesr::wgmma_ss_tb<128>(acc, p_desc<BK>(p_s + pb * L::P_BYTES, kk),
+                             trans_desc<DP, BK>(v_s + 2 * c * BK * 128, kk));
     nesr::wgmma_commit();
     nesr::wgmma_wait<0>();
 #pragma unroll
     for (int e = 0; e < 64; ++e) nesr::reg_fence(acc[e]);
     group_sync(2 + c, 128);   // every warp's MMAs are done with P_j, V_j
     warp_arrive(pempty + 8 * pb);
-    if (j + 1 < nkv) {
-      load_tile<BK, DP, 128>(v_s, vb, a.vss, (j + 1) * BK, a.Skv, c0, a.D, i,
-                             128);
-      nesr::cp_async_arrive(my_vfull);
+    if (i == 0 && j + 1 < nkv) {
+      nesr::mbar_expect_tx(my_vfull, L::T_BYTES / L::NPV);
+      load_tile<DP, BK>(v_s, &tv, a.s_inner[2], (j + 1) * BK, b, h, my_vfull,
+                        2 * c, 2);
     }
   }
   nesr::mbar_wait(l_bar, 0);
@@ -491,27 +521,114 @@ flash_wide(const Args a) {
   store_rows<128>(a, acc, l, q0 + wrow + g, c0, t);
 }
 
+// The driver's tensor-map encoder, looked up once through the runtime, so
+// the library needs no link against the driver.
+PFN_cuTensorMapEncodeTiled_v12000 encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// One operand: its base, sequence length and element strides.
+struct Operand {
+  const void* ptr;
+  int S;
+  long long sb, sh, ss;
+};
+
+// A 4-d tensor map over (D, S, H, B) of one operand with the sequence and
+// head dims ordered inner to outer by stride (packed (B, S, H, d) views
+// step heads faster than rows); boxes of cw columns x rows rows, swizzled
+// over 2 cw bytes, zero fill past every edge. A dim of one element is
+// never stepped and gets a stride the encoder takes.
+int make_map(CUtensorMap* map, const Operand& t, int D, int H, int B, int cw,
+             int rows, int* s_inner) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  cuuint64_t ss = t.ss * 2, sh = t.sh * 2, sb = t.sb * 2;   // bytes
+  if (t.S == 1) ss = (cuuint64_t)D * 2;
+  if (H == 1) sh = ss * t.S;
+  if (B == 1) sb = ss * t.S > sh * H ? ss * t.S : sh * H;
+  const bool inner = ss <= sh;
+  *s_inner = inner;
+  const cuuint64_t S = t.S, Hd = H;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, inner ? S : Hd, inner ? Hd : S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {inner ? ss : sh, inner ? sh : ss, sb};
+  const cuuint32_t box[4] = {(cuuint32_t)cw, inner ? (cuuint32_t)rows : 1u,
+                             inner ? 1u : (cuuint32_t)rows, 1u};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = cw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t.ptr),
+      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Maps of q (boxes of q_rows rows) and of k and v (kv_rows rows).
+template <int DP>
+int make_maps(CUtensorMap (&maps)[3], const Operand (&ops)[3], Args& a,
+              int B, int q_rows, int kv_rows) {
+  for (int i = 0; i < 3; ++i) {
+    const int err = make_map(&maps[i], ops[i], a.D, a.H, B, box_cols<DP>(),
+                             i == 0 ? q_rows : kv_rows, &a.s_inner[i]);
+    if (err) return err;
+  }
+  return 0;
+}
+
 template <typename Kernel>
-int launch(Kernel kernel, int threads, int smem, const Args& a, int B,
+int launch(Kernel kernel, int threads, int smem, int rows,
+           const CUtensorMap (&maps)[3], const Args& a, int B,
            cudaStream_t stream) {
   // Set per call: the attribute is per device, and the call is cheap.
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Sq + BQ - 1) / BQ, B * a.H);
-  kernel<<<grid, threads, smem, stream>>>(a);
+  dim3 grid((a.Sq + rows - 1) / rows, B * a.H);
+  kernel<<<grid, threads, smem, stream>>>(maps[0], maps[1], maps[2], a);
   return (int)cudaGetLastError();
 }
 
+// 128 query rows a block (two consumer warpgroups share each K/V tile, so
+// the blocks read half as much from L2) where that still gives every SM a
+// block; 64 otherwise.
 template <int DP, int BK>
-int launch_narrow(const Args& a, int B, cudaStream_t s) {
-  return launch(flash_narrow<DP, BK>, NARROW_THREADS, Narrow<DP, BK>::BYTES,
-                a, B, s);
+int launch_narrow(const Operand (&ops)[3], Args a, int B, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int ncw = (long long)((a.Sq + 127) / 128) * B * a.H >= sms ? 2 : 1;
+  CUtensorMap maps[3];
+  if (const int e = make_maps<DP>(maps, ops, a, B, 64 * ncw, BK)) return e;
+  if (ncw == 2) {
+    using L = Narrow<DP, BK, 2>;
+    return launch(flash_narrow<DP, BK, 2>, L::THREADS, L::BYTES, 128, maps, a,
+                  B, s);
+  }
+  using L = Narrow<DP, BK, 1>;
+  return launch(flash_narrow<DP, BK, 1>, L::THREADS, L::BYTES, 64, maps, a, B,
+                s);
 }
 
 template <int DP>
-int launch_wide(const Args& a, int B, cudaStream_t s) {
-  return launch(flash_wide<DP>, Wide<DP>::THREADS, Wide<DP>::BYTES, a, B, s);
+int launch_wide(const Operand (&ops)[3], Args a, int B, cudaStream_t s) {
+  CUtensorMap maps[3];
+  if (const int e = make_maps<DP>(maps, ops, a, B, BQ, Wide<DP>::BK)) return e;
+  return launch(flash_wide<DP>, Wide<DP>::THREADS, Wide<DP>::BYTES, BQ, maps,
+                a, B, s);
 }
 
 }  // namespace
@@ -521,15 +638,25 @@ extern "C" int nesr_flash_attn(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int Sq, int Skv, int D,
                                const long long* st, float scale,
                                void* stream) {
-  const Args a{(const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
-               H, Sq, Skv, D, st[0], st[1], st[2], st[3], st[4], st[5],
-               st[6], st[7], st[8], st[9], st[10], st[11], scale};
+  const Operand ops[3] = {{q, Sq, st[0], st[1], st[2]},
+                          {k, Skv, st[3], st[4], st[5]},
+                          {v, Skv, st[6], st[7], st[8]}};
+  Args a{};
+  a.o = (bf16*)o;
+  a.H = H;
+  a.Sq = Sq;
+  a.Skv = Skv;
+  a.D = D;
+  a.osb = st[9];
+  a.osh = st[10];
+  a.oss = st[11];
+  a.scale = scale;
   cudaStream_t s = (cudaStream_t)stream;
-  if (D <= 16) return launch_narrow<16, 128>(a, B, s);
-  if (D <= 32) return launch_narrow<32, 128>(a, B, s);
-  if (D <= 64) return launch_narrow<64, 128>(a, B, s);
-  if (D <= 128) return launch_narrow<128, 64>(a, B, s);
-  if (D <= 256) return launch_wide<256>(a, B, s);
-  if (D <= 512) return launch_wide<512>(a, B, s);
+  if (D <= 16) return launch_narrow<16, 128>(ops, a, B, s);
+  if (D <= 32) return launch_narrow<32, 128>(ops, a, B, s);
+  if (D <= 64) return launch_narrow<64, 64>(ops, a, B, s);
+  if (D <= 128) return launch_narrow<128, 64>(ops, a, B, s);
+  if (D <= 256) return launch_wide<256>(ops, a, B, s);
+  if (D <= 512) return launch_wide<512>(ops, a, B, s);
   return (int)cudaErrorInvalidValue;
 }
