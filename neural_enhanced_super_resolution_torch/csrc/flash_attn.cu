@@ -20,37 +20,42 @@
 // costs 4 d tensor-core FLOPs and one exponential and is never written to
 // device memory, so attention is bound by its operations. At d = 64 the
 // exponentials alone take as long as the matrix products at the tensor
-// cores' peak, so the softmax has to overlap the MMAs. At d = 512 a
-// 64-query block streams every K and V row once, 64 FLOPs a byte read from
-// L2: the blocks' K/V traffic through L2 is the second limit.
+// cores' peak, so the softmax has to run under the MMAs. At d = 512 each
+// 64-query block streams all of K and V through L2.
 //
 // Design, shared by both forms: a block owns 64 query rows of one (batch,
-// head); one producer warp stages Q once and K and V tiles into shared
-// memory by 16-byte cp.async with zero fill, written straight into
-// wgmma's no-swizzle core-matrix layout (8 rows x 16 bytes, 128 contiguous
-// bytes a core matrix, tile_off), and signals each tile on an mbarrier
-// (cp.async.mbarrier.arrive); consumers release a buffer on an mbarrier
-// once the MMAs that read it have retired. cp.async rather than TMA: the
-// views are strided with head dims that are not multiples of 64 (8, 24,
-// 72 ...), rows past Skv must be zero, and a tensor map per call would
-// cost a host encode on a host-bound loop. S = Q K^T runs as wgmma with
-// both operands from shared memory (Q and K K-major); P V reads V in its
-// natural key-major layout as a transposed B (imm-trans-b).
+// head). Q, K and V tiles arrive by TMA (cp.async.bulk.tensor from 4-d
+// tensor maps built per call, coordinates (column, row, head, batch)) in
+// boxes of 64 columns swizzled over 128 bytes (32 / 64 bytes at d 16 /
+// 32), the layout wgmma's descriptors read; the copy engine zero-fills
+// rows past Sq or Skv and columns past d, and completes each tile on an
+// mbarrier. Consumers release a buffer on an mbarrier once the MMAs that
+// read it have retired. S = Q K^T runs as wgmma with both operands from
+// shared memory (Q and K K-major); P V reads V in its natural key-major
+// layout as a transposed B (imm-trans-b). Tiles of 64 keys.
 //
-// Narrow form, d <= 128 (the UNet, 640 launches a request): one consumer
-// warpgroup computes S (m64 x BK keys) into registers, the online softmax
-// in registers, turns the S accumulator into P's A fragments in place and
-// issues P V from registers (wgmma RS, B = V transposed) into its 64 x DP
-// accumulator, while the producer keeps a 2-3 stage K/V ring in flight.
-// Two blocks share an SM, so one block's softmax overlaps the other's MMAs.
+// Narrow form, d <= 128 (the UNet, 640 launches a request): one producer
+// thread keeps a 2-4 stage K/V ring in flight; one consumer warpgroup
+// computes S into registers, issues S_{j+1} ahead of P V_j and runs the
+// online softmax of tile j + 1 under P V_j, turning the S accumulator into
+// P's A fragments in place (two register sets); P V reads P from registers
+// (wgmma RS). Three blocks share an SM at d <= 64, two at d = 128.
 //
 // Wide form, d in (128, 512] (the VAE mid-block, d = 512): each score tile
 // is computed once per KV tile. Q (64 x 512) stays in shared memory; one
-// warpgroup computes S (m64n64, 32 k-steps) and the softmax and writes P
-// (bf16, double-buffered) and each row's rescale factor alpha to shared
+// warpgroup computes S (m64n64, 32 k-steps) and the softmax, loads the
+// next K tile as soon as its MMAs retire, and writes P (bf16, double-
+// buffered, no swizzle) and each row's rescale factor alpha to shared
 // memory; d/128 warpgroups each own 128 output columns (64 fp32
-// accumulators a thread), rescale them by alpha and run P V on their V
-// slice. K_{j+1} lands while P V_j runs, and S_{j+1} overlaps P V_j.
+// accumulators a thread), load their own V slice, rescale by alpha and
+// run P V. S_{j+1} overlaps P V_j. No producer warp, so the five
+// warpgroups at d = 512 keep 96 registers a thread.
+//
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md): the
+// wide form reaches about half of its operations bound at the VAE shape
+// (1.1 ms against 0.556), the narrow form about 38% at the UNet's 64^2
+// (0.092 ms against 0.0347), where the exponentials and the MMAs each
+// cost about a tenth when taken out (tools/k3_ablation.py).
 //
 // q, k, v and o are addressed through (batch, head, sequence) strides in
 // elements with the head dim contiguous, so (B, S, H, d) views of packed
@@ -68,7 +73,7 @@ namespace {
 
 using nesr::bf16;
 
-constexpr int BQ = 64;             // query rows a warpgroup
+constexpr int BQ = 64;             // query rows a block
 constexpr int SM_SMEM = 233472;    // shared memory of an H100 SM (228 KB)
 
 struct Args {
@@ -143,42 +148,56 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const CUtensorMap* map,
     nesr::tma_load_4d(tile + i * ROWS * CW * 2, map, i * CW, x1, x2, b, bar);
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Online softmax of one score tile held as a wgmma accumulator: s[4j + e]
 // is row g (e < 2) or g + 8 of this warp's 16, key 8j + 2t + (e & 1).
-// Scales in fp32, masks keys >= Skv, updates the running max m and this
-// thread's share of l, turns s into P = exp(s - m) and returns each row's
-// rescale factor in alpha.
+// Masks keys >= Skv, updates the running max m of the scaled scores and
+// this thread's share of l, turns s into P = exp(s scale - m) and returns
+// each row's rescale factor in alpha. The scale is positive, so the row
+// max is taken on the raw sums and scaled once; exp(s scale - m) is
+// 2^(s (scale log2 e) - m log2 e), one fused multiply-add and the ex2
+// unit, as __expf computes it, without a separate scale and subtraction.
 template <int BK>
 __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
                                              float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int kv0,
                                              int Skv, float scale, int t) {
   float tmax[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  const bool ragged = kv0 + BK > Skv;
+  if (kv0 + BK > Skv) {
 #pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = s[4 * j + e] * scale;
-      if (ragged && kv0 + 8 * j + 2 * t + (e & 1) >= Skv) x = -CUDART_INF_F;
-      s[4 * j + e] = x;
-      tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
-    }
+      for (int e = 0; e < 4; ++e)
+        if (kv0 + 8 * j + 2 * t + (e & 1) >= Skv) s[4 * j + e] = -CUDART_INF_F;
   }
-  float rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      tmax[e >> 1] = fmaxf(tmax[e >> 1], s[4 * j + e]);
+  const float c = scale * kLog2e;
+  float rsum[2] = {0.f, 0.f}, mlog[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
     tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
-    const float m_new = fmaxf(m[i], tmax[i]);
+    const float m_new = fmaxf(m[i], tmax[i] * scale);
     alpha[i] = __expf(m[i] - m_new);
     m[i] = m_new;
+    mlog[i] = m_new * kLog2e;
   }
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      s[4 * j + e] = __expf(s[4 * j + e] - m[e >> 1]);
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], c, -mlog[e >> 1]));
       rsum[e >> 1] += s[4 * j + e];
     }
   }
@@ -226,7 +245,33 @@ __device__ __forceinline__ void warp_arrive(uint32_t bar) {
   if ((threadIdx.x & 31) == 0) nesr::mbar_arrive(bar);
 }
 
+// bar.sync on a named barrier (id > 0) that `n` threads share.
+__device__ __forceinline__ void group_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
 // ---- Narrow form: d <= 128 ------------------------------------------------
+
+// The softmax of a retired S tile, into P's A fragments for P V: the S
+// accumulator of keys 16kk..16kk+15 is k-step kk's fragment, (g, 2t),
+// (g + 8, 2t), (g, 8 + 2t), (g + 8, 8 + 2t).
+template <int BK>
+__device__ __forceinline__ void narrow_softmax(float (&sc)[BK / 2],
+                                               uint32_t (&p)[BK / 16][4],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], int kv0,
+                                               const Args& a, int t) {
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) nesr::reg_fence(sc[e]);
+  softmax_tile<BK>(sc, m, l, alpha, kv0, a.Skv, a.scale, t);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    p[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+    p[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    p[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    p[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
 
 constexpr int ring_stages(int fixed, int stage, int blocks) {
   return blocks * (fixed + 4 * stage + 1152) <= SM_SMEM   ? 4
@@ -234,13 +279,17 @@ constexpr int ring_stages(int fixed, int stage, int blocks) {
                                                           : 2;
 }
 
-// NCW consumer warpgroups (64 query rows each) and one producer warp.
-template <int DP, int BK, int NCW>
+// One consumer warpgroup (64 query rows) and one producer warp; three
+// blocks an SM at d <= 64, two at d = 128. Measured against two consumer
+// warpgroups a block (with and without taking turns at the tensor cores),
+// Q's fragments held in registers and 128-key tiles, this was fastest at
+// the UNet's shapes (tools/k3_ablation.py; PERF.md).
+template <int DP>
 struct Narrow {
-  static constexpr int THREADS = 128 * NCW + 32;
-  // Two blocks an SM where the registers allow (d <= 64), else one.
-  static constexpr int BLOCKS = DP <= 64 ? 2 : 1;
-  static constexpr int Q_BYTES = 64 * NCW * DP * 2;
+  static constexpr int BK = 64;
+  static constexpr int THREADS = 160;
+  static constexpr int BLOCKS = DP <= 64 ? 3 : 2;
+  static constexpr int Q_BYTES = BQ * DP * 2;
   static constexpr int KV_BYTES = BK * DP * 2;   // one K or V tile
   // The deepest ring (2..4 stages) that keeps BLOCKS blocks on an SM.
   static constexpr int STAGES = ring_stages(Q_BYTES, 2 * KV_BYTES, BLOCKS);
@@ -252,14 +301,13 @@ struct Narrow {
   static_assert(BLOCKS * (BYTES + 1024) <= SM_SMEM, "K3: narrow ring");
 };
 
-template <int DP, int BK, int NCW>
-__global__ void __launch_bounds__(Narrow<DP, BK, NCW>::THREADS,
-                                  Narrow<DP, BK, NCW>::BLOCKS)
+template <int DP>
+__global__ void __launch_bounds__(Narrow<DP>::THREADS, Narrow<DP>::BLOCKS)
 flash_narrow(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, const Args a) {
-  using L = Narrow<DP, BK, NCW>;
-  constexpr int ST = L::STAGES;
+  using L = Narrow<DP>;
+  constexpr int ST = L::STAGES, BK = L::BK;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = nesr::smem_u32(smem);
   const uint32_t q_s = base, k_s = base + L::K_OFF, v_s = base + L::V_OFF;
@@ -267,25 +315,23 @@ flash_narrow(const __grid_constant__ CUtensorMap tq,
   const uint32_t kfull = q_bar + 8, vfull = kfull + 8 * ST,
                  empty = vfull + 8 * ST;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * 64 * NCW;
+  const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
   const int nkv = (a.Skv + BK - 1) / BK;
 
   if (tid == 0) {
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
     for (int s = 0; s < 1 + 2 * ST; ++s) nesr::mbar_init(&bars[s], 1);
-    for (int s = 0; s < ST; ++s)
-      nesr::mbar_init(&bars[1 + 2 * ST + s], 4 * NCW);
+    for (int s = 0; s < ST; ++s) nesr::mbar_init(&bars[1 + 2 * ST + s], 4);
     nesr::mbar_init_fence();
   }
   __syncthreads();
 
-  if (warp == 4 * NCW) {   // producer (one thread): Q once, the K/V ring
+  if (warp == 4) {   // producer (one thread): Q once, then the K/V ring
     if (lane == 0) {
       constexpr int NBOX = DP / box_cols<DP>();
       nesr::mbar_expect_tx(q_bar, L::Q_BYTES);
-      load_tile<DP, 64 * NCW>(q_s, &tq, a.s_inner[0], q0, b, h, q_bar, 0,
-                              NBOX);
+      load_tile<DP, BQ>(q_s, &tq, a.s_inner[0], q0, b, h, q_bar, 0, NBOX);
       for (int j = 0; j < nkv; ++j) {
         const int s = j % ST;
         if (j >= ST) nesr::mbar_wait(empty + 8 * s, (j / ST - 1) & 1);
@@ -300,34 +346,40 @@ flash_narrow(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  // Consumer warpgroup wg: query rows q0 + 64 wg .. + 63.
-  const int wg = warp / 4, g = lane / 4, t = lane % 4;
-  const uint32_t my_q = q_s + wg * 64 * box_cols<DP>() * 2;
-  float acc[DP / 2];
-#pragma unroll
-  for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
-  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
-  nesr::mbar_wait(q_bar, 0);
-  for (int j = 0; j < nkv; ++j) {
-    const int s = j % ST, par = (j / ST) & 1;
-    nesr::mbar_wait(kfull + 8 * s, par);
-    float sc[BK / 2];
+  // The consumer warpgroup. S_{j+1} is issued before P V_j, and the
+  // softmax of tile j + 1 runs while P V_j is on the tensor cores; P
+  // alternates between two register sets.
+  const int g = lane / 4, t = lane % 4;
+  auto issue_s = [&](float (&sc)[BK / 2], int j) {
+    const int s = j % ST;
+    nesr::mbar_wait(kfull + 8 * s, (j / ST) & 1);
     nesr::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      nesr::wgmma_ss<BK>(sc, kmajor_desc<DP, 64 * NCW>(my_q, kk),
+      nesr::wgmma_ss<BK>(sc, kmajor_desc<DP, BQ>(q_s, kk),
                          kmajor_desc<DP, BK>(k_s + s * L::KV_BYTES, kk),
                          kk > 0);
     nesr::wgmma_commit();
-    nesr::wgmma_wait<0>();   // S_j, and P V_{j-1} before it, have retired
+  };
+  float acc[DP / 2];
 #pragma unroll
-    for (int e = 0; e < BK / 2; ++e) nesr::reg_fence(sc[e]);
-#pragma unroll
-    for (int e = 0; e < DP / 2; ++e) nesr::reg_fence(acc[e]);
-    if (j > 0) warp_arrive(empty + 8 * ((j - 1) % ST));
-
-    float alpha[2];
-    softmax_tile<BK>(sc, m, l, alpha, j * BK, a.Skv, a.scale, t);
+  for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, alpha[2];
+  float sc[BK / 2];
+  uint32_t p0[BK / 16][4], p1[BK / 16][4];
+  nesr::mbar_wait(q_bar, 0);
+  issue_s(sc, 0);
+  nesr::wgmma_wait<0>();
+  narrow_softmax<BK>(sc, p0, m, l, alpha, 0, a, t);
+  // One KV tile: P_j (in pc) V_j, with S_{j+1} issued ahead of it and its
+  // softmax into pn behind it.
+  auto step = [&](int j, uint32_t (&pc)[BK / 16][4],
+                  uint32_t (&pn)[BK / 16][4]) {
+    const int s = j % ST;
+    // The last tile issues its own S again (its stage is still held), so
+    // no wgmma sits under a branch.
+    const bool more = j + 1 < nkv;
+    issue_s(sc, more ? j + 1 : j);
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       acc[4 * n] *= alpha[0];
@@ -335,31 +387,29 @@ flash_narrow(const __grid_constant__ CUtensorMap tq,
       acc[4 * n + 2] *= alpha[1];
       acc[4 * n + 3] *= alpha[1];
     }
-    // The S accumulator of keys 16kk..16kk+15 is P's A fragment for k-step
-    // kk: (g, 2t), (g + 8, 2t), (g, 8 + 2t), (g + 8, 8 + 2t).
-    uint32_t p[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      p[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-      p[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-      p[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-      p[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-    }
-    nesr::mbar_wait(vfull + 8 * s, par);
+    nesr::mbar_wait(vfull + 8 * s, (j / ST) & 1);
     nesr::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      nesr::wgmma_rs_tb<DP>(acc, p[kk],
+      nesr::wgmma_rs_tb<DP>(acc, pc[kk],
                             trans_desc<DP, BK>(v_s + s * L::KV_BYTES, kk));
     nesr::wgmma_commit();
-  }
-  nesr::wgmma_wait<0>();
+    nesr::wgmma_wait<1>();   // S_{j+1} has retired; P V_j may still run
+    if (more) narrow_softmax<BK>(sc, pn, m, l, alpha, (j + 1) * BK, a, t);
+    nesr::wgmma_wait<0>();
 #pragma unroll
-  for (int e = 0; e < DP / 2; ++e) nesr::reg_fence(acc[e]);
+    for (int e = 0; e < DP / 2; ++e) nesr::reg_fence(acc[e]);
+    warp_arrive(empty + 8 * s);
+  };
+  for (int j = 0; j < nkv; j += 2) {
+    step(j, p0, p1);
+    if (j + 1 < nkv) step(j + 1, p1, p0);
+  }
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
   store_rows<DP>(a, acc, l, q0 + 16 * warp + g, 0, t);
 }
+
 // ---- Wide form: 128 < d <= 512 --------------------------------------------
 
 template <int DP>
@@ -378,11 +428,6 @@ struct Wide {
   static constexpr int BYTES = BAR_OFF + 8 * (6 + NPV);
   static_assert(BYTES + 1024 <= SM_SMEM, "K3: the wide form's buffers");
 };
-
-// bar.sync on a named barrier that the `n` threads of one warpgroup share.
-__device__ __forceinline__ void group_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
 
 // No producer warp: the S warpgroup loads Q and each K tile, and each P V
 // warpgroup its own 128 columns of each V tile, right after the MMAs that
@@ -600,27 +645,12 @@ int launch(Kernel kernel, int threads, int smem, int rows,
   return (int)cudaGetLastError();
 }
 
-// 128 query rows a block (two consumer warpgroups share each K/V tile, so
-// the blocks read half as much from L2) where that still gives every SM a
-// block; 64 otherwise.
-template <int DP, int BK>
+template <int DP>
 int launch_narrow(const Operand (&ops)[3], Args a, int B, cudaStream_t s) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int ncw = (long long)((a.Sq + 127) / 128) * B * a.H >= sms ? 2 : 1;
+  using L = Narrow<DP>;
   CUtensorMap maps[3];
-  if (const int e = make_maps<DP>(maps, ops, a, B, 64 * ncw, BK)) return e;
-  if (ncw == 2) {
-    using L = Narrow<DP, BK, 2>;
-    return launch(flash_narrow<DP, BK, 2>, L::THREADS, L::BYTES, 128, maps, a,
-                  B, s);
-  }
-  using L = Narrow<DP, BK, 1>;
-  return launch(flash_narrow<DP, BK, 1>, L::THREADS, L::BYTES, 64, maps, a, B,
-                s);
+  if (const int e = make_maps<DP>(maps, ops, a, B, BQ, L::BK)) return e;
+  return launch(flash_narrow<DP>, L::THREADS, L::BYTES, BQ, maps, a, B, s);
 }
 
 template <int DP>
@@ -652,10 +682,10 @@ extern "C" int nesr_flash_attn(const void* q, const void* k, const void* v,
   a.oss = st[11];
   a.scale = scale;
   cudaStream_t s = (cudaStream_t)stream;
-  if (D <= 16) return launch_narrow<16, 128>(ops, a, B, s);
-  if (D <= 32) return launch_narrow<32, 128>(ops, a, B, s);
-  if (D <= 64) return launch_narrow<64, 64>(ops, a, B, s);
-  if (D <= 128) return launch_narrow<128, 64>(ops, a, B, s);
+  if (D <= 16) return launch_narrow<16>(ops, a, B, s);
+  if (D <= 32) return launch_narrow<32>(ops, a, B, s);
+  if (D <= 64) return launch_narrow<64>(ops, a, B, s);
+  if (D <= 128) return launch_narrow<128>(ops, a, B, s);
   if (D <= 256) return launch_wide<256>(ops, a, B, s);
   if (D <= 512) return launch_wide<512>(ops, a, B, s);
   return (int)cudaErrorInvalidValue;

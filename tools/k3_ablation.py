@@ -49,9 +49,10 @@ VARIANTS = {
                    "if (a.D < 0) nesr::wgmma_rs_tb<DP>(acc,"),
                   ("nesr::wgmma_ss_tb<128>(acc,",
                    "if (a.D < 0) nesr::wgmma_ss_tb<128>(acc,")],
-    # the softmax's exponentials replaced by a subtraction
-    "no_exp": [("s[4 * j + e] = __expf(s[4 * j + e] - m[e >> 1]);",
-                "s[4 * j + e] = s[4 * j + e] - m[e >> 1];")],
+    # the softmax's exponentials replaced by the fused multiply-add alone
+    "no_exp": [("s[4 * j + e] = ex2(fmaf(", "s[4 * j + e] = (fmaf(")],
+    # two blocks an SM at d <= 64 instead of three
+    "two_blocks": [("BLOCKS = DP <= 64 ? 3 : 2;", "BLOCKS = 2;")],
 }
 
 
