@@ -286,7 +286,7 @@ constexpr int ring_stages(int fixed, int stage, int blocks) {
 // the UNet's shapes (tools/k3_ablation.py; PERF.md).
 template <int DP>
 struct Narrow {
-  static constexpr int BK = 64;
+  static constexpr int BK = 64;   // keys a tile
   static constexpr int THREADS = 160;
   static constexpr int BLOCKS = DP <= 64 ? 3 : 2;
   static constexpr int Q_BYTES = BQ * DP * 2;

@@ -53,6 +53,19 @@ VARIANTS = {
     "no_exp": [("s[4 * j + e] = ex2(fmaf(", "s[4 * j + e] = (fmaf(")],
     # two blocks an SM at d <= 64 instead of three
     "two_blocks": [("BLOCKS = DP <= 64 ? 3 : 2;", "BLOCKS = 2;")],
+    # four (96 registers, a two-stage ring)
+    "four_blocks": [("BLOCKS = DP <= 64 ? 3 : 2;", "BLOCKS = DP <= 64 ? 4 : 2;")],
+    # the narrow form's softmax skipped (P is the raw scores)
+    "no_softmax": [("  softmax_tile<BK>(sc, m, l, alpha, kv0, a.Skv, a.scale, t);",
+                    "  if (a.D < 0) softmax_tile<BK>(sc, m, l, alpha, kv0, a.Skv,"
+                    " a.scale, t);")],
+    # the narrow form's accumulator not rescaled
+    "no_rescale": [("      acc[4 * n] *= alpha[0];\n"
+                    "      acc[4 * n + 1] *= alpha[0];\n"
+                    "      acc[4 * n + 2] *= alpha[1];\n"
+                    "      acc[4 * n + 3] *= alpha[1];\n    }\n"
+                    "    nesr::mbar_wait(vfull",
+                    "    }\n    nesr::mbar_wait(vfull")],
 }
 
 
