@@ -3,13 +3,15 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from ``csrc/`` (one nvcc per source,
-in parallel), checks in the library's SASS that every K1 instantiation
-issues ``wgmma`` (HGMMA), and holds each kernel against its plain PyTorch
-version at the shapes its path gives it: K1 and K2 on the ESRGAN path, K3
-(flash attention) on the diffusion path. Beside each kernel's time it
-prints its bound at the H100's peak rates and, for scale, the PyTorch call
-that computes the same function (cuDNN's bf16 conv for K1, SDPA for K3;
-none exists for K2). Then, with seeded synthetic weights:
+in parallel), checks in the library's SASS that every K1 and K3
+instantiation issues ``wgmma`` (HGMMA), and holds each kernel against its
+plain PyTorch version at the shapes its path gives it: K1 and K2 on the
+ESRGAN path, K3 (flash attention) on the diffusion path. Beside each
+kernel's time it prints its bound at the H100's peak rates and, for scale,
+the PyTorch call that computes the same function (cuDNN's bf16 conv for
+K1, SDPA for K3; none exists for K2). K3, SDPA and K3's plain version are
+timed by device time (torch.profiler kernel durations), with the wall a
+call beside it. Then, with seeded synthetic weights:
 
 * the full-width 12-channel RRDBNet x4 (64 features, 23 blocks, growth 32)
   on a 4-tile batch with both trunks;
@@ -163,8 +165,8 @@ def card_line() -> str:
 
 
 def build_kernels() -> None:
-    """Builds the kernels and checks in K1's SASS that every instantiation
-    issues wgmma (HGMMA)."""
+    """Builds the kernels and checks in the SASS that every instantiation
+    of K1 (21) and K3 (6) issues wgmma (HGMMA)."""
     from neural_enhanced_super_resolution_torch.kernels import _build
     t0 = time.perf_counter()
     _build.load_library()

@@ -12,6 +12,7 @@ max(1, max|jax|) (normalised vs unnormalised softmax).
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -147,3 +148,144 @@ def test_attention_auto_masked_takes_the_plain_attention():
                          mask=torch.from_numpy(mask), dtype=torch.float32)
     assert flash_attention_plain.calls == calls
     assert np.abs(got.numpy() - ref).max() < 1e-5
+
+
+# ---- K3's order of operations and its shared-memory layouts -------------
+
+BK = 64   # keys a tile in both of the kernel's forms (csrc/flash_attn.cu)
+
+
+def _tiled_flash(q, k, v, bk=BK):
+    """K3's order of operations in plain PyTorch: bk-key tiles, S = q k^T
+    once a tile in fp32 from bf16 operands, keys past Skv masked, the row
+    max of each tile shared by every output column, alpha = exp(m_old -
+    m_new) rescaling l and the accumulator, P = exp(S scale - m) rounded
+    to bf16 for P v in fp32, l summed from the fp32 P, o = acc / l in
+    bf16."""
+    q, k, v = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    *lead, sq, d = q.shape
+    skv = k.shape[-2]
+    scale = 1.0 / math.sqrt(d)
+    m = torch.full((*lead, sq, 1), -1e30)
+    l = torch.zeros((*lead, sq, 1))
+    acc = torch.zeros((*lead, sq, d))
+    for k0 in range(0, skv, bk):
+        s = q @ k[..., k0:k0 + bk, :].transpose(-1, -2)
+        if s.shape[-1] < bk:   # the ragged last tile: keys past Skv
+            s = torch.cat([s, torch.full((*lead, sq, bk - s.shape[-1]),
+                                         -math.inf)], dim=-1)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s * scale - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        vt = v[..., k0:k0 + bk, :]
+        acc = acc * alpha + p[..., :vt.shape[-2]].to(torch.bfloat16).float() @ vt
+        m = m_new
+    return (acc / l).to(torch.bfloat16)
+
+
+# (id, B, H, Sq, Skv, d): every padded head dim's form, ragged Skv, Sq != Skv
+TILED_CASES = [("d8", 1, 2, 70, 45, 8), ("d64_ragged", 1, 2, 130, 190, 64),
+               ("d128_cross", 1, 1, 200, 100, 128),
+               ("d136", 1, 1, 77, 150, 136), ("d512", 1, 1, 100, 200, 512)]
+
+
+@pytest.mark.parametrize("against", ["plain", "jax"])
+@pytest.mark.parametrize("case", TILED_CASES, ids=[c[0] for c in TILED_CASES])
+def test_tiled_reference_matches_plain_and_jax(case, against):
+    """q and k of std 2 (peaked rows). Tolerance 1e-2 of max|ref|: all
+    round P to bf16, at different running maxima (the plain version at the
+    row's max, the JAX kernel at its own tiles' maxima)."""
+    _, b, h, sq, skv, d = case
+    rng = np.random.default_rng(sum(map(ord, case[0])))
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) * s
+               for shape, s in (((b, h, sq, d), 2.0), ((b, h, skv, d), 2.0),
+                                ((b, h, skv, d), 1.0)))
+    got = _tiled_flash(*(torch.from_numpy(t) for t in (q, k, v))).float()
+    if against == "plain":
+        ref = _port(q, k, v, torch.bfloat16)
+    else:
+        ref = _jax(q, k, v, jnp.bfloat16, 128, 64)
+    assert got.shape == ref.shape
+    assert np.abs(got.numpy() - ref).max() <= 1e-2 * np.abs(ref).max()
+
+
+def test_tiled_reference_padded_keys_extreme_scores():
+    """Every real score -2048 on a ragged Skv of 100 (two tiles, the second
+    ragged): uniform over the real keys. Tolerance 2e-3 absolute."""
+    v = np.random.default_rng(7).normal(size=(1, 1, 100, 64)).astype(
+        np.float32)
+    got = _tiled_flash(torch.full((1, 1, 8, 64), 16.0),
+                       torch.full((1, 1, 100, 64), -16.0),
+                       torch.from_numpy(v)).float().numpy()
+    want = v.astype(np.float32).mean(axis=2, keepdims=True).repeat(8, axis=2)
+    np.testing.assert_allclose(got, want, atol=2e-3)
+
+
+def _swizzle(off, cw):
+    """The TMA / wgmma swizzle over 2 cw bytes: the 16-byte chunk index
+    within a 2 cw-byte row XOR-ed with the row's place in its 8-row atom."""
+    mask = {64: 7, 32: 3, 16: 1}[cw]
+    return off ^ (((off >> 7) & mask) << 4)
+
+
+def _tma_tile(x, dp):
+    """A rows x D bf16 tile (as uint16) as K3's tensor maps write it for
+    padded head dim dp: dp / cw boxes of rows x 2 cw bytes, one after the
+    other, chunks swizzled, columns past D zero."""
+    rows, d = x.shape
+    cw = min(dp, 64)
+    img = np.zeros(rows * dp, np.uint16)   # 2-byte words
+    for r in range(rows):
+        for c in range(dp):
+            box, cc = divmod(c, cw)
+            off = _swizzle(r * cw * 2 + cc * 2, cw)
+            img[(box * rows * cw * 2 + off) // 2] = x[r, c] if c < d else 0
+    return img
+
+
+def _desc_read(img, start, lbo, sbo, cw, n_rows, trans):
+    """What a wgmma operand descriptor (start, LBO, SBO, swizzle over 2 cw
+    bytes) reads for one 16-deep k-step: K-major (trans False) returns
+    [row n][k] for n < n_rows; transposed (trans True) returns [k][n] with
+    N = n_rows columns."""
+    out = np.zeros((n_rows, 16) if not trans else (16, n_rows), np.uint16)
+    for n in range(n_rows):
+        for kk in range(16):
+            if trans:   # 8-row groups of K at SBO, cw-column blocks at LBO
+                addr = (start + (n // cw) * lbo + (kk // 8) * sbo
+                        + (kk % 8) * cw * 2 + (n % cw) * 2)
+                out[kk, n] = img[_swizzle(addr, cw) // 2]
+            else:       # 8-row groups of M/N at SBO, k within the row
+                addr = start + (n // 8) * sbo + (n % 8) * cw * 2 + kk * 2
+                out[n, kk] = img[_swizzle(addr, cw) // 2]
+    return out
+
+
+@pytest.mark.parametrize("dp", [16, 32, 64, 128, 256, 512])
+def test_kv_tile_layout_matches_wgmma_descriptors(dp):
+    """A 64-key K or V tile as TMA writes it, read back through the
+    descriptors csrc/flash_attn.cu builds: K-major for K (kmajor_desc:
+    k-step kk at box 16 kk / cw, 32 (kk mod cw / 16) bytes in, SBO 16 cw)
+    and transposed for V (trans_desc: k-step kk 32 cw kk bytes on, LBO one
+    box, SBO 16 cw). D is dp - 8, so the last columns are the zero fill."""
+    cw, d = min(dp, 64), dp - 8
+    src = open(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "neural_enhanced_super_resolution_torch",
+        "csrc", "flash_attn.cu")).read()
+    assert "nesr::wgmma_desc(addr, 16, 16 * CW)" in src
+    assert ("nesr::wgmma_desc(tile + kk * 32 * CW, ROWS * CW * 2, 16 * CW)"
+            in src)
+    x = np.random.default_rng(dp).integers(1, 1 << 16, (BK, d),
+                                           dtype=np.uint16)
+    img = _tma_tile(x, dp)
+    full = np.zeros((BK, dp), np.uint16)
+    full[:, :d] = x
+    for kk in range(dp // 16):   # S = Q K^T: K is B, K-major, N = 64 keys
+        start = (16 * kk // cw) * BK * cw * 2 + (16 * kk % cw) * 2
+        got = _desc_read(img, start, 16, 16 * cw, cw, BK, trans=False)
+        np.testing.assert_array_equal(got, full[:, 16 * kk:16 * kk + 16])
+    for kk in range(BK // 16):   # P V: V is B transposed, N = dp columns
+        got = _desc_read(img, kk * 32 * cw, BK * cw * 2, 16 * cw, cw, dp,
+                         trans=True)
+        np.testing.assert_array_equal(got, full[16 * kk:16 * kk + 16, :])
