@@ -10,7 +10,9 @@ nvcc (all at once), prints the base build's ptxas report for K3 (registers,
 spills, warnings), and times every variant at SHAPES by device time
 (torch.profiler kernel durations over REPS launches), in the order base,
 variants, base. The variants compute wrong outputs on purpose; only their
-times mean anything. Prints the card (name, power limit) first.
+times mean anything. One more copy sums the SM clocks of each phase of a
+narrow-form KV step (TRACE_EDITS), and the median over blocks is printed
+for each d <= 128 shape. Prints the card (name, power limit) first.
 """
 
 from __future__ import annotations
@@ -69,6 +71,49 @@ VARIANTS = {
 }
 
 
+# A copy of K3 whose narrow form sums, in thread 0 of each block's consumer
+# warpgroup, the SM clocks each phase of a KV step took: 0 between steps,
+# 1 waiting for K_{j+1} and issuing S_{j+1}, 2 rescaling and waiting for
+# V_j, 3 issuing P V_j, 4 waiting for S_{j+1}, 5 its softmax, 6 waiting
+# for P V_j and releasing the stage; slot 7 holds the step count.
+_MARK = ("#define K3_MARK(i) { const long long n_ = clock64(); "
+         "k3_acc[i] += n_ - k3_t; k3_t = n_; }\n")
+TRACE_EDITS = [
+    ('#include "wgmma.cuh"\n',
+     '#include "wgmma.cuh"\n'
+     "__device__ long long k3_trace[1 << 16][8];\n"
+     'extern "C" int k3_trace_copy(void* host, int n) {\n'
+     "  return (int)cudaMemcpyFromSymbol(host, k3_trace, n * 64);\n}\n"
+     + _MARK),
+    ("  const int g = lane / 4, t = lane % 4;\n  auto issue_s",
+     "  const int g = lane / 4, t = lane % 4;\n"
+     "  long long k3_t = clock64(), k3_acc[7] = {0, 0, 0, 0, 0, 0, 0};\n"
+     "  auto issue_s"),
+    ("    const bool more = j + 1 < nkv;\n    issue_s(sc, more ? j + 1 : j);\n",
+     "    const bool more = j + 1 < nkv;\n    K3_MARK(0);\n"
+     "    issue_s(sc, more ? j + 1 : j);\n    K3_MARK(1);\n"),
+    ("    nesr::mbar_wait(vfull + 8 * s, (j / ST) & 1);\n",
+     "    nesr::mbar_wait(vfull + 8 * s, (j / ST) & 1);\n    K3_MARK(2);\n"),
+    ("    nesr::wgmma_commit();\n    nesr::wgmma_wait<1>();"
+     "   // S_{j+1} has retired; P V_j may still run\n",
+     "    nesr::wgmma_commit();\n    K3_MARK(3);\n    nesr::wgmma_wait<1>();\n"
+     "    K3_MARK(4);\n"),
+    ("    if (more) narrow_softmax<BK>(sc, pn, m, l, alpha, (j + 1) * BK, a, t);\n",
+     "    if (more) narrow_softmax<BK>(sc, pn, m, l, alpha, (j + 1) * BK, a, t);\n"
+     "    K3_MARK(5);\n"),
+    ("    warp_arrive(empty + 8 * s);\n  };",
+     "    warp_arrive(empty + 8 * s);\n    K3_MARK(6);\n  };"),
+    ("  store_rows<DP>(a, acc, l, q0 + 16 * warp + g, 0, t);",
+     "  if (tid == 0) {\n"
+     "    long long* row = k3_trace[blockIdx.y * gridDim.x + blockIdx.x];\n"
+     "    for (int i = 0; i < 7; ++i) row[i] = k3_acc[i];\n"
+     "    row[7] = nkv;\n  }\n"
+     "  store_rows<DP>(a, acc, l, q0 + 16 * warp + g, 0, t);"),
+]
+PHASES = ("between steps", "wait K + issue S", "rescale + wait V",
+          "issue P V", "wait S", "softmax", "wait P V + release")
+
+
 def _nvcc() -> str:
     sys.path.insert(0, ROOT)
     from neural_enhanced_super_resolution_torch.kernels import _build
@@ -108,7 +153,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from chip_smoke import card_line, device_ms
     print(card_line(), flush=True)
-    jobs = {name: _prepare(name, edits) for name, edits in VARIANTS.items()}
+    jobs = {name: _prepare(name, edits) for name, edits in
+            [*VARIANTS.items(), ("trace", TRACE_EDITS)]}
     libs = {}
     for name, (so, proc) in jobs.items():
         log = proc.communicate()[0]
@@ -144,6 +190,27 @@ def main() -> int:
                                   torch.cuda.current_stream().cuda_stream)
         if err:
             raise SystemExit(f"launch failed: CUDA error {err}")
+
+    trace = libs.pop("trace")
+    trace.k3_trace_copy.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    trace.k3_trace_copy.restype = ctypes.c_int
+    for case, args in cases:
+        b, h, sq, d = args[4], args[5], args[6], args[8]
+        if d > 128:
+            continue
+        run(trace, *args)
+        torch.cuda.synchronize()
+        blocks = -(-sq // 64) * b * h
+        stamps = torch.zeros(blocks * 8, dtype=torch.int64)
+        if trace.k3_trace_copy(stamps.data_ptr(), blocks):
+            raise SystemExit("trace copy failed")
+        st = stamps.view(blocks, 8).double()
+        per_step = st[:, :7] / st[:, 7:8]
+        med = per_step.median(dim=0).values
+        print(f"K3 trace {case}: {blocks} blocks, median SM clocks a KV step "
+              f"{med.sum().item():.0f} = " + ", ".join(
+                  f"{name} {v:.0f}" for name, v in zip(PHASES, med.tolist())),
+              flush=True)
 
     order = list(VARIANTS) + ["base"]
     for i, name in enumerate(order):
