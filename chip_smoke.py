@@ -133,15 +133,18 @@ def device_ms(fn, reps: int = 10) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / 1e3 / reps
+    # A profiling session now and then comes back without device events
+    # (CUPTI); the measurement is taken again, at most three times.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    raise AssertionError("torch.profiler recorded no device time")
 
 
 def wall_ms(fn, reps: int = 10) -> float:

@@ -273,32 +273,25 @@ __device__ __forceinline__ void narrow_softmax(float (&sc)[BK / 2],
   }
 }
 
-constexpr int ring_stages(int fixed, int stage, int blocks) {
-  return blocks * (fixed + 4 * stage + 1152) <= SM_SMEM   ? 4
-         : blocks * (fixed + 3 * stage + 1152) <= SM_SMEM ? 3
-                                                          : 2;
-}
-
-// One consumer warpgroup (64 query rows) and one producer warp; three
-// blocks an SM at d <= 64, two at d = 128. Measured against two consumer
-// warpgroups a block (with and without taking turns at the tensor cores),
-// Q's fragments held in registers and 128-key tiles, this was fastest at
-// the UNet's shapes (tools/k3_ablation.py; PERF.md).
+// One warpgroup (64 query rows) a block and no producer warp: its thread 0
+// issues the TMA loads, each into the buffer the MMAs just released, so
+// the registers a producer warp would hold go to a fourth block an SM at
+// d <= 64 (two at d = 128). K has a ring of three tiles and V of two,
+// which fits four blocks' shared memory.
 template <int DP>
 struct Narrow {
   static constexpr int BK = 64;   // keys a tile
-  static constexpr int THREADS = 160;
-  static constexpr int BLOCKS = DP <= 64 ? 3 : 2;
+  static constexpr int THREADS = 128;
+  static constexpr int BLOCKS = DP <= 64 ? 4 : 2;
+  static constexpr int KST = 3, VST = 2;   // K and V ring depths
   static constexpr int Q_BYTES = BQ * DP * 2;
-  static constexpr int KV_BYTES = BK * DP * 2;   // one K or V tile
-  // The deepest ring (2..4 stages) that keeps BLOCKS blocks on an SM.
-  static constexpr int STAGES = ring_stages(Q_BYTES, 2 * KV_BYTES, BLOCKS);
+  static constexpr int T_BYTES = BK * DP * 2;   // one K or V tile
   static constexpr int K_OFF = Q_BYTES;
-  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
-  // barriers: Q, then K full, V full and empty per stage
-  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
-  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES);
-  static_assert(BLOCKS * (BYTES + 1024) <= SM_SMEM, "K3: narrow ring");
+  static constexpr int V_OFF = K_OFF + KST * T_BYTES;
+  // barriers: Q, K full per K slot, V full per V slot
+  static constexpr int BAR_OFF = V_OFF + VST * T_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + KST + VST);
+  static_assert(BLOCKS * (BYTES + 1024) <= SM_SMEM, "K3: narrow buffers");
 };
 
 template <int DP>
@@ -307,57 +300,54 @@ flash_narrow(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, const Args a) {
   using L = Narrow<DP>;
-  constexpr int ST = L::STAGES, BK = L::BK;
+  constexpr int BK = L::BK, KST = L::KST, VST = L::VST;
+  constexpr int NBOX = DP / box_cols<DP>();
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = nesr::smem_u32(smem);
   const uint32_t q_s = base, k_s = base + L::K_OFF, v_s = base + L::V_OFF;
   const uint32_t q_bar = base + L::BAR_OFF;
-  const uint32_t kfull = q_bar + 8, vfull = kfull + 8 * ST,
-                 empty = vfull + 8 * ST;
+  const uint32_t kfull = q_bar + 8, vfull = kfull + 8 * KST;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
   const int nkv = (a.Skv + BK - 1) / BK;
 
+  // K_j and V_j go to slots j mod KST and j mod VST.
+  auto load_k = [&](int j) {
+    const uint32_t bar = kfull + 8 * (j % KST);
+    nesr::mbar_expect_tx(bar, L::T_BYTES);
+    load_tile<DP, BK>(k_s + j % KST * L::T_BYTES, &tk, a.s_inner[1], j * BK,
+                      b, h, bar, 0, NBOX);
+  };
+  auto load_v = [&](int j) {
+    const uint32_t bar = vfull + 8 * (j % VST);
+    nesr::mbar_expect_tx(bar, L::T_BYTES);
+    load_tile<DP, BK>(v_s + j % VST * L::T_BYTES, &tv, a.s_inner[2], j * BK,
+                      b, h, bar, 0, NBOX);
+  };
   if (tid == 0) {
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-    for (int s = 0; s < 1 + 2 * ST; ++s) nesr::mbar_init(&bars[s], 1);
-    for (int s = 0; s < ST; ++s) nesr::mbar_init(&bars[1 + 2 * ST + s], 4);
+    for (int i = 0; i < 1 + KST + VST; ++i) nesr::mbar_init(&bars[i], 1);
     nesr::mbar_init_fence();
+    nesr::mbar_expect_tx(q_bar, L::Q_BYTES);
+    load_tile<DP, BQ>(q_s, &tq, a.s_inner[0], q0, b, h, q_bar, 0, NBOX);
+    for (int j = 0; j < KST && j < nkv; ++j) load_k(j);
+    for (int j = 0; j < VST && j < nkv; ++j) load_v(j);
   }
   __syncthreads();
 
-  if (warp == 4) {   // producer (one thread): Q once, then the K/V ring
-    if (lane == 0) {
-      constexpr int NBOX = DP / box_cols<DP>();
-      nesr::mbar_expect_tx(q_bar, L::Q_BYTES);
-      load_tile<DP, BQ>(q_s, &tq, a.s_inner[0], q0, b, h, q_bar, 0, NBOX);
-      for (int j = 0; j < nkv; ++j) {
-        const int s = j % ST;
-        if (j >= ST) nesr::mbar_wait(empty + 8 * s, (j / ST - 1) & 1);
-        nesr::mbar_expect_tx(kfull + 8 * s, L::KV_BYTES);
-        load_tile<DP, BK>(k_s + s * L::KV_BYTES, &tk, a.s_inner[1], j * BK,
-                          b, h, kfull + 8 * s, 0, NBOX);
-        nesr::mbar_expect_tx(vfull + 8 * s, L::KV_BYTES);
-        load_tile<DP, BK>(v_s + s * L::KV_BYTES, &tv, a.s_inner[2], j * BK,
-                          b, h, vfull + 8 * s, 0, NBOX);
-      }
-    }
-    return;
-  }
-
-  // The consumer warpgroup. S_{j+1} is issued before P V_j, and the
-  // softmax of tile j + 1 runs while P V_j is on the tensor cores; P
-  // alternates between two register sets.
-  const int g = lane / 4, t = lane % 4;
+  // S_{j+1} is issued before P V_j, and the softmax of tile j + 1 runs
+  // while P V_j is on the tensor cores; P alternates between two register
+  // sets. Once the MMAs reading a K or V slot have retired in every warp
+  // (named barrier 1, once a step), thread 0 refills it.
   auto issue_s = [&](float (&sc)[BK / 2], int j) {
-    const int s = j % ST;
-    nesr::mbar_wait(kfull + 8 * s, (j / ST) & 1);
+    nesr::mbar_wait(kfull + 8 * (j % KST), (j / KST) & 1);
     nesr::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
       nesr::wgmma_ss<BK>(sc, kmajor_desc<DP, BQ>(q_s, kk),
-                         kmajor_desc<DP, BK>(k_s + s * L::KV_BYTES, kk),
+                         kmajor_desc<DP, BK>(k_s + j % KST * L::T_BYTES, kk),
                          kk > 0);
     nesr::wgmma_commit();
   };
@@ -370,14 +360,15 @@ flash_narrow(const __grid_constant__ CUtensorMap tq,
   nesr::mbar_wait(q_bar, 0);
   issue_s(sc, 0);
   nesr::wgmma_wait<0>();
+  group_sync(1, 128);
+  if (tid == 0 && KST < nkv) load_k(KST);
   narrow_softmax<BK>(sc, p0, m, l, alpha, 0, a, t);
   // One KV tile: P_j (in pc) V_j, with S_{j+1} issued ahead of it and its
   // softmax into pn behind it.
   auto step = [&](int j, uint32_t (&pc)[BK / 16][4],
                   uint32_t (&pn)[BK / 16][4]) {
-    const int s = j % ST;
-    // The last tile issues its own S again (its stage is still held), so
-    // no wgmma sits under a branch.
+    // The last tile issues its own S again (its K slot is not refilled),
+    // so no wgmma sits under a branch.
     const bool more = j + 1 < nkv;
     issue_s(sc, more ? j + 1 : j);
 #pragma unroll
@@ -387,19 +378,26 @@ flash_narrow(const __grid_constant__ CUtensorMap tq,
       acc[4 * n + 2] *= alpha[1];
       acc[4 * n + 3] *= alpha[1];
     }
-    nesr::mbar_wait(vfull + 8 * s, (j / ST) & 1);
+    nesr::mbar_wait(vfull + 8 * (j % VST), (j / VST) & 1);
     nesr::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      nesr::wgmma_rs_tb<DP>(acc, pc[kk],
-                            trans_desc<DP, BK>(v_s + s * L::KV_BYTES, kk));
+      nesr::wgmma_rs_tb<DP>(
+          acc, pc[kk], trans_desc<DP, BK>(v_s + j % VST * L::T_BYTES, kk));
     nesr::wgmma_commit();
     nesr::wgmma_wait<1>();   // S_{j+1} has retired; P V_j may still run
     if (more) narrow_softmax<BK>(sc, pn, m, l, alpha, (j + 1) * BK, a, t);
     nesr::wgmma_wait<0>();
 #pragma unroll
     for (int e = 0; e < DP / 2; ++e) nesr::reg_fence(acc[e]);
-    warp_arrive(empty + 8 * s);
+    // K_{j+1}'s and V_j's slots are free.
+    if (j + VST < nkv) {
+      group_sync(1, 128);
+      if (tid == 0) {
+        if (j + 1 + KST < nkv) load_k(j + 1 + KST);
+        load_v(j + VST);
+      }
+    }
   };
   for (int j = 0; j < nkv; j += 2) {
     step(j, p0, p1);

@@ -47,16 +47,14 @@ VARIANTS = {
     # S = Q K^T skipped (the softmax runs on whatever the registers hold)
     "no_s_mma": [("nesr::wgmma_ss<BK>(sc,", "if (a.D < 0) nesr::wgmma_ss<BK>(sc,")],
     # P V skipped
-    "no_pv_mma": [("nesr::wgmma_rs_tb<DP>(acc,",
-                   "if (a.D < 0) nesr::wgmma_rs_tb<DP>(acc,"),
+    "no_pv_mma": [("nesr::wgmma_rs_tb<DP>(\n",
+                   "if (a.D < 0) nesr::wgmma_rs_tb<DP>(\n"),
                   ("nesr::wgmma_ss_tb<128>(acc,",
                    "if (a.D < 0) nesr::wgmma_ss_tb<128>(acc,")],
     # the softmax's exponentials replaced by the fused multiply-add alone
     "no_exp": [("s[4 * j + e] = ex2(fmaf(", "s[4 * j + e] = (fmaf(")],
-    # two blocks an SM at d <= 64 instead of three
-    "two_blocks": [("BLOCKS = DP <= 64 ? 3 : 2;", "BLOCKS = 2;")],
-    # four (96 registers, a two-stage ring)
-    "four_blocks": [("BLOCKS = DP <= 64 ? 3 : 2;", "BLOCKS = DP <= 64 ? 4 : 2;")],
+    # three blocks an SM at d <= 64 instead of four
+    "three_blocks": [("BLOCKS = DP <= 64 ? 4 : 2;", "BLOCKS = DP <= 64 ? 3 : 2;")],
     # the narrow form's softmax skipped (P is the raw scores)
     "no_softmax": [("  softmax_tile<BK>(sc, m, l, alpha, kv0, a.Skv, a.scale, t);",
                     "  if (a.D < 0) softmax_tile<BK>(sc, m, l, alpha, kv0, a.Skv,"
@@ -75,7 +73,8 @@ VARIANTS = {
 # warpgroup, the SM clocks each phase of a KV step took: 0 between steps,
 # 1 waiting for K_{j+1} and issuing S_{j+1}, 2 rescaling and waiting for
 # V_j, 3 issuing P V_j, 4 waiting for S_{j+1}, 5 its softmax, 6 waiting
-# for P V_j and releasing the stage; slot 7 holds the step count.
+# for P V_j and refilling the free K and V slots; slot 7 holds the step
+# count.
 _MARK = ("#define K3_MARK(i) { const long long n_ = clock64(); "
          "k3_acc[i] += n_ - k3_t; k3_t = n_; }\n")
 TRACE_EDITS = [
@@ -85,15 +84,15 @@ TRACE_EDITS = [
      'extern "C" int k3_trace_copy(void* host, int n) {\n'
      "  return (int)cudaMemcpyFromSymbol(host, k3_trace, n * 64);\n}\n"
      + _MARK),
-    ("  const int g = lane / 4, t = lane % 4;\n  auto issue_s",
-     "  const int g = lane / 4, t = lane % 4;\n"
+    ("  float sc[BK / 2];\n  uint32_t p0",
      "  long long k3_t = clock64(), k3_acc[7] = {0, 0, 0, 0, 0, 0, 0};\n"
-     "  auto issue_s"),
+     "  float sc[BK / 2];\n  uint32_t p0"),
     ("    const bool more = j + 1 < nkv;\n    issue_s(sc, more ? j + 1 : j);\n",
      "    const bool more = j + 1 < nkv;\n    K3_MARK(0);\n"
      "    issue_s(sc, more ? j + 1 : j);\n    K3_MARK(1);\n"),
-    ("    nesr::mbar_wait(vfull + 8 * s, (j / ST) & 1);\n",
-     "    nesr::mbar_wait(vfull + 8 * s, (j / ST) & 1);\n    K3_MARK(2);\n"),
+    ("    nesr::mbar_wait(vfull + 8 * (j % VST), (j / VST) & 1);\n",
+     "    nesr::mbar_wait(vfull + 8 * (j % VST), (j / VST) & 1);\n"
+     "    K3_MARK(2);\n"),
     ("    nesr::wgmma_commit();\n    nesr::wgmma_wait<1>();"
      "   // S_{j+1} has retired; P V_j may still run\n",
      "    nesr::wgmma_commit();\n    K3_MARK(3);\n    nesr::wgmma_wait<1>();\n"
@@ -101,8 +100,8 @@ TRACE_EDITS = [
     ("    if (more) narrow_softmax<BK>(sc, pn, m, l, alpha, (j + 1) * BK, a, t);\n",
      "    if (more) narrow_softmax<BK>(sc, pn, m, l, alpha, (j + 1) * BK, a, t);\n"
      "    K3_MARK(5);\n"),
-    ("    warp_arrive(empty + 8 * s);\n  };",
-     "    warp_arrive(empty + 8 * s);\n    K3_MARK(6);\n  };"),
+    ("        load_v(j + VST);\n      }\n    }\n  };",
+     "        load_v(j + VST);\n      }\n    }\n    K3_MARK(6);\n  };"),
     ("  store_rows<DP>(a, acc, l, q0 + 16 * warp + g, 0, t);",
      "  if (tid == 0) {\n"
      "    long long* row = k3_trace[blockIdx.y * gridDim.x + blockIdx.x];\n"
@@ -111,7 +110,7 @@ TRACE_EDITS = [
      "  store_rows<DP>(a, acc, l, q0 + 16 * warp + g, 0, t);"),
 ]
 PHASES = ("between steps", "wait K + issue S", "rescale + wait V",
-          "issue P V", "wait S", "softmax", "wait P V + release")
+          "issue P V", "wait S", "softmax", "wait P V + refill")
 
 
 def _nvcc() -> str:
