@@ -340,7 +340,7 @@ flash_narrow(const __grid_constant__ CUtensorMap tq,
   // S_{j+1} is issued before P V_j, and the softmax of tile j + 1 runs
   // while P V_j is on the tensor cores; P alternates between two register
   // sets. Once the MMAs reading a K or V slot have retired in every warp
-  // (named barrier 1, once a step), thread 0 refills it.
+  // (named barrier 1, once a step, while S runs), thread 0 refills it.
   auto issue_s = [&](float (&sc)[BK / 2], int j) {
     nesr::mbar_wait(kfull + 8 * (j % KST), (j / KST) & 1);
     nesr::wgmma_fence();
@@ -360,8 +360,6 @@ flash_narrow(const __grid_constant__ CUtensorMap tq,
   nesr::mbar_wait(q_bar, 0);
   issue_s(sc, 0);
   nesr::wgmma_wait<0>();
-  group_sync(1, 128);
-  if (tid == 0 && KST < nkv) load_k(KST);
   narrow_softmax<BK>(sc, p0, m, l, alpha, 0, a, t);
   // One KV tile: P_j (in pc) V_j, with S_{j+1} issued ahead of it and its
   // softmax into pn behind it.
@@ -371,6 +369,17 @@ flash_narrow(const __grid_constant__ CUtensorMap tq,
     // so no wgmma sits under a branch.
     const bool more = j + 1 < nkv;
     issue_s(sc, more ? j + 1 : j);
+    // Under S_{j+1}: K_j's and V_{j-1}'s slots are free (their MMAs
+    // retired before this step).
+    const bool refill_k = j + KST < nkv;
+    const bool refill_v = j > 0 && j - 1 + VST < nkv;
+    if (refill_k || refill_v) {
+      group_sync(1, 128);
+      if (tid == 0) {
+        if (refill_k) load_k(j + KST);
+        if (refill_v) load_v(j - 1 + VST);
+      }
+    }
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       acc[4 * n] *= alpha[0];
@@ -390,14 +399,6 @@ flash_narrow(const __grid_constant__ CUtensorMap tq,
     nesr::wgmma_wait<0>();
 #pragma unroll
     for (int e = 0; e < DP / 2; ++e) nesr::reg_fence(acc[e]);
-    // K_{j+1}'s and V_j's slots are free.
-    if (j + VST < nkv) {
-      group_sync(1, 128);
-      if (tid == 0) {
-        if (j + 1 + KST < nkv) load_k(j + 1 + KST);
-        load_v(j + VST);
-      }
-    }
   };
   for (int j = 0; j < nkv; j += 2) {
     step(j, p0, p1);

@@ -72,8 +72,8 @@ VARIANTS = {
 # A copy of K3 whose narrow form sums, in thread 0 of each block's consumer
 # warpgroup, the SM clocks each phase of a KV step took: 0 between steps,
 # 1 waiting for K_{j+1} and issuing S_{j+1}, 2 rescaling and waiting for
-# V_j, 3 issuing P V_j, 4 waiting for S_{j+1}, 5 its softmax, 6 waiting
-# for P V_j and refilling the free K and V slots; slot 7 holds the step
+# V_j (after refilling the free K and V slots), 3 issuing P V_j, 4 waiting
+# for S_{j+1}, 5 its softmax, 6 waiting for P V_j; slot 7 holds the step
 # count.
 _MARK = ("#define K3_MARK(i) { const long long n_ = clock64(); "
          "k3_acc[i] += n_ - k3_t; k3_t = n_; }\n")
@@ -100,8 +100,8 @@ TRACE_EDITS = [
     ("    if (more) narrow_softmax<BK>(sc, pn, m, l, alpha, (j + 1) * BK, a, t);\n",
      "    if (more) narrow_softmax<BK>(sc, pn, m, l, alpha, (j + 1) * BK, a, t);\n"
      "    K3_MARK(5);\n"),
-    ("        load_v(j + VST);\n      }\n    }\n  };",
-     "        load_v(j + VST);\n      }\n    }\n    K3_MARK(6);\n  };"),
+    ("nesr::reg_fence(acc[e]);\n  };",
+     "nesr::reg_fence(acc[e]);\n    K3_MARK(6);\n  };"),
     ("  store_rows<DP>(a, acc, l, q0 + 16 * warp + g, 0, t);",
      "  if (tid == 0) {\n"
      "    long long* row = k3_trace[blockIdx.y * gridDim.x + blockIdx.x];\n"
@@ -109,8 +109,8 @@ TRACE_EDITS = [
      "    row[7] = nkv;\n  }\n"
      "  store_rows<DP>(a, acc, l, q0 + 16 * warp + g, 0, t);"),
 ]
-PHASES = ("between steps", "wait K + issue S", "rescale + wait V",
-          "issue P V", "wait S", "softmax", "wait P V + refill")
+PHASES = ("between steps", "wait K + issue S", "refill + rescale + wait V",
+          "issue P V", "wait S", "softmax", "wait P V")
 
 
 def _nvcc() -> str:
