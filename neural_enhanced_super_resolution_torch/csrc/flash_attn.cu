@@ -29,17 +29,18 @@
 // boxes of 64 columns swizzled over 128 bytes (32 / 64 bytes at d 16 /
 // 32), the layout wgmma's descriptors read; the copy engine zero-fills
 // rows past Sq or Skv and columns past d, and completes each tile on an
-// mbarrier. Consumers release a buffer on an mbarrier once the MMAs that
-// read it have retired. S = Q K^T runs as wgmma with both operands from
-// shared memory (Q and K K-major); P V reads V in its natural key-major
-// layout as a transposed B (imm-trans-b). Tiles of 64 keys.
+// mbarrier; a buffer is refilled once every warp's MMAs that read it have
+// retired. S = Q K^T runs as wgmma with both operands from shared memory
+// (Q and K K-major); P V reads V in its natural key-major layout as a
+// transposed B (imm-trans-b). Tiles of 64 keys.
 //
-// Narrow form, d <= 128 (the UNet, 640 launches a request): one producer
-// thread keeps a 2-4 stage K/V ring in flight; one consumer warpgroup
-// computes S into registers, issues S_{j+1} ahead of P V_j and runs the
-// online softmax of tile j + 1 under P V_j, turning the S accumulator into
-// P's A fragments in place (two register sets); P V reads P from registers
-// (wgmma RS). Three blocks share an SM at d <= 64, two at d = 128.
+// Narrow form, d <= 128 (the UNet, 640 launches a request): one warpgroup
+// a block and no producer warp, so four blocks share an SM at d <= 64 (two
+// at d = 128). The warpgroup computes S into registers, issues S_{j+1}
+// ahead of P V_j and runs the online softmax of tile j + 1 under P V_j,
+// turning the S accumulator into P's A fragments in place (two register
+// sets); P V reads P from registers (wgmma RS). Its thread 0 refills the
+// K ring (three tiles) and the V ring (two) under each S.
 //
 // Wide form, d in (128, 512] (the VAE mid-block, d = 512): each score tile
 // is computed once per KV tile. Q (64 x 512) stays in shared memory; one
@@ -52,10 +53,10 @@
 // warpgroups at d = 512 keep 96 registers a thread.
 //
 // Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md): the
-// wide form reaches about half of its operations bound at the VAE shape
-// (1.1 ms against 0.556), the narrow form about 38% at the UNet's 64^2
-// (0.092 ms against 0.0347), where the exponentials and the MMAs each
-// cost about a tenth when taken out (tools/k3_ablation.py).
+// wide form reaches half of its operations bound at the VAE shape (1.11
+// ms against 0.556), the narrow form 43% at the UNet's 64^2 (0.080 ms
+// against 0.0347); there the softmax is about 45% of a step's critical
+// path (tools/k3_ablation.py's phase trace).
 //
 // q, k, v and o are addressed through (batch, head, sequence) strides in
 // elements with the head dim contiguous, so (B, S, H, d) views of packed

@@ -29,7 +29,7 @@ import os
 FORMS = {  # name: (A in registers, B transposed, widths)
     "wgmma_rs": (True, False, (8, 16, 32, 64, 80, 96, 128)),
     "wgmma_rs_tb": (True, True, (16, 32, 64, 128)),
-    "wgmma_ss": (False, False, (64, 128)),
+    "wgmma_ss": (False, False, (64,)),
     "wgmma_ss_tb": (False, True, (128,)),
 }
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
