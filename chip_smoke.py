@@ -359,7 +359,7 @@ def check_flash_attention(torch, gen) -> dict:
             failed.append(f"{label}: rel {rel}")
         worst = max(worst, err)
         timed[label] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
-                        "bound_by": by, "library_ms": sms, "wall_ms": wms}
+                        "bound_by": by, "library_ms": sms}
         del got, ref
     torch.cuda.empty_cache()
     if failed:
