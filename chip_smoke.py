@@ -133,7 +133,7 @@ def device_ms(fn, reps: int = 10) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # A profiling session now and then comes back without device events
+    # A profiling run now and then comes back without device events
     # (CUPTI); the measurement is taken again, at most three times.
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:

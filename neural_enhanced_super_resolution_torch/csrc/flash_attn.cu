@@ -566,8 +566,8 @@ flash_wide(const __grid_constant__ CUtensorMap tq,
   store_rows<128>(a, acc, l, q0 + wrow + g, c0, t);
 }
 
-// The driver's tensor-map encoder, looked up once through the runtime, so
-// the library needs no link against the driver.
+// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
+// query, so the library links against the CUDA runtime alone.
 PFN_cuTensorMapEncodeTiled_v12000 encoder() {
   static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
     void* p = nullptr;
