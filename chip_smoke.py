@@ -9,9 +9,11 @@ plain PyTorch version at the shapes its path gives it: K1 and K2 on the
 ESRGAN path, K3 (flash attention) on the diffusion path. Beside each
 kernel's time it prints its bound at the H100's peak rates and, for scale,
 the PyTorch call that computes the same function (cuDNN's bf16 conv for
-K1, SDPA for K3; none exists for K2). K3, SDPA and K3's plain version are
-timed by device time (torch.profiler kernel durations), with the wall a
-call beside it. Then, with seeded synthetic weights:
+K1, SDPA for K3; none exists for K2, which is held against the default
+trunk's RDB, five K1 convs and the elementwise assembly, as its
+yardstick). K2, K3, SDPA, the plain versions and K2's yardstick are timed
+by device time (torch.profiler kernel durations), with the wall a call
+beside it. Then, with seeded synthetic weights:
 
 * the full-width 12-channel RRDBNet x4 (64 features, 23 blocks, growth 32)
   on a 4-tile batch with both trunks;
@@ -264,7 +266,10 @@ def check_conv3x3(torch, gen) -> dict:
 
 
 def check_rdb_fused(torch, gen) -> dict:
-    """K2 on a tile batch against rdb_fused_plain.
+    """K2 on a tile batch against rdb_fused_plain, by device time with the
+    wall a call beside it, and its yardstick: the default trunk's RDB
+    (``FusedRDB(kernel=False)``: five K1 convs and the elementwise
+    assembly) on the same batch and weights, with the five K1 convs alone.
 
     The weights (std 0.05, bias std 0.1) are large enough that each conv
     of the dense chain moves the output by more than the bar: a kernel
@@ -273,8 +278,12 @@ def check_rdb_fused(torch, gen) -> dict:
     under the bar and such a kernel would pass. The error is also printed
     against the size of the residual branch 0.2 * x5 alone.
     """
+    from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
+        conv3x3)
     from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
         rdb_fused, rdb_fused_plain)
+    from neural_enhanced_super_resolution_torch.models.rrdbnet import (
+        FusedRDB)
 
     n, h, w = TILE_BATCH
     x = _rnd(torch, gen, n, h, w, 64, scale=0.5)
@@ -282,11 +291,19 @@ def check_rdb_fused(torch, gen) -> dict:
           for cin, cout in ((64, 192), (32, 160), (32, 128), (32, 96),
                             (32, 64))]
     bb = _rnd(torch, gen, 192, scale=0.1, dtype=torch.float32)
+    trunk = FusedRDB(ws, bb, torch.bfloat16, "cuda", kernel=False)
+    packed = [trunk.p0, trunk.p1, trunk.p2, trunk.p3, trunk.p4]
     ref = rdb_fused_plain(x, ws, bb)
     d, r = rel_err(rdb_fused(x, ws, bb), ref)
     branch = (ref.float() - x.float()).abs().max().item()
-    ms = cuda_ms(lambda: rdb_fused(x, ws, bb))
-    pms = cuda_ms(lambda: rdb_fused_plain(x, ws, bb))
+    ms = device_ms(lambda: rdb_fused(x, ws, bb))
+    wms = wall_ms(lambda: rdb_fused(x, ws, bb))
+    pms = device_ms(lambda: rdb_fused_plain(x, ws, bb), reps=3)
+    yms = device_ms(lambda: trunk(x))
+    ywms = wall_ms(lambda: trunk(x))
+    x32 = x[..., :32].contiguous()
+    cms = device_ms(lambda: [conv3x3(x if i == 0 else x32, wi, packed=pi)
+                             for i, (wi, pi) in enumerate(zip(ws, packed))])
     # The RDB's own work: its five convs' operations (not the kernel's
     # halo recompute); x in and out, the weights and biases once.
     pix = n * h * w
@@ -296,8 +313,13 @@ def check_rdb_fused(torch, gen) -> dict:
     log(f"K2 rdb_fused {tuple(x.shape)}: max_abs_err {d:.6g} rel {r:.3g} "
         f"(tol {TOL_KERNEL}; max|ref| {ref.float().abs().max().item():.4g},"
         f" max|0.2*x5| {branch:.4g}, err/branch {d / branch:.3g}) "
-        f"kernel {ms:.4f} ms plain {pms:.4f} ms bound {bms:.4f} ms ({by}); "
-        "no single PyTorch call computes a whole RDB")
+        f"device ms: kernel {ms:.4f} plain {pms:.4f} bound {bms:.4f} ({by});"
+        f" bound/kernel {bms / ms:.3f}; wall ms a call: kernel {wms:.4f}")
+    log(f"K2 yardstick, the default trunk's RDB (FusedRDB(kernel=False): "
+        f"five K1 convs + elementwise assembly) on the same batch: device "
+        f"{yms:.4f} ms (the five K1 convs alone {cms:.4f}), wall "
+        f"{ywms:.4f} ms a call; kernel/yardstick {ms / yms:.3f} by device "
+        "time; no single PyTorch call computes a whole RDB")
     if not r <= TOL_KERNEL:
         raise AssertionError(f"K2: rel err {r} > {TOL_KERNEL}")
     return {"ms": ms, "plain_ms": pms, "max_abs_err": d, "bound_ms": bms,

@@ -31,6 +31,16 @@
 // Not yet: cp.async/TMA, wgmma, a larger tile or a line buffer.
 #include "common.cuh"
 
+// Phase-clock hooks: empty here; tools/k2_ablation.py defines K2_CLOCK and
+// builds a copy whose thread 0 charges the SM clocks since its previous
+// mark to (stage, phase): 0 weights, 1 MMA, 2 epilogue, 3 waiting for the
+// other warps; stage 5 is the input staging.
+#ifndef K2_CLOCK
+#define K2_CLOCK_INIT
+#define K2_PHASE(stage, phase)
+#define K2_CLOCK_STORE
+#endif
+
 namespace {
 
 constexpr int NFEAT = 64;   // trunk features
@@ -129,6 +139,7 @@ __device__ void rdb_stage(const Ctx& c, int s, const bf16* src,
 
   for (int n0 = 0; n0 < cout; n0 += NC) {
     __syncthreads();  // src complete; previous chunk done with wsm
+    K2_PHASE(s, 3);
     for (int it = threadIdx.x; it < 9 * CIN * (NC / 8); it += THREADS) {
       const int j8 = (it % (NC / 8)) * 8;
       const int rest = it / (NC / 8);
@@ -144,6 +155,7 @@ __device__ void rdb_stage(const Ctx& c, int s, const bf16* src,
       }
     }
     __syncthreads();
+    K2_PHASE(s, 0);
 
     for (int rp = warp; rp < pairs; rp += NWARP) {
       float acc[2][8][4];
@@ -177,6 +189,7 @@ __device__ void rdb_stage(const Ctx& c, int s, const bf16* src,
           }
         }
       }
+      K2_PHASE(s, 1);
       // Epilogue from the accumulators: column g or g+8 of row 2rp+i,
       // channels 2t and 2t+1 of each n8 fragment.
 #pragma unroll
@@ -193,6 +206,7 @@ __device__ void rdb_stage(const Ctx& c, int s, const bf16* src,
           }
         }
       }
+      K2_PHASE(s, 2);
     }
   }
 }
@@ -204,6 +218,7 @@ rdb_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
                  const float* __restrict__ bias, bf16* __restrict__ y, int H,
                  int W, int tiles_x) {
   extern __shared__ __align__(128) unsigned char smem[];
+  K2_CLOCK_INIT;
   Ctx c;
   bf16* p = reinterpret_cast<bf16*>(smem);
   c.xin = p;          p += XIN_ELEMS;
@@ -241,12 +256,14 @@ rdb_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
   // columns; keep them finite.
   for (int it = threadIdx.x; it < 2 * XB_ELEMS / 8; it += THREADS)
     nesr::zero8(c.xb[0] + it * 8);
+  K2_PHASE(5, 0);
 
   rdb_stage<NFEAT, XP>(c, 0, c.xin, w0, 4 * GROW + NFEAT, c.xb[0]);
   rdb_stage<GROW, GP>(c, 1, c.xb[0], w1, 3 * GROW + NFEAT, c.xb[1]);
   rdb_stage<GROW, GP>(c, 2, c.xb[1], w2, 2 * GROW + NFEAT, c.xb[0]);
   rdb_stage<GROW, GP>(c, 3, c.xb[0], w3, GROW + NFEAT, c.xb[1]);
   rdb_stage<GROW, GP>(c, 4, c.xb[1], w4, NFEAT, nullptr);
+  K2_CLOCK_STORE;
 }
 
 }  // namespace
