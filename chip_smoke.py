@@ -170,29 +170,46 @@ def card_line() -> str:
 
 
 def build_kernels() -> None:
-    """Builds the kernels and checks in the SASS that every instantiation
-    of K1 (21) and K3 (6) issues wgmma (HGMMA)."""
+    """Builds the kernels; prints K2's registers and spills from the build
+    log and fails on any wgmma that ptxas serialized; checks in the SASS
+    that every instantiation of K1 (21), K2 (1) and K3 (6) issues wgmma
+    (HGMMA)."""
     from neural_enhanced_super_resolution_torch.kernels import _build
     t0 = time.perf_counter()
     _build.load_library()
     log(f"kernel build+load: {time.perf_counter() - t0:.3f} s "
         f"(nvcc sm_90a, {_build.build_dir()})")
+    tag = os.path.basename(_build.library_path())[len("libnesr_torch_"):-3]
+    build_log = os.path.join(_build.build_dir(), f"build_{tag}.log")
+    if os.path.exists(build_log):
+        with open(build_log) as f:
+            lines = f.read().splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and "rdb_fused" in line:
+                log("K2 ptxas: " + " | ".join(
+                    x.split(":", 1)[-1].strip() for x in lines[i:i + 4]))
+        serialized = [line for line in lines if "serialized" in line]
+        if serialized:
+            raise AssertionError("ptxas serialized wgmma: "
+                                 + "\n".join(serialized))
     sass = subprocess.run(
         [_build.cuda_tool("cuobjdump"), "--dump-sass",
          _build.library_path()], capture_output=True, text=True, check=True,
         timeout=300).stdout
-    hgmma = {"K1": {}, "K3": {}}
+    hgmma = {"K1": {}, "K2": {}, "K3": {}}
     for func in sass.split("Function : ")[1:]:
         name = func.split(None, 1)[0]
-        for kernel, tag in (("conv3x3_kernel", "K1"), ("flash_narrow", "K3"),
+        for kernel, tag in (("conv3x3_kernel", "K1"),
+                            ("rdb_fused_kernel", "K2"), ("flash_narrow", "K3"),
                             ("flash_wide", "K3")):
             if kernel in name:
                 # kernel<A, B>: ..._kernelILi<A>ELi<B>E...
-                args = [p.split("E")[0] for p in
-                        name.split(kernel + "I", 1)[1].split("Li")[1:]]
+                rest = name.split(kernel, 1)[1]
+                args = [p.split("E")[0] for p in rest.split("Li")[1:]
+                        ] if rest.startswith("I") else []
                 hgmma[tag][f"{kernel}<{','.join(args)}>"] = func.count(
                     "HGMMA")
-    for tag, want in (("K1", 21), ("K3", 6)):
+    for tag, want in (("K1", 21), ("K2", 1), ("K3", 6)):
         log(f"{tag} SASS: HGMMA instructions per instantiation "
             f"{hgmma[tag]}")
         if len(hgmma[tag]) != want or min(hgmma[tag].values()) == 0:
@@ -294,10 +311,11 @@ def check_rdb_fused(torch, gen) -> dict:
     trunk = FusedRDB(ws, bb, torch.bfloat16, "cuda", kernel=False)
     packed = [trunk.p0, trunk.p1, trunk.p2, trunk.p3, trunk.p4]
     ref = rdb_fused_plain(x, ws, bb)
-    d, r = rel_err(rdb_fused(x, ws, bb), ref)
+    d, r = rel_err(rdb_fused(x, ws, bb, packed=packed), ref)
     branch = (ref.float() - x.float()).abs().max().item()
-    ms = device_ms(lambda: rdb_fused(x, ws, bb))
-    wms = wall_ms(lambda: rdb_fused(x, ws, bb))
+    # Packed once, as the model does at build; timed without packing.
+    ms = device_ms(lambda: rdb_fused(x, ws, bb, packed=packed))
+    wms = wall_ms(lambda: rdb_fused(x, ws, bb, packed=packed))
     pms = device_ms(lambda: rdb_fused_plain(x, ws, bb), reps=3)
     yms = device_ms(lambda: trunk(x))
     ywms = wall_ms(lambda: trunk(x))

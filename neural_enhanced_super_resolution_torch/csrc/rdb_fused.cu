@@ -8,28 +8,48 @@
 // line buffer and the v1/v3 schedules are TPU artifacts and are not ported:
 // input and output are plain (N, H, W, 64) bf16 NHWC.
 //
-// Weights are the source-major fused layout of fuse_rrdbnet_params
-// (models/rrdbnet.py): w0 (3,3,64,192), w1 (3,3,32,160), w2 (3,3,32,128),
-// w3 (3,3,32,96), w4 (3,3,32,64), bias (192,) fp32 = conv1..conv5 biases.
-// Conv s produces [x_{s+1} pre-activation | slots a_{s+2}.. (32 each) |
-// a5 (64)], so the five convs need no concatenated input.
+// Weights are the source-major fused layout of fuse_rdb (models/rrdbnet.py):
+// w0 (3,3,64,192), w1 (3,3,32,160), w2 (3,3,32,128), w3 (3,3,32,96), w4
+// (3,3,32,64), bias (192,) fp32 = conv1..conv5 biases, each weight packed
+// by K1's kernels/conv3x3.py:pack_conv3x3_weights (w0 as 2 N tiles of 96,
+// w1 as 2 of 80, w2 128, w3 96, w4 64; slabs of 64 (w0) or 32 input
+// channels by N). Conv s produces [x_{s+1} pre-activation | slots
+// a_{s+2}.. (32 each) | a5 (64)], so the five convs need no concatenated
+// input.
 //
-// What bounds it on an H100: run as five separate convs, the RDB writes and
-// re-reads 4 x 32 intermediate channels plus 192+160+128+96 assembly
-// channels per pixel through device memory; fused, device traffic is the
-// 64-channel input and output only. The design is halo recompute: a block
-// owns an 8x8 output tile, stages its 18x18x64 input (5-px halo), and each
-// of the five stages shrinks the valid region by one pixel. Every stage
-// computes 16-pixel-wide rows (16, 14, 12, 10, 8 rows), so the recompute
-// overhead is about 3.4x the RDB's FLOPs: the price of keeping x1..x4 and
-// the slots in shared memory (216 KB in all). Each warp computes two rows
-// at a time with mma.sync, so one B fetch feeds two MMAs; operand rows are
-// padded by 16 bytes so ldmatrix is bank-conflict free. With one 64-pixel
-// tile per block, the next bound is re-staging the RDB's 479 KB of weights
-// from L2 for every tile. Columns a stage computes past its valid width
-// only ever feed other such columns, never a kept output.
-// Not yet: cp.async/TMA, wgmma, a larger tile or a line buffer.
+// Schedule: halo recompute. A block owns an 8x8 output tile, stages its
+// 18x18x64 input (5-px halo), and each of the five stages shrinks the
+// valid region by one pixel; x1..x4 and the slots stay in shared memory.
+// Every stage computes 16-pixel-wide rows (16, 14, 12, 10, 8 rows), about
+// 3.4x the RDB's FLOPs, and with wgmma's 64-row M tiles ~110 MFLOP a
+// block (~507 GFLOP a launch on the 4 x 268 x 268 tile batch: a floor of
+// ~0.51 ms at 989 TFLOP/s). The schedule is kept from the first design so
+// that this one changes only the machinery under it.
+//
+// Machinery (K1's, csrc/conv3x3.cu):
+//  * The RDB's 63 weight slabs (479,232 bytes) form one sequence across
+//    the five stages. Thread 0 moves each with one cp.async.bulk into a
+//    ring of RING slots of the largest slab (12,288 bytes) with full/empty
+//    mbarriers, and refills a slot two slabs after every warp released it,
+//    so the next stage's first slabs arrive during this stage's epilogue.
+//  * Four warpgroups, one 64-row M tile each (four 16-pixel stage rows, one
+//    a warp), issue wgmma.mma_async m64nNk16 with A from ldmatrix of the
+//    stage's source buffer (two fragment sets alternating by tap) and B
+//    from the ring by descriptor. Each stage is its own template
+//    instantiation, so N and the k-steps are immediates and no wgmma sits
+//    under a branch over them. A slot goes back to the ring only after
+//    wgmma.wait_group retires the MMAs that read it.
+//  * Stages 1 and 3 (14 and 10 rows) end on an M tile with 2 dead rows:
+//    their ldmatrix rows are clamped to the stage's last real row and
+//    their results dropped. Stages 2-4 have 3, 3 and 2 M tiles: a
+//    warpgroup without one only waits for each slab and releases it, so
+//    the tensor cores serve the others (the SM's tensor cores are shared,
+//    so the stage costs its M tiles' work, not 4 of them).
+//  * The epilogue turns each accumulator into x_{s+1} (bias, LeakyReLU,
+//    zero outside the image) or a slot update, element by element, and at
+//    stage 4 into y = x + 0.2 x5.
 #include "common.cuh"
+#include "wgmma.cuh"
 
 // Phase-clock hooks: empty here; tools/k2_ablation.py defines K2_CLOCK and
 // builds a copy whose thread 0 charges the SM clocks since its previous
@@ -43,75 +63,158 @@
 
 namespace {
 
+using nesr::bf16;
+
 constexpr int NFEAT = 64;   // trunk features
 constexpr int GROW = 32;    // growth channels
 constexpr int T = 8;        // output tile edge
 constexpr int SW = 18;      // source row width of every stage (16 + 2)
-constexpr int THREADS = 256;
-constexpr int NWARP = THREADS / 32;
-constexpr int NC = 64;      // output channels per weight chunk
+constexpr int NWG = 4;      // warpgroups: one 64-row M tile each
+constexpr int WARPS = 4 * NWG;
+constexpr int THREADS = 32 * WARPS;
 constexpr int XP = NFEAT + 8;   // input pixel pitch (elements)
 constexpr int GP = GROW + 8;    // x_k pixel pitch
-constexpr int WP = NC + 8;      // weight row pitch
+constexpr int NBIAS = 4 * GROW + NFEAT;
+constexpr int RING = 6;         // weight ring slots
+constexpr int SLOT_BYTES = 2 * NFEAT * 96;   // the largest slab (w0's)
 
-// shared-memory carve-up (elements)
-constexpr int XIN_ELEMS = SW * SW * XP;             // input, 5-px halo
-constexpr int XB_ELEMS = 16 * SW * GP;              // x_k ping-pong buffer
-constexpr int A2_ELEMS = 14 * 16 * GROW;            // slot a2 (stage-1 rows)
-constexpr int A3_ELEMS = 12 * 16 * GROW;
-constexpr int A4_ELEMS = 10 * 16 * GROW;
-constexpr int A5_ELEMS = T * T * NFEAT;             // only the kept tile
-constexpr int W_ELEMS = 9 * NFEAT * WP;
-constexpr int SMEM_BYTES =
-    2 * (XIN_ELEMS + 2 * XB_ELEMS + A2_ELEMS + A3_ELEMS + A4_ELEMS +
-         A5_ELEMS + W_ELEMS);
+// Conv s: Cin, Cout, its N tiles (kernels/conv3x3.py:tile_width), the
+// first slab of the RDB's sequence it reads.
+__host__ __device__ constexpr int stage_cin(int s) {
+  return s == 0 ? NFEAT : GROW;
+}
+__host__ __device__ constexpr int stage_cout(int s) {
+  return NBIAS - s * GROW;
+}
+__host__ __device__ constexpr int stage_nt(int s) {
+  return stage_cout(s) > 128 ? 2 : 1;
+}
+__host__ __device__ constexpr int stage_slab(int s) {   // elements
+  return stage_cin(s) * stage_cout(s) / stage_nt(s);
+}
+__host__ __device__ constexpr int stage_g0(int s) {
+  return s == 0 ? 0 : stage_g0(s - 1) + 9 * stage_nt(s - 1);
+}
+constexpr int NSLAB = stage_g0(5);
+static_assert(NSLAB == 63, "K2: 63 slabs an RDB");
+static_assert(2 * stage_slab(0) == SLOT_BYTES && stage_slab(1) <= stage_slab(0)
+              && stage_slab(2) <= stage_slab(0), "K2: slot size");
 
-using nesr::bf16;
-
-struct Ctx {
-  bf16* xin;
-  bf16* xb[2];
-  bf16* slot[6];  // slot[2..5] = a2..a5
-  bf16* wsm;
-  const float* bias;
-  bf16* y;
-  int n, H, W, oy, ox;
+template <int S>
+struct Stage {
+  static constexpr int CIN = stage_cin(S), KS = CIN / 16;
+  static constexpr int SP = S == 0 ? XP : GP;   // source pixel pitch
+  static constexpr int NT = stage_nt(S), N = stage_cout(S) / NT;
+  static constexpr int ROWS = 16 - 2 * S, MT = (ROWS + 3) / 4;
+  static constexpr int G0 = stage_g0(S);
 };
 
+// Shared memory (bytes): [ring][input][x_k ping-pong][slots a2..a5]
+// [bias][full bars][empty bars].
+constexpr int XIN_BYTES = SW * SW * XP * 2;        // input, 5-px halo
+constexpr int XB_BYTES = 16 * SW * GP * 2;         // x_k buffer
+constexpr int A2_BYTES = 14 * 16 * GROW * 2;       // slot a2 (stage-1 rows)
+constexpr int A3_BYTES = 12 * 16 * GROW * 2;
+constexpr int A4_BYTES = 10 * 16 * GROW * 2;
+constexpr int A5_BYTES = T * T * NFEAT * 2;        // only the kept tile
+constexpr int XIN_OFF = RING * SLOT_BYTES;
+constexpr int XB_OFF = XIN_OFF + XIN_BYTES;
+constexpr int A2_OFF = XB_OFF + 2 * XB_BYTES;
+constexpr int A3_OFF = A2_OFF + A2_BYTES;
+constexpr int A4_OFF = A3_OFF + A3_BYTES;
+constexpr int A5_OFF = A4_OFF + A4_BYTES;
+constexpr int BIAS_OFF = A5_OFF + A5_BYTES;
+constexpr int BAR_OFF = BIAS_OFF + NBIAS * 4;
+constexpr int SMEM_BYTES = BAR_OFF + 2 * RING * 8;
+static_assert(SMEM_BYTES + 1024 <= 233472, "K2: one block an SM");
+
+struct Params {
+  const bf16* x;
+  const bf16* w0;   // packed (pack_conv3x3_weights)
+  const bf16* w1;
+  const bf16* w2;
+  const bf16* w3;
+  const bf16* w4;
+  const float* bias;
+  bf16* y;
+  int H, W, tiles_x;
+};
+
+struct Ctx {
+  unsigned char* smem;
+  bf16* xin;
+  const float* bias;   // shared copy
+  bf16* y;
+  int n, H, W, oy, ox;
+  uint32_t ring, full, empty;   // shared addresses
+};
+
+// Slot a_m (m = 2..5) in shared memory, selected without indexing an array.
+__device__ __forceinline__ bf16* slot_ptr(const Ctx& c, int m) {
+  return reinterpret_cast<bf16*>(
+      c.smem + (m == 2 ? A2_OFF : m == 3 ? A3_OFF : m == 4 ? A4_OFF : A5_OFF));
+}
 __device__ __forceinline__ int slot_rows(int m) { return 16 - 2 * (m - 1); }
 __device__ __forceinline__ int slot_cols(int m) { return m == 5 ? T : 16; }
 __device__ __forceinline__ int slot_ch(int m) { return m == 5 ? NFEAT : GROW; }
 
-// One element of conv s's output: channel co at row r, column i of the
-// stage-s region, conv value v (fp32 accumulator).
-__device__ __forceinline__ void rdb_emit(const Ctx& c, int s, int r, int i,
-                                         int co, float v, bf16* xdst) {
-  const int gy = c.oy - 4 + s + r, gx = c.ox - 4 + s + i;
+// Thread 0: slab g of the RDB's sequence into its ring slot.
+__device__ __forceinline__ void issue_slab(const Params& p, const Ctx& c,
+                                           int g) {
+  const bf16* src;
+  int elems;
+  if (g < stage_g0(1)) {
+    src = p.w0 + (size_t)g * stage_slab(0);
+    elems = stage_slab(0);
+  } else if (g < stage_g0(2)) {
+    src = p.w1 + (size_t)(g - stage_g0(1)) * stage_slab(1);
+    elems = stage_slab(1);
+  } else if (g < stage_g0(3)) {
+    src = p.w2 + (size_t)(g - stage_g0(2)) * stage_slab(2);
+    elems = stage_slab(2);
+  } else if (g < stage_g0(4)) {
+    src = p.w3 + (size_t)(g - stage_g0(3)) * stage_slab(3);
+    elems = stage_slab(3);
+  } else {
+    src = p.w4 + (size_t)(g - stage_g0(4)) * stage_slab(4);
+    elems = stage_slab(4);
+  }
+  const int s = g % RING;
+  nesr::bulk_load(c.ring + s * SLOT_BYTES, src, elems * 2, c.full + 8 * s);
+}
+
+// One element of conv S's output: channel co at row r, column i of the
+// stage-S region, conv value v (fp32 accumulator).
+template <int S>
+__device__ __forceinline__ void rdb_emit(const Ctx& c, int r, int i, int co,
+                                         float v, bf16* xdst) {
+  const int gy = c.oy - 4 + S + r, gx = c.ox - 4 + S + i;
   const bool inimg = gy >= 0 && gy < c.H && gx >= 0 && gx < c.W;
   const float cb = nesr::round_bf16(v);  // conv output in bf16
-  if (s < 4 && co < GROW) {
-    // x_{s+1} = lrelu(a_{s+1} + c_s + b), zero outside the image (the next
+  if (S < 4 && co < GROW) {
+    // x_{S+1} = lrelu(a_{S+1} + c_S + b), zero outside the image (the next
     // conv's SAME padding).
     float u = cb;
-    if (s > 0) u = __bfloat162float(c.slot[s + 1][(r * 16 + i) * GROW + co]) + cb;
-    u = nesr::lrelu(u + c.bias[GROW * s + co]);
+    if (S > 0)
+      u = __bfloat162float(slot_ptr(c, S + 1)[(r * 16 + i) * GROW + co]) + cb;
+    u = nesr::lrelu(u + c.bias[GROW * S + co]);
     xdst[(r * SW + i) * GP + co] = __float2bfloat16(inimg ? u : 0.f);
     return;
   }
-  const int nslots32 = GROW * (4 - s);  // channels of 32-wide destinations
+  constexpr int nslots32 = GROW * (4 - S);  // channels of 32-wide slots
   int m, ch;
   if (co < nslots32) {
-    m = s + 1 + co / GROW;
+    m = S + 1 + co / GROW;
     ch = co % GROW;
   } else {
     m = 5;
     ch = co - nslots32;
   }
-  const int d = m - 1 - s;  // region offset to the consumer stage
+  const int d = m - 1 - S;  // region offset to the consumer stage
   const int rr = r - d, ii = i - d;
   if (rr < 0 || rr >= slot_rows(m) || ii < 0 || ii >= slot_cols(m)) return;
-  bf16* slot = c.slot[m] + (rr * slot_cols(m) + ii) * slot_ch(m) + ch;
-  if (s == 4) {
+  bf16* slot = slot_ptr(c, m) + (rr * slot_cols(m) + ii) * slot_ch(m) + ch;
+  if (S == 4) {
     // x5 = a5 + c4 + b5; out = x + 0.2 * x5 on the 8x8 tile.
     if (inimg) {
       const float x5 = __bfloat162float(*slot) + cb + c.bias[4 * GROW + ch];
@@ -120,168 +223,203 @@ __device__ __forceinline__ void rdb_emit(const Ctx& c, int s, int r, int i,
       c.y[((size_t)(c.n * c.H + gy) * c.W + gx) * NFEAT + ch] =
           __float2bfloat16(xv + 0.2f * x5);
     }
-  } else if (s == 0) {
+  } else if (S == 0) {
     *slot = __float2bfloat16(cb);
   } else {
     *slot = __float2bfloat16(__bfloat162float(*slot) + cb);
   }
 }
 
-// One conv stage s (0..4): src holds x_s on the stage-(s-1) region
-// ((18 - 2s) rows x 18 cols x CIN, pixel pitch SP), output rows 16 - 2s of
-// 16 pixels.
-template <int CIN, int SP>
-__device__ void rdb_stage(const Ctx& c, int s, const bf16* src,
-                          const bf16* __restrict__ wg, int cout, bf16* xdst) {
-  const int pairs = 8 - s;  // (16 - 2s) rows, two per warp
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-
-  for (int n0 = 0; n0 < cout; n0 += NC) {
-    __syncthreads();  // src complete; previous chunk done with wsm
-    K2_PHASE(s, 3);
-    for (int it = threadIdx.x; it < 9 * CIN * (NC / 8); it += THREADS) {
-      const int j8 = (it % (NC / 8)) * 8;
-      const int rest = it / (NC / 8);
-      const int ci = rest % CIN;
-      const int tap = rest / CIN;
-      bf16* dst = c.wsm + (tap * CIN + ci) * WP + j8;
-      const int valid = cout - (n0 + j8);
-      if (valid > 0) {
-        nesr::load8(dst, wg + ((size_t)tap * CIN + ci) * cout + n0 + j8,
-                    valid, true);
-      } else {
-        nesr::zero8(dst);
-      }
+// Conv S: src holds x_S on the stage-(S-1) region ((18 - 2S) rows x 18
+// cols, pixel pitch SP); (16 - 2S) output rows of 16 pixels, Cout in NT
+// tiles of N, slabs G0.. of the ring.
+template <int S>
+__device__ __forceinline__ void rdb_stage(const Params& p, const Ctx& c,
+                                          const bf16* src, bf16* xdst) {
+  using St = Stage<S>;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4;
+  // This warp is done with slab g (its MMAs retired): one arrival a warp.
+  auto release = [&](int g) {
+    __syncwarp();
+    if (lane == 0) nesr::mbar_arrive(c.empty + 8 * (g % RING));
+  };
+  if (wg >= St::MT) {
+    // No M tile for this warpgroup: pass the stage's slabs through.
+    for (int g = St::G0; g < St::G0 + 9 * St::NT; ++g) {
+      nesr::mbar_wait(c.full + 8 * (g % RING), (g / RING) & 1);
+      release(g);
     }
-    __syncthreads();
-    K2_PHASE(s, 0);
-
-    for (int rp = warp; rp < pairs; rp += NWARP) {
-      float acc[2][8][4];
+  } else {
+    const int r = 4 * wg + warp % 4;        // this warp's stage row
+    const int ra = min(r, St::ROWS - 1);    // a dead row reads a real one
+    // This lane's ldmatrix row: pixel (ra, lane % 16), channel 8 (lane /
+    // 16), at tap (0, 0).
+    const uint32_t a_s = nesr::smem_u32(src) +
+        ((ra * SW + lane % 16) * St::SP + lane / 16 * 8) * 2;
+    float acc[St::N / 2];
+    // A fragments, double-buffered by tap parity: the MMAs of tap t-1 may
+    // still read one set while tap t's ldmatrix fills the other.
+    uint32_t a[2][St::KS][4];
+    const int fr = lane / 4, q = lane % 4;   // accumulator row, column pair
+#pragma unroll 1
+    for (int nt = 0; nt < St::NT; ++nt) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int e = 0; e < St::N / 2; ++e) acc[e] = 0.f;
+      const int g0 = St::G0 + 9 * nt;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+      for (int t = 0; t < 9; ++t) {
+        const int g = g0 + t, s = g % RING;
+        K2_PHASE(S, 1);
+        nesr::mbar_wait(c.full + 8 * s, (g / RING) & 1);
+        K2_PHASE(S, 0);
+        __syncwarp();
+        // A: this warp's 16 pixels (its stage row, shifted by the tap) x
+        // 16 channels a k-step; B: the slab's k-steps by descriptor
+        // (K-major, no swizzle, core matrices 128 bytes apart along K,
+        // 256 along N).
+        const int tap_off = ((t / 3) * SW + t % 3) * St::SP * 2;
+        const uint32_t bs = c.ring + s * SLOT_BYTES;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3, kx = tap % 3;
+        for (int kk = 0; kk < St::KS; ++kk)
+          nesr::ldsm_x4_at(a[t & 1][kk], a_s + tap_off + kk * 32);
+        nesr::wgmma_fence();
 #pragma unroll
-        for (int k0 = 0; k0 < CIN; k0 += 16) {
-          uint32_t a[2][4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            nesr::ldsm_x4<false>(
-                a[i], src + ((2 * rp + i + ky) * SW + kx) * SP + k0, SP);
-#pragma unroll
-          for (int nb = 0; nb < 4; ++nb) {
-            if (n0 + nb * 16 < cout) {
-              uint32_t b[4];
-              nesr::ldsm_x4<true>(b, c.wsm + (tap * CIN + k0) * WP + nb * 16,
-                                  WP);
-#pragma unroll
-              for (int i = 0; i < 2; ++i) {
-                nesr::mma_bf16(acc[i][2 * nb], a[i], b[0], b[1]);
-                nesr::mma_bf16(acc[i][2 * nb + 1], a[i], b[2], b[3]);
-              }
-            }
-          }
+        for (int kk = 0; kk < St::KS; ++kk)
+          nesr::wgmma_rs<St::N>(acc, a[t & 1][kk],
+                                nesr::wgmma_desc(bs + kk * 32 * St::N, 128,
+                                                 256));
+        nesr::wgmma_commit();
+        // Tap t-1's MMAs have retired once at most this tap's group is in
+        // flight: its slot goes back to the ring.
+        if (t > 0) {
+          nesr::wgmma_wait<1>();
+          release(g - 1);
         }
-      }
-      K2_PHASE(s, 1);
-      // Epilogue from the accumulators: column g or g+8 of row 2rp+i,
-      // channels 2t and 2t+1 of each n8 fragment.
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int co = n0 + j * 8 + 2 * t;
-          if (co >= cout) continue;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            rdb_emit(c, s, 2 * rp + i, g + 8 * h, co, acc[i][j][2 * h], xdst);
-            rdb_emit(c, s, 2 * rp + i, g + 8 * h, co + 1,
-                     acc[i][j][2 * h + 1], xdst);
-          }
+        // Refill the slot of slab g-2, which every warp released one slab
+        // ago; the sequence runs on into the next stages.
+        if (tid == 0 && g >= 2 && g - 2 + RING < NSLAB) {
+          K2_PHASE(S, 1);
+          nesr::mbar_wait(c.empty + 8 * ((g - 2) % RING),
+                          ((g - 2) / RING) & 1);
+          K2_PHASE(S, 3);
+          issue_slab(p, c, g - 2 + RING);
         }
+        __syncwarp();
       }
-      K2_PHASE(s, 2);
+      nesr::wgmma_wait<0>();
+      release(g0 + 8);
+      K2_PHASE(S, 1);
+#pragma unroll
+      for (int e = 0; e < St::N / 2; ++e) nesr::reg_fence(acc[e]);
+      // Epilogue: pixel fr or fr+8 of row r, channels 2q and 2q+1 of each
+      // n8 fragment; a dead row's results are dropped.
+      if (r < St::ROWS) {
+        const int co0 = nt * St::N;
+#pragma unroll
+        for (int j = 0; j < St::N / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              rdb_emit<S>(c, r, fr + 8 * h, co0 + 8 * j + 2 * q + e,
+                          acc[4 * j + 2 * h + e], xdst);
+      }
+      K2_PHASE(S, 2);
     }
   }
+  __syncthreads();   // x_{S+1} and the slots complete
+  K2_PHASE(S, 3);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
-rdb_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
-                 const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-                 const bf16* __restrict__ w3, const bf16* __restrict__ w4,
-                 const float* __restrict__ bias, bf16* __restrict__ y, int H,
-                 int W, int tiles_x) {
-  extern __shared__ __align__(128) unsigned char smem[];
+rdb_fused_kernel(const Params p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
   K2_CLOCK_INIT;
+  const int tid = threadIdx.x;
   Ctx c;
-  bf16* p = reinterpret_cast<bf16*>(smem);
-  c.xin = p;          p += XIN_ELEMS;
-  c.xb[0] = p;        p += XB_ELEMS;
-  c.xb[1] = p;        p += XB_ELEMS;
-  c.slot[0] = nullptr;
-  c.slot[1] = nullptr;
-  c.slot[2] = p;      p += A2_ELEMS;
-  c.slot[3] = p;      p += A3_ELEMS;
-  c.slot[4] = p;      p += A4_ELEMS;
-  c.slot[5] = p;      p += A5_ELEMS;
-  c.wsm = p;
+  c.smem = smem;
+  c.xin = reinterpret_cast<bf16*>(smem + XIN_OFF);
+  bf16* xb0 = reinterpret_cast<bf16*>(smem + XB_OFF);
+  bf16* xb1 = reinterpret_cast<bf16*>(smem + XB_OFF + XB_BYTES);
+  float* bias = reinterpret_cast<float*>(smem + BIAS_OFF);
   c.bias = bias;
-  c.y = y;
+  c.y = p.y;
   c.n = blockIdx.y;
-  c.H = H;
-  c.W = W;
-  c.oy = (blockIdx.x / tiles_x) * T;
-  c.ox = (blockIdx.x % tiles_x) * T;
+  c.H = p.H;
+  c.W = p.W;
+  c.oy = (blockIdx.x / p.tiles_x) * T;
+  c.ox = (blockIdx.x % p.tiles_x) * T;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  c.ring = nesr::smem_u32(smem);
+  c.full = nesr::smem_u32(full);
+  c.empty = c.full + 8 * RING;
+
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      nesr::mbar_init(&full[s], 1);
+      nesr::mbar_init(&full[RING + s], WARPS);
+    }
+    nesr::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int g = 0; g < RING; ++g) issue_slab(p, c, g);
 
   // Input tile with a 5-px halo; zeros outside the image (SAME padding).
-  for (int it = threadIdx.x; it < SW * SW * (NFEAT / 8); it += THREADS) {
-    const int g = it % (NFEAT / 8);
-    const int q = it / (NFEAT / 8);
+  for (int it = tid; it < SW * SW * (NFEAT / 8); it += THREADS) {
+    const int v = it % (NFEAT / 8), q = it / (NFEAT / 8);
     const int gy = c.oy - 5 + q / SW, gx = c.ox - 5 + q % SW;
-    bf16* dst = c.xin + q * XP + g * 8;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      nesr::load8(dst, x + ((size_t)(c.n * H + gy) * W + gx) * NFEAT + g * 8,
-                  8, true);
-    } else {
-      nesr::zero8(dst);
-    }
+    const bool ok = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+    const bf16* src =
+        ok ? p.x + ((size_t)(c.n * p.H + gy) * p.W + gx) * NFEAT + v * 8
+           : p.x;
+    nesr::cp_async_zfill<16>(c.xin + q * XP + v * 8, src, ok ? 16 : 0);
   }
   // The x_k buffers' columns 16..17 are only ever read by discarded
   // columns; keep them finite.
-  for (int it = threadIdx.x; it < 2 * XB_ELEMS / 8; it += THREADS)
-    nesr::zero8(c.xb[0] + it * 8);
+  for (int it = tid; it < 2 * XB_BYTES / 16; it += THREADS)
+    nesr::zero8(xb0 + it * 8);
+  for (int i = tid; i < NBIAS; i += THREADS) bias[i] = p.bias[i];
+  nesr::cp_async_wait_all();
+  __syncthreads();
   K2_PHASE(5, 0);
 
-  rdb_stage<NFEAT, XP>(c, 0, c.xin, w0, 4 * GROW + NFEAT, c.xb[0]);
-  rdb_stage<GROW, GP>(c, 1, c.xb[0], w1, 3 * GROW + NFEAT, c.xb[1]);
-  rdb_stage<GROW, GP>(c, 2, c.xb[1], w2, 2 * GROW + NFEAT, c.xb[0]);
-  rdb_stage<GROW, GP>(c, 3, c.xb[0], w3, GROW + NFEAT, c.xb[1]);
-  rdb_stage<GROW, GP>(c, 4, c.xb[1], w4, NFEAT, nullptr);
+  rdb_stage<0>(p, c, c.xin, xb0);
+  rdb_stage<1>(p, c, xb0, xb1);
+  rdb_stage<2>(p, c, xb1, xb0);
+  rdb_stage<3>(p, c, xb0, xb1);
+  rdb_stage<4>(p, c, xb1, nullptr);
   K2_CLOCK_STORE;
 }
 
 }  // namespace
 
+// x (N, H, W, 64) bf16, 16-byte aligned; w0..w4 packed by
+// pack_conv3x3_weights (16-byte aligned); bias (192,) fp32; y like x.
 extern "C" int nesr_rdb_fused(const void* x, const void* w0, const void* w1,
                               const void* w2, const void* w3, const void* w4,
                               const void* bias, void* y, int N, int H, int W,
                               void* stream) {
   // Set per call: the attribute is per device, and the call is cheap.
   cudaError_t err = cudaFuncSetAttribute(
-      rdb_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      rdb_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const int tiles_x = (W + T - 1) / T;
+  Params p;
+  p.x = (const bf16*)x;
+  p.w0 = (const bf16*)w0;
+  p.w1 = (const bf16*)w1;
+  p.w2 = (const bf16*)w2;
+  p.w3 = (const bf16*)w3;
+  p.w4 = (const bf16*)w4;
+  p.bias = (const float*)bias;
+  p.y = (bf16*)y;
+  p.H = H;
+  p.W = W;
+  p.tiles_x = (W + T - 1) / T;
   const int tiles_y = (H + T - 1) / T;
-  dim3 grid(tiles_x * tiles_y, N);
-  rdb_fused_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w0, (const bf16*)w1, (const bf16*)w2,
-      (const bf16*)w3, (const bf16*)w4, (const float*)bias, (bf16*)y, H, W,
-      tiles_x);
+  dim3 grid(p.tiles_x * tiles_y, N);
+  rdb_fused_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

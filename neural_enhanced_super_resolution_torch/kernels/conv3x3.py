@@ -22,7 +22,7 @@ from neural_enhanced_super_resolution_torch.kernels._build import (
     KernelInputError)
 
 __all__ = ["conv3x3", "conv3x3_plain", "pack_conv3x3_weights", "pass_width",
-           "tile_width", "TILE_WIDTHS"]
+           "tile_width", "packed_numel", "TILE_WIDTHS"]
 
 # The kernel's instantiations: the output-channel width N of one tile; a
 # block walks Cout's tiles one after the other.
@@ -47,6 +47,12 @@ def tile_width(cout: int) -> tuple[int, int]:
     zero weights)."""
     tiles = -(-cout // TILE_WIDTHS[-1])
     return next(n for n in TILE_WIDTHS if n >= -(-cout // tiles)), tiles
+
+
+def packed_numel(cin: int, cout: int) -> int:
+    """Values in ``pack_conv3x3_weights`` of a (3, 3, cin, cout) weight."""
+    nw, tiles = tile_width(cout)
+    return tiles * 9 * _padded_cin(cin) * nw
 
 
 def pack_conv3x3_weights(w: torch.Tensor) -> torch.Tensor:
@@ -133,12 +139,11 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
                                    f"fp32 ({cout},) tensor on {x.device}")
     if n > 65535 or min(n, h, wd, cin, cout) < 1:
         raise KernelInputError(f"conv3x3: unsupported shape {tuple(x.shape)}")
-    nw, tiles = tile_width(cout)
     if packed is None:
         packed = pack_conv3x3_weights(w)
     if (packed.dtype != torch.bfloat16 or packed.device != x.device
             or not packed.is_contiguous() or packed.data_ptr() % 16
-            or packed.numel() != tiles * 9 * _padded_cin(cin) * nw):
+            or packed.numel() != packed_numel(cin, cout)):
         raise KernelInputError("conv3x3: packed is not "
                                "pack_conv3x3_weights(w) on the device")
     lib = _build.load_library()
@@ -147,7 +152,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
         err = lib.nesr_conv3x3(
             x.data_ptr(), packed.data_ptr(),
             bias.data_ptr() if bias is not None else None, y.data_ptr(),
-            n, h, wd, cin, cout, nw, int(bool(lrelu)), _build.stream_ptr())
+            n, h, wd, cin, cout, tile_width(cout)[0], int(bool(lrelu)),
+            _build.stream_ptr())
     _build.check("conv3x3", err)
     conv3x3.launches += 1
     return y

@@ -11,7 +11,11 @@ NHWC (N, H, W, nf) and any H and W.
 
 Weights are the source-major fused RDB of ``models/rrdbnet.fuse_rdb``:
 ``w = (w0, .., w4)`` HWIO with Cout 4g+nf, 3g+nf, 2g+nf, g+nf, nf and
-``b`` the (4g + nf,) concatenated conv1..conv5 biases.
+``b`` the (4g + nf,) concatenated conv1..conv5 biases. The kernel reads
+each weight as K1 does, packed by ``pack_conv3x3_weights`` into the image
+of its ``wgmma`` B slabs (63 slabs an RDB, one sequence across the five
+convs); models pack once at build and pass the five buffers as
+``packed``, and a call without them packs on the fly.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from neural_enhanced_super_resolution_torch.kernels import _build
 from neural_enhanced_super_resolution_torch.kernels._build import (
     KernelInputError)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-    conv3x3_plain)
+    conv3x3_plain, pack_conv3x3_weights, packed_numel)
 
 __all__ = ["rdb_fused", "rdb_fused_plain", "KERNEL_NF", "KERNEL_GC"]
 
@@ -75,10 +79,13 @@ rdb_fused_plain.calls = 0
 
 
 def rdb_fused(x: torch.Tensor, w: Sequence[torch.Tensor],
-              b: torch.Tensor) -> torch.Tensor:
+              b: torch.Tensor,
+              packed: Sequence[torch.Tensor] | None = None) -> torch.Tensor:
     """One RDB: x (N, H, W, nf) -> same shape and dtype.
 
-    On the GPU: nf 64, growth 32, x and w bf16, b fp32, all contiguous.
+    On the GPU: nf 64, growth 32, x and w bf16, b fp32, all contiguous on
+    one device, x 16-byte aligned; ``packed`` is
+    ``[pack_conv3x3_weights(wi) for wi in w]`` (made here when None).
     Anything else raises ``KernelInputError``.
     """
     if x.device.type == "cpu":
@@ -108,11 +115,23 @@ def rdb_fused(x: torch.Tensor, w: Sequence[torch.Tensor],
     n, h, wd, _ = x.shape
     if n > 65535:
         raise KernelInputError(f"rdb_fused: batch {n} too large")
+    if x.data_ptr() % 16:
+        raise KernelInputError("rdb_fused: x must be 16-byte aligned")
+    if packed is None:
+        packed = [pack_conv3x3_weights(wi) for wi in w]
+    if len(packed) != 5 or any(
+            p.dtype != torch.bfloat16 or p.device != x.device
+            or not p.is_contiguous() or p.data_ptr() % 16
+            or p.numel() != packed_numel(*shape[2:])
+            for p, shape in zip(packed, want)):
+        raise KernelInputError("rdb_fused: packed is not "
+                               "[pack_conv3x3_weights(wi) for wi in w] on "
+                               "the device")
     lib = _build.load_library()
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = lib.nesr_rdb_fused(
-            x.data_ptr(), *[wi.data_ptr() for wi in w], b.data_ptr(),
+            x.data_ptr(), *[p.data_ptr() for p in packed], b.data_ptr(),
             y.data_ptr(), n, h, wd, _build.stream_ptr())
     _build.check("rdb_fused", err)
     rdb_fused.launches += 1

@@ -114,12 +114,6 @@ def _hwio(w_oihw: torch.Tensor) -> torch.Tensor:
     return w_oihw.permute(2, 3, 1, 0)
 
 
-def _packed(w: torch.Tensor) -> torch.Tensor | None:
-    """K1's packed weights, made once at build for a model on the card
-    (the CPU runs the plain version, which takes HWIO)."""
-    return pack_conv3x3_weights(w) if w.is_cuda else None
-
-
 def _k1(x, w, b, lrelu, packed, plain):
     if plain:
         return conv3x3_plain(x, w, b, lrelu)
@@ -128,14 +122,15 @@ def _k1(x, w, b, lrelu, packed, plain):
 
 class _Conv(nn.Module):
     """One 3x3 conv through K1: HWIO weight in the compute dtype, its packed
-    image on the card, fp32 bias."""
+    image (packed once at build; the CPU's plain version reads HWIO), fp32
+    bias."""
 
     def __init__(self, sd: Mapping[str, torch.Tensor], key: str, dtype,
                  device):
         super().__init__()
         self.register_buffer("w", _hwio(sd[f"{key}.weight"]).to(
             device=device, dtype=dtype).contiguous())
-        self.register_buffer("wp", _packed(self.w))
+        self.register_buffer("wp", pack_conv3x3_weights(self.w))
         self.register_buffer("b", sd[f"{key}.bias"].to(
             device=device, dtype=torch.float32).contiguous())
 
@@ -163,15 +158,15 @@ class FusedRDB(nn.Module):
     """Source-major fused RDB: five K1 convs and an elementwise assembly,
     or one K2.
 
-    fw: w0..w4 HWIO (from ``fuse_rdb``), fb: the (4g + nf,) biases. On
-    the K1 trunk, p0..p4 are their packed images."""
+    fw: w0..w4 HWIO (from ``fuse_rdb``), fb: the (4g + nf,) biases;
+    p0..p4 are their packed images, which K1 and K2 read alike."""
 
     def __init__(self, fw, fb, dtype, device, kernel: bool):
         super().__init__()
         for i, w in enumerate(fw):
             self.register_buffer(f"w{i}", w.to(device=device, dtype=dtype)
                                  .contiguous())
-            self.register_buffer(f"p{i}", None if kernel else _packed(
+            self.register_buffer(f"p{i}", pack_conv3x3_weights(
                 getattr(self, f"w{i}")))
         self.register_buffer("b", fb.to(device=device, dtype=torch.float32)
                              .contiguous())
@@ -181,13 +176,18 @@ class FusedRDB(nn.Module):
     def weights(self) -> list[torch.Tensor]:
         return [self.w0, self.w1, self.w2, self.w3, self.w4]
 
+    def packed(self) -> list[torch.Tensor]:
+        return [self.p0, self.p1, self.p2, self.p3, self.p4]
+
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         if self.kernel:
-            return (rdb_fused_plain if plain else rdb_fused)(
-                x, self.weights(), self.b)
+            if plain:
+                return rdb_fused_plain(x, self.weights(), self.b)
+            return rdb_fused(x, self.weights(), self.b,
+                             packed=self.packed())
         g, b, dt = self.gc, self.b, x.dtype
         w = self.weights()
-        p = [self.p0, self.p1, self.p2, self.p3, self.p4]
+        p = self.packed()
 
         def conv(t, k):
             return _k1(t, w[k], None, False, p[k], plain)

@@ -92,7 +92,8 @@ def test_conv3x3_takes_weights_packed_at_build(cuda):
 
 
 @pytest.mark.parametrize("shape", [(1, 8, 8, 64), (2, 37, 45, 64),
-                                   (1, 5, 70, 64)])
+                                   (1, 5, 70, 64), (1, 13, 27, 64),
+                                   (3, 9, 70, 64)])
 def test_rdb_fused_kernel_matches_plain(cuda, shape):
     x, ws, b = _rdb_args(cuda, shape, seed=1)
     launches, calls = rdb_fused.launches, rdb_fused_plain.calls
@@ -100,6 +101,23 @@ def test_rdb_fused_kernel_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     assert (rdb_fused.launches, rdb_fused_plain.calls) == (launches + 1, calls)
     assert _rel(got, rdb_fused_plain(x, ws, b)) <= 1e-2
+
+
+def test_rdb_fused_takes_weights_packed_at_build(cuda):
+    """The model path's packed buffers give the same output as packing in
+    the call; a buffer packed for other shapes, of another dtype or on
+    another device is refused."""
+    from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
+        pack_conv3x3_weights)
+    x, ws, b = _rdb_args(cuda, (2, 19, 26, 64), seed=4)
+    packed = [pack_conv3x3_weights(w) for w in ws]
+    assert torch.equal(rdb_fused(x, ws, b, packed=packed), rdb_fused(x, ws, b))
+    for bad in (packed[:4], [packed[0][:-8]] + packed[1:],
+                packed[:1] + [packed[2]] * 4,
+                [packed[0].float()] + packed[1:],
+                [packed[0].cpu()] + packed[1:]):
+        with pytest.raises(KernelInputError, match="packed"):
+            rdb_fused(x, ws, b, packed=bad)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
