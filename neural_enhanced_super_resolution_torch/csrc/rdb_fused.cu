@@ -45,9 +45,11 @@
 //    warpgroup without one only waits for each slab and releases it, so
 //    the tensor cores serve the others (the SM's tensor cores are shared,
 //    so the stage costs its M tiles' work, not 4 of them).
-//  * The epilogue turns each accumulator into x_{s+1} (bias, LeakyReLU,
-//    zero outside the image) or a slot update, element by element, and at
-//    stage 4 into y = x + 0.2 x5.
+//  * The epilogue turns each accumulator pair (two adjacent channels of a
+//    pixel) into x_{s+1} (bias, LeakyReLU, zero outside the image) or a
+//    slot update, one bf16x2 word at a time, and at stage 4 into y = x +
+//    0.2 x5. The slots' pixel pitch is padded by 16 bytes, so a fragment's
+//    stores are free of bank conflicts.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -113,10 +115,12 @@ struct Stage {
 // [bias][full bars][empty bars].
 constexpr int XIN_BYTES = SW * SW * XP * 2;        // input, 5-px halo
 constexpr int XB_BYTES = 16 * SW * GP * 2;         // x_k buffer
-constexpr int A2_BYTES = 14 * 16 * GROW * 2;       // slot a2 (stage-1 rows)
-constexpr int A3_BYTES = 12 * 16 * GROW * 2;
-constexpr int A4_BYTES = 10 * 16 * GROW * 2;
-constexpr int A5_BYTES = T * T * NFEAT * 2;        // only the kept tile
+constexpr int SLP = GROW + 8;                      // a2..a4 pixel pitch
+constexpr int S5P = NFEAT + 8;                     // a5 pixel pitch
+constexpr int A2_BYTES = 14 * 16 * SLP * 2;        // slot a2 (stage-1 rows)
+constexpr int A3_BYTES = 12 * 16 * SLP * 2;
+constexpr int A4_BYTES = 10 * 16 * SLP * 2;
+constexpr int A5_BYTES = T * T * S5P * 2;          // only the kept tile
 constexpr int XIN_OFF = RING * SLOT_BYTES;
 constexpr int XB_OFF = XIN_OFF + XIN_BYTES;
 constexpr int A2_OFF = XB_OFF + 2 * XB_BYTES;
@@ -156,7 +160,7 @@ __device__ __forceinline__ bf16* slot_ptr(const Ctx& c, int m) {
 }
 __device__ __forceinline__ int slot_rows(int m) { return 16 - 2 * (m - 1); }
 __device__ __forceinline__ int slot_cols(int m) { return m == 5 ? T : 16; }
-__device__ __forceinline__ int slot_ch(int m) { return m == 5 ? NFEAT : GROW; }
+__device__ __forceinline__ int slot_pitch(int m) { return m == 5 ? S5P : SLP; }
 
 // Thread 0: slab g of the RDB's sequence into its ring slot.
 __device__ __forceinline__ void issue_slab(const Params& p, const Ctx& c,
@@ -183,22 +187,31 @@ __device__ __forceinline__ void issue_slab(const Params& p, const Ctx& c,
   nesr::bulk_load(c.ring + s * SLOT_BYTES, src, elems * 2, c.full + 8 * s);
 }
 
-// One element of conv S's output: channel co at row r, column i of the
-// stage-S region, conv value v (fp32 accumulator).
+// A channel pair of conv S's output: channels co, co+1 (co even, so both
+// land in one slot) at row r, column i of the stage-S region, conv values
+// v0, v1 (fp32 accumulators). Loads and stores move the pair as one
+// bf16x2 word; with the slots' 40-element pixel pitch the 32 lanes of a
+// fragment store (8 pixels x 4 pairs) hit 32 distinct banks.
 template <int S>
 __device__ __forceinline__ void rdb_emit(const Ctx& c, int r, int i, int co,
-                                         float v, bf16* xdst) {
+                                         float v0, float v1, bf16* xdst) {
   const int gy = c.oy - 4 + S + r, gx = c.ox - 4 + S + i;
   const bool inimg = gy >= 0 && gy < c.H && gx >= 0 && gx < c.W;
-  const float cb = nesr::round_bf16(v);  // conv output in bf16
+  const float c0 = nesr::round_bf16(v0), c1 = nesr::round_bf16(v1);
   if (S < 4 && co < GROW) {
     // x_{S+1} = lrelu(a_{S+1} + c_S + b), zero outside the image (the next
     // conv's SAME padding).
-    float u = cb;
-    if (S > 0)
-      u = __bfloat162float(slot_ptr(c, S + 1)[(r * 16 + i) * GROW + co]) + cb;
-    u = nesr::lrelu(u + c.bias[GROW * S + co]);
-    xdst[(r * SW + i) * GP + co] = __float2bfloat16(inimg ? u : 0.f);
+    float u0 = c0, u1 = c1;
+    if (S > 0) {
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          slot_ptr(c, S + 1) + (r * 16 + i) * SLP + co));
+      u0 += a.x;
+      u1 += a.y;
+    }
+    u0 = nesr::lrelu(u0 + c.bias[GROW * S + co]);
+    u1 = nesr::lrelu(u1 + c.bias[GROW * S + co + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(xdst + (r * SW + i) * GP + co) =
+        inimg ? __floats2bfloat162_rn(u0, u1) : __floats2bfloat162_rn(0.f, 0.f);
     return;
   }
   constexpr int nslots32 = GROW * (4 - S);  // channels of 32-wide slots
@@ -213,20 +226,26 @@ __device__ __forceinline__ void rdb_emit(const Ctx& c, int r, int i, int co,
   const int d = m - 1 - S;  // region offset to the consumer stage
   const int rr = r - d, ii = i - d;
   if (rr < 0 || rr >= slot_rows(m) || ii < 0 || ii >= slot_cols(m)) return;
-  bf16* slot = slot_ptr(c, m) + (rr * slot_cols(m) + ii) * slot_ch(m) + ch;
+  auto* slot = reinterpret_cast<__nv_bfloat162*>(
+      slot_ptr(c, m) + (rr * slot_cols(m) + ii) * slot_pitch(m) + ch);
   if (S == 4) {
     // x5 = a5 + c4 + b5; out = x + 0.2 * x5 on the 8x8 tile.
     if (inimg) {
-      const float x5 = __bfloat162float(*slot) + cb + c.bias[4 * GROW + ch];
-      const float xv =
-          __bfloat162float(c.xin[((rr + 5) * SW + (ii + 5)) * XP + ch]);
-      c.y[((size_t)(c.n * c.H + gy) * c.W + gx) * NFEAT + ch] =
-          __float2bfloat16(xv + 0.2f * x5);
+      const float2 a = __bfloat1622float2(*slot);
+      const float2 xv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(
+              c.xin + ((rr + 5) * SW + (ii + 5)) * XP + ch));
+      const float x50 = a.x + c0 + c.bias[4 * GROW + ch];
+      const float x51 = a.y + c1 + c.bias[4 * GROW + ch + 1];
+      *reinterpret_cast<__nv_bfloat162*>(
+          c.y + ((size_t)(c.n * c.H + gy) * c.W + gx) * NFEAT + ch) =
+          __floats2bfloat162_rn(xv.x + 0.2f * x50, xv.y + 0.2f * x51);
     }
   } else if (S == 0) {
-    *slot = __float2bfloat16(cb);
+    *slot = __floats2bfloat162_rn(c0, c1);
   } else {
-    *slot = __float2bfloat16(__bfloat162float(*slot) + cb);
+    const float2 a = __bfloat1622float2(*slot);
+    *slot = __floats2bfloat162_rn(a.x + c0, a.y + c1);
   }
 }
 
@@ -262,7 +281,9 @@ __device__ __forceinline__ void rdb_stage(const Params& p, const Ctx& c,
     // still read one set while tap t's ldmatrix fills the other.
     uint32_t a[2][St::KS][4];
     const int fr = lane / 4, q = lane % 4;   // accumulator row, column pair
-#pragma unroll 1
+    // N tiles unrolled: each accumulator pair's channel, and so its slot,
+    // is a constant but for the column pair q.
+#pragma unroll
     for (int nt = 0; nt < St::NT; ++nt) {
 #pragma unroll
       for (int e = 0; e < St::N / 2; ++e) acc[e] = 0.f;
@@ -320,10 +341,8 @@ __device__ __forceinline__ void rdb_stage(const Params& p, const Ctx& c,
         for (int j = 0; j < St::N / 8; ++j)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              rdb_emit<S>(c, r, fr + 8 * h, co0 + 8 * j + 2 * q + e,
-                          acc[4 * j + 2 * h + e], xdst);
+            rdb_emit<S>(c, r, fr + 8 * h, co0 + 8 * j + 2 * q,
+                        acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], xdst);
       }
       K2_PHASE(S, 2);
     }

@@ -1,6 +1,6 @@
 """Where K2's time goes: a phase clock per stage, on one CUDA GPU.
 
-    python3 tools/k2_ablation.py [--baseline CSRC_DIR]
+    python3 tools/k2_ablation.py [--baseline CSRC_DIR] [--faults]
 
 Copies ``csrc/`` into ``build/k2_ablation/<variant>/`` and builds each
 copy's ``rdb_fused.cu`` with its own nvcc (all at once):
@@ -14,6 +14,11 @@ copy's ``rdb_fused.cu`` with its own nvcc (all at once):
 * ``baseline`` (with ``--baseline``): the ``rdb_fused.cu`` of another
   ``csrc`` directory, e.g. a ``git archive`` of the parent commit, so two
   designs are compared within one call.
+
+With ``--faults``, builds the planted faults of FAULTS (textual edits of
+``rdb_fused.cu``; an edit whose text no longer matches fails loudly) and
+runs ``chip_smoke.check_rdb_fused`` with each in place of the kernel: the
+check must fail every one (it prints each fault's error beside its bar).
 
 Times each copy on the 4 x 268 x 268 tile batch with CUDA events over REPS
 launches after a warm-up, in the order baseline, base, clock, base,
@@ -56,24 +61,64 @@ CLOCK_DEFS = (
     "k2_acc[i_]; }\n")
 
 
+# Planted faults: [(old text, new text), ...] applied to rdb_fused.cu.
+FAULTS = {
+    # conv 5 (c4) left out of x5
+    "c4_dropped": [("a.x + c0 + c.bias[4 * GROW + ch]",
+                    "a.x + c.bias[4 * GROW + ch]"),
+                   ("a.y + c1 + c.bias[4 * GROW + ch + 1]",
+                    "a.y + c.bias[4 * GROW + ch + 1]")],
+    # stage 2's slot adds (into a4 and a5) skipped
+    "slot_add_skipped": [
+        ("    *slot = __floats2bfloat162_rn(a.x + c0, a.y + c1);",
+         "    if (S != 2) *slot = __floats2bfloat162_rn(a.x + c0, a.y + c1);")],
+    # conv 5's bias left out of x5
+    "conv5_bias_dropped": [(" + c.bias[4 * GROW + ch]", ""),
+                           (" + c.bias[4 * GROW + ch + 1]", "")],
+    # a ring slot released before the wgmma that reads it retires, and
+    # refilled at once
+    "early_release": [
+        ("          nesr::wgmma_wait<1>();\n          release(g - 1);",
+         "          release(g - 1);\n          nesr::wgmma_wait<1>();"),
+        ("g >= 2 && g - 2 + RING < NSLAB", "g >= 1 && g - 1 + RING < NSLAB"),
+        ("((g - 2) % RING),\n                          ((g - 2) / RING)",
+         "((g - 1) % RING),\n                          ((g - 1) / RING)"),
+        ("issue_slab(p, c, g - 2 + RING);", "issue_slab(p, c, g - 1 + RING);")],
+}
+
+
+class _Swapped:
+    """The port's kernel library with K2's entry point taken from another
+    build."""
+
+    def __init__(self, lib, k2):
+        self._lib, self.nesr_rdb_fused = lib, k2.nesr_rdb_fused
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
 def _nvcc() -> str:
     sys.path.insert(0, ROOT)
     from neural_enhanced_super_resolution_torch.kernels import _build
     return _build._nvcc()
 
 
-def _prepare(name: str, csrc: str, prefix: str = ""):
+def _prepare(name: str, csrc: str, prefix: str = "", edits=()):
     src_dir = os.path.join(OUT, name)
     shutil.rmtree(src_dir, ignore_errors=True)
     shutil.copytree(csrc, src_dir)
     path = os.path.join(src_dir, "rdb_fused.cu")
     with open(path) as f:
         text = f.read()
-    if prefix:
-        if "K2_PHASE(" not in text:
-            raise SystemExit(f"{name}: rdb_fused.cu has no phase hooks")
-        with open(path, "w") as f:
-            f.write(prefix + text)
+    if prefix and "K2_PHASE(" not in text:
+        raise SystemExit(f"{name}: rdb_fused.cu has no phase hooks")
+    for old, new in edits:
+        if old not in text:
+            raise SystemExit(f"{name}: edit no longer matches: {old!r}")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(prefix + text)
     so = os.path.join(src_dir, "libk2.so")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-Xcompiler", "-fPIC", "-shared", path, "-o", so]
@@ -85,6 +130,8 @@ def _prepare(name: str, csrc: str, prefix: str = ""):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", help="another csrc directory to time")
+    ap.add_argument("--faults", action="store_true",
+                    help="hold check_rdb_fused to the planted faults")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -103,6 +150,9 @@ def main() -> int:
     if args.baseline:
         jobs["baseline"] = _prepare("baseline", os.path.abspath(
             args.baseline))
+    if args.faults:
+        for name, edits in FAULTS.items():
+            jobs[name] = _prepare(name, csrc, edits=edits)
     libs = {}
     for name, (so, packed, proc) in jobs.items():
         log = proc.communicate()[0]
@@ -175,6 +225,36 @@ def main() -> int:
               for i in range(4)]
     print("K2 phase clock, all stages: " + ", ".join(
         f"{p} {v:.1%}" for p, v in zip(PHASES, shares)), flush=True)
+    if args.faults:
+        return _check_faults(torch, {k: libs[k][0] for k in FAULTS})
+    return 0
+
+
+def _check_faults(torch, faults) -> int:
+    """chip_smoke.check_rdb_fused with the kernel, then with each planted
+    fault in its place: it must pass the first and fail every fault."""
+    import chip_smoke
+    from neural_enhanced_super_resolution_torch.kernels import _build
+    real = _build.load_library()
+    missed = []
+    for name in ["none", *faults]:
+        _build._lib = real if name == "none" else _Swapped(real, faults[name])
+        try:
+            chip_smoke.check_rdb_fused(torch, torch.Generator().manual_seed(0))
+            caught = False
+        except AssertionError as exc:
+            caught = True
+            print(f"K2 planted fault {name}: check_rdb_fused fails ({exc})",
+                  flush=True)
+        if caught == (name == "none"):
+            missed.append(name)
+        elif name == "none":
+            print("K2 planted fault none: check_rdb_fused passes", flush=True)
+    _build._lib = real
+    if missed:
+        print(f"K2 planted faults: the check is wrong about {missed}",
+              flush=True)
+        return 1
     return 0
 
 
