@@ -309,7 +309,7 @@ def check_rdb_fused(torch, gen) -> dict:
                             (32, 64))]
     bb = _rnd(torch, gen, 192, scale=0.1, dtype=torch.float32)
     trunk = FusedRDB(ws, bb, torch.bfloat16, "cuda", kernel=False)
-    packed = [trunk.p0, trunk.p1, trunk.p2, trunk.p3, trunk.p4]
+    packed = trunk.packed()
     ref = rdb_fused_plain(x, ws, bb)
     d, r = rel_err(rdb_fused(x, ws, bb, packed=packed), ref)
     branch = (ref.float() - x.float()).abs().max().item()

@@ -1,20 +1,19 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// The conv kernels take NHWC bf16 activations and HWIO bf16 weights
-// (3, 3, Cin, Cout; K1 takes them pre-packed); K3 takes strided
-// (batch, head, sequence, head dim) bf16 views. All accumulate in fp32 on
-// the tensor cores with mma.sync m16n8k16 (operands fetched from shared
-// memory by ldmatrix; K2) or wgmma (K1, K3; helpers at the end), launch on
-// the caller's stream and allocate nothing. Each C entry
-// point returns cudaGetLastError() so the Python wrapper can raise on a
-// refused launch.
+// The conv kernels take NHWC bf16 activations and bf16 weights packed
+// into the shared-memory image of their wgmma B slabs (K1 and K2,
+// kernels/conv3x3.py:pack_conv3x3_weights); K3 takes strided (batch,
+// head, sequence, head dim) bf16 views. All accumulate in fp32 on the
+// tensor cores with wgmma (helpers at the end), launch on the caller's
+// stream and allocate nothing. Each C entry point returns
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
 //
-// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 operands), with
-// g = lane / 4 and t = lane % 4:
+// Fragment layouts of a warp's 16 rows (PTX ISA: wgmma's A from registers
+// and its accumulator, as mma.m16n8k16's), with g = lane / 4, t = lane % 4:
 //   A (16 x 16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 8+2t..),
 //                           a3 (g+8, 8+2t..)
-//   B (16 x 8, k x n):      b0 (k 2t..2t+1, n g), b1 (k 8+2t.., n g)
-//   C (16 x 8, fp32):       c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
+//   D (16 x N, fp32):       d[4j..4j+1] (g, 8j+2t..8j+2t+1),
+//                           d[4j+2..4j+3] (g+8, 8j+2t..8j+2t+1)
 // Shared-memory rows are padded by 8 bf16 (16 bytes) so the eight row
 // addresses of one ldmatrix phase fall in distinct banks.
 #pragma once
@@ -35,19 +34,6 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// Copy 8 consecutive bf16 values (16 bytes) when `src` is 16-byte aligned
-// and all of them are valid; otherwise copy element-wise with zero fill.
-__device__ __forceinline__ void load8(bf16* dst, const bf16* src, int valid,
-                                      bool aligned) {
-  if (valid >= 8 && aligned) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      dst[i] = i < valid ? src[i] : __float2bfloat16(0.f);
-  }
-}
-
 __device__ __forceinline__ void zero8(bf16* dst) {
   *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
 }
@@ -56,41 +42,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// A 16 x 16 bf16 tile at `base` (row pitch `pitch` elements, 16-byte
-// aligned rows) as an A fragment. With `trans`, the tile is read as
-// k x n (rows = k) and comes back as two B fragments: {r0, r1} for
-// columns 0..7 and {r2, r3} for columns 8..15.
-template <bool trans>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* base,
-                                        int pitch) {
-  const int l = threadIdx.x & 31;
-  const uint32_t addr = smem_u32(base + (l & 15) * pitch + (l >> 4) * 8);
-  if (trans) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr)
-        : "memory");
-  } else {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr)
-        : "memory");
-  }
-}
-
-// c += a (16 x 16) * b (16 x 8), fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ---- Hopper: asynchronous copies, mbarriers, wgmma (K1, K3) ------------
+// ---- Hopper: asynchronous copies, mbarriers, wgmma ----------------------
 
 // cp.async of BYTES (4, 8 or 16) from global to shared; the bytes past
 // `src_bytes` (0 or BYTES) are zero-filled, so a SAME-padding halo or a

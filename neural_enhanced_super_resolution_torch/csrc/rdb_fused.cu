@@ -24,7 +24,19 @@
 // 3.4x the RDB's FLOPs, and with wgmma's 64-row M tiles ~110 MFLOP a
 // block (~507 GFLOP a launch on the 4 x 268 x 268 tile batch: a floor of
 // ~0.51 ms at 989 TFLOP/s). The schedule is kept from the first design so
-// that this one changes only the machinery under it.
+// that this one changes only the machinery under it, which the first
+// design's phase clock showed to be its bound (synchronous weight
+// staging 29% of a block, mma.sync with idle warps, a scalar epilogue).
+//
+// What bounds it on an H100, on the 4 x 268 x 268 tile batch: 1.13 ms by
+// device time, 12% of the RDB's own bound (0.1392 ms, operations) and 45%
+// of this schedule's floor (PERF.md, tools/k2_ablation.py). One block an
+// SM runs its phases in turn: thread 0's clock puts 41% of a block in the
+// MMAs (near the tensor cores' peak while they run), 24% in waits for
+// weight slabs (each block streams all 479 KB from L2), 18% at barriers
+// and 17% in the epilogue. Only a row walk without halo recompute goes
+// below the floor; short of it, the phases can overlap and a tile can read
+// fewer weight bytes from L2.
 //
 // Machinery (K1's, csrc/conv3x3.cu):
 //  * The RDB's 63 weight slabs (479,232 bytes) form one sequence across

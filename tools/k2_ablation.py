@@ -18,7 +18,10 @@ copy's ``rdb_fused.cu`` with its own nvcc (all at once):
 With ``--faults``, builds the planted faults of FAULTS (textual edits of
 ``rdb_fused.cu``; an edit whose text no longer matches fails loudly) and
 runs ``chip_smoke.check_rdb_fused`` with each in place of the kernel: the
-check must fail every one (it prints each fault's error beside its bar).
+check must fail every one (it prints each fault's error beside its bar),
+and the tool exits 1 naming each fault the check passes. On an H100 the
+check passes ``early_release``: its refill lands after the MMAs that read
+the slot have run (PERF.md, K2 planted faults).
 
 Times each copy on the 4 x 268 x 268 tile batch with CUDA events over REPS
 launches after a warm-up, in the order baseline, base, clock, base,
