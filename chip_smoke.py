@@ -20,11 +20,20 @@ beside it. Then, with seeded synthetic weights:
 * the full-width SD x4 upscaler (written as a diffusers-layout snapshot):
   one UNet pass at a 128^2 latent and one VAE decode, with K3 against the
   same forward on the plain attention;
+* the stages without a kernel at their path's shapes, each against the
+  same function on the CPU: SegFormer-b0 (written as an HF-layout
+  snapshot) at 512x512 in bf16, and NL-means on one tile batch of the
+  denoise path and on a whole 768x576 image, with device time, wall,
+  launches a call and the bound;
 * the ESRGAN-only product path (the CLI in a subprocess, ``enhance_image``
   in process), then ESRGAN + diffusion ensembled (the CLI at 128x128 and
-  ``enhance_image`` on a ragged 104x72 input for two iterations), each path
-  with the launch counts zeroed before it and read after it;
-* both paths on small inputs against the CPU in float32.
+  ``enhance_image`` on a ragged 104x72 input for two iterations), then the
+  JAX package's default config (the CLI at 128x128: NL-means denoise,
+  segmentation, ESRGAN and diffusion) and a 1024x768 ESRGAN request with
+  denoise and segmentation on their tiled path, each path with the launch
+  counts zeroed before it and read after it;
+* the paths on small inputs against the CPU in float32 (ESRGAN alone and
+  with denoise and segmentation, diffusion).
 
 Prints the card, every measurement, a JSON line of per-kernel results and,
 last, a JSON status line. Any failure exits non-zero without the status
@@ -99,10 +108,22 @@ def log(*args):
 # each output written once) over the memory rate.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+# NL-means runs on the CUDA cores in float32: 67 TFLOP/s on the data sheet.
+PEAK_FP32_FLOPS = 67e12
+# Operations a pixel and search offset in the colored NL-means
+# (_nl_means_lab_joint): 3 differences, 3 squares, the (a, b) field sum,
+# two 7x7 box sums as 2 x 12 shift-adds, 2 divisions, 2 scalings, 2 exps,
+# 3 weighted products, 3 numerator and 2 denominator sums.
+NLM_OPS_PER_OFFSET = 3 + 3 + 1 + 24 + 2 + 2 + 2 + 3 + 3 + 2
+NLM_OFFSETS = 21 * 21
+NLM_BATCH = (32, 544, 544)   # one 32-tile chunk of the 512 + 2 * 16 tiles
+NLM_IMAGE = (576, 768)       # a whole image, under the 768-px tile threshold
+SEG_INPUT = 512              # SegFormer's input size
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float,
+          peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -147,6 +168,21 @@ def device_ms(fn, reps: int = 10) -> float:
         if us > 0:
             return us / 1e3 / reps
     raise AssertionError("torch.profiler recorded no device time")
+
+
+def launches_per_call(fn, reps: int = 2) -> float:
+    """Kernels (and copies) a call puts on the card, from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA
+               for e in prof.events()) / reps
 
 
 def wall_ms(fn, reps: int = 10) -> float:
@@ -443,6 +479,122 @@ def check_forward(torch, gen, sd, name: str) -> None:
         f"{mp_out / (pms / 1e3):.3f} MP_out/s on {name}")
 
 
+def write_segformer_snapshot(torch) -> str:
+    """SegFormer-b0 (the published config, 150 labels) with seeded weights,
+    as an HF-layout snapshot."""
+    from neural_enhanced_super_resolution_torch.models.segformer import (
+        SegFormerConfig, write_synthetic_segformer)
+    return write_synthetic_segformer(
+        os.path.join(OUT, "segformer_b0_synthetic"), SegFormerConfig(),
+        torch.Generator().manual_seed(SEED))
+
+
+def check_segformer(torch, snap: str, name: str) -> None:
+    """SegFormer-b0 at 1 x 512 x 512 on the card in bf16 against the same
+    forward on the CPU in float32: logits by rel_err, bar TOL_FORWARD."""
+    from neural_enhanced_super_resolution_torch.models.segformer import (
+        load_segformer)
+    x = torch.randn((1, SEG_INPUT, SEG_INPUT, 3),
+                    generator=torch.Generator().manual_seed(SEED + 5))
+    with torch.no_grad():
+        ref = load_segformer(snap, "float32", "cpu").model(x)
+        model = load_segformer(snap, "bfloat16", "cuda").model
+        xc = x.to("cuda")
+        got = model(xc)
+        d, r = rel_err(got.cpu(), ref)
+        dev = device_ms(lambda: model(xc))
+        wms = wall_ms(lambda: model(xc))
+        launches = launches_per_call(lambda: model(xc))
+    log(f"SegFormer-b0 1x{SEG_INPUT}x{SEG_INPUT} bf16 card vs CPU f32: "
+        f"logits {tuple(got.shape)} max_abs_err {d:.6g} rel {r:.3g} (tol "
+        f"{TOL_FORWARD}; max|ref| {ref.abs().max().item():.4g}); device "
+        f"{dev:.4f} ms, wall {wms:.4f} ms a call, {launches:.0f} launches a "
+        f"call on {name}")
+    if not (r <= TOL_FORWARD and torch.isfinite(got).all()):
+        raise AssertionError(f"SegFormer-b0: rel err {r}")
+
+
+def _noisy_images(np, n, h, w, seed):
+    """Smooth seeded content (upsampled noise) with Gaussian noise, std 12."""
+    rng = np.random.default_rng(seed)
+    small = rng.integers(0, 256, (n, h // 16 + 1, w // 16 + 1, 3))
+    img = np.kron(small, np.ones((1, 16, 16, 1)))[:, :h, :w]
+    return np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(
+        np.uint8)
+
+
+def nlmeans_agreement(lab, ref_lab, rgb, ref_rgb) -> tuple:
+    """NL-means on the card against the CPU. The uint8 Lab of the joint
+    pass: max|diff| <= 1 on <= 1e-3 of the values (a float32 weighted
+    mean within an ulp of .5 rounds either way). The RGB output: <= 1e-3
+    of the values differ, and by <= 1 wherever the pixel's Lab agrees (one
+    Lab level spans up to ~5 linear-light RGB levels, so a Lab flip shows
+    as that). Returns (ok, summary)."""
+    dlab = (lab.int() - ref_lab.int()).abs()
+    drgb = (rgb.int() - ref_rgb.int()).abs().reshape(dlab.shape)
+    same_lab = (dlab == 0).all(-1, keepdim=True)
+    vals = [dlab.max().item(), (dlab > 0).float().mean().item(),
+            drgb.max().item(), (drgb > 0).float().mean().item(),
+            (drgb * same_lab).max().item()]
+    ok = (vals[0] <= 1 and vals[1] <= 1e-3 and vals[3] <= 1e-3
+          and vals[4] <= 1)
+    return ok, (f"Lab max|diff| {vals[0]} on a share {vals[1]:.3g} (bar 1 "
+                f"on 1e-3); RGB max|diff| {vals[2]} on a share {vals[3]:.3g}"
+                f" (bar 1e-3), {vals[4]} where the Lab agrees (bar 1)")
+
+
+def check_nlmeans(torch, np, name: str) -> None:
+    """NL-means (denoise_level 0.5: h = h_color = 5) on the card, on one
+    tile batch of the denoise path and on a whole 768x576 image, against
+    the same function on the CPU (the batch's first tile there), by
+    nlmeans_agreement. Device time, wall and launches a call of
+    nl_means_colored, and the bound max(FLOPs / PEAK_FP32_FLOPS, bytes /
+    PEAK_HBM_BYTES) with FLOPs = offsets x pixels x NLM_OPS_PER_OFFSET and
+    bytes = the uint8 image read once and written once."""
+    from neural_enhanced_super_resolution_torch.ops.nlmeans import (
+        _denoised_lab, _lab_to_output, nl_means_colored)
+
+    cases = [("tile batch", _noisy_images(np, *NLM_BATCH, SEED + 6), 1),
+             ("whole image", _noisy_images(np, 1, *NLM_IMAGE, SEED + 7)[0],
+              None)]
+    failed = []
+    for label, img, cpu_tiles in cases:
+        x = torch.from_numpy(img).to("cuda")
+        lab = _denoised_lab(x, 5.0, 5.0)
+        got = _lab_to_output(lab, x.shape).cpu()
+        host = torch.from_numpy(img[:cpu_tiles] if cpu_tiles else img)
+        t0 = time.perf_counter()
+        ref_lab = _denoised_lab(host, 5.0, 5.0)
+        ref = _lab_to_output(ref_lab, host.shape)
+        cpu_s = time.perf_counter() - t0
+        n = cpu_tiles or 1
+        ok, summary = nlmeans_agreement(lab[:n].cpu(), ref_lab,
+                                        got[:n] if cpu_tiles else got, ref)
+
+        def fn():
+            return nl_means_colored(x, h=5.0, h_color=5.0)
+
+        dev = device_ms(fn, reps=2)
+        wms = wall_ms(fn, reps=2)
+        launches = launches_per_call(fn, reps=1)
+        pix = img.size // 3
+        bms, by = bound(NLM_OFFSETS * pix * NLM_OPS_PER_OFFSET,
+                        2.0 * img.size, PEAK_FP32_FLOPS)
+        log(f"NL-means {label} {img.shape} uint8: card vs CPU "
+            f"({'first tile' if cpu_tiles else 'whole'}, {cpu_s:.2f} s on "
+            f"the CPU): {summary}; device {dev:.3f} ms, wall {wms:.3f} ms a "
+            f"call, {launches:.0f} launches a call; bound {bms:.4f} ms "
+            f"({by}: {NLM_OPS_PER_OFFSET} ops x {NLM_OFFSETS} offsets x {pix}"
+            f" px at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32), "
+            f"bound/device {bms / dev:.4f} on {name}")
+        if tuple(got.shape) != img.shape or not ok:
+            failed.append(f"{label}: {summary}")
+        del x, lab, got
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"NL-means card vs CPU: {failed}")
+
+
 def drive_product_path(torch, np, ckpt: str) -> dict:
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
     from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
@@ -535,25 +687,34 @@ def drive_product_path(torch, np, ckpt: str) -> dict:
     return counts
 
 
-def check_against_cpu(torch, np, ckpt: str) -> None:
+def check_against_cpu(torch, np, ckpt: str, seg: str | None = None) -> None:
     """The product path on a small input agrees with the same path on the
-    CPU in float32 (plain versions): PSNR of the uint8 outputs."""
+    CPU in float32 (plain versions): PSNR of the uint8 outputs. With a
+    segmentation snapshot the path is the default config's without
+    diffusion: NL-means denoise and segmentation before ESRGAN."""
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
-    base = {"use_diffusion": False, "segment_enhancement": False,
-            "denoise_level": 0, "esrgan_model_path": ckpt, "iterations": 1,
-            "output_dir": os.path.join(OUT, "ref")}
+    base = {"use_diffusion": False, "esrgan_model_path": ckpt,
+            "iterations": 1, "output_dir": os.path.join(OUT, "ref")}
+    if seg is None:
+        base.update(segment_enhancement=False, denoise_level=0)
+        what = "ESRGAN"
+    else:
+        base["segmentation_model_path"] = seg
+        what = "denoise + segmentation + ESRGAN"
     rng = np.random.default_rng(SEED + 1)
     img = np.kron(rng.integers(0, 256, (7, 7, 3), dtype=np.uint8),
                   np.ones((8, 8, 1), np.uint8))
     ref = SuperResolutionPipeline("cpu", base).enhance_array(img).astype(
         np.float64)
     for trunk in (None, "dform"):
-        got = SuperResolutionPipeline("cuda", dict(base, esrgan_trunk=trunk)
-                                      ).enhance_array(img).astype(np.float64)
+        pipe = SuperResolutionPipeline("cuda", dict(base, esrgan_trunk=trunk))
+        got = pipe.enhance_array(img).astype(np.float64)
+        if seg is not None and "segmentation" not in pipe.timer.totals:
+            raise AssertionError("the segmentation stage did not run")
         mse = float(np.mean((got - ref) ** 2))
         psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
-        log(f"small input 56x56 ({trunk or 'fused'} trunk, bf16 card) vs CPU "
-            f"float32 plain: PSNR {psnr:.2f} dB, max diff "
+        log(f"small input 56x56, {what} ({trunk or 'fused'} trunk, bf16 "
+            f"card) vs CPU float32 plain: PSNR {psnr:.2f} dB, max diff "
             f"{np.abs(got - ref).max():.0f} (bar 30 dB)")
         if got.shape != ref.shape or not psnr >= 30.0:
             raise AssertionError(f"small-input agreement: PSNR {psnr}")
@@ -718,6 +879,7 @@ def drive_diffusion_path(torch, np, ckpt: str, snap: str) -> dict:
             stages.append(line.split()[0])
     _check_sd_request(np, "SD CLI 128x128 -n 1", imread_rgb(paths["sd_128"]),
                       imread_rgb(cli_out), 1, counts, 1, stages)
+    cli_counts = counts
     for key in total:
         total[key] += counts[key]
 
@@ -743,7 +905,155 @@ def drive_diffusion_path(torch, np, ckpt: str, snap: str) -> dict:
         raise AssertionError("iteration 2 did not take the streamed final")
     for key in total:
         total[key] += counts[key]
-    return total
+    return total, cli_counts
+
+
+def drive_default_config(torch, np, ckpt: str, snap: str, seg: str,
+                         sd_cli_counts: dict) -> dict:
+    """The JAX package's default config through the CLI at 128x128 -n 1:
+    the SD CLI request's config with the segmentation snapshot and without
+    its segment_enhancement / denoise_level overrides, so NL-means denoise
+    and segmentation run at their defaults beside ESRGAN and diffusion. K3
+    must launch exactly as often as in that request, K1 at all."""
+    from neural_enhanced_super_resolution_torch.utils.io import (imread_rgb,
+                                                                 imwrite_rgb)
+    cfg = {"use_diffusion": True, "diffusion_model_path": snap,
+           "esrgan_model_path": ckpt, "segmentation_model_path": seg,
+           "sd_stage_detail": True,
+           "output_dir": os.path.join(OUT, "default_out")}
+    rng = np.random.default_rng(SEED + 3)
+    small = rng.integers(0, 256, (17, 17, 3), dtype=np.uint8)
+    src = os.path.join(OUT, "default_128.png")
+    imwrite_rgb(src, np.kron(small, np.ones((8, 8, 1), np.uint8))[:128, :128])
+    cfg_path = os.path.join(OUT, "default_cli_config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    out = os.path.join(OUT, "default_cli", "result.png")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_COUNTED, "--cli", "-i", src, "-c",
+         cfg_path, "-n", "1", "-o", out, "-d", "cuda", "-p", PROMPT,
+         "--bench"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    log(f"default-config CLI subprocess: rc {proc.returncode} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if proc.returncode != 0:
+        raise AssertionError("default-config CLI failed:\n"
+                             + proc.stdout[-3000:] + proc.stderr[-3000:])
+    lines = proc.stdout.splitlines()
+    counts = json.loads(next(line for line in lines
+                             if line.startswith("COUNTS "))[7:])
+    log("default-config CLI StageTimer (--bench):")
+    stages = []
+    for line in lines:
+        if line.startswith("  ") and "s (" in line:
+            log(line)
+            stages.append(line.split()[0])
+    _check_sd_request(np, "default-config CLI 128x128 -n 1", imread_rgb(src),
+                      imread_rgb(out), 1, counts, 1, stages)
+    missing = {"pre/denoise", "pre/contrast", "segmentation"} - set(stages)
+    if missing or counts["flash_attention"] != sd_cli_counts[
+            "flash_attention"]:
+        raise AssertionError(f"default-config CLI: stages lack "
+                             f"{sorted(missing)}; counts {counts}, SD CLI "
+                             f"request {sd_cli_counts}")
+    return counts
+
+
+def timed_request(torch, pipe, img, label: str, name: str, prompt=None):
+    """One request in process, then the same request profiled: its stage
+    times (a fresh StageTimer), and the device-busy share of the profiled
+    run (kernel and copy time on the card over the wall; the StageTimer's
+    nesr/ ranges are annotations, not device work). Returns the output."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from neural_enhanced_super_resolution_torch.runtime.profiler import (
+        StageTimer)
+    pipe.timer = StageTimer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipe.enhance_array(img, prompt)
+    wall = time.perf_counter() - t0
+    log(f"{label}: {img.shape[:2]} -> {out.shape[:2]} in {wall:.3f} s; "
+        "StageTimer:")
+    for line in pipe.timer.summary_lines():
+        log(line)
+    stages = dict(pipe.timer.totals)
+    pipe.timer = StageTimer()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.enhance_array(img, prompt)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("nesr/")) / 1e6
+    log(f"{label} profiled: wall {pwall:.3f} s, device busy {busy:.3f} s "
+        f"({100 * busy / pwall:.1f}% busy) on {name}")
+    return out, stages
+
+
+def drive_default_in_process(torch, np, ckpt: str, snap: str, seg: str,
+                             name: str) -> dict:
+    """The default-config request of drive_default_config once more, in
+    process with the weights already on the card: its stage split beside
+    ESRGAN and diffusion, and its device-busy share."""
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv3x3, conv3x3_plain, flash_attention, flash_attention_plain)
+    from neural_enhanced_super_resolution_torch.utils.io import imread_rgb
+    pipe = SuperResolutionPipeline("cuda", {
+        "use_diffusion": True, "diffusion_model_path": snap,
+        "esrgan_model_path": ckpt, "segmentation_model_path": seg,
+        "iterations": 1, "sd_stage_detail": True,
+        "output_dir": os.path.join(OUT, "default_out")})
+    pipe._load_models()   # set-up: weights to the card before the window
+    if set(pipe.models) != {"esrgan", "diffusion", "segmentation"}:
+        raise AssertionError(f"models loaded: {sorted(pipe.models)}")
+    img = imread_rgb(os.path.join(OUT, "default_128.png"))
+    conv3x3.launches = flash_attention.launches = 0
+    conv3x3_plain.calls = flash_attention_plain.calls = 0
+    out, stages = timed_request(torch, pipe, img,
+                                "default-config request 128x128 -n 1 in "
+                                "process", name, PROMPT)
+    counts = _sd_counts()   # both runs: the timed one and the profiled one
+    _check_sd_request(np, "default-config request in process", img, out, 1,
+                      counts, 2, stages)
+    missing = {"pre/denoise", "pre/contrast", "segmentation"} - set(stages)
+    if missing:
+        raise AssertionError(f"default-config request lacks {missing}")
+    return counts
+
+
+def drive_denoise_segmentation(torch, np, ckpt: str, seg: str,
+                               name: str) -> dict:
+    """A 1024x768 ESRGAN request with NL-means denoise and segmentation at
+    their defaults, in process, one iteration: both new stages take the
+    tiled path (an edge above 768)."""
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv3x3, conv3x3_plain)
+    pipe = SuperResolutionPipeline("cuda", {
+        "use_diffusion": False, "esrgan_model_path": ckpt,
+        "segmentation_model_path": seg, "iterations": 1,
+        "output_dir": os.path.join(OUT, "denoise_seg_out")})
+    pipe._load_models()   # set-up: weights to the card before the window
+    if set(pipe.models) != {"esrgan", "segmentation"}:
+        raise AssertionError(f"models loaded: {sorted(pipe.models)}")
+    img = _noisy_images(np, 1, 768, 1024, SEED + 8)[0]
+    conv3x3.launches = conv3x3_plain.calls = 0
+    out, stages = timed_request(torch, pipe, img,
+                                "request 1024x768 -n 1 (ESRGAN, denoise 0.5,"
+                                " segmentation, tiled stages)", name)
+    counts = {"conv3x3": conv3x3.launches,
+              "conv3x3_plain": conv3x3_plain.calls}
+    log(f"request 1024x768 counts (both runs) {counts}")
+    missing = {"pre/denoise", "pre/contrast", "segmentation"} - set(stages)
+    if (out.shape != (3072, 4096, 3) or out.std() == 0 or missing
+            or counts["conv3x3"] == 0 or counts["conv3x3_plain"]):
+        raise AssertionError(f"1024x768 request: output {out.shape}, "
+                             f"missing stages {missing}, counts {counts}")
+    return counts
 
 
 def check_diffusion_against_cpu(torch, np) -> None:
@@ -835,17 +1145,30 @@ def main() -> int:
     ckpt = save_state_dict(sd, os.path.join(OUT, "synthetic_x4_12ch.pth"))
     snap = write_sd_snapshot(torch)
     check_diffusion_forward(torch, snap, name)
+    seg = write_segformer_snapshot(torch)
+    check_segformer(torch, seg, name)
+    check_nlmeans(torch, np, name)
     counts = drive_product_path(torch, np, ckpt)
-    sd_counts = drive_diffusion_path(torch, np, ckpt, snap)
+    sd_counts, sd_cli_counts = drive_diffusion_path(torch, np, ckpt, snap)
+    default_counts = drive_default_config(torch, np, ckpt, snap, seg,
+                                          sd_cli_counts)
+    default_ip_counts = drive_default_in_process(torch, np, ckpt, snap, seg,
+                                                 name)
+    tiled_counts = drive_denoise_segmentation(torch, np, ckpt, seg, name)
     check_against_cpu(torch, np, ckpt)
+    check_against_cpu(torch, np, ckpt, seg)
     check_diffusion_against_cpu(torch, np)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
     # Launches: each path's count, zeroed before it and read after it.
-    launches = {"conv3x3": counts["conv3x3"] + sd_counts["conv3x3"],
+    launches = {"conv3x3": counts["conv3x3"] + sd_counts["conv3x3"]
+                + default_counts["conv3x3"] + default_ip_counts["conv3x3"]
+                + tiled_counts["conv3x3"],
                 "rdb_fused": counts["rdb_fused"],
-                "flash_attention": sd_counts["flash_attention"]}
+                "flash_attention": sd_counts["flash_attention"]
+                + default_counts["flash_attention"]
+                + default_ip_counts["flash_attention"]}
     sources = {"conv3x3": "csrc/conv3x3.cu", "rdb_fused": "csrc/rdb_fused.cu",
                "flash_attention": "csrc/flash_attn.cu"}
     # K1 also carries the math of kernels/conv3x3.py:106 and

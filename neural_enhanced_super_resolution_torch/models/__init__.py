@@ -1,10 +1,11 @@
-"""Model layer: RRDBNet and its checkpoints."""
+"""Model layer: RRDBNet and its checkpoints, SegFormer."""
 
 from neural_enhanced_super_resolution_torch.models.rrdbnet import (
     RRDBNet, RRDBNetConfig, fuse_rdb, pixel_unshuffle)
 from neural_enhanced_super_resolution_torch.models.weights import (
-    init_rrdbnet, load_state_dict, params_from_jax, save_state_dict)
+    init_rrdbnet, load_state_dict, params_from_jax, save_state_dict,
+    segformer_params_from_jax)
 
 __all__ = ["RRDBNet", "RRDBNetConfig", "fuse_rdb", "pixel_unshuffle",
            "init_rrdbnet", "load_state_dict", "params_from_jax",
-           "save_state_dict"]
+           "save_state_dict", "segformer_params_from_jax"]

@@ -1,4 +1,5 @@
-"""RRDBNet checkpoints: load, save, convert from the JAX layout, synthesise.
+"""RRDBNet checkpoints: load, save, convert from the JAX layout, synthesise;
+and SegFormer parameters carried over from the JAX layout.
 
 State dicts use the basicsr RRDBNet layout (``conv_first.weight`` OIHW,
 ``body.{i}.rdb{k}.conv{c}.weight`` ...), which is what the published
@@ -16,7 +17,7 @@ import torch
 logger = logging.getLogger("nesr.weights")
 
 __all__ = ["load_state_dict", "save_state_dict", "params_from_jax",
-           "init_rrdbnet", "HEAD_CONVS"]
+           "segformer_params_from_jax", "init_rrdbnet", "HEAD_CONVS"]
 
 HEAD_CONVS = ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr",
               "conv_last")
@@ -79,6 +80,17 @@ def params_from_jax(np_params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 sd[f"{key}.bias"] = torch.tensor(
                     np.asarray(p["b"][i], np.float32))
     return sd
+
+
+def segformer_params_from_jax(np_params: Mapping[str, Any]
+                              ) -> dict[str, torch.Tensor]:
+    """The JAX package's flat SegFormer params (HF key names; convs HWIO,
+    depthwise (3, 3, 1, C), linears (in, out), as numpy) -> the HF state
+    dict ``models/segformer.SegFormer`` loads (OIHW, (C, 1, 3, 3),
+    (out, in)), float32: the diffusion params' layout rules."""
+    from neural_enhanced_super_resolution_torch.models.diffusion.convert \
+        import diffusion_params_from_jax
+    return diffusion_params_from_jax(np_params)
 
 
 def init_rrdbnet(cfg, generator: torch.Generator) -> dict[str, torch.Tensor]:

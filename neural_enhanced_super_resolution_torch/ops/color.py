@@ -1,4 +1,4 @@
-"""Colour conversions with OpenCV semantics (gray, Lab).
+"""Colour conversions with OpenCV semantics (gray, Lab, linear Lab).
 
 Counterpart of ``neural_enhanced_super_resolution_tpu/ops/color.py``. The
 3x3 colour matrices are applied as explicit fp32 multiply-adds, so no TF32
@@ -60,11 +60,15 @@ def _lab_f_inv(ft: torch.Tensor) -> torch.Tensor:
     return torch.where(ft > 0.2068966, ft ** 3, (ft - 16.0 / 116.0) / 7.787)
 
 
-def rgb_to_lab(img: torch.Tensor) -> torch.Tensor:
-    """cv2.COLOR_RGB2LAB for uint8 images (L, a, b each in [0, 255])."""
+def rgb_to_lab(img: torch.Tensor, srgb: bool = True) -> torch.Tensor:
+    """cv2.COLOR_RGB2LAB for uint8 images (L, a, b each in [0, 255]).
+
+    With srgb=False this is cv2.COLOR_LRGB2Lab (linear RGB, no gamma), the
+    variant fastNlMeansDenoisingColored uses internally."""
     is_int = not img.dtype.is_floating_point
     x = img.float() / (255.0 if is_int else 1.0)
-    x = _srgb_gamma_inv(x)
+    if srgb:
+        x = _srgb_gamma_inv(x)
     xyz = _mat3(x, _RGB2XYZ)
     f = [_lab_f(xyz[i] / _f32(_WHITE[i])) for i in range(3)]
     L = 116.0 * f[1] - 16.0
@@ -76,8 +80,8 @@ def rgb_to_lab(img: torch.Tensor) -> torch.Tensor:
     return torch.stack([L, a, b], dim=-1).to(img.dtype)
 
 
-def lab_to_rgb(lab: torch.Tensor) -> torch.Tensor:
-    """cv2.COLOR_LAB2RGB for uint8 images."""
+def lab_to_rgb(lab: torch.Tensor, srgb: bool = True) -> torch.Tensor:
+    """cv2.COLOR_LAB2RGB for uint8 images (srgb=False: COLOR_Lab2LRGB)."""
     is_int = not lab.dtype.is_floating_point
     x = lab.float()
     if is_int:
@@ -93,7 +97,8 @@ def lab_to_rgb(lab: torch.Tensor) -> torch.Tensor:
                        _lab_f_inv(fy) * _f32(_WHITE[1]),
                        _lab_f_inv(fz) * _f32(_WHITE[2])], dim=-1)
     rgb = torch.stack(_mat3(xyz, _XYZ2RGB), dim=-1)
-    rgb = _srgb_gamma_fwd(torch.clamp(rgb, min=0.0))
+    if srgb:
+        rgb = _srgb_gamma_fwd(torch.clamp(rgb, min=0.0))
     rgb = torch.clamp(rgb, 0.0, 1.0)
     if is_int:
         return saturate_like(rgb * 255.0, lab.dtype)

@@ -1,21 +1,24 @@
-"""SuperResolutionPipeline on PyTorch: ESRGAN and the SD x4 upscaler.
+"""SuperResolutionPipeline on PyTorch: the JAX package's default request.
 
 Counterpart of ``neural_enhanced_super_resolution_tpu/pipeline.py`` with the
 same constructor, config keys, ``enhance_image`` / ``enhance_array``
-contract, progress and image callbacks, cooperative cancellation and output
-naming (``{name}_enhanced_x{scale}{ext}``). Per iteration: CLAHE contrast ->
-tiled ESRGAN (RRDBNet on K1/K2) and the Stable Diffusion x4 upscaler (its
-self-attention on K3), one after the other on the one device -> ensemble ->
-adaptive sharpen. An input above ``diffusion_max_megapixels`` skips
-diffusion; a last iteration with ESRGAN as the only branch runs ESRGAN +
-sharpen per tile and streams the tiles to the host.
+contract, stage names, progress and image callbacks, cooperative
+cancellation and output naming (``{name}_enhanced_x{scale}{ext}``). Per
+iteration: NL-means denoise and CLAHE contrast -> SegFormer segmentation
+and masked sharpening -> tiled ESRGAN (RRDBNet on K1/K2) and the Stable
+Diffusion x4 upscaler (its self-attention on K3), one after the other on
+the one device -> ensemble -> adaptive sharpen. An input above
+``diffusion_max_megapixels`` skips diffusion; a last iteration with ESRGAN
+as the only branch runs ESRGAN + sharpen per tile and streams the tiles to
+the host.
 
 The graceful-degradation ladder (primary -> 3-channel -> tiled-3ch(256) ->
-bicubic) is kept for ordinary failures, but a kernel failure or a wrapper's
-refusal of its input (``KernelError``, ``KernelInputError``) or a CUDA
-runtime error is re-raised, like cancellation: a broken device or kernel
-never comes out as a bicubic image. Nothing moves to the CPU when the GPU
-is missing.
+bicubic, a stage skipped, a branch whose weights do not load turned off)
+is kept for ordinary failures, but a kernel failure or a wrapper's refusal
+of its input (``KernelError``, ``KernelInputError``) or a CUDA runtime
+error is re-raised, like cancellation: a broken device or kernel never
+comes out as a bicubic or unprocessed image. Nothing moves to the CPU when
+the GPU is missing.
 """
 
 from __future__ import annotations
@@ -35,11 +38,14 @@ from neural_enhanced_super_resolution_torch.models.diffusion.pipeline import (
     load_upscale_pipeline)
 from neural_enhanced_super_resolution_torch.models.rrdbnet import (
     RRDBNet, RRDBNetConfig)
+from neural_enhanced_super_resolution_torch.models.segformer import (
+    load_segformer)
 from neural_enhanced_super_resolution_torch.models.weights import (
     load_state_dict)
 from neural_enhanced_super_resolution_torch.ops.blur import gaussian_blur
 from neural_enhanced_super_resolution_torch.ops.enhance import (
-    adaptive_sharpen, adaptive_sharpen_batch, contrast_stage, ensemble)
+    adaptive_sharpen, adaptive_sharpen_batch, contrast_stage, denoise_stage,
+    ensemble, masked_sharpen)
 from neural_enhanced_super_resolution_torch.ops.resize import resize
 from neural_enhanced_super_resolution_torch.parallel.tiling import (
     TilingCancelled, process_tiled, process_tiled_to_host)
@@ -114,7 +120,8 @@ def esrgan_step(model: RRDBNet, tiles_u8: torch.Tensor,
 
 
 class SuperResolutionPipeline:
-    """Iterative super-resolution with ESRGAN and the SD x4 upscaler
+    """Iterative super-resolution with ESRGAN and the SD x4 upscaler,
+    NL-means denoise and segmentation-guided sharpening
     (reference-compatible API)."""
 
     def __init__(self, device: str = "auto", config: dict | None = None):
@@ -160,6 +167,7 @@ class SuperResolutionPipeline:
     def _load_models(self):
         self._load_esrgan()
         self._load_diffusion()
+        self._load_segmentation()
 
     def _load_esrgan(self):
         cfg = self.config
@@ -228,6 +236,22 @@ class SuperResolutionPipeline:
             logger.error("Error loading Stable Diffusion upscaler: %s", exc)
             cfg["use_diffusion"] = False
 
+    def _load_segmentation(self):
+        cfg = self.config
+        if not cfg["segment_enhancement"] or "segmentation" in self.models:
+            return
+        try:
+            logger.info("Loading segmentation model for targeted "
+                        "enhancement...")
+            self.models["segmentation"] = load_segformer(
+                cfg.get("segmentation_model_path"),
+                compute_dtype=cfg["precision"], device=self.device)
+            logger.info("Segmentation model loaded successfully")
+        except Exception as exc:  # noqa: BLE001 - ladder: branch disabled
+            _reraise(exc, "segmentation model load")
+            logger.error("Error loading segmentation model: %s", exc)
+            cfg["segment_enhancement"] = False
+
     # ------------------------------------------------------------ helpers --
 
     def _stage(self, name: str):
@@ -258,13 +282,40 @@ class SuperResolutionPipeline:
     # ------------------------------------------------------------- stages --
 
     def _preprocess_image(self, image):
-        """CLAHE contrast (NL-means denoise is not ported yet)."""
+        """NL-means denoise (when denoise_level > 0), then CLAHE contrast,
+        timed as separate stages."""
         try:
+            if self.config["denoise_level"] > 0:
+                with self._stage("pre/denoise"):
+                    image = denoise_stage(
+                        image, self.config["denoise_level"],
+                        max_megapixels=self.config.get(
+                            "denoise_max_megapixels"))
             with self._stage("pre/contrast"):
                 return contrast_stage(image)
         except Exception as exc:  # noqa: BLE001 - ladder: skip step
             _reraise(exc, "preprocessing")
             logger.warning("Preprocessing failed: %s, skipping", exc)
+            return image
+
+    def _segment_and_enhance(self, image):
+        """SegFormer class map -> object mask (class > 0), resized as the
+        reference does (nearest, then bilinear) -> masked sharpening."""
+        try:
+            seg = self.models.get("segmentation")
+            if seg is None:
+                return image
+            h, w = int(image.shape[0]), int(image.shape[1])
+            seg_map = seg.segment(image)
+            if tuple(seg_map.shape) != (h, w):
+                seg_map = resize(seg_map.to(torch.uint8), dsize=(w, h),
+                                 interpolation="nearest")
+            mask = (seg_map > 0).to(torch.uint8)
+            mask = resize(mask, dsize=(w, h), interpolation="bilinear")
+            return masked_sharpen(image, mask)
+        except Exception as exc:  # noqa: BLE001 - ladder: skip step
+            _reraise(exc, "segmentation")
+            logger.warning("Segmentation enhancement failed: %s", exc)
             return image
 
     def _esrgan_batch_forward(self, tiles_u8, three_channel: bool):
@@ -478,6 +529,14 @@ class SuperResolutionPipeline:
             self._callback("Preprocessing", iteration, iterations,
                            "Applying denoising and contrast enhancement")
             current = self._preprocess_image(current)
+
+            if (self.config["segment_enhancement"]
+                    and "segmentation" in self.models):
+                self._callback("Segmentation", iteration, iterations,
+                               "Performing region-based analysis and "
+                               "enhancement")
+                with self._stage("segmentation"):
+                    current = self._segment_and_enhance(current)
 
             streamed = None
             if self._stream_final_ok(iteration, iterations, current):

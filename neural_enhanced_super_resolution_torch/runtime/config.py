@@ -12,10 +12,10 @@ grows 4x per iteration); it does not take that overlay's remote-host
 workarounds (``tile_tail: "full"``, ``prewarm``, ``fallback_to_cpu``).
 
 ``merge_config`` raises ``ValueError`` for a feature that is not ported yet
-(segmentation, SwinIR, NL-means denoise, parity tiling, the int8 trunk),
-naming the ROADMAP item that will bring it, instead of turning it off. The
-defaults turn segmentation and denoise on, so a config for this package
-sets ``segment_enhancement: false`` and ``denoise_level: 0``.
+(SwinIR, parity tiling, the int8 trunk), naming the ROADMAP item that will
+bring it, instead of turning it off. Segmentation and NL-means denoise,
+which the defaults turn on, are ported: the JAX package's default config
+runs here unchanged.
 """
 
 from __future__ import annotations
@@ -88,12 +88,8 @@ def default_config() -> dict[str, Any]:
 
 # (predicate on the merged config, what is missing, where ROADMAP queues it)
 _NOT_PORTED = (
-    (lambda c: c["segment_enhancement"], "segment_enhancement (SegFormer)",
-     "slice 4, segmentation"),
     (lambda c: c.get("use_swinir"), "use_swinir (SwinIR)",
      "slice 5, SwinIR"),
-    (lambda c: (c.get("denoise_level") or 0) > 0,
-     "denoise_level > 0 (NL-means)", "queue 1, ops/nlmeans + denoise_stage"),
     (lambda c: c.get("parity_tiling"), "parity_tiling",
      "queue 1, parity tiling"),
     (lambda c: c.get("esrgan_trunk") in ("int8", "s2d"),

@@ -1,9 +1,10 @@
 """Where the model registry's weights live on disk.
 
-The ``sd_upscaler`` entry and ``get_model_path`` of the JAX package's
-``utils/downloader.py``, so that ``diffusion_model_path: null`` resolves to
-the same directory. Nothing here downloads or creates a directory; a missing
-snapshot disables the diffusion branch (``pipeline._load_models``).
+The ``sd_upscaler`` and ``segmentation`` entries and ``get_model_path`` of
+the JAX package's ``utils/downloader.py``, so that ``diffusion_model_path:
+null`` and ``segmentation_model_path: null`` resolve to the same
+directories. Nothing here downloads or creates a directory; a missing
+snapshot disables its branch (``pipeline._load_models``).
 Downloading is not ported yet (ROADMAP).
 """
 
@@ -17,6 +18,8 @@ __all__ = ["MODELS", "get_models_dir", "get_model_path"]
 MODELS = {
     "sd_upscaler": {
         "huggingface_id": "stabilityai/stable-diffusion-x4-upscaler"},
+    "segmentation": {
+        "huggingface_id": "nvidia/segformer-b0-finetuned-ade-512-512"},
 }
 
 

@@ -9,7 +9,10 @@ machine with the card and without JAX it runs as
 Tolerance: max|kernel - plain| <= 1e-2 * max(1, max|plain|) per conv
 kernel (bf16 outputs; the two sum in another order), 3e-2 for a whole
 forward; K3 (flash attention) 2e-2 of max|plain| with no floor, on q and k
-of std 2 so that each softmax row is peaked.
+of std 2 so that each softmax row is peaked. The stages without a kernel
+against the same function on the CPU: NL-means' uint8 Lab max |diff| <= 1
+on <= 1e-3 of the values (its RGB: the test's docstring); SegFormer's
+bf16 logits 3e-2 * max(1, max|CPU f32|).
 """
 
 import numpy as np
@@ -21,6 +24,10 @@ from neural_enhanced_super_resolution_torch.kernels import (
     flash_attention, flash_attention_plain, rdb_fused, rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.models import (
     RRDBNet, RRDBNetConfig, init_rrdbnet, save_state_dict)
+from neural_enhanced_super_resolution_torch.models.segformer import (
+    SegFormerConfig, load_segformer, write_synthetic_segformer)
+from neural_enhanced_super_resolution_torch.ops.nlmeans import (
+    _denoised_lab, _lab_to_output, nl_means_colored)
 
 pytestmark = pytest.mark.cuda
 
@@ -293,3 +300,40 @@ def test_diffusion_product_path_goes_through_k3(cuda, tmp_path):
     assert out.shape == (48, 80, 3)
     assert flash_attention.launches - launches == 4 * 2 * 3 + 1
     assert flash_attention_plain.calls == calls
+
+
+def test_nl_means_on_the_card_matches_the_cpu(cuda):
+    """The joint pass's uint8 Lab within one level on <= 1e-3 of the
+    values; the RGB output differs on <= 1e-3 of the values, and by <= 1
+    where the Lab agrees (one linear-light Lab level spans up to ~5 RGB
+    levels)."""
+    g = np.random.default_rng(0)
+    x = torch.from_numpy(np.clip(g.normal(128, 40, (3, 70, 90, 3)), 0, 255)
+                         .astype(np.uint8))
+    ref_lab = _denoised_lab(x, 5.0, 5.0)
+    ref = _lab_to_output(ref_lab, x.shape)
+    lab = _denoised_lab(x.to(cuda), 5.0, 5.0)
+    got = nl_means_colored(x.to(cuda), h=5.0, h_color=5.0).cpu()
+    assert torch.equal(got, _lab_to_output(lab, x.shape).cpu())
+    dlab = (lab.cpu().int() - ref_lab.int()).abs()
+    drgb = (got.int() - ref.int()).abs()
+    assert dlab.max().item() <= 1
+    assert (dlab > 0).float().mean().item() <= 1e-3
+    assert (drgb > 0).float().mean().item() <= 1e-3
+    assert (drgb * (dlab == 0).all(-1, keepdim=True)).max().item() <= 1
+
+
+def test_segformer_on_the_card_matches_the_cpu(cuda, tmp_path):
+    cfg = SegFormerConfig(depths=[1, 1, 1, 1], sr_ratios=[4, 2, 2, 1],
+                          hidden_sizes=[8, 16, 16, 32],
+                          num_attention_heads=[1, 2, 2, 4],
+                          mlp_ratios=[2, 2, 2, 2], decoder_hidden_size=16,
+                          num_labels=10)
+    path = write_synthetic_segformer(str(tmp_path / "seg"), cfg,
+                                     torch.Generator().manual_seed(0))
+    x = torch.randn((1, 96, 128, 3), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = load_segformer(path, "float32", "cpu").model(x)
+        got = load_segformer(path, "bfloat16", "cuda").model(x.to(cuda))
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _rel(got.cpu(), ref) <= 3e-2

@@ -589,10 +589,9 @@ def test_cuda_config_allows_diffusion_with_the_cap():
         merge_config as jax_merge)
     assert cfg["diffusion_max_megapixels"] == jax_merge(
         "tpu", None)["diffusion_max_megapixels"]
-    for key, value, item in (("segment_enhancement", True, "segmentation"),
-                             ("denoise_level", 0.5, "nlmeans")):
-        with pytest.raises(ValueError, match=f"ROADMAP.*{item}"):
-            merge_config("cuda", dict(cfg, **{key: value}))
+    # segmentation and NL-means are ported: the defaults merge unchanged
+    for key, value in (("segment_enhancement", True), ("denoise_level", 0.5)):
+        assert merge_config("cuda", dict(cfg, **{key: value}))[key] == value
 
 
 def test_diffusion_modules_import_without_jax():

@@ -1,10 +1,13 @@
 """The port's product path against the JAX package's, on the CPU in float32.
 
 Both pipelines load the same tiny basicsr checkpoint (seeded synthetic
-weights) with the same config and enhance the same image. Bar: uint8
-outputs differ by at most one level on at most 0.5% of pixels, and the
-saved file has the same name. Also: the port imports without JAX, and a
-request for the GPU without one raises instead of moving to the CPU.
+weights) and, where segmentation is on, the same tiny SegFormer snapshot,
+with the same config, and enhance the same image. Bar: uint8 outputs
+differ by at most one level on at most 0.5% of pixels, the progress
+callbacks name the same stages, and the saved file has the same name.
+Also: the port imports without JAX, the JAX package's default config
+merges and runs, and a request for the GPU without one raises instead of
+moving to the CPU.
 """
 
 import json
@@ -23,6 +26,8 @@ from neural_enhanced_super_resolution_torch.kernels import (KernelError,
                                                             KernelInputError)
 from neural_enhanced_super_resolution_torch.models import (
     RRDBNetConfig, init_rrdbnet, save_state_dict)
+from neural_enhanced_super_resolution_torch.models.segformer import (
+    SegFormerConfig, write_synthetic_segformer)
 from neural_enhanced_super_resolution_torch.runtime.config import merge_config
 from neural_enhanced_super_resolution_torch.utils.io import (imread_rgb,
                                                              imwrite_rgb)
@@ -41,6 +46,18 @@ def ckpt(tmp_path_factory):
                                    / "tiny_x4.pth"))
 
 
+@pytest.fixture(scope="module")
+def seg_snapshot(tmp_path_factory):
+    """A tiny SegFormer (as tests/test_segformer.py) in the HF layout."""
+    cfg = SegFormerConfig(depths=[1, 1, 1, 1], sr_ratios=[4, 2, 2, 1],
+                          hidden_sizes=[8, 16, 16, 32],
+                          num_attention_heads=[1, 2, 2, 4],
+                          mlp_ratios=[2, 2, 2, 2], decoder_hidden_size=16,
+                          num_labels=10)
+    return write_synthetic_segformer(str(tmp_path_factory.mktemp("seg")),
+                                     cfg, torch.Generator().manual_seed(0))
+
+
 def _config(tmp_path, ckpt, who, **overrides):
     cfg = {"iterations": 1, "use_diffusion": False,
            "segment_enhancement": False, "denoise_level": 0,
@@ -57,28 +74,91 @@ def _agree(got, ref):
     assert np.mean(diff > 0) <= 5e-3, np.mean(diff > 0)
 
 
-@pytest.mark.parametrize("hw,iterations,overrides", [
-    ((40, 36), 1, {}),
-    ((64, 80), 1, dict(max_megapixels=0.001, max_tile_size=48, tile_halo=8)),
-    ((80, 96), 1, dict(max_tile_size=48, tile_halo=8)),
-    ((24, 24), 2, dict(max_tile_size=48, tile_halo=8)),
-], ids=["whole", "tiled_canvas", "streamed_final", "two_iterations"])
-def test_pipeline_matches_jax(tmp_path, ckpt, test_image, hw, iterations,
-                              overrides):
-    src = str(tmp_path / "input.png")
-    imwrite_rgb(src, test_image[:hw[0], :hw[1]])
-    paths, images, stages = {}, {}, {}
+def _default_config(tmp_path, ckpt, who, **overrides):
+    """The JAX package's default config with only the model paths and the
+    output directory set (the SD x4 snapshot resolves through the model
+    registry and is missing, so both packages turn that branch off)."""
+    cfg = {"esrgan_model_path": ckpt, "esrgan_arch": dict(TINY),
+           "output_dir": str(tmp_path / who)}
+    cfg.update(overrides)
+    return cfg
+
+
+def _run_both(tmp_path, src, make_config, **overrides):
+    paths, images, stages, pipes = {}, {}, {}, {}
     for who, cls in (("jax", JaxPipeline), ("torch", SuperResolutionPipeline)):
         seen = []
-        cfg = _config(tmp_path, ckpt, who, iterations=iterations,
-                      progress_callback=lambda s, *a, seen=seen: seen.append(s),
-                      **overrides)
-        paths[who] = cls(device="cpu", config=cfg).enhance_image(src)
+        cfg = make_config(
+            who, progress_callback=lambda s, *a, seen=seen: seen.append(s),
+            **overrides)
+        pipes[who] = cls(device="cpu", config=cfg)
+        paths[who] = pipes[who].enhance_image(src)
         images[who] = imread_rgb(paths[who])
         stages[who] = seen
     assert os.path.basename(paths["torch"]) == os.path.basename(paths["jax"])
     assert stages["torch"] == stages["jax"]
     _agree(images["torch"], images["jax"])
+    return pipes, stages["torch"]
+
+
+@pytest.mark.parametrize("hw,iterations,overrides", [
+    ((40, 36), 1, {}),
+    ((64, 80), 1, dict(max_megapixels=0.001, max_tile_size=48, tile_halo=8)),
+    ((80, 96), 1, dict(max_tile_size=48, tile_halo=8)),
+    ((24, 24), 2, dict(max_tile_size=48, tile_halo=8)),
+    ((40, 36), 1, dict(denoise_level=0.5)),
+    ((48, 40), 1, dict(segment_enhancement=True)),
+], ids=["whole", "tiled_canvas", "streamed_final", "two_iterations",
+        "denoise", "segmentation"])
+def test_pipeline_matches_jax(tmp_path, ckpt, seg_snapshot, test_image, hw,
+                              iterations, overrides):
+    src = str(tmp_path / "input.png")
+    imwrite_rgb(src, test_image[:hw[0], :hw[1]])
+    if overrides.get("segment_enhancement"):
+        overrides = dict(overrides, segmentation_model_path=seg_snapshot)
+    pipes, stages = _run_both(
+        tmp_path, src, lambda who, **kw: _config(
+            tmp_path, ckpt, who, iterations=iterations, **kw), **overrides)
+    assert ("Segmentation" in stages) == bool(
+        overrides.get("segment_enhancement"))
+    assert ("pre/denoise" in pipes["torch"].timer.totals) == bool(
+        overrides.get("denoise_level"))
+
+
+def test_default_config_matches_jax(tmp_path, ckpt, seg_snapshot,
+                                    test_image, monkeypatch):
+    """The JAX package's defaults (3 iterations, denoise 0.5, segmentation,
+    diffusion) run through the port and give the JAX package's picture."""
+    monkeypatch.setenv("NESR_MODELS_DIR", str(tmp_path / "models"))
+    src = str(tmp_path / "input.png")
+    imwrite_rgb(src, test_image[:8, :8])
+    pipes, stages = _run_both(
+        tmp_path, src, lambda who, **kw: _default_config(
+            tmp_path, ckpt, who, segmentation_model_path=seg_snapshot, **kw))
+    assert stages.count("Segmentation") == 3 and "Diffusion" not in stages
+    assert {"pre/denoise", "pre/contrast", "segmentation"} <= set(
+        pipes["torch"].timer.totals)
+    assert set(pipes["torch"].models) == {"esrgan", "segmentation"}
+
+
+def test_missing_segmentation_snapshot_disables_the_branch(
+        tmp_path, ckpt, test_image, caplog):
+    """Both packages log the error, turn segmentation off and give the
+    same picture."""
+    src = str(tmp_path / "input.png")
+    imwrite_rgb(src, test_image[:40, :36])
+    with caplog.at_level("ERROR"):
+        pipes, stages = _run_both(
+            tmp_path, src, lambda who, **kw: _config(tmp_path, ckpt, who,
+                                                     **kw),
+            segment_enhancement=True,
+            segmentation_model_path=str(tmp_path / "no_such_snapshot"))
+    assert "Segmentation" not in stages
+    for pipe in pipes.values():
+        assert "segmentation" not in pipe.models
+        assert not pipe.config["segment_enhancement"]
+    assert sum("Error loading segmentation model" in r.getMessage()
+               for r in caplog.records) == 2
 
 
 def test_streamed_final_engages_and_matches_standard_chain(tmp_path, ckpt,
@@ -102,6 +182,8 @@ def test_import_without_jax():
             "import neural_enhanced_super_resolution_torch.pipeline\n"
             "import neural_enhanced_super_resolution_torch.cli\n"
             "import neural_enhanced_super_resolution_torch.kernels\n"
+            "import neural_enhanced_super_resolution_torch.ops.nlmeans\n"
+            "import neural_enhanced_super_resolution_torch.models.segformer\n"
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m, v in sys.modules.items() if v is not None)\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -135,14 +217,29 @@ def test_cuda_request_without_gpu_raises(tmp_path, ckpt, test_image,
 
 
 @pytest.mark.parametrize("key,value", [
-    ("segment_enhancement", True), ("use_swinir", True),
-    ("denoise_level", 0.5), ("parity_tiling", True),
+    ("use_swinir", True), ("parity_tiling", True),
     ("esrgan_trunk", "int8")])
 def test_unported_features_raise(key, value):
     cfg = {"use_diffusion": False, "segment_enhancement": False,
            "denoise_level": 0, key: value}
     with pytest.raises(ValueError, match="ROADMAP"):
         merge_config("cpu", cfg)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_default_config_merges_like_jax(device):
+    """No config at all: nothing raises, and every key but the device
+    overlays (the cuda one; the tpu one's remote-host switches prewarm and
+    fallback_to_cpu) and the port's esrgan_trunk equals the JAX package's
+    defaults on the CPU."""
+    from neural_enhanced_super_resolution_tpu.runtime.config import (
+        merge_config as jax_merge)
+    ours, theirs = merge_config(device, None), jax_merge("cpu", None)
+    assert ours["segment_enhancement"] and ours["denoise_level"] == 0.5
+    overlay = set(ours["device_specific"].get(device, {}))
+    assert set(ours) ^ set(theirs) <= {"esrgan_trunk", "prewarm"} | overlay
+    differ = {k for k in set(ours) & set(theirs) if ours[k] != theirs[k]}
+    assert differ <= {"device_specific"} | overlay, differ
 
 
 def test_cuda_overlay_tiles_like_the_tpu_overlay():
@@ -186,6 +283,39 @@ def test_dform_trunk_bf16_through_the_product_path(tmp_path, ckpt,
     ).enhance_array(img).astype(int) for trunk in (None, "dform")]
     assert outs[0].shape == (160, 160, 3)
     assert np.mean(np.abs(outs[0] - outs[1])) < 1.0
+
+
+@pytest.mark.parametrize("fault", [
+    KernelError("planted kernel fault"),
+    RuntimeError("CUDA error: planted illegal memory access"),
+    ValueError("planted ordinary failure")],
+    ids=["kernel", "cuda", "ordinary"])
+@pytest.mark.parametrize("stage", ["denoise", "segmentation",
+                                   "masked_sharpen"])
+def test_device_faults_in_the_new_stages_are_not_hidden(
+        tmp_path, ckpt, seg_snapshot, test_image, monkeypatch, stage, fault):
+    """A kernel or CUDA fault in the denoise, segmentation or masked-sharpen
+    stage ends the request; an ordinary failure skips the step, as in the
+    JAX package."""
+    def broken(*args, **kwargs):
+        raise fault
+
+    pipe = SuperResolutionPipeline("cpu", _config(
+        tmp_path, ckpt, "t", denoise_level=0.5, segment_enhancement=True,
+        segmentation_model_path=seg_snapshot))
+    pipe._load_models()
+    if stage == "segmentation":
+        monkeypatch.setattr(pipe.models["segmentation"], "segment", broken)
+    else:
+        monkeypatch.setattr(torch_pipeline, {
+            "denoise": "denoise_stage",
+            "masked_sharpen": "masked_sharpen"}[stage], broken)
+    img = np.array(test_image[:24, :24])
+    if isinstance(fault, ValueError):
+        assert pipe.enhance_array(img).shape == (96, 96, 3)
+    else:
+        with pytest.raises(type(fault), match="planted"):
+            pipe.enhance_array(img)
 
 
 @pytest.mark.parametrize("fault", [KernelError, KernelInputError])
