@@ -6,7 +6,8 @@ Builds the port's hand-written kernels from ``csrc/`` (one nvcc per source,
 in parallel), checks in the library's SASS that every K1 and K3
 instantiation issues ``wgmma`` (HGMMA), and holds each kernel against its
 plain PyTorch version at the shapes its path gives it: K1 and K2 on the
-ESRGAN path, K3 (flash attention) on the diffusion path. Beside each
+ESRGAN path, K1 at SwinIR's 180-channel shapes, K3 (flash attention) on
+the diffusion path. Beside each
 kernel's time it prints its bound at the H100's peak rates and, for scale,
 the PyTorch call that computes the same function (cuDNN's bf16 conv for
 K1, SDPA for K3; none exists for K2, which is held against the default
@@ -32,6 +33,14 @@ beside it. Then, with seeded synthetic weights:
   segmentation, ESRGAN and diffusion) and a 1024x768 ESRGAN request with
   denoise and segmentation on their tiled path, each path with the launch
   counts zeroed before it and read after it;
+* SwinIR-M x4 (embed 180, 6 x 6 STLs, window 8; written as an official
+  .pth and loaded with its config inferred) on one 268^2 tile against the
+  same model on K1's plain version, with device time, wall, launches, the
+  split by kernel family and the bound, and against the port on the CPU
+  in float32 at 60x44; a 1024x768 ESRGAN + SwinIR request (12 SwinIR
+  tiles) and the 128x128 default config plus SwinIR (three branches into
+  the ensemble), in process; one CLI process over a directory of three
+  images with ``--use_swinir --no_diffusion`` (batch mode);
 * the paths on small inputs against the CPU in float32 (ESRGAN alone and
   with denoise and segmentation, diffusion).
 
@@ -44,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -72,6 +82,10 @@ FLASH_SHAPES = [("unet 64^2 d64", 1, 8, 4096, 4096, 64),
                 ("ragged 4000 d512", 1, 1, 4000, 4000, 512),
                 ("cross 200x330 d64", 1, 8, 200, 330, 64)]
 SEED = 0
+SWIN_TILE = (1, 272, 272)    # a 256 + 2 * 6 tile reflect-padded to window 8
+SWIN_REQUEST = (768, 1024)   # 12 tiles of 256 px on the cuda overlay
+SWIN_K1_PER_FORWARD = 13     # conv_first, 6 RSTB, after_body, before_up,
+                             # up1, up2, hr, last
 TOL_SD = 3e-2                # full-width UNet / VAE, K3 vs plain attention
 TOL_SD_CPU = 5e-2            # tiny snapshot latents, card bf16 vs CPU f32
 SD_STEPS = 20                # the cuda tier of num_inference_steps
@@ -278,7 +292,12 @@ def check_conv3x3(torch, gen) -> dict:
               ("conv_body 64->64", n, h, w, 64, 64, True, False),
               ("conv_up1 2x 64->64", n, 2 * h, 2 * w, 64, 64, True, True),
               ("conv_up2 4x 64->64", n, 4 * h, 4 * w, 64, 64, True, True),
-              ("conv_last 4x 64->3", n, 4 * h, 4 * w, 64, 3, True, False)]
+              ("conv_last 4x 64->3", n, 4 * h, 4 * w, 64, 3, True, False),
+              # SwinIR-M x4 on one 268^2 tile padded to 272^2: conv_first,
+              # the RSTB convs and conv_after_body, conv_before_upsample.
+              ("swinir conv_first 3->180", *SWIN_TILE, 3, 180, True, False),
+              ("swinir rstb 180->180", *SWIN_TILE, 180, 180, True, False),
+              ("swinir before_up 180->64", *SWIN_TILE, 180, 64, True, True)]
     k1_err = 0.0
     for label, nn_, hh, ww, cin, cout, bias, act in shapes:
         x = _rnd(torch, gen, nn_, hh, ww, cin)
@@ -1100,6 +1119,277 @@ def check_diffusion_against_cpu(torch, np) -> None:
         raise AssertionError(f"tiny SD agreement: latents {err}, PSNR {psnr}")
 
 
+def write_swinir_checkpoint(torch) -> str:
+    """SwinIR-M real-world x4 (embed 180, depths 6 x 6, heads 6, window 8,
+    mlp 2, num_feat 64, nearest+conv) with seeded weights, as an official
+    .pth (params_ema)."""
+    from neural_enhanced_super_resolution_torch.models import (
+        SwinIRConfig, init_swinir, save_state_dict)
+    return save_state_dict(
+        init_swinir(SwinIRConfig(), torch.Generator().manual_seed(SEED + 9)),
+        os.path.join(OUT, "swinir_m_x4_synthetic.pth"))
+
+
+def kernel_families(fn) -> dict:
+    """Device time a call by kernel family (torch.profiler): K1, GEMM
+    (cuBLAS), softmax, LayerNorm, the rest (elementwise, copies)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fam = dict.fromkeys(("K1", "GEMM", "softmax", "LayerNorm",
+                         "elementwise/copy"), 0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        key = ("K1" if "conv3x3" in name else
+               "GEMM" if any(t in name for t in ("gemm", "xmma", "nvjet",
+                                                 "cutlass", "cublas")) else
+               "softmax" if "softmax" in name else
+               "LayerNorm" if "layer_norm" in name or "layernorm" in name
+               else "elementwise/copy")
+        fam[key] += e.time_range.elapsed_us() / 1e3
+    return fam
+
+
+def swinir_flops(cfg, h: int, w: int) -> float:
+    """Operations of one forward on an (h, w) input that is a multiple of
+    the window: per STL the linears 2 T C (3C + C + 2 hidden) and the two
+    attention products 4 T n C over T = h w tokens and n = window^2; the
+    3x3 convs 18 Cin Cout a pixel at their resolutions."""
+    from neural_enhanced_super_resolution_torch.models.swinir import (
+        _conv_names)
+    t, c = h * w, cfg.embed_dim
+    hidden = int(c * cfg.mlp_ratio)
+    stls = sum(cfg.depths)
+    ops = stls * (2.0 * t * c * (4 * c + 2 * hidden)
+                  + 4.0 * t * cfg.window_size ** 2 * c)
+    up = {"conv_up1": 4, "conv_up2": 16, "conv_hr": 16, "conv_last": 16}
+    for name, (cin, cout) in _conv_names(cfg).items():
+        ops += 18.0 * t * up.get(name, 1) * cin * cout
+    return ops
+
+
+def check_swinir_forward(torch, np, path: str, name: str) -> dict:
+    """SwinIR-M x4 loaded from its .pth through load_swinir (the config
+    inferred on the card) on one 268^2 tile: K1 against the same model on
+    conv3x3_plain (rel bar TOL_FORWARD), device ms, wall and launches a
+    call, the split by kernel family and the bound; then the card in bf16
+    against the port on the CPU in float32 at 60x44 (the pad path), PSNR
+    of the uint8 outputs >= 30 dB."""
+    from neural_enhanced_super_resolution_torch.models.swinir import (
+        SwinIRConfig, load_swinir, swinir_param_shapes)
+    t0 = time.perf_counter()
+    model = load_swinir(path, "bfloat16", "cuda")
+    log(f"SwinIR checkpoint loaded to the card in "
+        f"{time.perf_counter() - t0:.2f} s; inferred {model.cfg}")
+    if model.cfg != SwinIRConfig():
+        raise AssertionError(f"inferred {model.cfg}, not SwinIR-M x4")
+    side = 256 + 2 * 6
+    x = torch.rand((1, side, side, 3),
+                   generator=torch.Generator().manual_seed(SEED + 10)).to(
+        "cuda")
+    got = model(x)
+    ref = model(x, plain=True)
+    d, r = rel_err(got, ref)
+    dev = device_ms(lambda: model(x), reps=5)
+    wms = wall_ms(lambda: model(x), reps=5)
+    launches = launches_per_call(lambda: model(x), reps=1)
+    fam = kernel_families(lambda: model(x))
+    hp = side + (-side) % model.cfg.window_size
+    flops = swinir_flops(model.cfg, hp, hp)
+    # the f32 tile in, the f32 x4 tile out, the weights once in bf16
+    weights = sum(math.prod(s) for s in swinir_param_shapes(model.cfg)
+                  .values())
+    bms, by = bound(flops, 4.0 * side * side * 3 * (1 + 16) + 2.0 * weights)
+    total = sum(fam.values())
+    split = ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+                      for k, v in fam.items())
+    log(f"SwinIR-M x4 forward 1x{side}x{side} (padded to {hp}): max_abs_err "
+        f"{d:.6g} rel {r:.3g} vs conv3x3_plain (tol {TOL_FORWARD}); device "
+        f"{dev:.3f} ms, wall {wms:.3f} ms, {launches:.0f} launches a call; "
+        f"by family: {split}; bound {bms:.4f} ms ({by}: "
+        f"{flops / 1e12:.4f} TFLOP), bound/device {bms / dev:.4f} on {name}")
+    if not (r <= TOL_FORWARD and torch.isfinite(got).all()):
+        raise AssertionError(f"SwinIR forward: rel err {r}")
+    del got, ref
+    rng = np.random.default_rng(SEED + 11)
+    small = rng.integers(0, 256, (7, 9, 3), dtype=np.uint8)
+    img = np.kron(small, np.ones((8, 8, 1), np.uint8))[None, :44, :60]
+    out = model.upscale_batch(torch.from_numpy(img).to("cuda")).cpu().numpy()
+    t0 = time.perf_counter()
+    cpu = load_swinir(path, "float32", "cpu").upscale_batch(
+        torch.from_numpy(img)).numpy()
+    cpu_s = time.perf_counter() - t0
+    mse = float(np.mean((out.astype(np.float64) - cpu) ** 2))
+    psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+    log(f"SwinIR-M x4 60x44 (pad path to 64x48), bf16 card vs CPU f32 "
+        f"({cpu_s:.2f} s there): PSNR {psnr:.2f} dB (bar 30), max diff "
+        f"{np.abs(out.astype(int) - cpu.astype(int)).max()}")
+    if out.shape != (1, 176, 240, 3) or out.shape != cpu.shape \
+            or not psnr >= 30.0:
+        raise AssertionError(f"SwinIR card vs CPU: {out.shape} PSNR {psnr}")
+
+
+def _count_swinir_k1(pipe, conv3x3) -> list:
+    """Wraps the loaded SwinIR's upscale_batch to record the K1 launches
+    and tiles of each call (one list entry a call)."""
+    model = pipe.models["swinir"]
+    calls = []
+    inner = model.upscale_batch
+
+    def counted(tiles):
+        before = conv3x3.launches
+        out = inner(tiles)
+        calls.append((int(tiles.shape[0]), conv3x3.launches - before))
+        return out
+
+    model.upscale_batch = counted
+    return calls
+
+
+def drive_swinir_requests(torch, np, ckpt: str, swin: str, snap: str,
+                          seg: str, name: str) -> dict:
+    """Two in-process requests with use_swinir: a 1024x768 ESRGAN + SwinIR
+    request (12 SwinIR tiles; diffusion, denoise and segmentation off), and
+    the 128x128 default config plus SwinIR (denoise, segmentation, ESRGAN,
+    SwinIR whole and diffusion into a three-branch ensemble). Each runs
+    twice (timed, then profiled); counts zeroed before, read after."""
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv3x3, conv3x3_plain, flash_attention, flash_attention_plain)
+    from neural_enhanced_super_resolution_torch.utils.io import imread_rgb
+    total = dict.fromkeys(_sd_counts(), 0)
+
+    pipe = SuperResolutionPipeline("cuda", {
+        "use_diffusion": False, "segment_enhancement": False,
+        "denoise_level": 0, "use_swinir": True, "swinir_model_path": swin,
+        "esrgan_model_path": ckpt, "iterations": 1,
+        "output_dir": os.path.join(OUT, "swinir_out")})
+    pipe._load_models()   # set-up: weights to the card before the window
+    if set(pipe.models) != {"esrgan", "swinir"}:
+        raise AssertionError(f"models loaded: {sorted(pipe.models)}")
+    calls = _count_swinir_k1(pipe, conv3x3)
+    img = _noisy_images(np, 1, *SWIN_REQUEST, SEED + 12)[0]
+    conv3x3.launches = flash_attention.launches = 0
+    conv3x3_plain.calls = flash_attention_plain.calls = 0
+    out, stages = timed_request(torch, pipe, img,
+                                "request 1024x768 -n 1 (ESRGAN + SwinIR)",
+                                name)
+    counts = _sd_counts()
+    tiles = sum(t for t, _ in calls)
+    swin_k1 = sum(k for _, k in calls)
+    log(f"request 1024x768 ESRGAN + SwinIR counts (both runs) {counts}; "
+        f"SwinIR: {tiles} tiles in {len(calls)} forwards, {swin_k1} K1 "
+        f"launches; stages swinir {stages.get('swinir', 0):.3f} s, esrgan "
+        f"{stages.get('esrgan', 0):.3f} s, ensemble "
+        f"{stages.get('ensemble', 0):.3f} s")
+    if (out.shape != (4 * SWIN_REQUEST[0], 4 * SWIN_REQUEST[1], 3)
+            or out.std() == 0 or tiles != 2 * 12 or len(calls) != 2 * 12
+            or swin_k1 != SWIN_K1_PER_FORWARD * tiles
+            or counts["conv3x3_plain"]
+            or not {"swinir", "esrgan", "ensemble"} <= set(stages)):
+        raise AssertionError(f"1024x768 SwinIR request: output {out.shape}, "
+                             f"calls {calls}, counts {counts}, stages "
+                             f"{sorted(stages)}")
+    for key in total:
+        total[key] += counts[key]
+    del pipe
+    torch.cuda.empty_cache()
+
+    pipe = SuperResolutionPipeline("cuda", {
+        "use_diffusion": True, "diffusion_model_path": snap,
+        "esrgan_model_path": ckpt, "segmentation_model_path": seg,
+        "use_swinir": True, "swinir_model_path": swin, "iterations": 1,
+        "sd_stage_detail": True,
+        "output_dir": os.path.join(OUT, "swinir_default_out")})
+    pipe._load_models()
+    if set(pipe.models) != {"esrgan", "swinir", "diffusion", "segmentation"}:
+        raise AssertionError(f"models loaded: {sorted(pipe.models)}")
+    calls = _count_swinir_k1(pipe, conv3x3)
+    img = imread_rgb(os.path.join(OUT, "default_128.png"))
+    conv3x3.launches = flash_attention.launches = 0
+    conv3x3_plain.calls = flash_attention_plain.calls = 0
+    out, stages = timed_request(torch, pipe, img,
+                                "default config + SwinIR 128x128 -n 1 in "
+                                "process", name, PROMPT)
+    counts = _sd_counts()
+    _check_sd_request(np, "default config + SwinIR in process", img, out, 1,
+                      counts, 2, stages)
+    if (calls != [(1, SWIN_K1_PER_FORWARD)] * 2
+            or not {"pre/denoise", "segmentation", "esrgan", "swinir",
+                    "ensemble"} <= set(stages)):
+        raise AssertionError(f"default + SwinIR: calls {calls}, stages "
+                             f"{sorted(stages)}")
+    for key in total:
+        total[key] += counts[key]
+    del pipe
+    torch.cuda.empty_cache()
+    return total
+
+
+def drive_batch_cli(np, ckpt: str, swin: str, seg: str) -> dict:
+    """One CLI process over a directory of three small images with
+    --use_swinir --no_diffusion (denoise and segmentation at their
+    defaults): exit 0, three x4 outputs named {base}_enhanced{ext}, the
+    per-image and total wall time."""
+    from neural_enhanced_super_resolution_torch.utils.io import (imread_rgb,
+                                                                 imwrite_rgb)
+    src = os.path.join(OUT, "batch_in")
+    dst = os.path.join(OUT, "batch_out")
+    for d in (src, dst):
+        os.makedirs(d, exist_ok=True)
+        for f in os.listdir(d):
+            os.remove(os.path.join(d, f))
+    rng = np.random.default_rng(SEED + 13)
+    sizes = {"a.png": (96, 96), "b.jpg": (64, 80), "c.png": (72, 56)}
+    for fname, (hh, ww) in sizes.items():
+        small = rng.integers(0, 256, (hh // 8 + 1, ww // 8 + 1, 3),
+                             dtype=np.uint8)
+        imwrite_rgb(os.path.join(src, fname),
+                    np.kron(small, np.ones((8, 8, 1), np.uint8))[:hh, :ww])
+    cfg = os.path.join(OUT, "batch_cli_config.json")
+    with open(cfg, "w") as f:
+        json.dump({"esrgan_model_path": ckpt, "swinir_model_path": swin,
+                   "segmentation_model_path": seg}, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_COUNTED, "--cli", "-i", src, "-c", cfg,
+         "-n", "1", "-o", dst, "-d", "cuda", "--use_swinir",
+         "--no_diffusion", "--bench"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    per_image = [line for line in lines if " -> " in line]
+    log(f"batch CLI over {len(sizes)} images (--use_swinir --no_diffusion): "
+        f"rc {proc.returncode} in {wall:.2f} s (process start and model "
+        "load included); per image: " + "; ".join(
+            os.path.basename(line.split(" -> ")[0]) + " "
+            + line.rsplit("(", 1)[-1].rstrip(")") for line in per_image))
+    if proc.returncode != 0:
+        raise AssertionError("batch CLI failed:\n" + proc.stdout[-3000:]
+                             + proc.stderr[-3000:])
+    for line in lines:
+        if line.startswith("  ") and "s (" in line:
+            log(line)
+    counts = json.loads(next(line for line in lines
+                             if line.startswith("COUNTS "))[7:])
+    want = {f"{os.path.splitext(f)[0]}_enhanced{os.path.splitext(f)[1]}":
+            (4 * hh, 4 * ww, 3) for f, (hh, ww) in sizes.items()}
+    got = {f: imread_rgb(os.path.join(dst, f)).shape
+           for f in sorted(os.listdir(dst))}
+    log(f"batch CLI outputs {got}; counts {counts}")
+    if got != want or counts["conv3x3"] == 0 or counts["conv3x3_plain"]:
+        raise AssertionError(f"batch CLI: outputs {got} (want {want}), "
+                             f"counts {counts}")
+    return counts
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -1155,6 +1445,11 @@ def main() -> int:
     default_ip_counts = drive_default_in_process(torch, np, ckpt, snap, seg,
                                                  name)
     tiled_counts = drive_denoise_segmentation(torch, np, ckpt, seg, name)
+    swin = write_swinir_checkpoint(torch)
+    check_swinir_forward(torch, np, swin, name)
+    swin_counts = drive_swinir_requests(torch, np, ckpt, swin, snap, seg,
+                                        name)
+    batch_counts = drive_batch_cli(np, ckpt, swin, seg)
     check_against_cpu(torch, np, ckpt)
     check_against_cpu(torch, np, ckpt, seg)
     check_diffusion_against_cpu(torch, np)
@@ -1164,11 +1459,13 @@ def main() -> int:
     # Launches: each path's count, zeroed before it and read after it.
     launches = {"conv3x3": counts["conv3x3"] + sd_counts["conv3x3"]
                 + default_counts["conv3x3"] + default_ip_counts["conv3x3"]
-                + tiled_counts["conv3x3"],
+                + tiled_counts["conv3x3"] + swin_counts["conv3x3"]
+                + batch_counts["conv3x3"],
                 "rdb_fused": counts["rdb_fused"],
                 "flash_attention": sd_counts["flash_attention"]
                 + default_counts["flash_attention"]
-                + default_ip_counts["flash_attention"]}
+                + default_ip_counts["flash_attention"]
+                + swin_counts["flash_attention"]}
     sources = {"conv3x3": "csrc/conv3x3.cu", "rdb_fused": "csrc/rdb_fused.cu",
                "flash_attention": "csrc/flash_attn.cu"}
     # K1 also carries the math of kernels/conv3x3.py:106 and

@@ -32,8 +32,8 @@ from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
     rdb_fused, rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.models.weights import HEAD_CONVS
 
-__all__ = ["RRDBNetConfig", "RRDBNet", "FusedRDB", "pixel_unshuffle",
-           "fuse_rdb", "TRUNKS"]
+__all__ = ["RRDBNetConfig", "RRDBNet", "FusedRDB", "Conv3x3",
+           "pixel_unshuffle", "nearest_x2", "fuse_rdb", "TRUNKS"]
 
 TRUNKS = ("fused", "dform", "stock")
 
@@ -79,7 +79,7 @@ def pixel_unshuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
     return x.reshape(n, h // r, w // r, c * r * r)
 
 
-def _nearest_x2(x: torch.Tensor) -> torch.Tensor:
+def nearest_x2(x: torch.Tensor) -> torch.Tensor:
     """F.interpolate(scale_factor=2, mode='nearest') in NHWC."""
     n, h, w, c = x.shape
     x = x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c)
@@ -120,23 +120,29 @@ def _k1(x, w, b, lrelu, packed, plain):
     return conv3x3(x, w, b, lrelu, packed=packed)
 
 
-class _Conv(nn.Module):
-    """One 3x3 conv through K1: HWIO weight in the compute dtype, its packed
-    image (packed once at build; the CPU's plain version reads HWIO), fp32
-    bias."""
+class Conv3x3(nn.Module):
+    """One 3x3 conv through K1: HWIO weight (3, 3, Cin, Cout) in the compute
+    dtype, its packed image (packed once at build; the CPU's plain version
+    reads HWIO), fp32 bias."""
 
-    def __init__(self, sd: Mapping[str, torch.Tensor], key: str, dtype,
-                 device):
+    def __init__(self, w: torch.Tensor, b: torch.Tensor, dtype, device):
         super().__init__()
-        self.register_buffer("w", _hwio(sd[f"{key}.weight"]).to(
-            device=device, dtype=dtype).contiguous())
+        self.register_buffer("w", w.to(device=device, dtype=dtype)
+                             .contiguous())
         self.register_buffer("wp", pack_conv3x3_weights(self.w))
-        self.register_buffer("b", sd[f"{key}.bias"].to(
-            device=device, dtype=torch.float32).contiguous())
+        self.register_buffer("b", b.to(device=device, dtype=torch.float32)
+                             .contiguous())
 
     def forward(self, x: torch.Tensor, lrelu: bool = False,
                 plain: bool = False) -> torch.Tensor:
         return _k1(x.contiguous(), self.w, self.b, lrelu, self.wp, plain)
+
+
+def _conv(sd: Mapping[str, torch.Tensor], key: str, dtype, device
+          ) -> Conv3x3:
+    """The basicsr conv ``key`` (OIHW) as a Conv3x3."""
+    return Conv3x3(_hwio(sd[f"{key}.weight"]), sd[f"{key}.bias"], dtype,
+                   device)
 
 
 class _StockRDB(nn.Module):
@@ -145,7 +151,7 @@ class _StockRDB(nn.Module):
     def __init__(self, sd, prefix, dtype, device):
         super().__init__()
         self.convs = nn.ModuleList(
-            _Conv(sd, f"{prefix}.conv{i}", dtype, device) for i in range(1, 6))
+            _conv(sd, f"{prefix}.conv{i}", dtype, device) for i in range(1, 6))
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         c = x
@@ -249,7 +255,7 @@ class RRDBNet(nn.Module):
         self.cfg, self.dtype, self.trunk = cfg, dtype, trunk
         sd = state_dict
         for name in HEAD_CONVS:
-            setattr(self, name, _Conv(sd, name, dtype, device))
+            setattr(self, name, _conv(sd, name, dtype, device))
         self.body = nn.ModuleList(_RRDB(sd, i, dtype, device, trunk)
                                   for i in range(cfg.num_block))
 
@@ -267,7 +273,7 @@ class RRDBNet(nn.Module):
         for block in self.body:
             body = block(body, plain=p)
         feat = feat + self.conv_body(body, plain=p)
-        feat = self.conv_up1(_nearest_x2(feat), lrelu=True, plain=p)
-        feat = self.conv_up2(_nearest_x2(feat), lrelu=True, plain=p)
+        feat = self.conv_up1(nearest_x2(feat), lrelu=True, plain=p)
+        feat = self.conv_up2(nearest_x2(feat), lrelu=True, plain=p)
         out = self.conv_last(self.conv_hr(feat, lrelu=True, plain=p), plain=p)
         return out.float()

@@ -1,5 +1,5 @@
 """RRDBNet checkpoints: load, save, convert from the JAX layout, synthesise;
-and SegFormer parameters carried over from the JAX layout.
+and SegFormer and SwinIR parameters carried over from the JAX layout.
 
 State dicts use the basicsr RRDBNet layout (``conv_first.weight`` OIHW,
 ``body.{i}.rdb{k}.conv{c}.weight`` ...), which is what the published
@@ -17,7 +17,8 @@ import torch
 logger = logging.getLogger("nesr.weights")
 
 __all__ = ["load_state_dict", "save_state_dict", "params_from_jax",
-           "segformer_params_from_jax", "init_rrdbnet", "HEAD_CONVS"]
+           "segformer_params_from_jax", "swinir_params_from_jax",
+           "init_rrdbnet", "HEAD_CONVS"]
 
 HEAD_CONVS = ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr",
               "conv_last")
@@ -91,6 +92,23 @@ def segformer_params_from_jax(np_params: Mapping[str, Any]
     from neural_enhanced_super_resolution_torch.models.diffusion.convert \
         import diffusion_params_from_jax
     return diffusion_params_from_jax(np_params)
+
+
+def swinir_params_from_jax(np_params: Mapping[str, Any]
+                           ) -> dict[str, torch.Tensor]:
+    """The JAX package's flat SwinIR params (official names; convs HWIO,
+    linears (in, out), as numpy) -> the official state dict (OIHW, (out,
+    in)) that ``models/swinir.load_swinir`` reads, float32. The inverse of
+    ``swinir_params_from_state_dict``; the bias tables keep their shape."""
+    sd = {}
+    for name, val in np_params.items():
+        a = np.array(val, np.float32)
+        if name.endswith(".weight") and a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        elif name.endswith(".weight") and a.ndim == 2:
+            a = a.T
+        sd[name] = torch.from_numpy(np.ascontiguousarray(a))
+    return sd
 
 
 def init_rrdbnet(cfg, generator: torch.Generator) -> dict[str, torch.Tensor]:

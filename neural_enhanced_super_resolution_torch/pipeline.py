@@ -5,12 +5,12 @@ same constructor, config keys, ``enhance_image`` / ``enhance_array``
 contract, stage names, progress and image callbacks, cooperative
 cancellation and output naming (``{name}_enhanced_x{scale}{ext}``). Per
 iteration: NL-means denoise and CLAHE contrast -> SegFormer segmentation
-and masked sharpening -> tiled ESRGAN (RRDBNet on K1/K2) and the Stable
-Diffusion x4 upscaler (its self-attention on K3), one after the other on
-the one device -> ensemble -> adaptive sharpen. An input above
-``diffusion_max_megapixels`` skips diffusion; a last iteration with ESRGAN
-as the only branch runs ESRGAN + sharpen per tile and streams the tiles to
-the host.
+and masked sharpening -> tiled ESRGAN (RRDBNet on K1/K2), SwinIR (its
+convs on K1; ``use_swinir``) and the Stable Diffusion x4 upscaler (its
+self-attention on K3), one after the other on the one device -> ensemble
+-> adaptive sharpen. An input above ``diffusion_max_megapixels`` skips
+diffusion; a last iteration with ESRGAN as the only branch runs ESRGAN +
+sharpen per tile and streams the tiles to the host.
 
 The graceful-degradation ladder (primary -> 3-channel -> tiled-3ch(256) ->
 bicubic, a stage skipped, a branch whose weights do not load turned off)
@@ -40,6 +40,7 @@ from neural_enhanced_super_resolution_torch.models.rrdbnet import (
     RRDBNet, RRDBNetConfig)
 from neural_enhanced_super_resolution_torch.models.segformer import (
     load_segformer)
+from neural_enhanced_super_resolution_torch.models.swinir import load_swinir
 from neural_enhanced_super_resolution_torch.models.weights import (
     load_state_dict)
 from neural_enhanced_super_resolution_torch.ops.blur import gaussian_blur
@@ -120,8 +121,8 @@ def esrgan_step(model: RRDBNet, tiles_u8: torch.Tensor,
 
 
 class SuperResolutionPipeline:
-    """Iterative super-resolution with ESRGAN and the SD x4 upscaler,
-    NL-means denoise and segmentation-guided sharpening
+    """Iterative super-resolution with ESRGAN, SwinIR and the SD x4
+    upscaler, NL-means denoise and segmentation-guided sharpening
     (reference-compatible API)."""
 
     def __init__(self, device: str = "auto", config: dict | None = None):
@@ -166,6 +167,7 @@ class SuperResolutionPipeline:
 
     def _load_models(self):
         self._load_esrgan()
+        self._load_swinir()
         self._load_diffusion()
         self._load_segmentation()
 
@@ -219,6 +221,22 @@ class SuperResolutionPipeline:
         self.models["esrgan"] = {"model": model, "cfg": model_cfg}
         logger.info("Real-ESRGAN model loaded (%s trunk, %s)", trunk,
                     cfg["precision"])
+
+    def _load_swinir(self):
+        cfg = self.config
+        if not cfg.get("use_swinir") or "swinir" in self.models:
+            return
+        try:
+            logger.info("Loading SwinIR model...")
+            self.models["swinir"] = load_swinir(
+                cfg.get("swinir_model_path"), compute_dtype=cfg["precision"],
+                device=self.device)
+            logger.info("SwinIR model loaded successfully (%s)",
+                        self.models["swinir"].cfg)
+        except Exception as exc:  # noqa: BLE001 - ladder: branch disabled
+            _reraise(exc, "SwinIR model load")
+            logger.warning("SwinIR model loading failed: %s", exc)
+            cfg["use_swinir"] = False
 
     def _load_diffusion(self):
         cfg = self.config
@@ -330,10 +348,13 @@ class SuperResolutionPipeline:
         return self.models["esrgan"]["cfg"].scale
 
     def _run_tiled(self, model_fn, image, tile_size: int, halo: int,
-                   scale: int):
+                   scale: int, batch_tiles: int | None = None):
+        """batch_tiles overrides the config's tile_batch for a branch with
+        its own batch size (SwinIR's swinir_tile_batch)."""
+        if batch_tiles is None:
+            batch_tiles = self.config.get("tile_batch")
         return process_tiled(model_fn, image, tile_size=tile_size, halo=halo,
-                             scale=scale,
-                             batch_tiles=self.config.get("tile_batch"),
+                             scale=scale, batch_tiles=batch_tiles,
                              cancel_check=self._cancel_check())
 
     def _esrgan_whole(self, image, three_channel: bool):
@@ -412,6 +433,28 @@ class SuperResolutionPipeline:
         logger.warning("All ESRGAN methods failed, using bicubic upscaling")
         return self._bicubic_upscale(image, self.config["upscale_factor"])
 
+    def _apply_swinir(self, image):
+        """The third upscaling branch: the whole image in one forward up to
+        twice the tile, else tiled like ESRGAN at swinir_tile_batch tiles a
+        forward. An ordinary failure skips the branch (None); cancellation
+        and device faults propagate."""
+        model = self.models.get("swinir")
+        if model is None:
+            return None
+        try:
+            h, w = int(image.shape[0]), int(image.shape[1])
+            tile = self._tile()
+            if max(h, w) <= 2 * tile:
+                return model.upscale_batch(image[None])[0]
+            return self._run_tiled(
+                model.upscale_batch, image, tile_size=tile,
+                halo=self.config.get("tile_halo", 16), scale=model.cfg.scale,
+                batch_tiles=int(self.config.get("swinir_tile_batch", 1)))
+        except Exception as exc:  # noqa: BLE001 - ladder: branch skipped
+            _reraise(exc, "SwinIR")
+            logger.warning("SwinIR upscaling failed: %s", exc)
+            return None
+
     def _diffusion_capped(self, image) -> bool:
         """Above ``diffusion_max_megapixels`` the branch is skipped: the
         4x-grown canvas of a later iteration would run O(tokens^2)
@@ -474,6 +517,8 @@ class SuperResolutionPipeline:
         if (cfg["use_diffusion"] and "diffusion" in self.models
                 and not self._diffusion_capped(image)):
             return False  # diffusion joins this iteration's ensemble
+        if cfg.get("use_swinir") and "swinir" in self.models:
+            return False  # SwinIR joins the ensemble
         if cfg.get("memory_efficient"):
             return False
         h, w = int(image.shape[0]), int(image.shape[1])
@@ -565,6 +610,14 @@ class SuperResolutionPipeline:
                                    "Applying Real-ESRGAN upscaling")
                     with self._stage("esrgan"):
                         result = self._apply_esrgan(current)
+                    if result is not None:
+                        upscaled.append(result)
+                if self.config.get("use_swinir") and "swinir" in self.models:
+                    logger.info("Applying SwinIR upscaling...")
+                    self._callback("SwinIR", iteration, iterations,
+                                   "Applying SwinIR upscaling")
+                    with self._stage("swinir"):
+                        result = self._apply_swinir(current)
                     if result is not None:
                         upscaled.append(result)
                 if self.config["use_diffusion"] and "diffusion" in self.models:

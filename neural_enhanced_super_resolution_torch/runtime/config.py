@@ -12,10 +12,10 @@ grows 4x per iteration); it does not take that overlay's remote-host
 workarounds (``tile_tail: "full"``, ``prewarm``, ``fallback_to_cpu``).
 
 ``merge_config`` raises ``ValueError`` for a feature that is not ported yet
-(SwinIR, parity tiling, the int8 trunk), naming the ROADMAP item that will
-bring it, instead of turning it off. Segmentation and NL-means denoise,
-which the defaults turn on, are ported: the JAX package's default config
-runs here unchanged.
+(parity tiling, the int8 trunk), naming the ROADMAP item that will bring
+it, instead of turning it off. Segmentation and NL-means denoise, which the
+defaults turn on, and the SwinIR branch (``use_swinir``) are ported: the
+JAX package's default config runs here unchanged.
 """
 
 from __future__ import annotations
@@ -88,8 +88,6 @@ def default_config() -> dict[str, Any]:
 
 # (predicate on the merged config, what is missing, where ROADMAP queues it)
 _NOT_PORTED = (
-    (lambda c: c.get("use_swinir"), "use_swinir (SwinIR)",
-     "slice 5, SwinIR"),
     (lambda c: c.get("parity_tiling"), "parity_tiling",
      "queue 1, parity tiling"),
     (lambda c: c.get("esrgan_trunk") in ("int8", "s2d"),

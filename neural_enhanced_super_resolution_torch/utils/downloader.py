@@ -1,10 +1,11 @@
 """Where the model registry's weights live on disk.
 
-The ``sd_upscaler`` and ``segmentation`` entries and ``get_model_path`` of
-the JAX package's ``utils/downloader.py``, so that ``diffusion_model_path:
-null`` and ``segmentation_model_path: null`` resolve to the same
-directories. Nothing here downloads or creates a directory; a missing
-snapshot disables its branch (``pipeline._load_models``).
+The ``swinir``, ``sd_upscaler`` and ``segmentation`` entries and
+``get_model_path`` of the JAX package's ``utils/downloader.py``, so that
+``swinir_model_path: null``, ``diffusion_model_path: null`` and
+``segmentation_model_path: null`` resolve to the same files. Nothing here
+downloads or creates a directory; missing weights disable their branch
+(``pipeline._load_models``).
 Downloading is not ported yet (ROADMAP).
 """
 
@@ -16,6 +17,11 @@ import sys
 __all__ = ["MODELS", "get_models_dir", "get_model_path"]
 
 MODELS = {
+    "swinir": {
+        # the published real-world SwinIR-M x4 GAN checkpoint
+        # (JingyunLiang/SwinIR release v0.0,
+        # 003_realSR_BSRGAN_DFO_s64w8_SwinIR-M_x4_GAN.pth)
+        "path": "weights/SwinIR_realSR_M_x4_GAN.pth"},
     "sd_upscaler": {
         "huggingface_id": "stabilityai/stable-diffusion-x4-upscaler"},
     "segmentation": {
@@ -38,6 +44,10 @@ def get_models_dir() -> str:
 
 
 def get_model_path(model_key: str) -> str:
-    """A Hugging Face snapshot lives under its repo id's last part."""
+    """A file entry lives at its ``path`` under the models directory, a
+    Hugging Face snapshot under its repo id's last part."""
+    info = MODELS[model_key]
+    if info.get("path"):
+        return os.path.join(get_models_dir(), info["path"])
     return os.path.join(get_models_dir(), "huggingface",
-                        MODELS[model_key]["huggingface_id"].split("/")[-1])
+                        info["huggingface_id"].split("/")[-1])

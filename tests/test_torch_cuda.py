@@ -64,9 +64,12 @@ def _rdb_args(cuda, shape, seed):
     (1, 18, 70, 64, 64, True, True), (1, 9, 9, 130, 32, True, True),
     (1, 33, 47, 32, 128, False, False), (2, 17, 29, 32, 96, False, False),
     (1, 26, 31, 32, 64, False, False), (1, 7, 5, 8, 24, True, True),
-    (2, 19, 21, 3, 64, True, False), (1, 11, 13, 130, 300, True, False)],
+    (2, 19, 21, 3, 64, True, False), (1, 11, 13, 130, 300, True, False),
+    (1, 20, 28, 3, 180, True, False), (2, 24, 16, 180, 180, True, False),
+    (1, 16, 24, 180, 64, True, True)],
     ids=["conv_first", "w0", "w1", "conv_last", "head_lrelu",
-         "two_passes", "w2", "w3", "w4", "tiny", "cin3", "two_n_tiles"])
+         "two_passes", "w2", "w3", "w4", "tiny", "cin3", "two_n_tiles",
+         "swinir_first", "swinir_rstb", "swinir_before_up"])
 def test_conv3x3_kernel_matches_plain(cuda, n, h, w, cin, cout, bias, act):
     g = torch.Generator().manual_seed(0)
     x = torch.randn((n, h, w, cin), generator=g).to(cuda, torch.bfloat16)
@@ -197,6 +200,54 @@ def test_product_path_goes_through_the_kernels(cuda, tmp_path, trunk):
          rdb_fused_plain.calls), counts))
     assert k1 > 0 and (k2 > 0) == (trunk == "dform")
     assert p1 == 0 and p2 == 0
+
+
+def _swinir_ckpt(path, depths=(2, 2)):
+    """SwinIR-M's width (embed 180, heads 6, window 8, nearest+conv) at a
+    cut depth, seeded, as an official .pth."""
+    from neural_enhanced_super_resolution_torch.models import (
+        SwinIRConfig, init_swinir)
+    cfg = SwinIRConfig(depths=depths, num_heads=(6,) * len(depths))
+    return save_state_dict(init_swinir(cfg, torch.Generator().manual_seed(8)),
+                           path)
+
+
+def test_swinir_full_width_forward_matches_plain(cuda, tmp_path):
+    """SwinIR at its published width, two RSTBs of two STLs, on a 44x36
+    input (reflect-padded to 48x40): K1 against its plain version."""
+    from neural_enhanced_super_resolution_torch.models import load_swinir
+    model = load_swinir(_swinir_ckpt(str(tmp_path / "s.pth")), "bfloat16",
+                        cuda)
+    x = torch.rand((2, 44, 36, 3), generator=torch.Generator().manual_seed(9)
+                   ).to(cuda)
+    launches = conv3x3.launches
+    out = model(x)
+    assert conv3x3.launches - launches == 9   # 1 + 2 + 1 + 1 + 4
+    ref = model(x, plain=True)
+    assert out.shape == (2, 176, 144, 3) and torch.isfinite(out).all()
+    assert _rel(out, ref) <= 3e-2
+
+
+def test_swinir_request_goes_through_k1(cuda, tmp_path):
+    """enhance_array with use_swinir on the card: SwinIR whole and tiled
+    joins the ensemble through K1 and never a plain version."""
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    pipe = SuperResolutionPipeline("cuda", {
+        "use_diffusion": False, "segment_enhancement": False,
+        "denoise_level": 0, "iterations": 1, "use_esrgan": False,
+        "use_swinir": True, "max_tile_size": 32, "tile_halo": 4,
+        "swinir_model_path": _swinir_ckpt(str(tmp_path / "s.pth"), (1,)),
+        "output_dir": str(tmp_path / "out")})
+    counts = (conv3x3.launches, conv3x3_plain.calls)
+    rng = np.random.default_rng(10)
+    for hw in ((40, 48), (72, 80)):   # whole; tiled
+        img = rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+        out = pipe.enhance_array(img)
+        assert out.shape == (4 * hw[0], 4 * hw[1], 3) and out.std() > 0
+    assert "swinir" in pipe.timer.totals
+    k1, p1 = (a - b for a, b in zip((conv3x3.launches, conv3x3_plain.calls),
+                                    counts))
+    assert k1 == 8 * (1 + 9) and p1 == 0   # 8 convs a forward, 1 + 9 tiles
 
 
 def _qkv(cuda, b, h, sq, skv, d, seed):

@@ -184,6 +184,8 @@ def test_import_without_jax():
             "import neural_enhanced_super_resolution_torch.kernels\n"
             "import neural_enhanced_super_resolution_torch.ops.nlmeans\n"
             "import neural_enhanced_super_resolution_torch.models.segformer\n"
+            "import neural_enhanced_super_resolution_torch.models.swinir\n"
+            "import neural_enhanced_super_resolution_torch.runtime.executor\n"
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m, v in sys.modules.items() if v is not None)\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -217,7 +219,7 @@ def test_cuda_request_without_gpu_raises(tmp_path, ckpt, test_image,
 
 
 @pytest.mark.parametrize("key,value", [
-    ("use_swinir", True), ("parity_tiling", True),
+    ("esrgan_trunk", "s2d"), ("parity_tiling", True),
     ("esrgan_trunk", "int8")])
 def test_unported_features_raise(key, value):
     cfg = {"use_diffusion": False, "segment_enhancement": False,
@@ -369,6 +371,90 @@ def test_cli_single_image_and_clean_errors(tmp_path, ckpt, test_image,
     assert torch_cli(["--cli", "-i", src, "-c", cfg, "-n", "1", "-o", out,
                       "-d", "cpu"]) == 0
     assert imread_rgb(out).shape == (128, 128, 3)
-    assert torch_cli(["--cli", "-i", str(tmp_path), "-c", cfg]) == 2
-    assert "not ported" in capsys.readouterr().out
+    # a directory is batch mode: its one image, named {base}_enhanced{ext}
+    batch = str(tmp_path / "batch_out")
+    assert torch_cli(["--cli", "-i", str(tmp_path), "-c", cfg, "-n", "1",
+                      "-o", batch, "-d", "cpu"]) == 0
+    assert os.listdir(batch) == ["in_enhanced.png"]
+    assert imread_rgb(os.path.join(batch, "in_enhanced.png")).shape == \
+        (128, 128, 3)
+    assert "Batch complete: 1/1 succeeded" in capsys.readouterr().out
     assert torch_cli(["--cli"]) == 2
+
+
+def test_batch_executor_keeps_order_and_survives_a_failed_load(tmp_path,
+                                                               test_image):
+    from neural_enhanced_super_resolution_torch.runtime.executor import (
+        BatchExecutor)
+    good1, good2 = str(tmp_path / "a.png"), str(tmp_path / "b.png")
+    bad = str(tmp_path / "missing.png")
+    imwrite_rgb(good1, test_image[:16, :16])
+    imwrite_rgb(good2, test_image[:8, :12])
+
+    class FakePipe:
+        def enhance_array(self, img, prompt=None, iterations=None):
+            return np.repeat(np.repeat(img, 2, 0), 2, 1)
+
+    with BatchExecutor(FakePipe(), prefetch=2) as ex:
+        results = list(ex.map_paths([good1, bad, good2]))
+    assert [p for p, _ in results] == [good1, bad, good2]
+    assert results[0][1].shape == (32, 32, 3)
+    assert isinstance(results[1][1], ValueError)
+    assert results[2][1].shape == (16, 24, 3)
+
+
+def test_batch_executor_closes_after_an_abandoned_iteration():
+    """Abandoning map_paths early must not deadlock close() or leak the
+    staging thread blocked on the bounded queue."""
+    import threading
+    import time
+
+    from neural_enhanced_super_resolution_torch.runtime.executor import (
+        BatchExecutor)
+
+    class FakePipe:
+        def enhance_array(self, img, prompt=None):
+            return img
+
+    n_before = threading.active_count()
+    ex = BatchExecutor(FakePipe(), prefetch=1,
+                       loader=lambda p: np.zeros((4, 4, 3), np.uint8))
+    it = ex.map_paths([f"img{i}" for i in range(50)])
+    next(it)  # consume one, then abandon: the staging thread blocks on put
+    t0 = time.time()
+    ex.close()
+    assert time.time() - t0 < 3.0, "close() hung"
+    deadline = time.time() + 2.0
+    while threading.active_count() > n_before and time.time() < deadline:
+        time.sleep(0.01)
+    assert threading.active_count() <= n_before, "staging thread leaked"
+
+
+def test_cli_batch_mode_over_a_directory(tmp_path, ckpt, test_image,
+                                         capsys):
+    """Every image of the directory through one pipeline: the JAX package's
+    names, a FAILED line for the unreadable file, exit 1, the others
+    written; an image-free directory exits 2."""
+    src = tmp_path / "imgs"
+    src.mkdir()
+    imwrite_rgb(str(src / "one.png"), test_image[:16, :16])
+    imwrite_rgb(str(src / "two.jpg"), test_image[:12, :20])
+    (src / "broken.png").write_bytes(b"not an image")
+    (src / "notes.txt").write_text("skipped: not an image extension")
+    cfg = str(tmp_path / "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump(_config(tmp_path, ckpt, "unused"), f)
+    out = tmp_path / "out"
+    rc = torch_cli(["--cli", "-i", str(src), "-c", cfg, "-n", "1", "-o",
+                    str(out), "-d", "cpu", "--no_diffusion"])
+    text = capsys.readouterr().out
+    assert rc == 1
+    assert f"FAILED {src / 'broken.png'}" in text
+    assert "Batch complete: 2/3 succeeded" in text
+    assert sorted(os.listdir(out)) == ["one_enhanced.png", "two_enhanced.jpg"]
+    assert imread_rgb(str(out / "one_enhanced.png")).shape == (64, 64, 3)
+    assert imread_rgb(str(out / "two_enhanced.jpg")).shape == (48, 80, 3)
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    assert torch_cli(["--cli", "-i", str(empty), "-d", "cpu"]) == 2
+    assert "No images found" in capsys.readouterr().out
