@@ -3,21 +3,28 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from ``csrc/`` (one nvcc per source,
-in parallel), checks in the library's SASS that every K1 and K3
-instantiation issues ``wgmma`` (HGMMA), and holds each kernel against its
-plain PyTorch version at the shapes its path gives it: K1 and K2 on the
-ESRGAN path, K1 at SwinIR's 180-channel shapes, K3 (flash attention) on
-the diffusion path. Beside each
+in parallel), checks in the library's SASS that every K1, K2 and K3
+instantiation issues bf16 ``wgmma`` (HGMMA) and every K4 one the int8 form
+(IGMMA), and holds each kernel against its plain PyTorch version at the
+shapes its path gives it: K1 and K2 on the ESRGAN path, K1 at SwinIR's
+180-channel shapes, K3 (flash attention) on the diffusion path, K4 (the
+int8 conv) bit for bit at the int8 trunk's and the trained fixture's
+shapes. Beside each
 kernel's time it prints its bound at the H100's peak rates and, for scale,
 the PyTorch call that computes the same function (cuDNN's bf16 conv for
 K1, SDPA for K3; none exists for K2, which is held against the default
 trunk's RDB, five K1 convs and the elementwise assembly, as its
-yardstick). K2, K3, SDPA, the plain versions and K2's yardstick are timed
-by device time (torch.profiler kernel durations), with the wall a call
-beside it. Then, with seeded synthetic weights:
+yardstick, nor for K4: PyTorch has no int8 conv on CUDA; K1's bf16 time
+at the same shape stands beside it). K2, K3, K4, SDPA, the plain versions
+and K2's yardstick are timed by device time (torch.profiler kernel
+durations), with the wall a call beside it. Then, with seeded synthetic
+weights:
 
 * the full-width 12-channel RRDBNet x4 (64 features, 23 blocks, growth 32)
-  on a 4-tile batch with both trunks;
+  on a 4-tile batch with the fused, dform and int8 trunks (int8: against
+  its plain versions and the fused trunk, its time split between K4, the
+  quantise passes, K1's head and the assembly); the int8 quality gate of
+  tests/test_quality.py on the trained fixture;
 * the full-width SD x4 upscaler (written as a diffusers-layout snapshot):
   one UNet pass at a 128^2 latent and one VAE decode, with K3 against the
   same forward on the plain attention;
@@ -41,8 +48,11 @@ beside it. Then, with seeded synthetic weights:
   tiles) and the 128x128 default config plus SwinIR (three branches into
   the ensemble), in process; one CLI process over a directory of three
   images with ``--use_swinir --no_diffusion`` (batch mode);
+* the two config modes through the entry points: an int8-trunk request
+  at 1024x768 in process and as a CLI process, and a parity-tiling request
+  (``memory_efficient``) at 1024x768;
 * the paths on small inputs against the CPU in float32 (ESRGAN alone and
-  with denoise and segmentation, diffusion).
+  with denoise and segmentation, a parity-tiling request, diffusion).
 
 Prints the card, every measurement, a JSON line of per-kernel results and,
 last, a JSON status line. Any failure exits non-zero without the status
@@ -82,6 +92,22 @@ FLASH_SHAPES = [("unet 64^2 d64", 1, 8, 4096, 4096, 64),
                 ("ragged 4000 d512", 1, 1, 4000, 4000, 512),
                 ("cross 200x330 d64", 1, 8, 200, 330, 64)]
 SEED = 0
+# K4 at the int8 trunk's five convs on TILE_BATCH and at the trained
+# fixture's (nf 16, growth 8) on the quality gate's 80x80 input.
+INT8_SHAPES = [("trunk w0 64->192", *TILE_BATCH, 64, 192),
+               ("trunk w1 32->160", *TILE_BATCH, 32, 160),
+               ("trunk w2 32->128", *TILE_BATCH, 32, 128),
+               ("trunk w3 32->96", *TILE_BATCH, 32, 96),
+               ("trunk w4 32->64", *TILE_BATCH, 32, 64),
+               ("fixture w0 16->48", 1, 80, 80, 16, 48),
+               ("fixture w1 8->40", 1, 80, 80, 8, 40),
+               ("fixture w2 8->32", 1, 80, 80, 8, 32),
+               ("fixture w3 8->24", 1, 80, 80, 8, 24),
+               ("fixture w4 8->16", 1, 80, 80, 8, 16)]
+FIXTURE_CKPT = os.path.join(ROOT, "tests", "fixtures",
+                            "tiny_trained_x4.safetensors")
+FIXTURE_ARCH = dict(num_in_ch=12, num_out_ch=3, scale=4, num_feat=16,
+                    num_block=2, num_grow_ch=8)
 SWIN_TILE = (1, 272, 272)    # a 256 + 2 * 6 tile reflect-padded to window 8
 SWIN_REQUEST = (768, 1024)   # 12 tiles of 256 px on the cuda overlay
 SWIN_K1_PER_FORWARD = 13     # conv_first, 6 RSTB, after_body, before_up,
@@ -96,7 +122,8 @@ PROMPT = "a photo of a lighthouse on a cliff"
 CLI_COUNTED = (
     "import json, runpy, sys\n"
     "from neural_enhanced_super_resolution_torch.kernels import (\n"
-    "    conv3x3, conv3x3_plain, flash_attention, flash_attention_plain)\n"
+    "    conv3x3, conv3x3_int8, conv3x3_int8_plain, conv3x3_plain,\n"
+    "    flash_attention, flash_attention_plain)\n"
     "sys.argv = ['neural_enhanced_super_resolution_torch'] + sys.argv[1:]\n"
     "rc = 0\n"
     "try:\n"
@@ -108,6 +135,8 @@ CLI_COUNTED = (
     "    'conv3x3': conv3x3.launches,\n"
     "    'flash_attention': flash_attention.launches,\n"
     "    'conv3x3_plain': conv3x3_plain.calls,\n"
+    "    'conv3x3_int8': conv3x3_int8.launches,\n"
+    "    'conv3x3_int8_plain': conv3x3_int8_plain.calls,\n"
     "    'flash_attention_plain': flash_attention_plain.calls}))\n"
     "sys.exit(rc)\n")
 
@@ -122,6 +151,8 @@ def log(*args):
 # each output written once) over the memory rate.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+# K4 runs int8 on the tensor cores: 1,979 TOP/s dense on the data sheet.
+PEAK_INT8_OPS = 1979e12
 # NL-means runs on the CUDA cores in float32: 67 TFLOP/s on the data sheet.
 PEAK_FP32_FLOPS = 67e12
 # Operations a pixel and search offset in the colored NL-means
@@ -220,10 +251,10 @@ def card_line() -> str:
 
 
 def build_kernels() -> None:
-    """Builds the kernels; prints K2's registers and spills from the build
-    log and fails on any wgmma that ptxas serialized; checks in the SASS
-    that every instantiation of K1 (21), K2 (1) and K3 (6) issues wgmma
-    (HGMMA)."""
+    """Builds the kernels; prints K2's and K4's registers and spills from
+    the build log and fails on any wgmma that ptxas serialized; checks in
+    the SASS that every instantiation of K1 (21), K2 (1) and K3 (6) issues
+    bf16 wgmma (HGMMA) and every one of K4 (14) the int8 form (IGMMA)."""
     from neural_enhanced_super_resolution_torch.kernels import _build
     t0 = time.perf_counter()
     _build.load_library()
@@ -238,6 +269,12 @@ def build_kernels() -> None:
             if "Compiling entry function" in line and "rdb_fused" in line:
                 log("K2 ptxas: " + " | ".join(
                     x.split(":", 1)[-1].strip() for x in lines[i:i + 4]))
+            if ("Compiling entry function" in line
+                    and "conv3x3_int8_kernel" in line):
+                rest = line.split("'")[1].split("conv3x3_int8_kernel", 1)[1]
+                args = [p.split("E")[0] for p in rest.split("Li")[1:3]]
+                log(f"K4 ptxas <{','.join(args)}>: " + " | ".join(
+                    x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]))
         serialized = [line for line in lines if "serialized" in line]
         if serialized:
             raise AssertionError("ptxas serialized wgmma: "
@@ -246,22 +283,25 @@ def build_kernels() -> None:
         [_build.cuda_tool("cuobjdump"), "--dump-sass",
          _build.library_path()], capture_output=True, text=True, check=True,
         timeout=300).stdout
-    hgmma = {"K1": {}, "K2": {}, "K3": {}}
+    # K1-K3 issue bf16 wgmma (HGMMA in SASS), K4 the 8-bit integer form
+    # (IGMMA).
+    hgmma = {"K1": {}, "K2": {}, "K3": {}, "K4": {}}
     for func in sass.split("Function : ")[1:]:
         name = func.split(None, 1)[0]
         for kernel, tag in (("conv3x3_kernel", "K1"),
                             ("rdb_fused_kernel", "K2"), ("flash_narrow", "K3"),
-                            ("flash_wide", "K3")):
+                            ("flash_wide", "K3"),
+                            ("conv3x3_int8_kernel", "K4")):
             if kernel in name:
                 # kernel<A, B>: ..._kernelILi<A>ELi<B>E...
                 rest = name.split(kernel, 1)[1]
                 args = [p.split("E")[0] for p in rest.split("Li")[1:]
                         ] if rest.startswith("I") else []
                 hgmma[tag][f"{kernel}<{','.join(args)}>"] = func.count(
-                    "HGMMA")
-    for tag, want in (("K1", 21), ("K2", 1), ("K3", 6)):
-        log(f"{tag} SASS: HGMMA instructions per instantiation "
-            f"{hgmma[tag]}")
+                    "IGMMA" if tag == "K4" else "HGMMA")
+    for tag, want in (("K1", 21), ("K2", 1), ("K3", 6), ("K4", 14)):
+        log(f"{tag} SASS: {'IGMMA' if tag == 'K4' else 'HGMMA'} "
+            f"instructions per instantiation {hgmma[tag]}")
         if len(hgmma[tag]) != want or min(hgmma[tag].values()) == 0:
             raise AssertionError(f"{tag}: {want} instantiations must issue "
                                  f"wgmma: {hgmma[tag]}")
@@ -1390,6 +1430,340 @@ def drive_batch_cli(np, ckpt: str, swin: str, seg: str) -> dict:
     return counts
 
 
+# ---- The int8 trunk (K4) and parity tiling --------------------------------
+
+def int8_bound(pix: int, cin: int, cout: int) -> tuple[float, str]:
+    """K4's bound: 2 Cin Cout 9 int8 operations a pixel at 1,979 TOP/s,
+    against the int8 input, the bf16 output, the int8 weights and the
+    float32 scales once at 3.35 TB/s."""
+    return bound(2.0 * pix * cout * 9 * cin,
+                 pix * (cin + 2.0 * cout) + 9.0 * cin * cout + 4.0 * cout
+                 + 4.0, peak_flops=PEAK_INT8_OPS)
+
+
+def check_conv3x3_int8(torch, gen) -> dict:
+    """K4 at the int8 trunk's and the trained fixture's shapes on
+    full-range int8 operands, bitwise against conv3x3_int8_plain; device
+    ms and wall beside the bound, the plain version's device ms and K1's
+    bf16 device ms at the same shape (the fused trunk's conv). PyTorch has
+    no int8 convolution on CUDA: library none."""
+    from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
+        conv3x3, pack_conv3x3_weights)
+    from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
+        conv3x3_int8, conv3x3_int8_plain, pack_conv3x3_int8_weights)
+    result, failed = {}, []
+    for label, n, h, w, cin, cout in INT8_SHAPES:
+        q = torch.randint(-127, 128, (n, h, w, cin), generator=gen,
+                          dtype=torch.int8).to("cuda")
+        wq = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen,
+                           dtype=torch.int8).to("cuda")
+        w_s = (torch.rand((cout,), generator=gen) * 1e-2 + 1e-4).to("cuda")
+        s_x = (torch.rand((), generator=gen) * 8 + 0.5).to("cuda")
+        pk = pack_conv3x3_int8_weights(wq)
+        got = conv3x3_int8(q, wq, s_x, w_s, packed=pk)
+        ref = conv3x3_int8_plain(q, wq, s_x, w_s)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int16), ref.view(torch.int16))
+        d = (got.float() - ref.float()).abs().max().item()
+        ms = device_ms(lambda: conv3x3_int8(q, wq, s_x, w_s, packed=pk))
+        wms = wall_ms(lambda: conv3x3_int8(q, wq, s_x, w_s, packed=pk))
+        pms = device_ms(lambda: conv3x3_int8_plain(q, wq, s_x, w_s), reps=3)
+        x = _rnd(torch, gen, n, h, w, cin)
+        wt = _rnd(torch, gen, 3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5)
+        wpk = pack_conv3x3_weights(wt)
+        k1 = device_ms(lambda: conv3x3(x, wt, packed=wpk))
+        bms, by = int8_bound(n * h * w, cin, cout)
+        log(f"K4 conv3x3_int8 {label} {tuple(q.shape)}: bitwise "
+            f"{'equal' if same else 'DIFFERENT'} to plain (max_abs_err "
+            f"{d:.6g}); device {ms:.4f} ms, wall {wms:.4f} ms a call; bound "
+            f"{bms:.4f} ms ({by}), bound/device {bms / ms:.3f}; plain "
+            f"{pms:.4f} ms; K1 bf16 at this shape {k1:.4f} ms (K4/K1 "
+            f"{ms / k1:.3f}); library: none")
+        if not same:
+            failed.append(label)
+        if label.startswith("trunk w0"):
+            result = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                      "bound_by": by, "library_ms": None}
+        result["max_abs_err"] = max(result.get("max_abs_err", 0.0), d)
+        del q, got, ref, x
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"K4 differs from its plain version: {failed}")
+    return result
+
+
+def check_forward_int8(torch, gen, sd, name: str) -> None:
+    """The full-width int8 trunk on the 4-tile batch: against the same
+    model on K4's and K1's plain versions (TOL_FORWARD), against the fused
+    bf16 trunk (PSNR of the uint8 outputs), device ms and wall beside the
+    fused trunk's, the split between K4, the quantise passes, K1's head
+    and the assembly, and the launches of one forward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
+        conv3x3)
+    from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
+        conv3x3_int8, quantize_int8)
+    from neural_enhanced_super_resolution_torch.models import (
+        RRDBNet, RRDBNetConfig)
+    from neural_enhanced_super_resolution_torch.models import rrdbnet
+
+    cfg = RRDBNetConfig(**ARCH)
+    n, h, w = TILE_BATCH
+    x = torch.rand((n, h, w, 12), generator=gen).to("cuda")
+    model = RRDBNet(cfg, sd, torch.bfloat16, "cuda", "int8")
+    ref = model(x, plain=True)
+    k1, k4 = conv3x3.launches, conv3x3_int8.launches
+    out = model(x)
+    k1, k4 = conv3x3.launches - k1, conv3x3_int8.launches - k4
+    d, r = rel_err(out, ref)
+    del ref
+    fused = RRDBNet(cfg, sd, torch.bfloat16, "cuda", "fused")
+    out_f = fused(x)
+
+    def u8(t):
+        return torch.clamp(t * 255.0, 0.0, 255.0).to(torch.uint8).float()
+
+    mse = torch.mean((u8(out) - u8(out_f)) ** 2).item()
+    p = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+    del out, out_f
+    torch.cuda.empty_cache()
+    # In turns: int8, fused, fused, int8.
+    dev = {"int8": [], "fused": []}
+    wall = {"int8": [], "fused": []}
+    for trunk in ("int8", "fused", "fused", "int8"):
+        m = model if trunk == "int8" else fused
+        dev[trunk].append(device_ms(lambda: m(x), reps=3))
+        wall[trunk].append(wall_ms(lambda: m(x), reps=3))
+    # The split of one int8 forward: kernels by name; the quantise passes
+    # timed on their own at the two input kinds the trunk gives them (x,
+    # bf16 64 channels; x1..x4, float32 32 channels), times their counts.
+    seen = {}
+    real = rrdbnet.quantize_int8
+
+    def spy(t):
+        key = (tuple(t.shape), t.dtype)
+        seen.setdefault(key, [t, 0])[1] += 1
+        return real(t)
+
+    rrdbnet.quantize_int8 = spy
+    try:
+        model(x)
+    finally:
+        rrdbnet.quantize_int8 = real
+    quant = sum(cnt * device_ms(lambda t=t: quantize_int8(t), reps=5)
+                for t, cnt in seen.values())
+    seen.clear()
+    # K1's head instantiations (conv_first <64,1>; conv_body, the up convs
+    # and conv_hr <64,4>; conv_last <8,4>); the fused trunk's five convs
+    # take the others.
+    head = ("conv3x3_kernel<64,1>", "conv3x3_kernel<64,4>",
+            "conv3x3_kernel<8,4>")
+
+    def families(m):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            m(x)
+            torch.cuda.synchronize()
+        fam = {"K4": 0.0, "K1 trunk": 0.0, "K1 head": 0.0, "other": 0.0}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            name = e.name.replace(" ", "")
+            key = ("K4" if "conv3x3_int8" in name else
+                   "K1 head" if any(k in name for k in head) else
+                   "K1 trunk" if "conv3x3_kernel" in name else "other")
+            fam[key] += e.time_range.elapsed_us() / 1e3
+        return fam
+
+    fam = families(model)
+    split = {"K4": fam["K4"], "quantise": quant, "K1 head": fam["K1 head"],
+             "assembly": fam["other"] - quant}
+    total = sum(split.values())
+    fam_f = families(fused)
+    split_f = {"K1 trunk": fam_f["K1 trunk"], "K1 head": fam_f["K1 head"],
+               "assembly": fam_f["other"]}
+    total_f = sum(split_f.values())
+    mp_out = n * (4 * h) * (4 * w) / 1e6
+    log(f"forward int8 trunk (K4+K1) 12ch x4 nf64 nb23 gc32 on "
+        f"{tuple(x.shape)}: max_abs_err {d:.6g} rel {r:.3g} vs the plain "
+        f"versions (tol {TOL_FORWARD}); uint8 PSNR vs the fused bf16 trunk "
+        f"{p:.2f} dB; launches a forward: K4 {k4}, K1 {k1}")
+    log(f"forward device ms int8 {dev['int8']} vs fused {dev['fused']}; "
+        f"wall ms int8 {wall['int8']} vs fused {wall['fused']} (turns "
+        f"int8, fused, fused, int8); int8 "
+        f"{mp_out / (min(dev['int8']) / 1e3):.3f} MP_out/s of device time "
+        f"on {name}")
+    for label, sp, tot in (("int8", split, total),
+                           ("fused", split_f, total_f)):
+        log(f"forward {label} split (device ms, one forward, {tot:.3f} in "
+            "all): " + ", ".join(f"{k} {v:.3f} ({100 * v / tot:.1f}%)"
+                                 for k, v in sp.items()))
+    if fam["K1 trunk"] or fam_f["K4"] or not fam_f["K1 trunk"]:
+        raise AssertionError(f"forward split: int8 {fam}, fused {fam_f}")
+    want = (15 * cfg.num_block, 6)
+    if not (r <= TOL_FORWARD and (k4, k1) == want):
+        raise AssertionError(f"int8 forward: rel err {r}, launches K4 {k4} "
+                             f"K1 {k1} (want {want})")
+    del model, fused
+    torch.cuda.empty_cache()
+
+
+def _quality_requests(torch, device: str):
+    """The JAX package's int8 quality gate (tests/test_quality.py) as
+    requests on ``device``: the trained fixture on the fixture image
+    downscaled 2x, exact and int8 trunk; returns (hr, exact, int8)."""
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    from neural_enhanced_super_resolution_torch.ops.resize import resize
+    from neural_enhanced_super_resolution_torch.utils.io import imread_rgb
+    hr = torch.from_numpy(imread_rgb(os.path.join(ROOT, "tests", "fixtures",
+                                                  "test.jpeg")))
+    lr = resize(hr, dsize=(hr.shape[1] // 2, hr.shape[0] // 2),
+                interpolation="bicubic").numpy()
+    common = {"iterations": 1, "use_diffusion": False,
+              "segment_enhancement": False, "denoise_level": 0,
+              "adaptive_sharpening": False, "esrgan_model_path": FIXTURE_CKPT,
+              "esrgan_arch": dict(FIXTURE_ARCH),
+              "output_dir": os.path.join(OUT, "quality")}
+    outs = [SuperResolutionPipeline(device, dict(
+        common, esrgan_trunk=trunk)).enhance_array(lr)
+        for trunk in (None, "int8")]
+    return hr.numpy(), outs[0], outs[1]
+
+
+def check_int8_quality(torch, np) -> None:
+    """The int8 quality gate on the card with the bars of
+    tests/test_quality.py: int8 vs the exact (bf16) trunk > 40 dB, and
+    |dPSNR| against the Lanczos-upscaled original < 0.15 dB."""
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv3x3_int8, conv3x3_int8_plain)
+    from neural_enhanced_super_resolution_torch.ops.resize import resize
+    from neural_enhanced_super_resolution_torch.utils import psnr
+    k4, p4 = conv3x3_int8.launches, conv3x3_int8_plain.calls
+    hr, exact, q = _quality_requests(torch, "cuda")
+    k4, p4 = conv3x3_int8.launches - k4, conv3x3_int8_plain.calls - p4
+    ref = resize(torch.from_numpy(hr), dsize=(q.shape[1], q.shape[0]),
+                 interpolation="lanczos4").numpy()
+    cross = psnr(q, exact)
+    dq, de = psnr(q, ref), psnr(exact, ref)
+    log(f"int8 quality gate on the card (trained fixture, 80x80 -> "
+        f"{q.shape[1]}x{q.shape[0]}): PSNR int8 vs exact bf16 trunk "
+        f"{cross:.2f} dB (bar > 40); vs the Lanczos reference int8 "
+        f"{dq:.4f} dB, exact {de:.4f} dB, |dPSNR| {abs(dq - de):.4f} (bar "
+        f"< 0.15); K4 launches {k4}, plain calls {p4}")
+    if not (q.shape == exact.shape and cross > 40.0
+            and abs(dq - de) < 0.15 and k4 > 0 and p4 == 0):
+        raise AssertionError("int8 quality gate failed on the card")
+
+
+def _counts():
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv3x3, conv3x3_int8, conv3x3_int8_plain, conv3x3_plain)
+    return {"conv3x3": conv3x3.launches,
+            "conv3x3_int8": conv3x3_int8.launches,
+            "conv3x3_plain": conv3x3_plain.calls,
+            "conv3x3_int8_plain": conv3x3_int8_plain.calls}
+
+
+def _zero_counts():
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv3x3, conv3x3_int8, conv3x3_int8_plain, conv3x3_plain)
+    conv3x3.launches = conv3x3_int8.launches = 0
+    conv3x3_plain.calls = conv3x3_int8_plain.calls = 0
+
+
+def drive_int8_and_parity(torch, np, ckpt: str, name: str) -> dict:
+    """The two config modes through the entry points, each with the
+    launch counts zeroed before it and read after it: an int8 request at
+    1024x768 in process (timed, then profiled), an int8 CLI request, and a
+    parity-tiling request (memory_efficient) at 1024x768 in process."""
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    from neural_enhanced_super_resolution_torch.utils.io import imread_rgb
+    rng = np.random.default_rng(SEED + 20)
+    small = rng.integers(0, 256, (768 // 8, 1024 // 8, 3), dtype=np.uint8)
+    img = np.kron(small, np.ones((8, 8, 1), np.uint8))
+    base = {"use_diffusion": False, "segment_enhancement": False,
+            "denoise_level": 0, "iterations": 1, "esrgan_model_path": ckpt,
+            "output_dir": os.path.join(OUT, "modes_out")}
+    counts = {}
+    for label, extra, want in (
+            ("int8", {"esrgan_trunk": "int8"}, (3072, 4096, 3)),
+            ("parity", {"parity_tiling": True, "memory_efficient": True},
+             (1536, 2048, 3))):
+        pipe = SuperResolutionPipeline("cuda", dict(base, **extra))
+        pipe._load_models()   # set-up: weights to the card before the window
+        _zero_counts()
+        out, stages = timed_request(
+            torch, pipe, img, f"{label} request 1024x768 -n 1 ({extra})",
+            name)
+        counts[label] = c = _counts()
+        log(f"{label} request 1024x768 counts (both runs) {c}")
+        kernel = "conv3x3_int8" if label == "int8" else "conv3x3"
+        if (out.shape != want or out.std() == 0 or c[kernel] == 0
+                or c["conv3x3"] == 0 or c["conv3x3_plain"]
+                or c["conv3x3_int8_plain"]
+                or (label == "parity" and c["conv3x3_int8"])):
+            raise AssertionError(f"{label} request: output {out.shape} "
+                                 f"(want {want}), counts {c}")
+        del pipe
+        torch.cuda.empty_cache()
+    cfg = os.path.join(OUT, "int8_cli_config.json")
+    with open(cfg, "w") as f:
+        json.dump(dict(base, esrgan_trunk="int8"), f)
+    dst = os.path.join(OUT, "int8_cli", "result.png")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_COUNTED, "--cli", "-i",
+         os.path.join(ROOT, "tests", "fixtures", "test.jpeg"), "-c", cfg,
+         "-n", "1", "-o", dst, "-d", "cuda"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("int8 CLI failed:\n" + proc.stdout[-3000:]
+                             + proc.stderr[-3000:])
+    c = json.loads(next(line for line in proc.stdout.splitlines()
+                        if line.startswith("COUNTS "))[7:])
+    got = imread_rgb(dst)
+    log(f"int8 CLI request 160x160 -n 1: rc 0 in {wall:.2f} s, output "
+        f"{got.shape}, counts {c}")
+    if (got.shape != (640, 640, 3) or got.std() == 0 or c["conv3x3_int8"] == 0
+            or c["conv3x3_int8_plain"] or c["conv3x3_plain"]):
+        raise AssertionError(f"int8 CLI: output {got.shape}, counts {c}")
+    counts["int8_cli"] = c
+    return counts
+
+
+def check_parity_against_cpu(torch, np, ckpt: str) -> None:
+    """A parity-tiling request at num_block 1 on a 96x72 image (2 x 2
+    tiles of 48 and the probe) on the card in bf16 against the same
+    request on the CPU in float32: PSNR of the uint8 outputs (the bar of
+    check_against_cpu)."""
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    base = {"use_diffusion": False, "segment_enhancement": False,
+            "denoise_level": 0, "iterations": 1, "esrgan_model_path": ckpt,
+            "esrgan_arch": {"num_block": 1}, "parity_tiling": True,
+            "memory_efficient": True, "max_tile_size": 48,
+            "output_dir": os.path.join(OUT, "ref")}
+    rng = np.random.default_rng(SEED + 21)
+    img = np.kron(rng.integers(0, 256, (9, 12, 3), dtype=np.uint8),
+                  np.ones((8, 8, 1), np.uint8))
+    t0 = time.perf_counter()
+    ref = SuperResolutionPipeline("cpu", base).enhance_array(img).astype(
+        np.float64)
+    cpu_s = time.perf_counter() - t0
+    _zero_counts()
+    got = SuperResolutionPipeline("cuda", base).enhance_array(img).astype(
+        np.float64)
+    c = _counts()
+    mse = float(np.mean((got - ref) ** 2))
+    p = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+    log(f"parity-tiling request 96x72 (nb 1, 48-px tiles), bf16 card vs "
+        f"CPU float32 ({cpu_s:.2f} s there): PSNR {p:.2f} dB, max diff "
+        f"{np.abs(got - ref).max():.0f} (bar 30 dB); card counts {c}")
+    if (got.shape != ref.shape or got.shape != (144, 192, 3)
+            or not p >= 30.0 or c["conv3x3"] == 0 or c["conv3x3_plain"]):
+        raise AssertionError(f"parity card vs CPU: {got.shape} PSNR {p}")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -1428,10 +1802,13 @@ def main() -> int:
     build_kernels()
     results = {"conv3x3": check_conv3x3(torch, gen),
                "rdb_fused": check_rdb_fused(torch, gen),
-               "flash_attention": check_flash_attention(torch, gen)}
+               "flash_attention": check_flash_attention(torch, gen),
+               "conv3x3_int8": check_conv3x3_int8(torch, gen)}
     sd = init_rrdbnet(RRDBNetConfig(**ARCH), torch.Generator().manual_seed(
         SEED))
     check_forward(torch, gen, sd, name)
+    check_forward_int8(torch, gen, sd, name)
+    check_int8_quality(torch, np)
     ckpt = save_state_dict(sd, os.path.join(OUT, "synthetic_x4_12ch.pth"))
     snap = write_sd_snapshot(torch)
     check_diffusion_forward(torch, snap, name)
@@ -1450,8 +1827,10 @@ def main() -> int:
     swin_counts = drive_swinir_requests(torch, np, ckpt, swin, snap, seg,
                                         name)
     batch_counts = drive_batch_cli(np, ckpt, swin, seg)
+    mode_counts = drive_int8_and_parity(torch, np, ckpt, name)
     check_against_cpu(torch, np, ckpt)
     check_against_cpu(torch, np, ckpt, seg)
+    check_parity_against_cpu(torch, np, ckpt)
     check_diffusion_against_cpu(torch, np)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -1460,14 +1839,18 @@ def main() -> int:
     launches = {"conv3x3": counts["conv3x3"] + sd_counts["conv3x3"]
                 + default_counts["conv3x3"] + default_ip_counts["conv3x3"]
                 + tiled_counts["conv3x3"] + swin_counts["conv3x3"]
-                + batch_counts["conv3x3"],
+                + batch_counts["conv3x3"]
+                + sum(c["conv3x3"] for c in mode_counts.values()),
                 "rdb_fused": counts["rdb_fused"],
+                "conv3x3_int8": mode_counts["int8"]["conv3x3_int8"]
+                + mode_counts["int8_cli"]["conv3x3_int8"],
                 "flash_attention": sd_counts["flash_attention"]
                 + default_counts["flash_attention"]
                 + default_ip_counts["flash_attention"]
                 + swin_counts["flash_attention"]}
     sources = {"conv3x3": "csrc/conv3x3.cu", "rdb_fused": "csrc/rdb_fused.cu",
-               "flash_attention": "csrc/flash_attn.cu"}
+               "flash_attention": "csrc/flash_attn.cu",
+               "conv3x3_int8": "csrc/conv3x3_int8.cu"}
     # K1 also carries the math of kernels/conv3x3.py:106 and
     # kernels/conv3x3_v2.py:103; rows_s2d_conv3x3 is the one whose shapes
     # the default trunk runs.
@@ -1477,16 +1860,21 @@ def main() -> int:
         "rdb_fused": "neural_enhanced_super_resolution_tpu/kernels/"
                      "rdb_dform.py:575",
         "flash_attention": "neural_enhanced_super_resolution_tpu/kernels/"
-                           "attention.py:125"}
+                           "attention.py:125",
+        # XLA's int8 conv (conv_q of _rdb_fused_int8), not a Pallas kernel
+        "conv3x3_int8": "neural_enhanced_super_resolution_tpu/models/"
+                        "rrdbnet.py:255"}
     # ms, plain_ms, bound_ms and library_ms at one shape a kernel: K1 at
-    # trunk w0, K2 on the tile batch, K3 at the UNet's 64^2 self-attention.
+    # trunk w0, K2 on the tile batch, K3 at the UNet's 64^2 self-attention,
+    # K4 at trunk w0.
     kernels = [{"name": k, "route": "cuda",
                 "source": f"{PKG}/{sources[k]}", "replaces": replaces[k],
                 "launches": launches[k],
                 **{key: results[k][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
-               for k in ("conv3x3", "rdb_fused", "flash_attention")]
+               for k in ("conv3x3", "rdb_fused", "flash_attention",
+                         "conv3x3_int8")]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

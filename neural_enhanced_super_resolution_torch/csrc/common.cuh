@@ -176,4 +176,8 @@ __device__ __forceinline__ void reg_fence(float& r) {
   asm volatile("" : "+f"(r) :: "memory");
 }
 
+__device__ __forceinline__ void reg_fence(int& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+
 }  // namespace nesr

@@ -19,7 +19,8 @@ import subprocess
 import threading
 
 __all__ = ["KernelError", "KernelInputError", "load_library", "build_dir",
-           "library_path", "cuda_tool", "check", "stream_ptr"]
+           "library_path", "cuda_tool", "check", "stream_ptr",
+           "is_device_fault"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -36,6 +37,21 @@ class KernelInputError(KernelError, ValueError):
     """A wrapper refused a device tensor its kernel does not take, so the
     kernel did not launch. A ``ValueError`` to the caller and a
     ``KernelError`` to the pipeline, whose ladder re-raises it."""
+
+
+def is_device_fault(exc: BaseException) -> bool:
+    """A kernel or CUDA runtime failure, which no fallback may hide (the
+    pipeline's ladder, the parity tiler's bicubic rungs). Out-of-memory is
+    not one: smaller tiles are what the ladder is for."""
+    import torch
+    if isinstance(exc, KernelError):
+        return True
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return False
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    return isinstance(exc, RuntimeError) and "CUDA" in str(exc)
 
 
 def _sources() -> list[str]:
@@ -133,6 +149,8 @@ def load_library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nesr_conv3x3.argtypes = [vp] * 4 + [ci] * 7 + [vp]
         lib.nesr_conv3x3.restype = ci
+        lib.nesr_conv3x3_int8.argtypes = [vp] * 5 + [ci] * 6 + [vp]
+        lib.nesr_conv3x3_int8.restype = ci
         lib.nesr_rdb_fused.argtypes = [vp] * 8 + [ci, ci, ci, vp]
         lib.nesr_rdb_fused.restype = ci
         lib.nesr_flash_attn.argtypes = [vp] * 4 + [ci] * 5 + [

@@ -11,6 +11,10 @@ accumulates in fp32. The trunk is one of:
   the same additions in the same order as the JAX package's
   ``_rdb_fused``;
 * ``"dform"``: one K2 launch (``kernels.rdb_fused``) per RDB, bf16 only;
+* ``"int8"``: the fused RDB with per-output-channel int8 weights and
+  dynamic per-tensor int8 activations, its five convs through K4
+  (``kernels.conv3x3_int8``): the JAX package's ``_rdb_fused_int8``, with
+  its rounding points (the head stays on K1 in the compute dtype);
 * ``"stock"``: the unfused basicsr RDB (``fuse_rdb: false``).
 
 The upsampling head is the stock one (nearest x2 + conv, twice, then
@@ -28,14 +32,18 @@ from torch import nn
 
 from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
     conv3x3, conv3x3_plain, pack_conv3x3_weights)
+from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
+    conv3x3_int8, conv3x3_int8_plain, pack_conv3x3_int8_weights,
+    quantize_int8)
 from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
     rdb_fused, rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.models.weights import HEAD_CONVS
 
-__all__ = ["RRDBNetConfig", "RRDBNet", "FusedRDB", "Conv3x3",
-           "pixel_unshuffle", "nearest_x2", "fuse_rdb", "TRUNKS"]
+__all__ = ["RRDBNetConfig", "RRDBNet", "FusedRDB", "Int8RDB", "Conv3x3",
+           "pixel_unshuffle", "nearest_x2", "fuse_rdb", "quantize_rdb",
+           "TRUNKS"]
 
-TRUNKS = ("fused", "dform", "stock")
+TRUNKS = ("fused", "dform", "stock", "int8")
 
 
 class RRDBNetConfig:
@@ -108,6 +116,22 @@ def fuse_rdb(ws: list[torch.Tensor], bs: list[torch.Tensor]
     w3 = torch.cat([seg(w, 3) for w in ws[3:]], dim=-1)
     w4 = seg(ws[4], 4)
     return [w0, w1, w2, w3, w4], torch.cat(list(bs), dim=-1)
+
+
+def quantize_rdb(fw: list[torch.Tensor]
+                 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """Per-output-channel symmetric int8 weights of one fused RDB (w0..w4
+    from ``fuse_rdb``), as ``fuse_rrdbnet_params_int8`` of the JAX package
+    makes them, in float32 on the CPU: s = max(max|w| over (ky, kx, Cin),
+    1e-12) / 127 and q = clip(round_half_even(w / s), -127, 127). Returns
+    (q int8 HWIO, s float32 (Cout,)) per conv."""
+    wq, ws = [], []
+    for w in fw:
+        w = w.detach().to("cpu", torch.float32)
+        s = torch.clamp(w.abs().amax(dim=(0, 1, 2)), min=1e-12) / 127.0
+        wq.append(torch.clamp(torch.round(w / s), -127, 127).to(torch.int8))
+        ws.append(s)
+    return wq, ws
 
 
 def _hwio(w_oihw: torch.Tensor) -> torch.Tensor:
@@ -215,6 +239,56 @@ class FusedRDB(nn.Module):
         return x + 0.2 * x5.to(dt)
 
 
+class Int8RDB(nn.Module):
+    """The fused RDB on int8 operands: five K4 convs and the JAX package's
+    float32 assembly (``_rdb_fused_int8``).
+
+    wq: w0..w4 int8 HWIO, ws: their (Cout,) float32 scales (from
+    ``quantize_rdb``), b: the (4g + nf,) biases; q0..q4 / s0..s4 hold them,
+    p0..p4 K4's packed images. Each conv quantises its input over the whole
+    batch tensor, so the output depends on how tiles are batched, as in the
+    JAX package."""
+
+    def __init__(self, wq, ws, b, device):
+        super().__init__()
+        for i in range(5):
+            self.register_buffer(f"q{i}", wq[i].to(device).contiguous())
+            self.register_buffer(f"s{i}", ws[i].to(device, torch.float32)
+                                 .contiguous())
+            self.register_buffer(f"p{i}", pack_conv3x3_int8_weights(
+                getattr(self, f"q{i}")))
+        self.register_buffer("b", b.to(device=device, dtype=torch.float32)
+                             .contiguous())
+        self.gc = wq[1].shape[2]
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        g, b = self.gc, self.b
+
+        def conv(h, k):
+            q, s_x = quantize_int8(h)
+            w, ws = getattr(self, f"q{k}"), getattr(self, f"s{k}")
+            if plain:
+                return conv3x3_int8_plain(q, w, s_x, ws)
+            return conv3x3_int8(q, w, s_x, ws, packed=getattr(self, f"p{k}"))
+
+        # The conv outputs are bf16; x1..x4 stay float32 (bf16 slices summed
+        # left to right in bf16, plus the float32 bias, LeakyReLU), as
+        # _rdb_fused_int8 leaves them, and are quantised from float32.
+        c = [conv(x, 0)]
+        xk = F.leaky_relu(c[0][..., :g] + b[:g], 0.2)
+        for k in range(1, 4):
+            c.append(conv(xk, k))
+            s = c[0][..., k * g:(k + 1) * g]
+            for j in range(1, k + 1):
+                s = s + c[j][..., (k - j) * g:(k - j + 1) * g]
+            xk = F.leaky_relu(s + b[k * g:(k + 1) * g], 0.2)
+        c.append(conv(xk, 4))
+        x5 = c[0][..., 4 * g:]
+        for j in range(1, 5):
+            x5 = x5 + c[j][..., (4 - j) * g:]
+        return x + 0.2 * (x5 + b[4 * g:]).to(x.dtype)
+
+
 class _RRDB(nn.Module):
     def __init__(self, sd, i, dtype, device, trunk):
         super().__init__()
@@ -225,6 +299,8 @@ class _RRDB(nn.Module):
                 [_hwio(sd[f"{prefix}.conv{c}.weight"]).float()
                  for c in range(1, 6)],
                 [sd[f"{prefix}.conv{c}.bias"].float() for c in range(1, 6)])
+            if trunk == "int8":
+                return Int8RDB(*quantize_rdb(fw), fb, device)
             return FusedRDB(fw, fb, dtype, device, kernel=trunk == "dform")
 
         self.rdbs = nn.ModuleList(mk(f"body.{i}.rdb{k}") for k in (1, 2, 3))

@@ -17,8 +17,8 @@ import torch
 logger = logging.getLogger("nesr.weights")
 
 __all__ = ["load_state_dict", "save_state_dict", "params_from_jax",
-           "segformer_params_from_jax", "swinir_params_from_jax",
-           "init_rrdbnet", "HEAD_CONVS"]
+           "int8_rrdbnet_params_from_jax", "segformer_params_from_jax",
+           "swinir_params_from_jax", "init_rrdbnet", "HEAD_CONVS"]
 
 HEAD_CONVS = ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr",
               "conv_last")
@@ -81,6 +81,26 @@ def params_from_jax(np_params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 sd[f"{key}.bias"] = torch.tensor(
                     np.asarray(p["b"][i], np.float32))
     return sd
+
+
+def int8_rrdbnet_params_from_jax(np_params: Mapping[str, Any]
+                                 ) -> dict[str, dict[str, Any]]:
+    """The JAX package's ``fuse_rrdbnet_params_int8`` trunk (body stacked on
+    a leading num_block axis, as numpy) -> per RDB ``body.{i}.rdb{k}`` the
+    arguments of ``models/rrdbnet.Int8RDB``: ``wq`` (w0..w4 int8 HWIO),
+    ``ws`` (their float32 scales), ``b`` (the biases)."""
+    out: dict[str, dict[str, Any]] = {}
+    for rdb, p in np_params["body"].items():
+        nb = np.asarray(p["w0_q"]).shape[0]
+        for i in range(nb):
+            out[f"body.{i}.{rdb}"] = {
+                "wq": [torch.from_numpy(np.array(p[f"w{k}_q"][i], np.int8))
+                       for k in range(5)],
+                "ws": [torch.from_numpy(np.array(p[f"w{k}_s"][i],
+                                                 np.float32))
+                       for k in range(5)],
+                "b": torch.from_numpy(np.array(p["b"][i], np.float32))}
+    return out
 
 
 def segformer_params_from_jax(np_params: Mapping[str, Any]

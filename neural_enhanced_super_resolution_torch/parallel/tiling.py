@@ -1,5 +1,6 @@
 """Overlap-halo tiling: pad to a tile grid, cut tiles with reflect halos, run
-a batch model over chunks of tiles, crop and stitch.
+a batch model over chunks of tiles, crop and stitch; and the reference's
+per-tile loop (``process_with_tiling_parity``, config ``parity_tiling``).
 
 Counterpart of ``neural_enhanced_super_resolution_tpu/parallel/tiling.py``
 (batched mode). Tiles are staged with torch indexing on the image's own
@@ -14,18 +15,23 @@ PyTorch does not need.
 from __future__ import annotations
 
 import logging
+import math
 from typing import Callable
 
 import numpy as np
 import torch
 
+from neural_enhanced_super_resolution_torch.kernels._build import (
+    is_device_fault)
 from neural_enhanced_super_resolution_torch.ops.pad import (reflect_index,
                                                             reflect_pad)
+from neural_enhanced_super_resolution_torch.ops.resize import resize
 
 logger = logging.getLogger("nesr.tiling")
 
 __all__ = ["pad_to_grid", "extract_tiles", "stitch_tiles", "process_tiled",
-           "process_tiled_to_host", "TilingCancelled"]
+           "process_tiled_to_host", "process_with_tiling_parity",
+           "TilingCancelled"]
 
 
 class TilingCancelled(Exception):
@@ -128,3 +134,136 @@ def process_tiled_to_host(model_fn: Callable[[torch.Tensor], torch.Tensor],
             iy, ix = divmod(start + j, nx)
             canvas[iy * to:(iy + 1) * to, ix * to:(ix + 1) * to] = cores[j]
     return canvas[:orig_h * scale, :orig_w * scale, :]
+
+
+# --------------------------------------------------------------------------
+# Parity mode: the reference's exact per-tile arithmetic.
+# --------------------------------------------------------------------------
+
+def _propagates(exc: BaseException) -> bool:
+    """Cancellation and device faults pass through the parity loop's
+    bicubic rungs: a broken kernel must not come out as a bicubic tile."""
+    return isinstance(exc, TilingCancelled) or is_device_fault(exc)
+
+
+def process_with_tiling_parity(processor_func: Callable[[torch.Tensor],
+                                                        torch.Tensor],
+                               image: torch.Tensor, upscale_factor: float,
+                               tile_size: int = 512, padding: int = 10,
+                               cancel_check: Callable[[], bool] | None = None
+                               ) -> torch.Tensor:
+    """Reference-parity tiled processing, one tile at a time.
+
+    The JAX package's ``process_with_tiling_parity`` line for line, on
+    tensors of the image's device: the <=256 px probe on the corner tile,
+    int-truncated halo crop windows, a Lanczos resize on a size mismatch,
+    the per-tile bicubic rung, and the uint8 canvas sized by the
+    *configured* (not the actual) scale. An ordinary exception in the
+    probe or a tile takes the bicubic rung, as there; cancellation
+    (``cancel_check``, polled before each tile) and kernel or CUDA faults
+    propagate.
+    """
+    h, w, c = (int(v) for v in image.shape)
+    if h <= tile_size and w <= tile_size:
+        return processor_func(image)
+
+    num_tiles_h = math.ceil(h / tile_size)
+    num_tiles_w = math.ceil(w / tile_size)
+    out_h = int(h * upscale_factor)
+    out_w = int(w * upscale_factor)
+    output = torch.zeros((out_h, out_w, c), dtype=torch.uint8,
+                         device=image.device)
+
+    logger.info("Processing image in %dx%d tiles", num_tiles_h, num_tiles_w)
+
+    # Probe on a corner tile; on failure, bicubic for all tiles.
+    try:
+        test_size = min(256, tile_size)
+        processor_func(image[:test_size, :test_size])
+        processor_works = True
+        logger.info("Tile processor test successful")
+    except Exception as exc:  # noqa: BLE001 - ladder rung
+        if _propagates(exc):
+            raise
+        logger.warning("Tile processor test failed: %s", exc)
+        processor_works = False
+        logger.warning("Falling back to bicubic scaling for all tiles")
+
+    def _bicubic(tile_img, dw, dh):
+        return resize(tile_img, dsize=(dw, dh), interpolation="bicubic")
+
+    for i in range(num_tiles_h):
+        for j in range(num_tiles_w):
+            if cancel_check is not None and cancel_check():
+                raise TilingCancelled(f"cancelled at tile ({i},{j})")
+            y_start = max(0, i * tile_size - padding)
+            y_end = min(h, (i + 1) * tile_size + padding)
+            x_start = max(0, j * tile_size - padding)
+            x_end = min(w, (j + 1) * tile_size + padding)
+            tile = image[y_start:y_end, x_start:x_end]
+
+            try:
+                if processor_works:
+                    processed = processor_func(tile)
+                else:
+                    processed = _bicubic(
+                        tile, int(tile.shape[1] * upscale_factor),
+                        int(tile.shape[0] * upscale_factor))
+
+                out_y_start = int(y_start * upscale_factor)
+                out_y_end = int(y_end * upscale_factor)
+                out_x_start = int(x_start * upscale_factor)
+                out_x_end = int(x_end * upscale_factor)
+                if padding > 0:
+                    pad_up = int(padding * upscale_factor)
+                    if y_start > 0:
+                        out_y_start += pad_up
+                    if y_end < h:
+                        out_y_end -= pad_up
+                    if x_start > 0:
+                        out_x_start += pad_up
+                    if x_end < w:
+                        out_x_end -= pad_up
+
+                t_h, t_w = int(processed.shape[0]), int(processed.shape[1])
+                scale_y = t_h / tile.shape[0]
+                scale_x = t_w / tile.shape[1]
+                ty0 = 0 if y_start == 0 else int(padding * scale_y)
+                ty1 = t_h if y_end == h else int(t_h - padding * scale_y)
+                tx0 = 0 if x_start == 0 else int(padding * scale_x)
+                tx1 = t_w if x_end == w else int(t_w - padding * scale_x)
+                ty0 = max(0, min(ty0, t_h - 1))
+                ty1 = max(ty0 + 1, min(ty1, t_h))
+                tx0 = max(0, min(tx0, t_w - 1))
+                tx1 = max(tx0 + 1, min(tx1, t_w))
+
+                oh = out_y_end - out_y_start
+                ow = out_x_end - out_x_start
+                if oh <= 0 or ow <= 0:
+                    logger.warning("Invalid output region for tile (%d,%d)",
+                                   i, j)
+                    continue
+                region = processed[ty0:ty1, tx0:tx1]
+                if region.shape[0] != oh or region.shape[1] != ow:
+                    region = resize(region, dsize=(ow, oh),
+                                    interpolation="lanczos4")
+                output[out_y_start:out_y_end, out_x_start:out_x_end] = region
+
+            except Exception as exc:  # noqa: BLE001 - per-tile ladder rung
+                if _propagates(exc):
+                    raise
+                logger.warning("Error processing tile (%d,%d): %s", i, j, exc)
+                bt = _bicubic(tile, int(tile.shape[1] * upscale_factor),
+                              int(tile.shape[0] * upscale_factor))
+                oy0 = int(i * tile_size * upscale_factor)
+                oy1 = min(int(h * upscale_factor),
+                          int((i + 1) * tile_size * upscale_factor))
+                ox0 = int(j * tile_size * upscale_factor)
+                ox1 = min(int(w * upscale_factor),
+                          int((j + 1) * tile_size * upscale_factor))
+                if oy1 > oy0 and ox1 > ox0:
+                    if bt.shape[0] != oy1 - oy0 or bt.shape[1] != ox1 - ox0:
+                        bt = _bicubic(bt, ox1 - ox0, oy1 - oy0)
+                    output[oy0:oy1, ox0:ox1] = bt
+
+    return output

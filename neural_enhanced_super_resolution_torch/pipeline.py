@@ -5,7 +5,9 @@ same constructor, config keys, ``enhance_image`` / ``enhance_array``
 contract, stage names, progress and image callbacks, cooperative
 cancellation and output naming (``{name}_enhanced_x{scale}{ext}``). Per
 iteration: NL-means denoise and CLAHE contrast -> SegFormer segmentation
-and masked sharpening -> tiled ESRGAN (RRDBNet on K1/K2), SwinIR (its
+and masked sharpening -> tiled ESRGAN (RRDBNet on K1, its trunk on K1,
+K2 or, with ``esrgan_trunk: "int8"``, K4; ``parity_tiling`` runs the
+reference's per-tile loop), SwinIR (its
 convs on K1; ``use_swinir``) and the Stable Diffusion x4 upscaler (its
 self-attention on K3), one after the other on the one device -> ensemble
 -> adaptive sharpen. An input above ``diffusion_max_megapixels`` skips
@@ -13,8 +15,9 @@ diffusion; a last iteration with ESRGAN as the only branch runs ESRGAN +
 sharpen per tile and streams the tiles to the host.
 
 The graceful-degradation ladder (primary -> 3-channel -> tiled-3ch(256) ->
-bicubic, a stage skipped, a branch whose weights do not load turned off)
-is kept for ordinary failures, but a kernel failure or a wrapper's refusal
+bicubic, a stage skipped, a branch whose weights do not load turned off,
+the parity tiler's bicubic probe and tile rungs) is kept for ordinary
+failures, but a kernel failure or a wrapper's refusal
 of its input (``KernelError``, ``KernelInputError``) or a CUDA runtime
 error is re-raised, like cancellation: a broken device or kernel never
 comes out as a bicubic or unprocessed image. Nothing moves to the CPU when
@@ -31,7 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from neural_enhanced_super_resolution_torch.kernels import KernelError
+from neural_enhanced_super_resolution_torch.kernels._build import (
+    is_device_fault)
 from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
     KERNEL_GC, KERNEL_NF)
 from neural_enhanced_super_resolution_torch.models.diffusion.pipeline import (
@@ -49,7 +53,8 @@ from neural_enhanced_super_resolution_torch.ops.enhance import (
     ensemble, masked_sharpen)
 from neural_enhanced_super_resolution_torch.ops.resize import resize
 from neural_enhanced_super_resolution_torch.parallel.tiling import (
-    TilingCancelled, process_tiled, process_tiled_to_host)
+    TilingCancelled, process_tiled, process_tiled_to_host,
+    process_with_tiling_parity)
 from neural_enhanced_super_resolution_torch.runtime.config import merge_config
 from neural_enhanced_super_resolution_torch.runtime.device import (
     default_compute_dtype, determine_device, device_fetch, torch_dtype)
@@ -64,23 +69,10 @@ class EnhancementCancelled(Exception):
     """Raised when config["cancel_check"] fires; never swallowed."""
 
 
-def _is_device_fault(exc: BaseException) -> bool:
-    """A kernel or CUDA runtime failure, which the ladder must not hide.
-    Out-of-memory is not one: smaller tiles are what the ladder is for."""
-    if isinstance(exc, KernelError):
-        return True
-    if isinstance(exc, torch.cuda.OutOfMemoryError):
-        return False
-    accel = getattr(torch, "AcceleratorError", None)
-    if accel is not None and isinstance(exc, accel):
-        return True
-    return isinstance(exc, RuntimeError) and "CUDA" in str(exc)
-
-
 def _reraise(exc: BaseException, what: str) -> None:
     if isinstance(exc, (EnhancementCancelled, TilingCancelled)):
         raise EnhancementCancelled(f"cancelled during {what}") from exc
-    if _is_device_fault(exc):
+    if is_device_fault(exc):
         raise exc
 
 
@@ -189,10 +181,12 @@ class SuperResolutionPipeline:
         if cfg.get("esrgan_arch"):
             arch.update(cfg["esrgan_arch"])
         model_cfg = RRDBNetConfig(**arch)
+        # As in the JAX package the dform and int8 trunks are options of the
+        # fused layout: fuse_rdb false keeps the stock trunk for any value.
         if not cfg.get("fuse_rdb", True):
             trunk = "stock"
-        elif cfg.get("esrgan_trunk") == "dform":
-            trunk = "dform"
+        elif cfg.get("esrgan_trunk") in ("dform", "int8"):
+            trunk = cfg["esrgan_trunk"]
         else:
             trunk = "fused"
         if (trunk == "dform" and self.device == "cuda"
@@ -371,8 +365,15 @@ class SuperResolutionPipeline:
 
     def _esrgan_tiled(self, image, three_channel, tile_size, padding):
         """Tiled ESRGAN, then one Lanczos resize to the upscale_factor
-        canvas (the reference's tiled geometry)."""
+        canvas (the reference's tiled geometry); under ``parity_tiling``
+        the reference's own per-tile loop, each tile through the whole-image
+        forward."""
         upscale = self.config["upscale_factor"]
+        if self.config["parity_tiling"]:
+            return process_with_tiling_parity(
+                lambda t: self._esrgan_whole(t, three_channel), image,
+                upscale_factor=upscale, tile_size=tile_size, padding=padding,
+                cancel_check=self._cancel_check())
         out = self._run_tiled(
             lambda tiles: self._esrgan_batch_forward(tiles, three_channel),
             image, tile_size=tile_size, halo=padding,
@@ -519,7 +520,7 @@ class SuperResolutionPipeline:
             return False  # diffusion joins this iteration's ensemble
         if cfg.get("use_swinir") and "swinir" in self.models:
             return False  # SwinIR joins the ensemble
-        if cfg.get("memory_efficient"):
+        if cfg["parity_tiling"] or cfg.get("memory_efficient"):
             return False
         h, w = int(image.shape[0]), int(image.shape[1])
         megapixels = (h * w) / (1024 * 1024)

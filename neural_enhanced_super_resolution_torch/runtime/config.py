@@ -1,5 +1,5 @@
-"""Pipeline configuration: the JAX package's keys and defaults, a ``cuda``
-overlay, and a guard for the features this port does not carry yet.
+"""Pipeline configuration: the JAX package's keys and defaults and a
+``cuda`` overlay.
 
 ``default_config`` has the same keys and defaults as
 ``neural_enhanced_super_resolution_tpu/runtime/config.py`` so JSON configs
@@ -11,18 +11,25 @@ input: attention grows with the square of the latent area, and the canvas
 grows 4x per iteration); it does not take that overlay's remote-host
 workarounds (``tile_tail: "full"``, ``prewarm``, ``fallback_to_cpu``).
 
-``merge_config`` raises ``ValueError`` for a feature that is not ported yet
-(parity tiling, the int8 trunk), naming the ROADMAP item that will bring
-it, instead of turning it off. Segmentation and NL-means denoise, which the
-defaults turn on, and the SwinIR branch (``use_swinir``) are ported: the
-JAX package's default config runs here unchanged.
+Every single-device key of the JAX package is carried: segmentation and
+NL-means denoise, which the defaults turn on, the SwinIR branch
+(``use_swinir``), the int8 trunk (``esrgan_trunk: "int8"``) and the
+reference-exact per-tile stitch (``parity_tiling``); the JAX package's
+default config runs here unchanged. ``merge_config`` raises ``ValueError``
+only for an ``esrgan_trunk`` that neither package knows.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-__all__ = ["default_config", "merge_config"]
+__all__ = ["default_config", "merge_config", "ESRGAN_TRUNKS"]
+
+# esrgan_trunk values: None / "xla" / "s2d" = the fused trunk ("s2d" is the
+# JAX package's rows-s2d TPU layout, which its pipeline never selects: it
+# runs the fused trunk for it, and so does this one); "dform" = K2;
+# "int8" = the int8 trunk on K4.
+ESRGAN_TRUNKS = (None, "xla", "s2d", "dform", "int8")
 
 
 def default_config() -> dict[str, Any]:
@@ -66,8 +73,9 @@ def default_config() -> dict[str, Any]:
         "tile_halo": 16,
         "esrgan_model_path": None,
         "esrgan_arch": None,
-        # RRDB trunk: None / "xla" = the source-major fused trunk, its five
-        # convs per RDB through K1; "dform" = one K2 launch per RDB (bf16).
+        # RRDB trunk: None / "xla" / "s2d" = the source-major fused trunk,
+        # its five convs per RDB through K1; "dform" = one K2 launch per RDB
+        # (bf16); "int8" = int8 weights and activations, the convs on K4.
         "esrgan_trunk": None,
         "swinir_model_path": None,
         "swinir_tile_batch": 1,
@@ -86,20 +94,10 @@ def default_config() -> dict[str, Any]:
     }
 
 
-# (predicate on the merged config, what is missing, where ROADMAP queues it)
-_NOT_PORTED = (
-    (lambda c: c.get("parity_tiling"), "parity_tiling",
-     "queue 1, parity tiling"),
-    (lambda c: c.get("esrgan_trunk") in ("int8", "s2d"),
-     "esrgan_trunk int8/s2d", "queue 1, the int8 trunk (s2d is a TPU "
-     "layout and folds into K1)"),
-)
-
-
 def merge_config(device: str, user_config: dict | None) -> dict[str, Any]:
     """defaults <- user config <- device-specific overlay (user keys win).
 
-    Raises ValueError for a feature this port does not carry yet."""
+    Raises ValueError for an unknown ``esrgan_trunk``."""
     cfg = default_config()
     user_config = user_config or {}
     cfg.update(user_config)
@@ -107,12 +105,7 @@ def merge_config(device: str, user_config: dict | None) -> dict[str, Any]:
     for key, value in overlay.items():
         if key not in user_config:
             cfg[key] = value
-    for pred, what, where in _NOT_PORTED:
-        if pred(cfg):
-            raise ValueError(f"{what} is not ported to the PyTorch package "
-                             f"yet (ROADMAP: {where}); set it off in the "
-                             "config")
-    if cfg.get("esrgan_trunk") not in (None, "xla", "dform"):
+    if cfg.get("esrgan_trunk") not in ESRGAN_TRUNKS:
         raise ValueError(f"unknown esrgan_trunk {cfg['esrgan_trunk']!r}")
     return cfg
 

@@ -8,7 +8,8 @@ machine with the card and without JAX it runs as
 
 Tolerance: max|kernel - plain| <= 1e-2 * max(1, max|plain|) per conv
 kernel (bf16 outputs; the two sum in another order), 3e-2 for a whole
-forward; K3 (flash attention) 2e-2 of max|plain| with no floor, on q and k
+forward; K4 (the int8 conv) equals its plain version bit for bit (exact
+integer sums, the same float32 epilogue); K3 (flash attention) 2e-2 of max|plain| with no floor, on q and k
 of std 2 so that each softmax row is peaked. The stages without a kernel
 against the same function on the CPU: NL-means' uint8 Lab max |diff| <= 1
 on <= 1e-3 of the values (its RGB: the test's docstring); SegFormer's
@@ -20,8 +21,11 @@ import pytest
 import torch
 
 from neural_enhanced_super_resolution_torch.kernels import (
-    KernelError, KernelInputError, attention_auto, conv3x3, conv3x3_plain,
-    flash_attention, flash_attention_plain, rdb_fused, rdb_fused_plain)
+    KernelError, KernelInputError, attention_auto, conv3x3, conv3x3_int8,
+    conv3x3_int8_plain, conv3x3_plain, flash_attention,
+    flash_attention_plain, rdb_fused, rdb_fused_plain)
+from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
+    pack_conv3x3_int8_weights)
 from neural_enhanced_super_resolution_torch.models import (
     RRDBNet, RRDBNetConfig, init_rrdbnet, save_state_dict)
 from neural_enhanced_super_resolution_torch.models.segformer import (
@@ -155,7 +159,56 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     assert issubclass(KernelError, RuntimeError)
 
 
-@pytest.mark.parametrize("trunk", ["fused", "dform"])
+def _int8_args(cuda, n, h, w, cin, cout, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randint(-127, 128, (n, h, w, cin), generator=g,
+                      dtype=torch.int8).to(cuda)
+    wq = torch.randint(-127, 128, (3, 3, cin, cout), generator=g,
+                       dtype=torch.int8).to(cuda)
+    w_s = (torch.rand((cout,), generator=g) * 1e-2 + 1e-4).to(cuda)
+    s_x = (torch.rand((), generator=g) * 8 + 0.5).to(cuda)
+    return q, wq, s_x, w_s
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (2, 24, 40, 64, 192), (2, 24, 40, 32, 160), (2, 24, 40, 32, 128),
+    (2, 24, 40, 32, 96), (2, 24, 40, 32, 64),
+    (1, 80, 80, 16, 48), (1, 80, 80, 8, 40), (1, 80, 80, 8, 32),
+    (1, 80, 80, 8, 24), (1, 80, 80, 8, 16),
+    (3, 13, 29, 64, 192), (1, 7, 5, 12, 5), (2, 9, 18, 130, 24)],
+    ids=["w0", "w1", "w2", "w3", "w4", "fixture_w0", "fixture_w1",
+         "fixture_w2", "fixture_w3", "fixture_w4", "ragged", "ragged_cin12",
+         "two_passes"])
+def test_conv3x3_int8_kernel_matches_plain(cuda, n, h, w, cin, cout):
+    """K4 at the trunk's and the trained fixture's shapes and ragged ones,
+    full-range int8 operands: equal to its plain version bit for bit."""
+    q, wq, s_x, w_s = _int8_args(cuda, n, h, w, cin, cout, seed=cin + cout)
+    got = conv3x3_int8(q, wq, s_x, w_s,
+                       packed=pack_conv3x3_int8_weights(wq))
+    ref = conv3x3_int8_plain(q, wq, s_x, w_s)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (n, h, w, cout)
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+
+
+def test_conv3x3_int8_refuses_what_the_kernel_does_not_take(cuda):
+    q, wq, s_x, w_s = _int8_args(cuda, 1, 8, 8, 32, 64, seed=1)
+    with pytest.raises(KernelInputError):
+        conv3x3_int8(q.float(), wq, s_x, w_s)            # not int8
+    with pytest.raises(KernelInputError):
+        conv3x3_int8(q, wq[:, :, :16], s_x, w_s)         # Cin mismatch
+    with pytest.raises(KernelInputError):
+        conv3x3_int8(q, wq, s_x.view(1), w_s)            # s_x not 0-d
+    with pytest.raises(KernelInputError):
+        conv3x3_int8(q, wq, s_x, w_s[:32])               # w_s length
+    with pytest.raises(KernelInputError):
+        conv3x3_int8(q.transpose(1, 2), wq, s_x, w_s)    # not contiguous
+    with pytest.raises(KernelInputError):
+        conv3x3_int8(q, wq, s_x, w_s, packed=torch.zeros(
+            16, dtype=torch.int8, device=cuda))          # not its packing
+
+
+@pytest.mark.parametrize("trunk", ["fused", "dform", "int8"])
 def test_full_width_forward_matches_plain(cuda, trunk):
     """12ch x4 at the full width (64 features, growth 32), two blocks."""
     cfg = RRDBNetConfig(num_in_ch=12, num_out_ch=3, scale=4, num_feat=64,
@@ -200,6 +253,38 @@ def test_product_path_goes_through_the_kernels(cuda, tmp_path, trunk):
          rdb_fused_plain.calls), counts))
     assert k1 > 0 and (k2 > 0) == (trunk == "dform")
     assert p1 == 0 and p2 == 0
+
+
+@pytest.mark.parametrize("overrides", [
+    {"esrgan_trunk": "int8"},
+    {"parity_tiling": True, "memory_efficient": True, "max_tile_size": 96},
+], ids=["int8", "parity_tiling"])
+def test_config_modes_go_through_the_kernels(cuda, tmp_path, overrides):
+    """The int8 trunk runs its convs on K4 and its head on K1, and a
+    parity-tiling request each tile's forward on K1; no plain version."""
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    cfg = RRDBNetConfig(num_in_ch=12, num_out_ch=3, scale=4, num_feat=64,
+                        num_block=1, num_grow_ch=32)
+    ckpt = save_state_dict(init_rrdbnet(cfg, torch.Generator().manual_seed(5)),
+                           str(tmp_path / "w.pth"))
+    pipe = SuperResolutionPipeline("cuda", dict({
+        "use_diffusion": False, "segment_enhancement": False,
+        "denoise_level": 0, "iterations": 1, "esrgan_model_path": ckpt,
+        "esrgan_arch": {"num_block": 1}, "output_dir": str(tmp_path / "out")},
+        **overrides))
+    img = np.kron(np.random.default_rng(6).integers(0, 256, (20, 19, 3),
+                                                    dtype=np.uint8),
+                  np.ones((8, 8, 1), np.uint8))[:150, :136]
+    before = (conv3x3.launches, conv3x3_int8.launches, conv3x3_plain.calls,
+              conv3x3_int8_plain.calls)
+    out = pipe.enhance_array(img)
+    k1, k4, p1, p4 = (a - b for a, b in zip(
+        (conv3x3.launches, conv3x3_int8.launches, conv3x3_plain.calls,
+         conv3x3_int8_plain.calls), before))
+    want = (300, 272, 3) if overrides.get("parity_tiling") else (600, 544, 3)
+    assert out.shape == want and out.std() > 0
+    assert k1 > 0 and (k4 > 0) == ("esrgan_trunk" in overrides)
+    assert p1 == 0 and p4 == 0
 
 
 def _swinir_ckpt(path, depths=(2, 2)):

@@ -221,11 +221,37 @@ def test_cuda_request_without_gpu_raises(tmp_path, ckpt, test_image,
 @pytest.mark.parametrize("key,value", [
     ("esrgan_trunk", "s2d"), ("parity_tiling", True),
     ("esrgan_trunk", "int8")])
-def test_unported_features_raise(key, value):
-    cfg = {"use_diffusion": False, "segment_enhancement": False,
-           "denoise_level": 0, key: value}
-    with pytest.raises(ValueError, match="ROADMAP"):
-        merge_config("cpu", cfg)
+def test_unported_features_raise(tmp_path, ckpt, test_image, key, value):
+    """The three config modes this port once refused (the name is kept
+    from then) now merge and run: a tiny tiled CPU request against the JAX
+    pipeline's, within one uint8 level on at most 0.5% of values. "s2d"
+    runs the fused trunk in both packages. For "int8" the JAX ESRGAN step
+    runs op by op: jitted, XLA keeps the trunk's conv outputs in float32
+    where its code rounds them to bf16 (tests/test_torch_int8.py)."""
+    import jax
+    merged = merge_config("cpu", {key: value})
+    assert merged[key] == value
+    src = str(tmp_path / "input.png")
+    imwrite_rgb(src, test_image[:64, :80])
+    images = {}
+    for who, cls in (("jax", JaxPipeline), ("torch", SuperResolutionPipeline)):
+        pipe = cls(device="cpu", config=_config(
+            tmp_path, ckpt, who, max_megapixels=0.001, max_tile_size=48,
+            tile_halo=8, **{key: value}))
+        if who == "jax" and value == "int8":
+            step = pipe._esrgan_batch_forward
+
+            def op_by_op(tiles, three_channel, step=step):
+                with jax.disable_jit():
+                    return step(tiles, three_channel)
+
+            pipe._esrgan_batch_forward = op_by_op
+        images[who] = imread_rgb(pipe.enhance_image(src))
+        if who == "torch":
+            trunk = pipe.models["esrgan"]["model"].trunk
+            assert trunk == ("int8" if value == "int8" else "fused")
+    assert images["torch"].shape == (128, 160, 3)
+    _agree(images["torch"], images["jax"])
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])

@@ -18,6 +18,10 @@ Forms (B is always read from shared memory through a matrix descriptor):
   S = Q K^T. K3's key tiles.
 * ``wgmma_ss_tb<N>``: A and B from shared memory, B transposed, as K3's
   wide form computes P V on a 128-column slice.
+* ``wgmma_rs_s8<N>``: ``m64nNk32.s32.s8.s8``, A (int8) from registers,
+  B (int8) K-major, int32 accumulators; K4's tile widths. The 8-bit form
+  takes no scale or transpose immediates, and its A fragment fills the
+  same four registers as the bf16 k16 one (PTX ISA: 32 bytes a row).
 
 Re-run after changing a width list.
 """
@@ -32,6 +36,8 @@ FORMS = {  # name: (A in registers, B transposed, widths)
     "wgmma_ss": (False, False, (64,)),
     "wgmma_ss_tb": (False, True, (128,)),
 }
+# The int8 form: (widths); A from registers, B K-major, s32 accumulators.
+S8_WIDTHS = (8, 16, 32, 64, 80, 96, 128)
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "neural_enhanced_super_resolution_torch", "csrc",
     "wgmma.cuh")
@@ -69,6 +75,27 @@ __device__ __forceinline__ void {name}<{n}>(float (&d)[{regs}],
 """
 
 
+def _wrapper_s8(n: int) -> str:
+    regs = n // 2
+    d = ", ".join(f"%{i}" for i in range(regs))
+    outs = ",\n        ".join(
+        ", ".join(f'"+r"(d[{i}])' for i in range(j, min(j + 8, regs)))
+        for j in range(0, regs, 8))
+    a_ops = "{" + ", ".join(f"%{regs + i}" for i in range(4)) + "}"
+    return f"""
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<{n}>(int (&d)[{regs}],
+    const uint32_t (&a)[4], uint64_t b_desc, int scale_d) {{
+  asm volatile(
+      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{regs + 5}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8 "
+      "{{{d}}}, {a_ops}, %{regs + 4}, p;\\n}}\\n"
+      : {outs}
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(scale_d));
+}}
+"""
+
+
 def main() -> None:
     decls, bodies = [], []
     for name, (rs, tb, widths) in FORMS.items():
@@ -79,6 +106,12 @@ template <int N>
 __device__ void {name}(float (&d)[N / 2], {a_decl},
                        uint64_t b_desc, int scale_d = 1);""")
         bodies += [_wrapper(name, rs, tb, n) for n in widths]
+    decls.append(f"""
+// widths {S8_WIDTHS}
+template <int N>
+__device__ void wgmma_rs_s8(int (&d)[N / 2], const uint32_t (&a)[4],
+                            uint64_t b_desc, int scale_d = 1);""")
+    bodies += [_wrapper_s8(n) for n in S8_WIDTHS]
     text = f"""\
 // Generated by tools/gen_wgmma_header.py; edit that script, not this file.
 //
@@ -86,8 +119,9 @@ __device__ void {name}(float (&d)[N / 2], {a_decl},
 // B (16 x N bf16). A from registers (_rs: this warp's 16 rows as an m16k16
 // ldmatrix fragment) or from shared memory (_ss: a K-major descriptor);
 // B from shared memory by descriptor, K-major, or transposed (_tb: N
-// contiguous). Asynchronous: fence before, commit and wait after
-// (common.cuh).
+// contiguous). _rs_s8: d (64 x N int32) += A (64 x 32 int8) * B (32 x N
+// int8), A from registers, B K-major. Asynchronous: fence before, commit
+// and wait after (common.cuh).
 #pragma once
 
 #include <stdint.h>
