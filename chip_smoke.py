@@ -52,7 +52,17 @@ weights:
   at 1024x768 in process and as a CLI process, and a parity-tiling request
   (``memory_efficient``) at 1024x768;
 * the paths on small inputs against the CPU in float32 (ESRGAN alone and
-  with denoise and segmentation, a parity-tiling request, diffusion).
+  with denoise and segmentation, a parity-tiling request, diffusion);
+* ``tools/torch_precompile.py`` in a subprocess first (it does the build);
+  a 1600x1200 request (35 tiles, three chunks) on the overlapped streamed
+  final against the blocking per-chunk copy, bit for bit, with both stage
+  times and the device-busy share; the full-width ``vae_encode`` of a
+  512^2 image (one K3 launch an encode) against the plain attention;
+* ``precision: "float32"`` (the parity mode) on the card: an ESRGAN
+  request against the CPU's, and an ESRGAN + diffusion request against
+  the same request on the plain attention, both on the float32 forms of
+  K1 and K3 (K1f, K3f), which are then held against their plain versions
+  at the shapes those requests gave them.
 
 Prints the card, every measurement, a JSON line of per-kernel results and,
 last, a JSON status line. Any failure exits non-zero without the status
@@ -113,6 +123,7 @@ SWIN_REQUEST = (768, 1024)   # 12 tiles of 256 px on the cuda overlay
 SWIN_K1_PER_FORWARD = 13     # conv_first, 6 RSTB, after_body, before_up,
                              # up1, up2, hr, last
 TOL_SD = 3e-2                # full-width UNet / VAE, K3 vs plain attention
+TOL_F32 = 1e-5               # K1f, K3f: float32 sums in another order
 TOL_SD_CPU = 5e-2            # tiny snapshot latents, card bf16 vs CPU f32
 SD_STEPS = 20                # the cuda tier of num_inference_steps
 SD_ATTN_PER_PASS = 16        # self-attentions per SD x4 UNet pass
@@ -269,6 +280,11 @@ def build_kernels() -> None:
             if "Compiling entry function" in line and "rdb_fused" in line:
                 log("K2 ptxas: " + " | ".join(
                     x.split(":", 1)[-1].strip() for x in lines[i:i + 4]))
+            if ("Compiling entry function" in line
+                    and ("conv3x3_f32_kernel" in line
+                         or "attn_f32_kernel" in line)):
+                log("K1f/K3f ptxas " + line.split("'")[1] + ": " + " | ".join(
+                    x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]))
             if ("Compiling entry function" in line
                     and "conv3x3_int8_kernel" in line):
                 rest = line.split("'")[1].split("conv3x3_int8_kernel", 1)[1]
@@ -1764,6 +1780,478 @@ def check_parity_against_cpu(torch, np, ckpt: str) -> None:
         raise AssertionError(f"parity card vs CPU: {got.shape} PSNR {p}")
 
 
+# ---- The single-device surface: precompile, overlapped output, vae_encode,
+# ---- float32 ---------------------------------------------------------------
+
+STREAM_REQUEST = (1200, 1600)   # 5 x 7 = 35 tiles of 256: chunks 16, 16, 3
+VAE_ENCODE_INPUT = 512          # a 512^2 image -> a 128^2 latent, S 16384
+
+
+def drive_precompile(name: str) -> None:
+    """tools/torch_precompile.py in a subprocess: it builds the kernel
+    library and the host stager from the sources; its build seconds, and
+    the process's wall."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "torch_precompile.py")],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"precompile: {line}")
+    log(f"precompile subprocess: rc {proc.returncode} in {wall:.2f} s "
+        f"(process start included) on {name}")
+    if proc.returncode != 0:
+        raise AssertionError("tools/torch_precompile.py failed:\n"
+                             + proc.stdout[-3000:] + proc.stderr[-3000:])
+
+
+def drive_streamed_overlap(torch, np, ckpt: str, name: str) -> dict:
+    """A 1600x1200 ESRGAN-only enhance_array (35 tiles, three chunks of 16,
+    the last partial) on the overlapped streamed final, and the same
+    request with the final's tiler swapped for the blocking form it
+    replaced (each chunk's cores ``.cpu()`` before the next chunk runs),
+    in turns (ABBA twice), then one profiled run of each for its
+    device-busy share. The outputs are equal bit for bit. Launch counts
+    over all ten runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    from neural_enhanced_super_resolution_torch import pipeline as pipeline_mod
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv3x3, conv3x3_plain)
+    from neural_enhanced_super_resolution_torch.parallel import tiling
+    from neural_enhanced_super_resolution_torch.runtime.profiler import (
+        StageTimer)
+
+    overlapped = pipeline_mod.process_tiled_to_host
+
+    def blocking(model_fn, image, tile_size, halo, scale, batch_tiles,
+                 cancel_check):
+        tiles, ny, nx, oh, ow = tiling._tile_grid(image, tile_size, halo)
+        to, ho = tile_size * scale, halo * scale
+        canvas = None
+        for start, chunk in tiling._chunks(tiles, batch_tiles, cancel_check):
+            cores = model_fn(chunk)[:, ho:ho + to, ho:ho + to, :]
+            cores = cores.cpu().numpy()
+            if canvas is None:
+                canvas = np.empty((ny * to, nx * to, cores.shape[-1]),
+                                  dtype=cores.dtype)
+            tiling._land(canvas, cores, start, nx, to)
+        return canvas[:oh * scale, :ow * scale, :]
+
+    rng = np.random.default_rng(SEED + 30)
+    hh, ww = STREAM_REQUEST
+    img = np.kron(rng.integers(0, 256, (hh // 8, ww // 8, 3), dtype=np.uint8),
+                  np.ones((8, 8, 1), np.uint8))
+    pipe = SuperResolutionPipeline("cuda", {
+        "use_diffusion": False, "segment_enhancement": False,
+        "denoise_level": 0, "iterations": 1, "esrgan_model_path": ckpt,
+        "output_dir": os.path.join(OUT, "stream_out")})
+    pipe._load_models()   # set-up: weights to the card before the window
+    conv3x3.launches = conv3x3_plain.calls = 0
+    outs, stage_s, busy = {}, {"overlapped": [], "blocking": []}, {}
+    try:
+        for variant in ("overlapped", "blocking", "blocking", "overlapped",
+                        "overlapped", "blocking", "blocking", "overlapped",
+                        "profile overlapped", "profile blocking"):
+            kind = variant.split()[-1]
+            pipeline_mod.process_tiled_to_host = (
+                overlapped if kind == "overlapped" else blocking)
+            pipe.timer = StageTimer()
+            torch.cuda.synchronize()
+            if variant.startswith("profile"):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    pipe.enhance_array(img)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                spans = [(e.time_range.start, e.time_range.end)
+                         for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and not e.name.startswith("nesr/")]
+                dev = sum(end - start for start, end in spans) / 1e6
+                busy[kind] = (wall, dev, device_gaps(spans))
+                continue
+            t0 = time.perf_counter()
+            out = pipe.enhance_array(img)
+            wall = time.perf_counter() - t0
+            stage_s[kind].append((pipe.timer.totals["esrgan+post/streamed"],
+                                  wall))
+            outs.setdefault(kind, out)
+    finally:
+        pipeline_mod.process_tiled_to_host = overlapped
+    counts = {"conv3x3": conv3x3.launches,
+              "conv3x3_plain": conv3x3_plain.calls}
+    for kind in ("overlapped", "blocking"):
+        wall, dev, (union, gaps) = busy[kind]
+        st = [t for t, _ in stage_s[kind]]
+        log(f"streamed final {ww}x{hh} -n 1, {kind} copies: "
+            f"esrgan+post/streamed mean {sum(st) / len(st):.4f} s (" +
+            ", ".join(f"{t:.3f}" for t in st) + "; requests " +
+            ", ".join(f"{w:.3f}" for _, w in stage_s[kind])
+            + f" s); profiled request {wall:.3f} s, device busy {dev:.3f} s "
+            f"({100 * dev / wall:.1f}% busy; {union:.3f} s with concurrent "
+            "work counted once); device idle gaps over 1 ms (start ms after "
+            "the first device event, length ms): " + ", ".join(
+                f"{g0:.1f}+{gl:.2f}" for g0, gl in gaps) + f" on {name}")
+    equal = np.array_equal(outs["overlapped"], outs["blocking"])
+    log(f"streamed final {ww}x{hh}: output {outs['overlapped'].shape}, "
+        f"overlapped == blocking bit for bit: {equal}; counts (ten runs) "
+        f"{counts}")
+    if (not equal or outs["overlapped"].shape != (4 * hh, 4 * ww, 3)
+            or counts["conv3x3"] == 0 or counts["conv3x3_plain"]):
+        raise AssertionError(f"streamed final: equal {equal}, counts "
+                             f"{counts}")
+    del pipe
+    torch.cuda.empty_cache()
+    return counts
+
+
+def device_gaps(spans, min_ms: float = 1.0) -> tuple[float, list]:
+    """From (start, end) us of a run's device events: the busy seconds
+    with overlapping events counted once, and the idle gaps longer than
+    ``min_ms`` as (ms after the first event, ms long), in time order."""
+    spans = sorted(spans)
+    if not spans:
+        return 0.0, []
+    busy, gaps = 0.0, []
+    cur0, cur1 = spans[0]
+    for start, end in spans[1:] + [(float("inf"), float("inf"))]:
+        if start > cur1:
+            busy += cur1 - cur0
+            if start - cur1 > min_ms * 1e3 and start != float("inf"):
+                gaps.append(((cur1 - spans[0][0]) / 1e3,
+                             (start - cur1) / 1e3))
+            cur0, cur1 = start, end
+        else:
+            cur1 = max(cur1, end)
+    return busy / 1e6, gaps
+
+
+def vae_encode_flops(cfg, h: int, w: int) -> float:
+    """FLOPs of vae_encode on one h x w image: every conv (2 x outputs x
+    Cin x k^2), the mid-block's four projections and its attention
+    (4 S^2 d)."""
+    b, lat = cfg.block_out_channels, cfg.latent_channels
+
+    def conv(hh, ww, cin, cout, k=3):
+        return 2.0 * hh * ww * cin * cout * k * k
+
+    def resnet(hh, ww, cin, cout):
+        return (conv(hh, ww, cin, cout) + conv(hh, ww, cout, cout)
+                + (conv(hh, ww, cin, cout, 1) if cin != cout else 0.0))
+
+    flops, c, hh, ww = conv(h, w, cfg.in_channels, b[0]), b[0], h, w
+    for bi, cout in enumerate(b):
+        for _ in range(cfg.layers_per_block):
+            flops += resnet(hh, ww, c, cout)
+            c = cout
+        if bi < len(b) - 1:
+            hh, ww = hh // 2, ww // 2
+            flops += conv(hh, ww, c, c)
+    s = hh * ww
+    flops += 2 * resnet(hh, ww, c, c) + 4 * 2.0 * s * c * c + 4.0 * s * s * c
+    return flops + conv(hh, ww, c, 2 * lat) + conv(hh, ww, 2 * lat, 2 * lat,
+                                                    1)
+
+
+def drive_vae_encode(torch, snap: str, name: str) -> dict:
+    """vae_encode of the full-width SD x4 VAE (block_out 128/256/512, two
+    layers a block, loaded strictly with its encoder from the snapshot) on
+    a 512^2 image: K3 runs the mid-block attention (S 16384, d 512) once an
+    encode, counted over the encodes of the window; then the same encode on
+    flash_attention_plain (outside the window), bar TOL_SD of max|ref|;
+    device ms and wall beside the bound."""
+    from neural_enhanced_super_resolution_torch.kernels import (
+        flash_attention, flash_attention_plain)
+    from neural_enhanced_super_resolution_torch.models.diffusion import (
+        load_upscale_pipeline, vae_encode)
+    pipe = load_upscale_pipeline(snap, device="cuda")
+    vae = pipe.vae
+    gen = torch.Generator("cuda").manual_seed(SEED + 31)
+    n = VAE_ENCODE_INPUT
+    img = torch.rand((1, n, n, 3), generator=gen, device="cuda") * 2 - 1
+
+    encodes = [0]
+
+    def fn():
+        encodes[0] += 1
+        return vae_encode(vae, img)
+
+    flash_attention.launches = flash_attention_plain.calls = 0
+    got = fn()
+    ms = device_ms(fn, reps=3)
+    wall = wall_ms(fn, reps=3)
+    torch.cuda.synchronize()
+    n_enc = encodes[0]
+    counts = {"flash_attention": flash_attention.launches,
+              "flash_attention_plain": flash_attention_plain.calls}
+    with plain_attention():
+        ref = fn()
+        pms = device_ms(fn, reps=2)
+    err = (got - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    # bytes: the encoder's and quant_conv's parameters (bf16 weights, f32
+    # biases and norms), the f32 image in and the f32 moments out, once
+    flops = vae_encode_flops(vae.cfg, n, n)
+    nbytes = sum(p.numel() * p.element_size()
+                 for m in (vae.encoder, vae.quant_conv)
+                 for p in m.parameters()) + img.numel() * 4 + \
+        got.numel() * 4
+    bms, by = bound(flops, nbytes)
+    log(f"vae_encode 1x{n}x{n}x3 -> {tuple(got.shape)} (K3 at S "
+        f"{(n // 4) ** 2}, d {vae.cfg.block_out_channels[-1]}): device "
+        f"{ms:.3f} ms, wall {wall:.3f} ms, bound {bms:.4f} ms ({by}; "
+        f"{flops / 1e12:.3f} TFLOP); plain attention device {pms:.3f} ms; "
+        f"max_abs_err {err:.6g} rel {rel:.3g} (tol {TOL_SD}); K3 launches "
+        f"{counts['flash_attention']} in {n_enc} encodes, plain calls "
+        f"{counts['flash_attention_plain']} on {name}")
+    if (counts != {"flash_attention": n_enc, "flash_attention_plain": 0}
+            or not rel <= TOL_SD or not torch.isfinite(got).all()
+            or tuple(got.shape) != (1, n // 4, n // 4, 8)):
+        raise AssertionError(f"vae_encode: rel {rel}, counts {counts}, "
+                             f"shape {tuple(got.shape)}")
+    del pipe, vae
+    torch.cuda.empty_cache()
+    return counts
+
+
+@contextlib.contextmanager
+def recording(module, name: str, shapes: set, key):
+    """Record ``key(*args)`` of every call of ``module.name``; the call
+    goes through to it. A wrapper counts its launches on the object its
+    own name holds, the recorder while it stands in, so the count is
+    carried over to the recorder and back."""
+    fn = getattr(module, name)
+
+    def rec(*args, **kw):
+        shapes.add(key(*args, **kw))
+        return fn(*args, **kw)
+
+    rec.launches = fn.launches
+    setattr(module, name, rec)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+        fn.launches = rec.launches
+
+
+def _f32_counts():
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv3x3, conv3x3_f32, conv3x3_plain, flash_attention,
+        flash_attention_f32, flash_attention_plain)
+    return {"conv3x3_f32": conv3x3_f32.launches,
+            "flash_attention_f32": flash_attention_f32.launches,
+            "conv3x3": conv3x3.launches,
+            "flash_attention": flash_attention.launches,
+            "conv3x3_plain": conv3x3_plain.calls,
+            "flash_attention_plain": flash_attention_plain.calls}
+
+
+def _zero_f32_counts():
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv3x3, conv3x3_f32, conv3x3_plain, flash_attention,
+        flash_attention_f32, flash_attention_plain)
+    for fn in (conv3x3, conv3x3_f32, flash_attention, flash_attention_f32):
+        fn.launches = 0
+    conv3x3_plain.calls = flash_attention_plain.calls = 0
+
+
+F32_SD_INPUT = (40, 48)   # the float32 diffusion request's input (H, W)
+F32_SD_STEPS = 2
+
+
+def drive_float32(torch, np, ckpt: str, snap: str, name: str):
+    """precision float32 on the card (the parity mode: K1f and K3f, TF32
+    off). (1) A 150x136 ESRGAN request at num_block 1 on the streamed
+    final against the same request on the CPU, adaptive sharpening off
+    (its detail threshold turns a one-level truncation tie into a
+    many-level pixel); (2) a 48x40 ESRGAN + diffusion request (the
+    full-width SD x4 snapshot, two steps) against the same request with
+    attention on flash_attention_plain. Bar for both: >= 99.9% of the
+    uint8 values equal, max 1 level. The counts of each request show the
+    float32 forms only: no bf16 kernel and no plain version. Returns the
+    summed counts and the shapes K1f and K3f were given."""
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    from neural_enhanced_super_resolution_torch.kernels import attention
+    # the module: the package's name conv3x3 is the wrapper
+    k1mod = sys.modules[
+        "neural_enhanced_super_resolution_torch.kernels.conv3x3"]
+    base = {"use_diffusion": False, "segment_enhancement": False,
+            "denoise_level": 0, "iterations": 1, "esrgan_model_path": ckpt,
+            "esrgan_arch": {"num_block": 1}, "precision": "float32",
+            "adaptive_sharpening": False,
+            "output_dir": os.path.join(OUT, "ref")}
+    k1_shapes, k3_shapes = set(), set()
+
+    def conv_key(x, w, bias=None, lrelu=False):
+        return (*x.shape, w.shape[3], bias is not None, bool(lrelu))
+
+    def attn_key(q, k, v):
+        return (*q.shape[:3], k.shape[2], q.shape[3])
+
+    def agreement(got, ref):
+        diff = np.abs(got.astype(int) - ref.astype(int))
+        return float(np.mean(diff == 0)), int(diff.max())
+
+    def only_f32(counts, k3: int | None):
+        return (counts["conv3x3_f32"] > 0 and counts["conv3x3"] == 0
+                and counts["flash_attention"] == 0
+                and counts["conv3x3_plain"] == 0
+                and counts["flash_attention_plain"] == 0
+                and (k3 is None or counts["flash_attention_f32"] == k3))
+
+    rng = np.random.default_rng(SEED + 32)
+    img = np.kron(rng.integers(0, 256, (19, 17, 3), dtype=np.uint8),
+                  np.ones((8, 8, 1), np.uint8))[:150, :136]
+    t0 = time.perf_counter()
+    ref = SuperResolutionPipeline("cpu", base).enhance_array(img)
+    cpu_s = time.perf_counter() - t0
+    pipe = SuperResolutionPipeline("cuda", base)
+    pipe._load_models()   # set-up: weights to the card before the window
+    _zero_f32_counts()
+    t0 = time.perf_counter()
+    with recording(k1mod, "conv3x3_f32", k1_shapes, conv_key):
+        got = pipe.enhance_array(img)
+    card_s = time.perf_counter() - t0
+    esr_counts = _f32_counts()
+    equal, worst = agreement(got, ref)
+    log(f"float32 request 136x150 (nb 1, streamed final) card {card_s:.2f} s"
+        f" vs CPU float32 {cpu_s:.2f} s: {100 * equal:.4f}% of uint8 values "
+        f"equal, max diff {worst} (bar 99.9%, 1); card counts {esr_counts} "
+        f"on {name}")
+    if (got.shape != ref.shape or got.shape != (600, 544, 3)
+            or not equal >= 0.999 or worst > 1
+            or "esrgan+post/streamed" not in pipe.timer.totals
+            or not only_f32(esr_counts, 0)):
+        raise AssertionError(f"float32 card vs CPU: {equal} equal, max "
+                             f"{worst}, counts {esr_counts}")
+    del pipe
+
+    hh, ww = F32_SD_INPUT
+    small = rng.integers(0, 256, (hh // 8, ww // 8, 3), dtype=np.uint8)
+    img = np.kron(small, np.ones((8, 8, 1), np.uint8))
+    pipe = SuperResolutionPipeline("cuda", dict(
+        base, use_diffusion=True, diffusion_model_path=snap,
+        num_inference_steps=F32_SD_STEPS,
+        output_dir=os.path.join(OUT, "f32_sd")))
+    pipe._load_models()
+    if set(pipe.models) != {"esrgan", "diffusion"}:
+        raise AssertionError(f"float32 models loaded: {sorted(pipe.models)}")
+    _zero_f32_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording(k1mod, "conv3x3_f32", k1_shapes, conv_key), \
+            recording(attention, "flash_attention_f32", k3_shapes, attn_key):
+        got = pipe.enhance_array(img, prompt=PROMPT)
+    card_s = time.perf_counter() - t0
+    sd_counts = _f32_counts()
+    with plain_attention():
+        ref = pipe.enhance_array(img, prompt=PROMPT)
+    equal, worst = agreement(got, ref)
+    k3 = SD_ATTN_PER_PASS * 2 * F32_SD_STEPS + 1
+    log(f"float32 request {ww}x{hh} ESRGAN + diffusion ({F32_SD_STEPS} "
+        f"steps) card {card_s:.2f} s: against the plain attention "
+        f"{100 * equal:.4f}% of uint8 values equal, max diff {worst} (bar "
+        f"99.9%, 1); counts {sd_counts} (K3f expected {k3}) on {name}")
+    if (got.shape != (4 * hh, 4 * ww, 3) or not equal >= 0.999
+            or worst > 1 or not only_f32(sd_counts, k3)):
+        raise AssertionError(f"float32 diffusion request: {equal} equal, "
+                             f"max {worst}, counts {sd_counts}")
+    del pipe
+    torch.cuda.empty_cache()
+    counts = {k: esr_counts[k] + sd_counts[k] for k in esr_counts}
+    return counts, sorted(k1_shapes), sorted(k3_shapes)
+
+
+def check_conv3x3_f32(torch, gen, shapes) -> dict:
+    """K1f against conv3x3_plain at every shape the float32 requests gave
+    it; the timed row is the shape with the most operations."""
+    import torch.nn.functional as F
+    from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
+        conv3x3_f32, conv3x3_plain)
+    worst, rows, failed = 0.0, [], []
+    for n, h, w, cin, cout, bias, act in shapes:
+        x = _rnd(torch, gen, n, h, w, cin, dtype=torch.float32)
+        wt = _rnd(torch, gen, 3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5,
+                  dtype=torch.float32)
+        b = (_rnd(torch, gen, cout, scale=0.1, dtype=torch.float32)
+             if bias else None)
+        got = conv3x3_f32(x, wt, b, act)
+        ref = conv3x3_plain(x, wt, b, act)
+        d, r = rel_err(got, ref)
+        ms = cuda_ms(lambda: conv3x3_f32(x, wt, b, act))
+        pms = cuda_ms(lambda: conv3x3_plain(x, wt, b, act))
+        # For scale only: the library's float32 conv (cuDNN, TF32 off,
+        # channels_last).
+        xc = x.permute(0, 3, 1, 2)
+        wc = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        cms = cuda_ms(lambda: F.conv2d(xc, wc, b, padding=1))
+        pix = n * h * w
+        flops = 2.0 * pix * cout * 9 * cin
+        bms, by = bound(flops, 4.0 * (pix * (cin + cout) + 9 * cin * cout)
+                        + (4.0 * cout if bias else 0.0), PEAK_FP32_FLOPS)
+        log(f"K1f conv3x3_f32 {(n, h, w, cin)} -> {cout} bias {bias} lrelu "
+            f"{act}: max_abs_err {d:.6g} rel {r:.3g} (tol {TOL_F32}) kernel "
+            f"{ms:.4f} ms plain {pms:.4f} ms cuDNN f32 conv {cms:.4f} ms "
+            f"bound {bms:.4f} ms ({by}); kernel/cuDNN {ms / cms:.3f}, "
+            f"bound/kernel {bms / ms:.3f}")
+        if not r <= TOL_F32:
+            failed.append(f"{(n, h, w, cin, cout)}: rel {r}")
+        worst = max(worst, d)
+        rows.append((flops, {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                             "bound_by": by, "library_ms": cms}))
+        del x, got, ref
+    if failed or not rows:
+        raise AssertionError(f"K1f disagrees with its plain version: "
+                             f"{failed or 'no shapes recorded'}")
+    return dict(max(rows, key=lambda r: r[0])[1], max_abs_err=worst)
+
+
+def check_flash_attention_f32(torch, gen, shapes) -> dict:
+    """K3f against flash_attention_plain at every shape the float32
+    diffusion request gave it, q and k of std 2 (peaked softmax rows, as
+    for K3); the timed row is the shape with the most operations."""
+    import torch.nn.functional as F
+    from neural_enhanced_super_resolution_torch.kernels.attention import (
+        flash_attention_f32, flash_attention_plain)
+    worst, rows, failed = 0.0, [], []
+    for b, h, sq, skv, d in shapes:
+        q = _rnd(torch, gen, b, h, sq, d, scale=2.0, dtype=torch.float32)
+        k = _rnd(torch, gen, b, h, skv, d, scale=2.0, dtype=torch.float32)
+        v = _rnd(torch, gen, b, h, skv, d, dtype=torch.float32)
+        got = flash_attention_f32(q, k, v)
+        ref = flash_attention_plain(q, k, v)
+        err = (got - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        # CUDA events, as for K1 and K1f: a profiled window once gave the
+        # plain version at the VAE shape 0.03 ms, above the float32 peak
+        ms = cuda_ms(lambda: flash_attention_f32(q, k, v))
+        pms = cuda_ms(lambda: flash_attention_plain(q, k, v))
+        sms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        flops = 4.0 * b * h * sq * skv * d
+        bms, by = bound(flops, 4.0 * b * h * d * (2 * sq + 2 * skv),
+                        PEAK_FP32_FLOPS)
+        log(f"K3f flash_attention_f32 q {tuple(q.shape)} Skv {skv}: "
+            f"max_abs_err {err:.6g} rel {rel:.3g} (tol {TOL_F32}) ms: kernel"
+            f" {ms:.4f} SDPA f32 {sms:.4f} plain {pms:.4f} bound "
+            f"{bms:.4f} ({by}); kernel/SDPA {ms / sms:.3f}, bound/kernel "
+            f"{bms / ms:.3f}")
+        if not rel <= TOL_F32:
+            failed.append(f"{(b, h, sq, skv, d)}: rel {rel}")
+        worst = max(worst, err)
+        rows.append((flops, {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                             "bound_by": by, "library_ms": sms}))
+        del got, ref
+    if failed or not rows:
+        raise AssertionError(f"K3f disagrees with its plain version: "
+                             f"{failed or 'no shapes recorded'}")
+    return dict(max(rows, key=lambda r: r[0])[1], max_abs_err=worst)
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -1799,6 +2287,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     t_start = time.perf_counter()
 
+    drive_precompile(name)
     build_kernels()
     results = {"conv3x3": check_conv3x3(torch, gen),
                "rdb_fused": check_rdb_fused(torch, gen),
@@ -1812,6 +2301,7 @@ def main() -> int:
     ckpt = save_state_dict(sd, os.path.join(OUT, "synthetic_x4_12ch.pth"))
     snap = write_sd_snapshot(torch)
     check_diffusion_forward(torch, snap, name)
+    vae_counts = drive_vae_encode(torch, snap, name)
     seg = write_segformer_snapshot(torch)
     check_segformer(torch, seg, name)
     check_nlmeans(torch, np, name)
@@ -1828,10 +2318,16 @@ def main() -> int:
                                         name)
     batch_counts = drive_batch_cli(np, ckpt, swin, seg)
     mode_counts = drive_int8_and_parity(torch, np, ckpt, name)
+    stream_counts = drive_streamed_overlap(torch, np, ckpt, name)
     check_against_cpu(torch, np, ckpt)
     check_against_cpu(torch, np, ckpt, seg)
     check_parity_against_cpu(torch, np, ckpt)
     check_diffusion_against_cpu(torch, np)
+    f32_counts, k1f_shapes, k3f_shapes = drive_float32(torch, np, ckpt, snap,
+                                                       name)
+    results["conv3x3_f32"] = check_conv3x3_f32(torch, gen, k1f_shapes)
+    results["flash_attention_f32"] = check_flash_attention_f32(
+        torch, gen, k3f_shapes)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -1840,17 +2336,23 @@ def main() -> int:
                 + default_counts["conv3x3"] + default_ip_counts["conv3x3"]
                 + tiled_counts["conv3x3"] + swin_counts["conv3x3"]
                 + batch_counts["conv3x3"]
-                + sum(c["conv3x3"] for c in mode_counts.values()),
+                + sum(c["conv3x3"] for c in mode_counts.values())
+                + stream_counts["conv3x3"],
                 "rdb_fused": counts["rdb_fused"],
                 "conv3x3_int8": mode_counts["int8"]["conv3x3_int8"]
                 + mode_counts["int8_cli"]["conv3x3_int8"],
                 "flash_attention": sd_counts["flash_attention"]
                 + default_counts["flash_attention"]
                 + default_ip_counts["flash_attention"]
-                + swin_counts["flash_attention"]}
+                + swin_counts["flash_attention"]
+                + vae_counts["flash_attention"],
+                "conv3x3_f32": f32_counts["conv3x3_f32"],
+                "flash_attention_f32": f32_counts["flash_attention_f32"]}
     sources = {"conv3x3": "csrc/conv3x3.cu", "rdb_fused": "csrc/rdb_fused.cu",
                "flash_attention": "csrc/flash_attn.cu",
-               "conv3x3_int8": "csrc/conv3x3_int8.cu"}
+               "conv3x3_int8": "csrc/conv3x3_int8.cu",
+               "conv3x3_f32": "csrc/conv3x3_f32.cu",
+               "flash_attention_f32": "csrc/flash_attn_f32.cu"}
     # K1 also carries the math of kernels/conv3x3.py:106 and
     # kernels/conv3x3_v2.py:103; rows_s2d_conv3x3 is the one whose shapes
     # the default trunk runs.
@@ -1863,10 +2365,16 @@ def main() -> int:
                            "attention.py:125",
         # XLA's int8 conv (conv_q of _rdb_fused_int8), not a Pallas kernel
         "conv3x3_int8": "neural_enhanced_super_resolution_tpu/models/"
-                        "rrdbnet.py:255"}
+                        "rrdbnet.py:255",
+        # the float32 forms: the same Pallas kernels on float32 operands
+        "conv3x3_f32": "neural_enhanced_super_resolution_tpu/kernels/"
+                       "conv3x3.py:106",
+        "flash_attention_f32": "neural_enhanced_super_resolution_tpu/"
+                               "kernels/attention.py:125"}
     # ms, plain_ms, bound_ms and library_ms at one shape a kernel: K1 at
     # trunk w0, K2 on the tile batch, K3 at the UNet's 64^2 self-attention,
-    # K4 at trunk w0.
+    # K4 at trunk w0, K1f and K3f at the float32 requests' shape with the
+    # most operations.
     kernels = [{"name": k, "route": "cuda",
                 "source": f"{PKG}/{sources[k]}", "replaces": replaces[k],
                 "launches": launches[k],
@@ -1874,7 +2382,8 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
                for k in ("conv3x3", "rdb_fused", "flash_attention",
-                         "conv3x3_int8")]
+                         "conv3x3_int8", "conv3x3_f32",
+                         "flash_attention_f32")]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

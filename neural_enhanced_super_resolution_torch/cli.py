@@ -4,8 +4,11 @@
 -n N -o out.png`` enhances one image; ``-i DIR`` enhances every image of a
 directory in one process (``runtime/executor.BatchExecutor``), writing
 ``{base}_enhanced{ext}`` under ``-o`` (default ``outputs``) and printing
-the seconds each image took.
-``--download_models`` and the GUI are not ported yet and say so.
+the seconds each image took (``--intermediate_saves`` is dropped there,
+as in the JAX package: every image would overwrite the same files).
+``--download_models`` fetches the registry's required models
+(``utils/downloader``); ``--gui``, or no mode at all, starts the PyQt5 GUI
+and, without PyQt5, says so and exits 2.
 """
 
 from __future__ import annotations
@@ -18,10 +21,7 @@ import shutil
 import sys
 import time
 
-__all__ = ["main", "parse_arguments", "run_cli_mode"]
-
-_NOT_PORTED = ("is not ported to the PyTorch package yet; see ROADMAP.md "
-               "(modules still to port)")
+__all__ = ["main", "parse_arguments", "run_cli_mode", "launch_gui"]
 
 
 def parse_arguments(argv=None):
@@ -68,8 +68,11 @@ def run_cli_mode(args) -> int:
 
     print("Starting NESR (PyTorch) in CLI mode")
     if args.download_models:
-        print(f"Error: --download_models {_NOT_PORTED}")
-        return 2
+        from neural_enhanced_super_resolution_torch.utils.downloader import (
+            download_models)
+        download_models()
+        print("Model download complete.")
+        return 0
     if not args.input:
         print("Error: Input image path is required in CLI mode.")
         print("Use --input or -i to specify the input image path.")
@@ -100,9 +103,10 @@ def run_cli_mode(args) -> int:
     return 0
 
 
-def _config(args, output_dir: str) -> dict:
+def _config(args, output_dir: str, batch: bool = False) -> dict:
     """The JSON config of ``-c`` (if given) with the keys the flags set on
-    top: CLI args win. Raises when the file does not load."""
+    top: CLI args win. Batch mode drops ``--intermediate_saves``. Raises
+    when the file does not load."""
     config = {}
     if args.config:
         with open(args.config) as f:
@@ -118,7 +122,7 @@ def _config(args, output_dir: str) -> dict:
         config["use_esrgan"] = False
     if args.no_segmentation:
         config["segment_enhancement"] = False
-    if args.intermediate_saves:
+    if args.intermediate_saves and not batch:
         config["intermediate_saves"] = True
     return config
 
@@ -142,7 +146,7 @@ def _run_batch_mode(args) -> int:
         return 2
     out_dir = args.output or "outputs"
     try:
-        config = _config(args, out_dir)
+        config = _config(args, out_dir, batch=True)
     except Exception as exc:  # noqa: BLE001 - clean one-line error
         print(f"Error loading configuration: {exc}")
         return 2
@@ -172,6 +176,16 @@ def _run_batch_mode(args) -> int:
     return 1 if failures else 0
 
 
+def launch_gui() -> int:
+    """The PyQt5 GUI; without PyQt5 a one-line message and exit 2."""
+    try:
+        from neural_enhanced_super_resolution_torch.gui import run_gui
+        return run_gui()
+    except ImportError as exc:
+        print(f"GUI unavailable ({exc}). Install PyQt5 or use --cli.")
+        return 2
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
@@ -179,8 +193,7 @@ def main(argv=None) -> int:
     args = parse_arguments(argv)
     if args.gui or (not args.cli and not args.input
                     and not args.download_models):
-        print(f"Error: the GUI {_NOT_PORTED}; use --cli")
-        return 2
+        return launch_gui()
     return run_cli_mode(args)
 
 

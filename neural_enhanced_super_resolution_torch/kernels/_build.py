@@ -149,6 +149,8 @@ def load_library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nesr_conv3x3.argtypes = [vp] * 4 + [ci] * 7 + [vp]
         lib.nesr_conv3x3.restype = ci
+        lib.nesr_conv3x3_f32.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+        lib.nesr_conv3x3_f32.restype = ci
         lib.nesr_conv3x3_int8.argtypes = [vp] * 5 + [ci] * 6 + [vp]
         lib.nesr_conv3x3_int8.restype = ci
         lib.nesr_rdb_fused.argtypes = [vp] * 8 + [ci, ci, ci, vp]
@@ -156,6 +158,8 @@ def load_library() -> ctypes.CDLL:
         lib.nesr_flash_attn.argtypes = [vp] * 4 + [ci] * 5 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, vp]
         lib.nesr_flash_attn.restype = ci
+        lib.nesr_flash_attn_f32.argtypes = lib.nesr_flash_attn.argtypes
+        lib.nesr_flash_attn_f32.restype = ci
         _lib, _lib_path = lib, so
         return lib
 

@@ -1,8 +1,10 @@
 """K3: flash attention (non-causal, unmasked) and the attention dispatcher.
 
 ``flash_attention`` launches the hand-written Hopper kernel
-(``csrc/flash_attn.cu``) on a CUDA tensor and takes the plain PyTorch
-version ``flash_attention_plain`` only for a tensor on the CPU. It replaces
+(``csrc/flash_attn.cu``) on a bf16 CUDA tensor, its float32 form
+``flash_attention_f32`` (``csrc/flash_attn_f32.cu``, the parity mode's) on a
+float32 one, and takes the plain PyTorch version ``flash_attention_plain``
+only for a tensor on the CPU. It replaces
 the JAX package's Pallas ``kernels/attention.py:flash_attention`` (both of
 its lowerings, ``_flash_kernel`` and ``_flash_kernel_kvgrid``).
 
@@ -24,7 +26,8 @@ from neural_enhanced_super_resolution_torch.kernels import _build
 from neural_enhanced_super_resolution_torch.kernels._build import (
     KernelInputError)
 
-__all__ = ["flash_attention", "flash_attention_plain", "attention_auto"]
+__all__ = ["flash_attention", "flash_attention_f32", "flash_attention_plain",
+           "attention_auto"]
 
 MAX_HEAD_DIM = 512  # the kernel's widest head dim (csrc/flash_attn.cu)
 
@@ -77,13 +80,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     On the GPU: bf16 operands on one device, d a multiple of 8 up to 512,
     the last dim contiguous and the other strides multiples of 8 (so
     transposed views of packed projections go in without a copy). The
-    output takes q's layout. Anything else raises ``KernelInputError``.
+    output takes q's layout. A float32 q goes to ``flash_attention_f32``.
+    Anything else raises ``KernelInputError``.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     if not q.is_cuda:
         raise KernelInputError(f"flash_attention: no kernel for device "
                                f"{q.device}")
+    if q.dtype == torch.float32:
+        return flash_attention_f32(q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise KernelInputError(f"flash_attention: bad shapes q "
                                f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
@@ -116,6 +122,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_f32(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """K3's float32 form: the same attention, all in float32.
+
+    On the GPU: float32 operands on one device, d a multiple of 4 up to
+    512, the last dim contiguous and the other strides multiples of 4. The
+    output takes q's layout. On the CPU: ``flash_attention_plain``.
+    Anything else raises ``KernelInputError``.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    if not q.is_cuda:
+        raise KernelInputError(f"flash_attention_f32: no kernel for device "
+                               f"{q.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise KernelInputError(f"flash_attention_f32: bad shapes q "
+                               f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                               f"{tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise KernelInputError(f"flash_attention_f32: q {tuple(q.shape)} "
+                               f"and k {tuple(k.shape)} do not match")
+    if d % 4 or not 4 <= d <= MAX_HEAD_DIM or min(b, h, sq, skv) < 1:
+        raise KernelInputError(f"flash_attention_f32: unsupported shape q "
+                               f"{tuple(q.shape)}, Skv {skv}")
+    if b * h > 65535:
+        raise KernelInputError(f"flash_attention_f32: {b * h} (batch, head)"
+                               " pairs, at most 65535")
+    out = torch.empty_like(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.dtype != torch.float32 or t.device != q.device:
+            raise KernelInputError(f"flash_attention_f32: {name} must be "
+                                   f"float32 on {q.device}")
+        if (t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3])
+                or t.data_ptr() % 16):
+            raise KernelInputError(
+                f"flash_attention_f32: {name} needs a contiguous head dim, "
+                "batch, head and sequence strides that are multiples of 4 "
+                f"and 16-byte alignment, got {t.stride()}")
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q, k, v, out) for s in t.stride()[:3]))
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        err = lib.nesr_flash_attn_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, sq, skv, d, strides, 1.0 / math.sqrt(d),
+            _build.stream_ptr())
+    _build.check("flash_attention_f32", err)
+    flash_attention_f32.launches += 1
+    return out
+
+
+flash_attention_f32.launches = 0
 
 
 def attention_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,8 +1,9 @@
 """K1: fused SAME 3x3 conv (+ optional bias, + optional LeakyReLU(0.2)).
 
 ``conv3x3`` launches the hand-written Hopper kernel (``csrc/conv3x3.cu``) on
-a CUDA tensor and takes the plain PyTorch version ``conv3x3_plain`` only for
-a tensor on the CPU. It replaces the JAX package's three conv Pallas kernels
+a bf16 CUDA tensor, its float32 form ``conv3x3_f32`` (``csrc/conv3x3_f32.cu``,
+the parity mode's) on a float32 one, and takes the plain PyTorch version
+``conv3x3_plain`` only for a tensor on the CPU. It replaces the JAX package's three conv Pallas kernels
 (``kernels/conv3x3.py:conv3x3_lrelu``, ``kernels/conv3x3_v2.py``,
 ``kernels/rdb_pallas.py:rows_s2d_conv3x3``). Layout is NHWC at the
 interface, weights HWIO (3, 3, Cin, Cout) as in the JAX package.
@@ -21,7 +22,8 @@ from neural_enhanced_super_resolution_torch.kernels import _build
 from neural_enhanced_super_resolution_torch.kernels._build import (
     KernelInputError)
 
-__all__ = ["conv3x3", "conv3x3_plain", "pack_conv3x3_weights", "pass_width",
+__all__ = ["conv3x3", "conv3x3_f32", "conv3x3_plain", "pack_conv3x3_weights",
+           "pass_width",
            "tile_width", "packed_numel", "TILE_WIDTHS"]
 
 # The kernel's instantiations: the output-channel width N of one tile; a
@@ -111,13 +113,16 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
 
     On the GPU: x and w bf16, bias fp32 (or None), all contiguous on one
     device, x 16-byte aligned; ``packed`` is ``pack_conv3x3_weights(w)``
-    (made here when None). Returns (N, H, W, Cout) bf16. Anything else
-    raises ``KernelInputError``.
+    (made here when None). Returns (N, H, W, Cout) bf16. A float32 x goes
+    to ``conv3x3_f32`` (``packed`` unused). Anything else raises
+    ``KernelInputError``.
     """
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, bias, lrelu)
     if not x.is_cuda:
         raise KernelInputError(f"conv3x3: no kernel for device {x.device}")
+    if x.dtype == torch.float32:
+        return conv3x3_f32(x, w, bias, lrelu)
     if x.dim() != 4 or w.shape[:2] != (3, 3) or w.shape[2] != x.shape[3]:
         raise KernelInputError(f"conv3x3: bad shapes x {tuple(x.shape)}, "
                                f"w {tuple(w.shape)}")
@@ -160,3 +165,50 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
 
 
 conv3x3.launches = 0
+
+
+def conv3x3_f32(x: torch.Tensor, w: torch.Tensor,
+                bias: torch.Tensor | None = None,
+                lrelu: bool = False) -> torch.Tensor:
+    """K1's float32 form: the same SAME 3x3 conv, all in float32.
+
+    On the GPU: x (N, H, W, Cin), w (3, 3, Cin, Cout) and bias (Cout,) (or
+    None) float32 and contiguous on one device. Returns (N, H, W, Cout)
+    float32. On the CPU: ``conv3x3_plain``. Anything else raises
+    ``KernelInputError``.
+    """
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w, bias, lrelu)
+    if not x.is_cuda:
+        raise KernelInputError(f"conv3x3_f32: no kernel for device "
+                               f"{x.device}")
+    if x.dim() != 4 or w.shape[:2] != (3, 3) or w.shape[2] != x.shape[3]:
+        raise KernelInputError(f"conv3x3_f32: bad shapes x "
+                               f"{tuple(x.shape)}, w {tuple(w.shape)}")
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    for name, t in (("x", x), ("w", w)) + ((("bias", bias),)
+                                            if bias is not None else ()):
+        if (t.dtype != torch.float32 or t.device != x.device
+                or not t.is_contiguous()):
+            raise KernelInputError(f"conv3x3_f32: {name} must be a "
+                                   f"contiguous float32 tensor on {x.device}")
+    if bias is not None and bias.shape != (cout,):
+        raise KernelInputError(f"conv3x3_f32: bias {tuple(bias.shape)}, "
+                               f"want ({cout},)")
+    if n > 65535 or min(n, h, wd, cin, cout) < 1:
+        raise KernelInputError(f"conv3x3_f32: unsupported shape "
+                               f"{tuple(x.shape)}")
+    lib = _build.load_library()
+    y = torch.empty((n, h, wd, cout), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.nesr_conv3x3_f32(
+            x.data_ptr(), w.data_ptr(),
+            bias.data_ptr() if bias is not None else None, y.data_ptr(),
+            n, h, wd, cin, cout, int(bool(lrelu)), _build.stream_ptr())
+    _build.check("conv3x3_f32", err)
+    conv3x3_f32.launches += 1
+    return y
+
+
+conv3x3_f32.launches = 0

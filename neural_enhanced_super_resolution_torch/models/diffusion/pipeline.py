@@ -39,7 +39,7 @@ from neural_enhanced_super_resolution_torch.models.diffusion.scheduler import (
 from neural_enhanced_super_resolution_torch.models.diffusion.unet import (
     UNet2DConditionModel, UNetConfig, precompute_context_kv, unet_forward)
 from neural_enhanced_super_resolution_torch.models.diffusion.vae import (
-    ENCODER_PREFIXES, AutoencoderKLDecoder, VAEConfig, vae_decode)
+    AutoencoderKL, VAEConfig, vae_decode)
 from neural_enhanced_super_resolution_torch.runtime.device import torch_dtype
 
 logger = logging.getLogger("nesr.diffusion")
@@ -50,7 +50,7 @@ __all__ = ["UpscalePipeline", "load_upscale_pipeline", "build_module"]
 class UpscalePipeline:
     """x4 latent upscaler on one device."""
 
-    def __init__(self, unet: UNet2DConditionModel, vae: AutoencoderKLDecoder,
+    def __init__(self, unet: UNet2DConditionModel, vae: AutoencoderKL,
                  text_encoder: CLIPTextModel, scheduler, low_res_scheduler,
                  tokenizer=None, max_noise_level: int = 350,
                  cfg_split: bool | None = None):
@@ -218,8 +218,8 @@ def load_upscale_pipeline(path: str | None = None, device="cuda",
     """Load a diffusers-layout snapshot of the x4 upscaler onto ``device``.
 
     ``path`` defaults to the model directory of ``sd_upscaler``
-    (``utils/downloader.get_model_path``). The VAE's encoder tensors are
-    dropped (only the decoder is ported); everything else loads strictly.
+    (``utils/downloader.get_model_path``). Every component loads
+    strictly, the VAE with its encoder.
     """
     if path is None:
         from neural_enhanced_super_resolution_torch.utils.downloader import (
@@ -230,13 +230,12 @@ def load_upscale_pipeline(path: str | None = None, device="cuda",
             f"diffusion model snapshot not found at {path}")
     dtype = torch_dtype(compute_dtype)
 
-    def component(sub, cfg_cls, module_cls, drop=()):
+    def component(sub, cfg_cls, module_cls):
         config, sd = load_component(os.path.join(path, sub))
-        sd = {k: v for k, v in sd.items() if not k.startswith(drop)}
         return build_module(module_cls, cfg_cls(**config), sd, dtype, device)
 
     unet = component("unet", UNetConfig, UNet2DConditionModel)
-    vae = component("vae", VAEConfig, AutoencoderKLDecoder, ENCODER_PREFIXES)
+    vae = component("vae", VAEConfig, AutoencoderKL)
     text = component("text_encoder", CLIPTextConfig, CLIPTextModel)
 
     sched_cfg = read_json(os.path.join(path, "scheduler",

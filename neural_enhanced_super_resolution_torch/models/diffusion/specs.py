@@ -22,7 +22,7 @@ from neural_enhanced_super_resolution_torch.models.diffusion.clip_text import (
 from neural_enhanced_super_resolution_torch.models.diffusion.unet import (
     UNet2DConditionModel, UNetConfig)
 from neural_enhanced_super_resolution_torch.models.diffusion.vae import (
-    AutoencoderKLDecoder, VAEConfig)
+    AutoencoderKL, VAEConfig)
 
 __all__ = ["random_state_dict", "write_synthetic_snapshot",
            "SCHEDULER_CONFIG"]
@@ -73,14 +73,15 @@ def write_synthetic_snapshot(path: str, cfgs: tuple[UNetConfig, VAEConfig,
                              dtype: torch.dtype = torch.bfloat16,
                              init: str = "fan_in") -> str:
     """A diffusers-layout snapshot of the x4 upscaler with seeded weights:
-    ``unet/``, ``vae/`` (decoder keys), ``text_encoder/``, ``scheduler/``
-    (DDIM), ``low_res_scheduler/`` (DDPM) and ``model_index.json``; no
-    tokenizer (the pipeline then hashes words into ids)."""
+    ``unet/``, ``vae/`` (encoder and decoder), ``text_encoder/``,
+    ``scheduler/`` (DDIM), ``low_res_scheduler/`` (DDPM) and
+    ``model_index.json``; no tokenizer (the pipeline then hashes words into
+    ids)."""
     ucfg, vcfg, tcfg = cfgs
     for sub, cfg, cls, fname in (
             ("unet", ucfg, UNet2DConditionModel,
              "diffusion_pytorch_model.bin"),
-            ("vae", vcfg, AutoencoderKLDecoder,
+            ("vae", vcfg, AutoencoderKL,
              "diffusion_pytorch_model.bin"),
             ("text_encoder", tcfg, CLIPTextModel, "pytorch_model.bin")):
         with torch.device("meta"):

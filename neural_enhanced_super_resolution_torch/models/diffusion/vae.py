@@ -1,16 +1,21 @@
-"""AutoencoderKL decoder (the diffusers subset the SD x4 upscaler uses).
+"""AutoencoderKL (the diffusers VAE of the SD x4 upscaler).
 
-Counterpart of the JAX package's ``models/diffusion/vae.py``: latents
-(N, h, w, 4) -> RGB in [-1, 1], (N, h*f, w*f, 3) with f = 2^(blocks-1).
-The upscale pipeline only decodes; the encoder is not ported (ROADMAP), and
-a snapshot's ``encoder.*`` / ``quant_conv.*`` tensors are dropped at load.
-The mid-block attention (one head, d = the widest channel count, over the
-whole latent grid) goes through ``kernels.attention.attention_auto``.
+Counterpart of the JAX package's ``models/diffusion/vae.py``. Decode:
+latents (N, h, w, 4) -> RGB in [-1, 1], (N, h*f, w*f, 3) with
+f = 2^(blocks-1); encode: RGB in [-1, 1], (N, H, W, 3) -> moments
+(N, H/f, W/f, 2 x latent channels). The upscale pipeline only decodes, but
+a snapshot's VAE loads whole (``AutoencoderKL``, strictly, encoder and
+``quant_conv`` included); ``AutoencoderKLDecoder`` is its decoder half.
+Each mid-block attention (one head, d = the widest channel count, over the
+whole latent grid) goes through ``kernels.attention.attention_auto``, so
+K3's wide form runs it on the card. Convs take bf16 operands (the weights'
+dtype on the card) and give f32, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from neural_enhanced_super_resolution_torch.kernels import attention as _attn
@@ -19,10 +24,8 @@ from neural_enhanced_super_resolution_torch.models.diffusion.layers import (
 from neural_enhanced_super_resolution_torch.models.diffusion.unet import (
     ResnetBlock2D)
 
-__all__ = ["VAEConfig", "AutoencoderKLDecoder", "vae_decode",
-           "ENCODER_PREFIXES"]
-
-ENCODER_PREFIXES = ("encoder.", "quant_conv.")
+__all__ = ["VAEConfig", "AutoencoderKLDecoder", "AutoencoderKL",
+           "vae_decode", "vae_encode"]
 
 
 class VAEConfig:
@@ -111,8 +114,70 @@ class AutoencoderKLDecoder(nn.Module):
         return conv2d(silu(x), dec.conv_out)
 
 
+class AutoencoderKL(AutoencoderKLDecoder):
+    """The whole diffusers AutoencoderKL: the decoder and ``quant_conv``
+    and ``encoder.*``. ``forward`` decodes; ``encode`` encodes."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__(cfg)
+        b, groups = cfg.block_out_channels, cfg.norm_num_groups
+        lat = cfg.latent_channels
+
+        def res(cin, cout):
+            return ResnetBlock2D(cin, cout, None, groups, 1e-6)
+
+        self.quant_conv = nn.Conv2d(2 * lat, 2 * lat, 1)
+        enc = self.encoder = nn.Module()
+        enc.conv_in = nn.Conv2d(cfg.in_channels, b[0], 3, padding=1)
+        enc.down_blocks = nn.ModuleList()
+        c = b[0]
+        for bi in range(len(b)):
+            blk = nn.Module()
+            blk.resnets = nn.ModuleList()
+            for _ in range(cfg.layers_per_block):
+                blk.resnets.append(res(c, b[bi]))
+                c = b[bi]
+            if bi < len(b) - 1:
+                down = nn.Module()
+                down.conv = nn.Conv2d(c, c, 3, stride=2)
+                blk.downsamplers = nn.ModuleList([down])
+            enc.down_blocks.append(blk)
+        enc.mid_block = nn.Module()
+        enc.mid_block.resnets = nn.ModuleList([res(b[-1], b[-1]),
+                                               res(b[-1], b[-1])])
+        enc.mid_block.attentions = nn.ModuleList(
+            [_MidAttention(b[-1], groups)])
+        enc.conv_norm_out = nn.GroupNorm(groups, b[-1], eps=1e-6)
+        enc.conv_out = nn.Conv2d(b[-1], 2 * lat, 3, padding=1)
+
+    @torch.no_grad()
+    def encode(self, image: torch.Tensor) -> torch.Tensor:
+        enc = self.encoder
+        x = conv2d(image, enc.conv_in)
+        for blk in enc.down_blocks:
+            for resnet in blk.resnets:
+                x = resnet(x)
+            if hasattr(blk, "downsamplers"):
+                # diffusers' Downsample2D(padding=0): a (0, 1, 0, 1) zero
+                # pad, then a VALID stride-2 conv
+                x = F.pad(x, (0, 0, 0, 1, 0, 1))
+                x = conv2d(x, blk.downsamplers[0].conv, stride=2, padding=0)
+        x = enc.mid_block.resnets[0](x)
+        x = enc.mid_block.attentions[0](x)
+        x = enc.mid_block.resnets[1](x)
+        x = group_norm(x, enc.conv_norm_out)
+        x = conv2d(silu(x), enc.conv_out)
+        return conv2d(x, self.quant_conv, padding=0)
+
+
 def vae_decode(vae: AutoencoderKLDecoder,
                latents: torch.Tensor) -> torch.Tensor:
     """latents (N, h, w, latent_ch), already divided by scaling_factor ->
     RGB in [-1, 1], (N, h*f, w*f, 3) f32."""
     return vae(latents)
+
+
+def vae_encode(vae: AutoencoderKL, image: torch.Tensor) -> torch.Tensor:
+    """image (N, H, W, 3) in [-1, 1] -> moments (N, H/f, W/f,
+    2 x latent_ch) f32: the mean and the log-variance of the latent."""
+    return vae.encode(image)

@@ -6,9 +6,10 @@ Counterpart of ``neural_enhanced_super_resolution_tpu/parallel/tiling.py``
 (batched mode). Tiles are staged with torch indexing on the image's own
 device; reflect padding is an index gather, so it works for uint8 and for
 pads wider than the image. ``process_tiled_to_host`` lands each chunk's
-cropped tiles in a host canvas and returns exactly what ``process_tiled``
-returns. A partial last chunk runs at its own size: the JAX package pads it
-to a power of two (``tile_tail``) to reuse a compiled shape, which eager
+cropped tiles in a host canvas, the copies overlapping the next chunk's
+compute, and returns exactly what ``process_tiled(...).cpu()`` returns. A
+partial last chunk runs at its own size: the JAX package pads it to a
+power of two (``tile_tail``) to reuse a compiled shape, which eager
 PyTorch does not need.
 """
 
@@ -111,29 +112,92 @@ def process_tiled(model_fn: Callable[[torch.Tensor], torch.Tensor],
     return out[:orig_h * scale, :orig_w * scale, :]
 
 
+def _land(canvas: np.ndarray, cores: np.ndarray, start: int, nx: int,
+          to: int) -> None:
+    for j in range(cores.shape[0]):
+        iy, ix = divmod(start + j, nx)
+        canvas[iy * to:(iy + 1) * to, ix * to:(ix + 1) * to] = cores[j]
+
+
 def process_tiled_to_host(model_fn: Callable[[torch.Tensor], torch.Tensor],
                           image: torch.Tensor, tile_size: int = 512,
                           halo: int = 16, scale: int = 2,
                           batch_tiles: int = 16,
                           cancel_check: Callable[[], bool] | None = None
                           ) -> np.ndarray:
-    """process_tiled whose output lands chunk by chunk in a host canvas.
+    """process_tiled whose output lands chunk by chunk in a host canvas,
+    each chunk's copy to the host overlapping the next chunk's compute.
 
-    Equal to ``process_tiled(...).cpu().numpy()`` with the same arguments.
+    The image is tiled on its own device. On the GPU the cropped cores of
+    chunk i go to a pinned host buffer on a copy stream, ordered after the
+    compute by an event, while chunk i+1 computes, and a fetch thread lands
+    them in the canvas, waiting on that chunk's event; two chunks (each
+    with its buffer and thread) may be in flight to the host. On the CPU
+    the same steps run without streams. Equal, bit for bit, to
+    ``process_tiled(...).cpu().numpy()`` with the same arguments.
+    Cancellation raises ``TilingCancelled`` between chunks; errors of the
+    model or the copies propagate.
     """
     tiles, ny, nx, orig_h, orig_w = _tile_grid(image, tile_size, halo)
     to, ho = tile_size * scale, halo * scale
-    canvas = None
-    for start, chunk in _chunks(tiles, batch_tiles, cancel_check):
-        cores = model_fn(chunk)[:, ho:ho + to, ho:ho + to, :]
-        cores = cores.cpu().numpy()
-        if canvas is None:
-            canvas = np.empty((ny * to, nx * to, cores.shape[-1]),
-                              dtype=cores.dtype)
-        for j in range(cores.shape[0]):
-            iy, ix = divmod(start + j, nx)
-            canvas[iy * to:(iy + 1) * to, ix * to:(ix + 1) * to] = cores[j]
+    if image.is_cuda:
+        canvas = _streamed_to_host(model_fn, tiles, nx, ny, to, ho,
+                                   batch_tiles, cancel_check)
+    else:
+        canvas = None
+        for start, chunk in _chunks(tiles, batch_tiles, cancel_check):
+            cores = model_fn(chunk)[:, ho:ho + to, ho:ho + to, :].numpy()
+            if canvas is None:
+                canvas = np.empty((ny * to, nx * to, cores.shape[-1]),
+                                  dtype=cores.dtype)
+            _land(canvas, cores, start, nx, to)
     return canvas[:orig_h * scale, :orig_w * scale, :]
+
+
+def _streamed_to_host(model_fn, tiles: torch.Tensor, nx: int, ny: int,
+                      to: int, ho: int, batch_tiles: int,
+                      cancel_check) -> np.ndarray:
+    """The GPU body of process_tiled_to_host. Two pinned output buffers
+    take turns; a buffer is refilled only after its last chunk landed."""
+    import concurrent.futures
+
+    depth = 2
+    compute = torch.cuda.current_stream(tiles.device)
+    d2h = torch.cuda.Stream(tiles.device)
+    bufs: list[torch.Tensor] = []
+    landing: list = [None] * depth
+    canvas = None
+
+    def land(done, cores, start):
+        done.synchronize()   # this chunk's copy, not the whole device
+        _land(canvas, cores, start, nx, to)
+
+    with concurrent.futures.ThreadPoolExecutor(depth) as pool:
+        for i, (start, chunk) in enumerate(
+                _chunks(tiles, batch_tiles, cancel_check)):
+            core = model_fn(chunk)[:, ho:ho + to, ho:ho + to, :].contiguous()
+            slot = i % depth
+            if landing[slot] is not None:
+                landing[slot].result()
+            if len(bufs) <= slot:
+                bufs.append(torch.empty(
+                    (batch_tiles or tiles.shape[0],) + tuple(core.shape[1:]),
+                    dtype=core.dtype, pin_memory=True))
+            host = bufs[slot][:core.shape[0]]
+            if canvas is None:
+                canvas = np.empty((ny * to, nx * to, core.shape[-1]),
+                                  dtype=host.numpy().dtype)
+            d2h.wait_stream(compute)
+            with torch.cuda.stream(d2h):
+                host.copy_(core, non_blocking=True)
+                done = torch.cuda.Event(blocking=True)
+                done.record(d2h)
+            core.record_stream(d2h)
+            landing[slot] = pool.submit(land, done, host.numpy(), start)
+        for fut in landing:
+            if fut is not None:
+                fut.result()
+    return canvas
 
 
 # --------------------------------------------------------------------------

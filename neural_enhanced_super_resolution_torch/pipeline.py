@@ -12,7 +12,10 @@ convs on K1; ``use_swinir``) and the Stable Diffusion x4 upscaler (its
 self-attention on K3), one after the other on the one device -> ensemble
 -> adaptive sharpen. An input above ``diffusion_max_megapixels`` skips
 diffusion; a last iteration with ESRGAN as the only branch runs ESRGAN +
-sharpen per tile and streams the tiles to the host.
+sharpen per tile and streams the tiles to the host, each chunk's copy
+overlapping the next chunk's compute. ``precision: "float32"`` (the JAX
+package's parity mode) runs K1's and K3's float32 forms on the card with
+TF32 off, and the fused trunk for ``esrgan_trunk: "dform"``.
 
 The graceful-degradation ladder (primary -> 3-channel -> tiled-3ch(256) ->
 bicubic, a stage skipped, a branch whose weights do not load turned off,
@@ -123,17 +126,13 @@ class SuperResolutionPipeline:
         self.config = merge_config(self.device, config)
         if self.config["precision"] is None:
             self.config["precision"] = default_compute_dtype(self.device)
-        if (self.device == "cuda"
-                and self.config["precision"] != "bfloat16"):
-            # The kernels take bf16 only; refusing here keeps the ladder
-            # from turning their refusal into a bicubic image.
-            raise ValueError("on cuda the kernels run in bfloat16 only; got "
-                             f"precision {self.config['precision']!r}")
-        if (self.config.get("esrgan_trunk") == "dform"
-                and self.config["precision"] != "bfloat16"):
-            raise ValueError("esrgan_trunk 'dform' (the fused whole-RDB "
-                             "kernel) runs in bfloat16 only; got precision "
-                             f"{self.config['precision']!r}")
+        if self.device == "cuda" and self.config["precision"] == "float32":
+            # The parity mode: K1 and K3 run their float32 forms, and the
+            # convolutions and products left to PyTorch run without TF32.
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            logger.info("precision float32 on cuda: the kernels' float32 "
+                        "forms run (TF32 off)")
         os.makedirs(self.config["output_dir"], exist_ok=True)
         self.models: dict = {}
         self.timer = StageTimer()
@@ -182,10 +181,13 @@ class SuperResolutionPipeline:
             arch.update(cfg["esrgan_arch"])
         model_cfg = RRDBNetConfig(**arch)
         # As in the JAX package the dform and int8 trunks are options of the
-        # fused layout: fuse_rdb false keeps the stock trunk for any value.
+        # fused layout: fuse_rdb false keeps the stock trunk for any value,
+        # and dform applies in bfloat16 only (else the fused trunk runs).
         if not cfg.get("fuse_rdb", True):
             trunk = "stock"
-        elif cfg.get("esrgan_trunk") in ("dform", "int8"):
+        elif cfg.get("esrgan_trunk") == "int8" or (
+                cfg.get("esrgan_trunk") == "dform"
+                and cfg["precision"] == "bfloat16"):
             trunk = cfg["esrgan_trunk"]
         else:
             trunk = "fused"
@@ -534,8 +536,9 @@ class SuperResolutionPipeline:
     def _streamed_esrgan_final(self, image) -> np.ndarray:
         """ESRGAN + adaptive sharpen fused per tile, landed on the host.
 
-        Each output tile is sharpened with its halo as context (halo*scale
-        >= the sharpen radius), cropped and copied into the host canvas."""
+        The image is tiled on the card. Each output tile is sharpened with
+        its halo as context (halo*scale >= the sharpen radius), cropped and
+        copied into the host canvas while the next chunk computes."""
         cfg = self.config
         three = cfg["force_3channel"]
         sharpen = cfg["adaptive_sharpening"]

@@ -21,9 +21,10 @@ only for an ``esrgan_trunk`` that neither package knows.
 
 from __future__ import annotations
 
+import copy
 from typing import Any
 
-__all__ = ["default_config", "merge_config", "ESRGAN_TRUNKS"]
+__all__ = ["default_config", "merge_config", "snapshot", "ESRGAN_TRUNKS"]
 
 # esrgan_trunk values: None / "xla" / "s2d" = the fused trunk ("s2d" is the
 # JAX package's rows-s2d TPU layout, which its pipeline never selects: it
@@ -109,3 +110,10 @@ def merge_config(device: str, user_config: dict | None) -> dict[str, Any]:
         raise ValueError(f"unknown esrgan_trunk {cfg['esrgan_trunk']!r}")
     return cfg
 
+
+
+def snapshot(cfg: dict[str, Any]) -> dict[str, Any]:
+    """A deep copy without the callbacks (for logging and debugging)."""
+    out = {k: v for k, v in cfg.items()
+           if k not in ("progress_callback", "image_callback")}
+    return copy.deepcopy(out)

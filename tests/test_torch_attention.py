@@ -23,7 +23,8 @@ import jax.numpy as jnp
 from neural_enhanced_super_resolution_tpu.kernels.attention import (
     attention_auto as jax_attention_auto, flash_attention as jax_flash)
 from neural_enhanced_super_resolution_torch.kernels import (
-    KernelInputError, attention_auto, flash_attention, flash_attention_plain)
+    KernelInputError, attention_auto, flash_attention, flash_attention_f32,
+    flash_attention_plain)
 
 # (id, B, H, Sq, Skv, d, block_q, block_k, kv budget MB or None)
 CASES = [
@@ -100,6 +101,26 @@ def test_flash_attention_refuses_other_devices():
     q = torch.zeros((1, 1, 8, 64), device="meta", dtype=torch.bfloat16)
     with pytest.raises(KernelInputError):
         flash_attention(q, q, q)
+    with pytest.raises(KernelInputError):
+        flash_attention_f32(q.float(), q.float(), q.float())
+
+
+@pytest.mark.parametrize("case", CASES[1:], ids=[c[0] for c in CASES[1:]])
+def test_flash_attention_f32_on_cpu_matches_jax_flash(case, monkeypatch):
+    """K3's float32 form takes the plain version on the CPU, and that
+    matches the JAX kernel on float32 operands (what K3f replaces in the
+    parity mode) to 2e-5 absolute, with no launch."""
+    _, b, h, sq, skv, d, bq, bk, budget = case
+    if budget:
+        monkeypatch.setenv("NESR_FLASH_KV_VMEM_MB", budget)
+    q, k, v = _inputs(sum(map(ord, case[0])) + 1, b, h, sq, skv, d)
+    ref = _jax(q, k, v, jnp.float32, bq, bk)
+    launches, calls = (flash_attention_f32.launches,
+                       flash_attention_plain.calls)
+    got = flash_attention_f32(*(torch.from_numpy(t) for t in (q, k, v)))
+    assert (flash_attention_f32.launches, flash_attention_plain.calls) == (
+        launches, calls + 1)
+    assert np.abs(got.numpy() - ref).max() < 2e-5
 
 
 @pytest.mark.parametrize("b,s,dm,heads", [(2, 64, 32, 2), (1, 100, 64, 1),

@@ -10,7 +10,8 @@ Tolerance: max|kernel - plain| <= 1e-2 * max(1, max|plain|) per conv
 kernel (bf16 outputs; the two sum in another order), 3e-2 for a whole
 forward; K4 (the int8 conv) equals its plain version bit for bit (exact
 integer sums, the same float32 epilogue); K3 (flash attention) 2e-2 of max|plain| with no floor, on q and k
-of std 2 so that each softmax row is peaked. The stages without a kernel
+of std 2 so that each softmax row is peaked. The float32 forms (K1f, K3f)
+1e-5 of max|plain| (float32 sums in another order), 1e-4 for a forward. The stages without a kernel
 against the same function on the CPU: NL-means' uint8 Lab max |diff| <= 1
 on <= 1e-3 of the values (its RGB: the test's docstring); SegFormer's
 bf16 logits 3e-2 * max(1, max|CPU f32|).
@@ -21,9 +22,9 @@ import pytest
 import torch
 
 from neural_enhanced_super_resolution_torch.kernels import (
-    KernelError, KernelInputError, attention_auto, conv3x3, conv3x3_int8,
-    conv3x3_int8_plain, conv3x3_plain, flash_attention,
-    flash_attention_plain, rdb_fused, rdb_fused_plain)
+    KernelError, KernelInputError, attention_auto, conv3x3, conv3x3_f32,
+    conv3x3_int8, conv3x3_int8_plain, conv3x3_plain, flash_attention,
+    flash_attention_f32, flash_attention_plain, rdb_fused, rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
     pack_conv3x3_int8_weights)
 from neural_enhanced_super_resolution_torch.models import (
@@ -138,7 +139,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((1, 8, 8, 64), device=cuda)
     w = torch.zeros((3, 3, 64, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(KernelInputError):
-        conv3x3(x, w)                                    # f32 activations
+        conv3x3(x, w)                     # f32 activations, bf16 weights
     with pytest.raises(KernelInputError):
         conv3x3(x.bfloat16(), w[:, :, :32])              # Cin mismatch
     with pytest.raises(KernelInputError):
@@ -393,7 +394,7 @@ def test_attention_auto_runs_the_kernel_on_packed_views(cuda, dm, heads):
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 2, 64, 64, 64, seed=2)
     with pytest.raises(KernelInputError):
-        flash_attention(q.float(), k, v)                 # f32
+        flash_attention(q.float(), k, v)                 # f32 q, bf16 k
     with pytest.raises(KernelInputError):
         flash_attention(q[..., :12], k[..., :12], v[..., :12])  # d % 8
     with pytest.raises(KernelInputError):
@@ -473,3 +474,188 @@ def test_segformer_on_the_card_matches_the_cpu(cuda, tmp_path):
         got = load_segformer(path, "bfloat16", "cuda").model(x.to(cuda))
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert _rel(got.cpu(), ref) <= 3e-2
+
+
+def test_streamed_to_host_on_the_card_equals_process_tiled(cuda):
+    """A card uint8 image through the card's tiling, pinned buffers and the
+    copy stream, three chunks with a ragged last one (35 tiles of 32 at 16
+    a chunk): bit for bit what process_tiled gives on the card."""
+    from neural_enhanced_super_resolution_torch.ops.enhance import (
+        adaptive_sharpen_batch)
+    from neural_enhanced_super_resolution_torch.parallel.tiling import (
+        process_tiled, process_tiled_to_host)
+    from neural_enhanced_super_resolution_torch.pipeline import esrgan_step
+    cfg = RRDBNetConfig(num_in_ch=12, num_out_ch=3, scale=4, num_feat=64,
+                        num_block=1, num_grow_ch=32)
+    model = RRDBNet(cfg, init_rrdbnet(cfg, torch.Generator().manual_seed(7)),
+                    torch.bfloat16, cuda)
+
+    def model_fn(tiles):
+        return adaptive_sharpen_batch(esrgan_step(model, tiles))
+
+    img = np.random.default_rng(8).integers(0, 256, (150, 210, 3), np.uint8)
+    kw = dict(tile_size=32, halo=6, scale=4, batch_tiles=16)
+    launches = conv3x3.launches
+    got = process_tiled_to_host(model_fn, torch.as_tensor(img, device=cuda),
+                                **kw)
+    assert conv3x3.launches > launches
+    ref = process_tiled(model_fn, torch.as_tensor(img, device=cuda),
+                        **kw).cpu().numpy()
+    assert got.shape == (600, 840, 3)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_vae_encode_runs_k3_once_and_matches_plain(cuda):
+    """vae_encode in bf16 with the mid-block attention at d 512 on K3,
+    one launch an encode, within 3e-2 of max|ref| of the same encode on
+    the plain attention."""
+    from neural_enhanced_super_resolution_torch.kernels import attention
+    from neural_enhanced_super_resolution_torch.models.diffusion import (
+        AutoencoderKL, VAEConfig, build_module, vae_encode)
+    from neural_enhanced_super_resolution_torch.models.diffusion.specs import (
+        random_state_dict)
+    cfg = VAEConfig(block_out_channels=(64, 128, 512), layers_per_block=1)
+    with torch.device("meta"):
+        shapes = AutoencoderKL(cfg)
+    sd = random_state_dict(shapes, torch.Generator().manual_seed(9))
+    vae = build_module(AutoencoderKL, cfg, sd, torch.bfloat16, cuda)
+    img = torch.rand((1, 96, 64, 3), generator=torch.Generator().manual_seed(
+        10)).to(cuda) * 2 - 1
+    launches, calls = flash_attention.launches, flash_attention_plain.calls
+    got = vae_encode(vae, img)
+    assert flash_attention.launches - launches == 1
+    assert flash_attention_plain.calls == calls
+    kernel = attention.flash_attention
+    attention.flash_attention = attention.flash_attention_plain
+    try:
+        ref = vae_encode(vae, img)
+    finally:
+        attention.flash_attention = kernel
+    assert got.shape == (1, 24, 16, 8) and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 3e-2 * ref.abs().max().item()
+
+
+def test_float32_request_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """precision float32 on the card runs K1's float32 form (TF32 off), no
+    bf16 kernel and no plain version; its uint8 output equals the CPU
+    float32 request's on >= 99.9% of the values, within one level
+    (adaptive sharpening off: its detail threshold turns a one-level
+    truncation tie into a many-level pixel)."""
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    cfg = RRDBNetConfig(num_in_ch=12, num_out_ch=3, scale=4, num_feat=16,
+                        num_block=1, num_grow_ch=8)
+    ckpt = save_state_dict(init_rrdbnet(cfg, torch.Generator().manual_seed(5)),
+                           str(tmp_path / "w.pth"))
+    base = {"use_diffusion": False, "segment_enhancement": False,
+            "denoise_level": 0, "iterations": 1, "esrgan_model_path": ckpt,
+            "esrgan_arch": {"num_feat": 16, "num_block": 1,
+                            "num_grow_ch": 8},
+            "precision": "float32", "adaptive_sharpening": False,
+            "output_dir": str(tmp_path / "out")}
+    img = np.kron(np.random.default_rng(6).integers(0, 256, (19, 17, 3),
+                                                    dtype=np.uint8),
+                  np.ones((8, 8, 1), np.uint8))[:150, :136]
+    ref = SuperResolutionPipeline("cpu", base).enhance_array(img)
+    before = (conv3x3.launches, conv3x3_f32.launches, conv3x3_plain.calls)
+    got = SuperResolutionPipeline("cuda", base).enhance_array(img)
+    assert conv3x3.launches == before[0]
+    assert conv3x3_f32.launches > before[1]
+    assert conv3x3_plain.calls == before[2]
+    diff = np.abs(got.astype(int) - ref.astype(int))
+    assert got.shape == ref.shape == (600, 544, 3)
+    assert diff.max() <= 1 and np.mean(diff == 0) >= 0.999
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,bias,act", [
+    (2, 37, 45, 12, 64, True, False), (1, 40, 33, 64, 192, False, False),
+    (1, 30, 50, 32, 160, False, False), (2, 21, 19, 64, 3, True, False),
+    (1, 18, 70, 64, 64, True, True), (1, 9, 9, 130, 32, True, True),
+    (1, 11, 13, 3, 300, True, False), (2, 24, 16, 180, 180, True, False)],
+    ids=["conv_first", "w0", "w1", "conv_last", "head_lrelu",
+         "ragged_cin", "cin3_two_blocks", "swinir_rstb"])
+def test_conv3x3_f32_kernel_matches_plain(cuda, n, h, w, cin, cout, bias,
+                                          act):
+    """K1f at the trunk's and head's shapes, Cin off the 16-channel pass,
+    Cout off the 64-channel block, ragged 8 x 16 tiles; conv3x3 routes a
+    float32 x to it."""
+    g = torch.Generator().manual_seed(cin * cout + h)
+    x = torch.randn((n, h, w, cin), generator=g).to(cuda)
+    wt = (torch.randn((3, 3, cin, cout), generator=g) * 0.05).to(cuda)
+    b = (torch.randn((cout,), generator=g) * 0.1).to(cuda) if bias else None
+    launches, k1, calls = (conv3x3_f32.launches, conv3x3.launches,
+                           conv3x3_plain.calls)
+    got = conv3x3(x, wt, b, act)
+    torch.cuda.synchronize()
+    assert (conv3x3_f32.launches, conv3x3.launches, conv3x3_plain.calls) == (
+        launches + 1, k1, calls)
+    ref = conv3x3_plain(x, wt, b, act)
+    assert got.dtype == torch.float32
+    assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", [
+    (1, 8, 256, 256, 64), (2, 4, 300, 300, 64), (1, 2, 200, 330, 128),
+    (1, 1, 1000, 1000, 512), (1, 2, 70, 45, 256), (2, 1, 100, 257, 72),
+    (1, 2, 77, 150, 20), (1, 1, 333, 200, 264)])
+def test_flash_attention_f32_kernel_matches_plain(cuda, b, h, sq, skv, d):
+    """K3f at head dims padded to 32..512, query counts off the 32-row
+    block and key counts off the 32-key tile; flash_attention routes a
+    float32 q to it."""
+    q, k, v = (t.float() for t in _qkv(cuda, b, h, sq, skv, d, seed=sq))
+    launches, k3 = flash_attention_f32.launches, flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (flash_attention_f32.launches, flash_attention.launches) == (
+        launches + 1, k3)
+    ref = flash_attention_plain(q, k, v)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+def test_float32_forms_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((1, 8, 8, 16), device=cuda)
+    w = torch.zeros((3, 3, 16, 16), device=cuda)
+    with pytest.raises(KernelInputError):
+        conv3x3_f32(x, w.bfloat16())                     # bf16 weights
+    with pytest.raises(KernelInputError):
+        conv3x3_f32(x, w, torch.zeros(8, device=cuda))   # bias length
+    with pytest.raises(KernelInputError):
+        conv3x3_f32(x.transpose(1, 2), w)                # not contiguous
+    q = torch.zeros((1, 2, 64, 64), device=cuda)
+    with pytest.raises(KernelInputError):
+        flash_attention_f32(q, q.bfloat16(), q)          # bf16 k
+    with pytest.raises(KernelInputError):
+        flash_attention_f32(q[..., :6], q[..., :6], q[..., :6])  # d % 4
+    with pytest.raises(KernelInputError):
+        flash_attention_f32(q[..., 1:9], q[..., :8], q[..., :8])  # alignment
+
+
+def test_vae_encode_in_float32_runs_k3f_once(cuda):
+    """vae_encode in float32: the mid-block attention on K3's float32 form,
+    one launch an encode, within 1e-4 of max|ref| of the plain attention
+    (a whole forward, as the bf16 forms' forwards take a looser bar than
+    one kernel)."""
+    from neural_enhanced_super_resolution_torch.kernels import attention
+    from neural_enhanced_super_resolution_torch.models.diffusion import (
+        AutoencoderKL, VAEConfig, build_module, vae_encode)
+    from neural_enhanced_super_resolution_torch.models.diffusion.specs import (
+        random_state_dict)
+    cfg = VAEConfig(block_out_channels=(64, 128, 512), layers_per_block=1)
+    with torch.device("meta"):
+        shapes = AutoencoderKL(cfg)
+    sd = random_state_dict(shapes, torch.Generator().manual_seed(9))
+    vae = build_module(AutoencoderKL, cfg, sd, torch.float32, cuda)
+    img = torch.rand((1, 96, 64, 3), generator=torch.Generator().manual_seed(
+        10)).to(cuda) * 2 - 1
+    launches, k3 = flash_attention_f32.launches, flash_attention.launches
+    got = vae_encode(vae, img)
+    assert flash_attention_f32.launches - launches == 1
+    kernel = attention.flash_attention
+    attention.flash_attention = attention.flash_attention_plain
+    try:
+        ref = vae_encode(vae, img)
+    finally:
+        attention.flash_attention = kernel
+    assert flash_attention.launches == k3
+    assert got.shape == (1, 24, 16, 8) and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()

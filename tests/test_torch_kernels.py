@@ -23,7 +23,8 @@ from neural_enhanced_super_resolution_tpu.kernels.rdb_pallas import (
     from_rows_s2d, rearrange_w_rows_s2d, rows_s2d_conv3x3, to_rows_s2d)
 from neural_enhanced_super_resolution_tpu.models import rrdbnet as jr
 from neural_enhanced_super_resolution_torch.kernels import (
-    KernelInputError, conv3x3, conv3x3_plain, rdb_fused, rdb_fused_plain)
+    KernelInputError, conv3x3, conv3x3_f32, conv3x3_plain, rdb_fused,
+    rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
     TILE_WIDTHS, pack_conv3x3_weights, pass_width, tile_width)
 from neural_enhanced_super_resolution_torch.models.rrdbnet import (
@@ -50,6 +51,28 @@ def test_conv3x3_plain_matches_pallas_conv3x3(rng, cin, cout, bias, act):
                         apply_act=act, block_rows=8, interpret=True)
     got = conv3x3(torch.from_numpy(x), torch.from_numpy(w),
                   torch.from_numpy(b) if bias else None, act)
+    assert np.abs(got.numpy() - np.asarray(ref)).max() < 1e-5
+
+
+@pytest.mark.parametrize("cin,cout,bias,act", [
+    (12, 64, True, False), (64, 192, False, False), (64, 3, True, True)])
+def test_conv3x3_f32_on_cpu_matches_pallas_conv3x3(rng, cin, cout, bias,
+                                                   act):
+    """K1's float32 form takes the plain version on the CPU, and that
+    matches the JAX conv kernel on float32 operands (what K1f replaces in
+    the parity mode), with no launch."""
+    x = rng.standard_normal((1, 11, 18, cin)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout)) * 0.1).astype(np.float32)
+    b = (rng.standard_normal((cout,)) * 0.1).astype(np.float32)
+    if not bias:
+        b = np.zeros_like(b)
+    ref = conv3x3_lrelu(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                        apply_act=act, block_rows=8, interpret=True)
+    launches, calls = conv3x3_f32.launches, conv3x3_plain.calls
+    got = conv3x3_f32(torch.from_numpy(x), torch.from_numpy(w),
+                      torch.from_numpy(b) if bias else None, act)
+    assert (conv3x3_f32.launches, conv3x3_plain.calls) == (launches,
+                                                           calls + 1)
     assert np.abs(got.numpy() - np.asarray(ref)).max() < 1e-5
 
 
@@ -206,5 +229,7 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
         conv3x3(x, ws[0])
     with pytest.raises(KernelInputError, match="no kernel"):
         rdb_fused(x, ws, torch.empty(192, device="meta"))
+    with pytest.raises(KernelInputError, match="no kernel"):
+        conv3x3_f32(x.float(), ws[0].float())
     assert (conv3x3_plain.calls, rdb_fused_plain.calls) == calls
 

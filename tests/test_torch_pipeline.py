@@ -186,6 +186,10 @@ def test_import_without_jax():
             "import neural_enhanced_super_resolution_torch.models.segformer\n"
             "import neural_enhanced_super_resolution_torch.models.swinir\n"
             "import neural_enhanced_super_resolution_torch.runtime.executor\n"
+            "import neural_enhanced_super_resolution_torch.runtime.native\n"
+            "import neural_enhanced_super_resolution_torch.gui\n"
+            "import neural_enhanced_super_resolution_torch.utils\n"
+            "import neural_enhanced_super_resolution_torch.utils.downloader\n"
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m, v in sys.modules.items() if v is not None)\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -281,16 +285,53 @@ def test_cuda_overlay_tiles_like_the_tpu_overlay():
     assert ours["tile_tail"] == "bucket" and "prewarm" not in ours
 
 
-def test_dform_trunk_in_float32_raises(tmp_path, ckpt):
-    with pytest.raises(ValueError, match="bfloat16"):
-        SuperResolutionPipeline("cpu", _config(tmp_path, ckpt, "t",
-                                               esrgan_trunk="dform"))
+def test_dform_trunk_in_float32_runs_the_fused_trunk_as_jax(tmp_path, ckpt,
+                                                           test_image):
+    """As in the JAX package, dform applies in bfloat16 only: a float32
+    request runs the fused trunk, here a tiny tiled CPU request against the
+    JAX pipeline's (the bar of the config tests)."""
+    src = str(tmp_path / "input.png")
+    imwrite_rgb(src, test_image[:64, :80])
+    pipes, _ = _run_both(tmp_path, src, lambda who, **kw: _config(
+        tmp_path, ckpt, who, max_megapixels=0.001, max_tile_size=48,
+        tile_halo=8, esrgan_trunk="dform", **kw))
+    assert pipes["torch"].models["esrgan"]["model"].trunk == "fused"
+
+
+def test_float32_request_matches_jax(tmp_path, ckpt, test_image):
+    """precision "float32", the JAX package's parity mode, asked for: the
+    request (streamed final) against the JAX pipeline in float32."""
+    src = str(tmp_path / "input.png")
+    imwrite_rgb(src, test_image[:80, :96])
+    pipes, _ = _run_both(tmp_path, src, lambda who, **kw: _config(
+        tmp_path, ckpt, who, precision="float32", max_tile_size=48,
+        tile_halo=8, **kw))
+    assert pipes["torch"].config["precision"] == "float32"
+    assert "esrgan+post/streamed" in pipes["torch"].timer.totals
+
+
+def test_float32_on_the_gpu_runs_the_plain_versions(tmp_path, ckpt,
+                                                    monkeypatch, caplog):
+    """float32 on cuda is a mode, not a refusal: the pipeline turns TF32
+    off and says, once, that the kernels' float32 forms run (the name is
+    older than those forms: no plain version runs on the card)."""
+    import logging
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with caplog.at_level(logging.INFO, logger="nesr"):
+        pipe = SuperResolutionPipeline("cuda", _config(
+            tmp_path, ckpt, "t", precision="float32", esrgan_trunk="dform"))
+    assert pipe.config["precision"] == "float32"
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert sum("the kernels' float32 forms run" in r.getMessage()
+               for r in caplog.records) == 1
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (dict(precision="float32"), "bfloat16 only"),
     (dict(precision="bfloat16", esrgan_trunk="dform"), "64 features"),
-], ids=["float32", "dform_narrow_width"])
+], ids=["dform_narrow_width"])
 def test_gpu_config_the_kernels_cannot_run_raises(tmp_path, ckpt, monkeypatch,
                                                   overrides, match):
     """What the kernels do not take is refused up front on the GPU, instead
@@ -484,3 +525,25 @@ def test_cli_batch_mode_over_a_directory(tmp_path, ckpt, test_image,
     empty.mkdir()
     assert torch_cli(["--cli", "-i", str(empty), "-d", "cpu"]) == 2
     assert "No images found" in capsys.readouterr().out
+
+
+def test_cli_batch_mode_drops_intermediate_saves(tmp_path, ckpt, test_image):
+    """As in the JAX package, --intermediate_saves is dropped for a
+    directory (every image would overwrite intermediate_iter{n}.png); a
+    single image still writes them."""
+    src = tmp_path / "imgs"
+    src.mkdir()
+    imwrite_rgb(str(src / "a.png"), test_image[:16, :16])
+    imwrite_rgb(str(src / "b.png"), test_image[:12, :20])
+    cfg = str(tmp_path / "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump(_config(tmp_path, ckpt, "unused"), f)
+    out = tmp_path / "out"
+    assert torch_cli(["--cli", "-i", str(src), "-c", cfg, "-n", "2", "-o",
+                      str(out), "-d", "cpu", "--intermediate_saves"]) == 0
+    assert sorted(os.listdir(out)) == ["a_enhanced.png", "b_enhanced.png"]
+    single = tmp_path / "single"
+    assert torch_cli(["--cli", "-i", str(src / "a.png"), "-c", cfg, "-n",
+                      "1", "-o", str(single / "r.png"), "-d", "cpu",
+                      "--intermediate_saves"]) == 0
+    assert "intermediate_iter1.png" in os.listdir(single)
