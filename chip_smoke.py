@@ -61,8 +61,12 @@ weights:
 * ``precision: "float32"`` (the parity mode) on the card: an ESRGAN
   request against the CPU's, and an ESRGAN + diffusion request against
   the same request on the plain attention, both on the float32 forms of
-  K1 and K3 (K1f, K3f), which are then held against their plain versions
-  at the shapes those requests gave them.
+  K1 and K3 (K1f, K3f); the full-width RRDBNet x4 in float32 on the 4-tile
+  batch (351 K1f launches) against the same forward on the plain convs,
+  with its device time split into K1f and the rest; then K1f against its
+  plain version at the shapes of that forward and of the requests, and
+  K3f at every FLASH_SHAPES row and the request's shapes (with the split
+  count of each).
 
 Prints the card, every measurement, a JSON line of per-kernel results and,
 last, a JSON status line. Any failure exits non-zero without the status
@@ -124,6 +128,13 @@ SWIN_K1_PER_FORWARD = 13     # conv_first, 6 RSTB, after_body, before_up,
                              # up1, up2, hr, last
 TOL_SD = 3e-2                # full-width UNet / VAE, K3 vs plain attention
 TOL_F32 = 1e-5               # K1f, K3f: float32 sums in another order
+# The full-width float32 forward against the same forward on the plain
+# convs (cuDNN, TF32 off): max|err| / max(1, max|ref|). Each conv's float32
+# sums run in another order (~1e-6 of its output); the 69 RDBs and the head
+# carry that through 351 convs, so the bar is ten times one conv's.
+TOL_F32_FORWARD = 1e-4
+F32_VAE_SHAPE = (1, 1, 1920, 1920, 512)   # the 48x40 request's VAE mid-block
+F32_TRUNK_W0 = (*TILE_BATCH, 64, 192, False, False)   # K1f's JSON row
 TOL_SD_CPU = 5e-2            # tiny snapshot latents, card bf16 vs CPU f32
 SD_STEPS = 20                # the cuda tier of num_inference_steps
 SD_ATTN_PER_PASS = 16        # self-attentions per SD x4 UNet pass
@@ -203,7 +214,7 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, floor_ms: float = 0.0) -> float:
     """Device time a call: the durations of the kernels (and copies) that
     ``reps`` calls ran on the card, from torch.profiler, over ``reps``.
     Host dispatch and the gaps between kernels are not in it."""
@@ -213,7 +224,8 @@ def device_ms(fn, reps: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
     # A profiling run now and then comes back without device events
-    # (CUPTI); the measurement is taken again, at most three times.
+    # (CUPTI), wholly or in part; the measurement is taken again, at most
+    # three times, while it is empty or under ``floor_ms`` (the bound).
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -221,9 +233,43 @@ def device_ms(fn, reps: int = 10) -> float:
             torch.cuda.synchronize()
         us = sum(e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == DeviceType.CUDA)
-        if us > 0:
+        if us > 0 and us / 1e3 / reps >= floor_ms:
             return us / 1e3 / reps
-    raise AssertionError("torch.profiler recorded no device time")
+    raise AssertionError(f"torch.profiler lost device time: {us / 1e3 / reps}"
+                         f" ms a call against a floor of {floor_ms}")
+
+
+def device_ms_named(fa, fb, needle: str, reps: int = 10,
+                    floor_ms: tuple = (0.0, 0.0)) -> tuple:
+    """Device time a call in the kernels whose name holds ``needle`` and in
+    every other kernel, from one torch.profiler window that runs ``fa``
+    and then ``fb`` ``reps`` times each (``fa`` a kernel's wrapper and
+    ``fb`` its library call, or ``fa`` a model and ``fb`` nothing). A
+    window sometimes loses device events (CUPTI), wholly or in part, so it
+    is taken again, at most five times, while either sum is empty or under
+    its ``floor_ms`` (the least time the card could take: the bound)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fa()
+    fb()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fa()
+            for _ in range(reps):
+                fb()
+            torch.cuda.synchronize()
+        us = [0, 0]
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us[needle not in e.name] += e.time_range.elapsed_us()
+        ms = (us[0] / 1e3 / reps, us[1] / 1e3 / reps)
+        if min(us) > 0 and ms[0] >= floor_ms[0] and ms[1] >= floor_ms[1]:
+            return ms
+    raise AssertionError(f"torch.profiler lost device time: {ms} ms a call "
+                         f"against floors {floor_ms}")
 
 
 def launches_per_call(fn, reps: int = 2) -> float:
@@ -2166,13 +2212,76 @@ def drive_float32(torch, np, ckpt: str, snap: str, name: str):
     return counts, sorted(k1_shapes), sorted(k3_shapes)
 
 
+def check_forward_f32(torch, gen, sd, name: str):
+    """The full-width RRDBNet x4 (64/23/32, fused trunk) in float32 on
+    TILE_BATCH through K1f against the same forward with plain=True on the
+    card (cuDNN's float32 conv, TF32 off), under TOL_F32_FORWARD; its
+    device time, split into K1f and the rest (the float32 assembly of the
+    trunk, the head's upsampling), and its K1f launches (351: 345 in the
+    trunk, 6 in the head) with no bf16 kernel and no plain call. Returns
+    the K1f launches and the shapes K1f was given."""
+    from neural_enhanced_super_resolution_torch.models import (
+        RRDBNet, RRDBNetConfig)
+    k1mod = sys.modules[
+        "neural_enhanced_super_resolution_torch.kernels.conv3x3"]
+    cfg = RRDBNetConfig(**ARCH)
+    n, h, w = TILE_BATCH
+    x = torch.rand((n, h, w, 12), generator=gen).to("cuda")
+    model = RRDBNet(cfg, sd, torch.float32, "cuda", "fused")
+    ref = model(x, plain=True)
+    shapes = _Tally()
+
+    def conv_key(x, w, bias=None, lrelu=False):
+        return (*x.shape, w.shape[3], bias is not None, bool(lrelu))
+
+    _zero_f32_counts()
+    with recording(k1mod, "conv3x3_f32", shapes, conv_key):
+        out = model(x)
+    counts = _f32_counts()
+    d, r = rel_err(out, ref)
+    del ref
+    torch.cuda.empty_cache()
+    flops = sum(2.0 * a * b * c * ci * co * 9
+                for a, b, c, ci, co, _, _ in shapes)
+    k1f, rest = device_ms_named(lambda: model(x), lambda: None,
+                                "conv3x3_f32_kernel", reps=2,
+                                floor_ms=(flops / PEAK_FP32_FLOPS * 1e3, 0.0))
+    wall = wall_ms(lambda: model(x), reps=2)
+    log(f"forward float32 (K1f) 12ch x4 nf64 nb23 gc32 on {tuple(x.shape)}:"
+        f" max_abs_err {d:.6g} rel {r:.3g} vs the plain forward on the card "
+        f"(tol {TOL_F32_FORWARD}); device ms {k1f + rest:.3f} (wall "
+        f"{wall:.3f}), "
+        f"K1f {k1f:.3f} ({100 * k1f / (k1f + rest):.1f}%; "
+        f"{flops / 1e12:.3f} TFLOP, {flops / k1f / 1e9:.1f} TFLOP/s), the "
+        f"rest (float32 assembly, upsampling) {rest:.3f}; K1f launches "
+        f"{counts['conv3x3_f32']} over {len(set(shapes))} shapes; counts "
+        f"{counts} on {name}")
+    want = 15 * cfg.num_block + 6
+    if (not (r <= TOL_F32_FORWARD and torch.isfinite(out).all())
+            or counts["conv3x3_f32"] != want
+            or any(counts[k] for k in ("conv3x3", "flash_attention",
+                                       "conv3x3_plain",
+                                       "flash_attention_plain"))):
+        raise AssertionError(f"float32 forward: rel err {r}, counts {counts}"
+                             f" (want {want} K1f launches only)")
+    del model, out
+    torch.cuda.empty_cache()
+    return counts["conv3x3_f32"], sorted(set(shapes))
+
+
+class _Tally(list):
+    """Every key ``recording`` sees, repeats included."""
+    add = list.append
+
+
 def check_conv3x3_f32(torch, gen, shapes) -> dict:
-    """K1f against conv3x3_plain at every shape the float32 requests gave
-    it; the timed row is the shape with the most operations."""
+    """K1f against conv3x3_plain at every shape of the full-width float32
+    forward and of the float32 requests; the JSON row is trunk w0 on
+    TILE_BATCH (F32_TRUNK_W0)."""
     import torch.nn.functional as F
     from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
         conv3x3_f32, conv3x3_plain)
-    worst, rows, failed = 0.0, [], []
+    worst, rows, failed = 0.0, {}, []
     for n, h, w, cin, cout, bias, act in shapes:
         x = _rnd(torch, gen, n, h, w, cin, dtype=torch.float32)
         wt = _rnd(torch, gen, 3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5,
@@ -2202,54 +2311,86 @@ def check_conv3x3_f32(torch, gen, shapes) -> dict:
         if not r <= TOL_F32:
             failed.append(f"{(n, h, w, cin, cout)}: rel {r}")
         worst = max(worst, d)
-        rows.append((flops, {"ms": ms, "plain_ms": pms, "bound_ms": bms,
-                             "bound_by": by, "library_ms": cms}))
+        rows[(n, h, w, cin, cout, bias, act)] = {
+            "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": cms}
         del x, got, ref
-    if failed or not rows:
+    if failed or F32_TRUNK_W0 not in rows:
         raise AssertionError(f"K1f disagrees with its plain version: "
-                             f"{failed or 'no shapes recorded'}")
-    return dict(max(rows, key=lambda r: r[0])[1], max_abs_err=worst)
+                             f"{failed or 'trunk w0 not recorded'}")
+    return dict(rows[F32_TRUNK_W0], max_abs_err=worst)
 
 
 def check_flash_attention_f32(torch, gen, shapes) -> dict:
-    """K3f against flash_attention_plain at every shape the float32
-    diffusion request gave it, q and k of std 2 (peaked softmax rows, as
-    for K3); the timed row is the shape with the most operations."""
+    """K3f against flash_attention_plain at every FLASH_SHAPES row and at
+    every shape the float32 diffusion request gave it (the VAE mid-block's
+    1920^2, d 512 among them), q and k of std 2 (peaked softmax rows), and
+    K3's case of every real score at -2048 on a ragged Skv; each shape's
+    key-range split count beside its times. The JSON row is the VAE's
+    1920^2 (F32_VAE_SHAPE)."""
     import torch.nn.functional as F
     from neural_enhanced_super_resolution_torch.kernels.attention import (
-        flash_attention_f32, flash_attention_plain)
-    worst, rows, failed = 0.0, [], []
-    for b, h, sq, skv, d in shapes:
-        q = _rnd(torch, gen, b, h, sq, d, scale=2.0, dtype=torch.float32)
-        k = _rnd(torch, gen, b, h, skv, d, scale=2.0, dtype=torch.float32)
+        flash_attention_f32, flash_attention_plain, flash_f32_splits)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = list(FLASH_SHAPES)
+    known = {c[1:] for c in cases}
+    cases += [("float32 request", *sh) for sh in shapes
+              if tuple(sh) not in known]
+    if not any(c[1:] == F32_VAE_SHAPE for c in cases):
+        raise AssertionError(f"K3f: the request gave no {F32_VAE_SHAPE}")
+    cases.append(("padded keys, scores -2048", 1, 2, 100, 100, 64))
+    worst, rows, failed = 0.0, {}, []
+    for label, b, h, sq, skv, d in cases:
+        if label.startswith("padded"):
+            q = torch.full((b, h, sq, d), 16.0, device="cuda")
+            k = torch.full((b, h, skv, d), -16.0, device="cuda")
+        else:
+            q = _rnd(torch, gen, b, h, sq, d, scale=2.0, dtype=torch.float32)
+            k = _rnd(torch, gen, b, h, skv, d, scale=2.0,
+                     dtype=torch.float32)
         v = _rnd(torch, gen, b, h, skv, d, dtype=torch.float32)
         got = flash_attention_f32(q, k, v)
         ref = flash_attention_plain(q, k, v)
         err = (got - ref).abs().max().item()
         rel = err / ref.abs().max().item()
-        # CUDA events, as for K1 and K1f: a profiled window once gave the
-        # plain version at the VAE shape 0.03 ms, above the float32 peak
-        ms = cuda_ms(lambda: flash_attention_f32(q, k, v))
-        pms = cuda_ms(lambda: flash_attention_plain(q, k, v))
-        sms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        # K3f (its kernel and, split, the merge), SDPA and the plain
+        # version (its products and softmax) all by device time, K3f and
+        # SDPA in one profiled window: at the small shapes CUDA events over
+        # a call time the host's enqueue. A window sometimes loses device
+        # events, wholly or in part, so each is taken again while under
+        # the bound. Events over a call are logged beside them.
         flops = 4.0 * b * h * sq * skv * d
         bms, by = bound(flops, 4.0 * b * h * d * (2 * sq + 2 * skv),
                         PEAK_FP32_FLOPS)
-        log(f"K3f flash_attention_f32 q {tuple(q.shape)} Skv {skv}: "
-            f"max_abs_err {err:.6g} rel {rel:.3g} (tol {TOL_F32}) ms: kernel"
-            f" {ms:.4f} SDPA f32 {sms:.4f} plain {pms:.4f} bound "
-            f"{bms:.4f} ({by}); kernel/SDPA {ms / sms:.3f}, bound/kernel "
-            f"{bms / ms:.3f}")
+        ms, lms = device_ms_named(
+            lambda: flash_attention_f32(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v), "attn_f32",
+            floor_ms=(bms, bms))
+        pms = device_ms(lambda: flash_attention_plain(q, k, v),
+                        floor_ms=bms)
+        ems = cuda_ms(lambda: flash_attention_f32(q, k, v))
+        lems = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        pems = cuda_ms(lambda: flash_attention_plain(q, k, v))
+        nsplit, kps = flash_f32_splits(sq, skv, b * h, d, sms)
+        log(f"K3f flash_attention_f32 {label} q {tuple(q.shape)} Skv {skv}:"
+            f" {nsplit} split(s) of {kps} keys; max_abs_err {err:.6g} rel "
+            f"{rel:.3g} (tol {TOL_F32}) device ms: kernel {ms:.4f} SDPA f32 "
+            f"{lms:.4f} plain {pms:.4f} bound {bms:.4f} ({by}); "
+            f"kernel/SDPA {ms / lms:.3f}, kernel/plain {ms / pms:.3f}, "
+            f"bound/kernel {bms / ms:.3f}; events ms a call: kernel "
+            f"{ems:.4f} SDPA f32 {lems:.4f} plain {pems:.4f}")
         if not rel <= TOL_F32:
-            failed.append(f"{(b, h, sq, skv, d)}: rel {rel}")
+            failed.append(f"{label} {(b, h, sq, skv, d)}: rel {rel}")
         worst = max(worst, err)
-        rows.append((flops, {"ms": ms, "plain_ms": pms, "bound_ms": bms,
-                             "bound_by": by, "library_ms": sms}))
-        del got, ref
-    if failed or not rows:
+        rows[(b, h, sq, skv, d)] = {"ms": ms, "plain_ms": pms,
+                                    "bound_ms": bms, "bound_by": by,
+                                    "library_ms": lms}
+        del q, k, v, got, ref
+    torch.cuda.empty_cache()
+    if failed:
         raise AssertionError(f"K3f disagrees with its plain version: "
-                             f"{failed or 'no shapes recorded'}")
-    return dict(max(rows, key=lambda r: r[0])[1], max_abs_err=worst)
+                             f"{failed}")
+    return dict(rows[F32_VAE_SHAPE], max_abs_err=worst)
 
 
 def main() -> int:
@@ -2325,7 +2466,9 @@ def main() -> int:
     check_diffusion_against_cpu(torch, np)
     f32_counts, k1f_shapes, k3f_shapes = drive_float32(torch, np, ckpt, snap,
                                                        name)
-    results["conv3x3_f32"] = check_conv3x3_f32(torch, gen, k1f_shapes)
+    fwd_k1f, fwd_shapes = check_forward_f32(torch, gen, sd, name)
+    results["conv3x3_f32"] = check_conv3x3_f32(
+        torch, gen, sorted(set(k1f_shapes) | set(fwd_shapes)))
     results["flash_attention_f32"] = check_flash_attention_f32(
         torch, gen, k3f_shapes)
     if "jax" in sys.modules:
@@ -2346,7 +2489,7 @@ def main() -> int:
                 + default_ip_counts["flash_attention"]
                 + swin_counts["flash_attention"]
                 + vae_counts["flash_attention"],
-                "conv3x3_f32": f32_counts["conv3x3_f32"],
+                "conv3x3_f32": f32_counts["conv3x3_f32"] + fwd_k1f,
                 "flash_attention_f32": f32_counts["flash_attention_f32"]}
     sources = {"conv3x3": "csrc/conv3x3.cu", "rdb_fused": "csrc/rdb_fused.cu",
                "flash_attention": "csrc/flash_attn.cu",
@@ -2373,8 +2516,10 @@ def main() -> int:
                                "kernels/attention.py:125"}
     # ms, plain_ms, bound_ms and library_ms at one shape a kernel: K1 at
     # trunk w0, K2 on the tile batch, K3 at the UNet's 64^2 self-attention,
-    # K4 at trunk w0, K1f and K3f at the float32 requests' shape with the
-    # most operations.
+    # K4 at trunk w0, K1f at trunk w0 on TILE_BATCH (the full-width float32
+    # forward's), K3f at the VAE mid-block's 1920^2, d 512 (the 48x40
+    # float32 request's). K1f's three times are CUDA events over a call;
+    # K3f's are device time (its plain version's too).
     kernels = [{"name": k, "route": "cuda",
                 "source": f"{PKG}/{sources[k]}", "replaces": replaces[k],
                 "launches": launches[k],

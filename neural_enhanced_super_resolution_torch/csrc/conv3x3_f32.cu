@@ -5,123 +5,293 @@
 // wherever bf16 runs K1.
 //
 // Replaces the JAX package's conv Pallas kernels on float32 operands:
-// kernels/conv3x3.py:conv3x3_lrelu keeps its operands' dtype, so in float32
-// it computes this function (K1 takes the same kernels' bf16 form).
+// kernels/conv3x3.py:106 conv3x3_lrelu keeps its operands' dtype, so in
+// float32 it computes this function (K1 takes the same kernels' bf16 form).
 //
 // What bounds it on an H100: its operations, 2 x 9 x Cin x Cout a pixel
 // against 67 TFLOP/s of float32 outside the tensor cores; its bytes (the
 // float32 activations in and out) are a few percent of that at the trunk's
-// widths. The design is the plain one, right first:
-//  * A block (8 warps) owns an 8 x 16-pixel output tile and 64 output
-//    channels; warp w accumulates channels 8w..8w+7 of all 128 pixels, four
-//    pixels a lane, 32 float32 accumulators a thread.
-//  * Input channels go in passes of 16: the 10 x 18-pixel patch (SAME halo
-//    and the ragged edge zero-filled) is stored channel-major, so the
-//    lanes of a warp read neighbouring pixels of one channel; the pass's
-//    weights are stored [channel][tap][64 outputs], so a warp reads its
-//    eight outputs' weights as two broadcast float4 loads.
-//  * Both fit the 48 KB of static shared memory; the epilogue adds the
-//    bias, applies LeakyReLU and writes float32.
+// widths. To near that rate the FFMAs must fill the issue slots, so loads
+// and address arithmetic have to be rare, and no FMA should wait for a
+// pass's data. The design:
+//  * Register-blocked implicit GEMM. A block owns an output tile of 8R
+//    rows x 16 columns and every output channel up to 192, in 8-channel
+//    granules (Cout padded to 8, not more). A thread owns a row segment of
+//    8 consecutive pixels x one granule: 64 accumulators. For each input
+//    channel quad and ky it reads the segment's 10 input pixels once (10
+//    LDS.128, 4 channels each) and uses them for all three kx taps and 4
+//    channels; the weights come as float4 broadcasts (2 a tap and
+//    channel): 34 LDS.128 for 768 FFMA. Cout above 192 runs its channel
+//    groups on grid rows (each group stages the patch again).
+//  * Threads: 16R segments (two a row) x G granules; R grows as G falls
+//    below 8 (R = 8 / G), so a narrow conv still runs 80-128 threads.
+//  * Asynchronous staging of the next pass. Input channels go in passes of
+//    8. The patch of the next pass (the SAME halo, ragged edges and
+//    channels past Cin zero-filled) comes by cp.async, 16 bytes (4
+//    channels of a pixel) at a time, pixel-major with rows padded to an
+//    odd number of 16-byte units, so the 16 segments of a load fall in
+//    distinct bank groups. Its weights come by bulk copy: in HWIO the
+//    slice [tap, c0:c0+8, :] is one contiguous run (a row of Cout values
+//    per channel when Cout spans several groups). Both go into a two-stage
+//    ring in dynamic shared memory and complete on the stage's mbarrier
+//    (the cp.asyncs through cp.async.mbarrier.arrive), with one block
+//    barrier a pass. A conv whose Cin or Cout is not a multiple of 4 (or
+//    whose tensors are not 16-byte aligned) stages by 4-byte cp.async.
+//  * The epilogue adds the bias, applies LeakyReLU and writes float32.
+// The (quad, ky) loop is not unrolled: unrolled, the pass body was ~5000
+// instructions and ran up to 1.6x slower. What holds it back now
+// (tools/f32_ablation.py, PERF.md): the FFMA issue rate itself, at 168
+// registers and at most 12 warps an SM; the staging is 2-5% of the time
+// at the trunk's and the 64->64 shapes.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr int TH = 8, TW = 16;          // output tile: 8 rows x 16 columns
-constexpr int PH = TH + 2, PW = TW + 2;  // the patch with its 1-px halo
-constexpr int CC = 16;                   // input channels a pass
-constexpr int CO = 64;                   // output channels a block
-constexpr int THREADS = 256;             // warp w: outputs 8w..8w+7
-constexpr int PIX = TH * TW / 32;        // pixels a lane
+constexpr int CC = 8;                  // input channels a pass
+constexpr int TW = 16;                 // output columns a tile (2 segments)
+constexpr int PW = TW + 2;             // patch columns with the halo
+constexpr int PRS = PW * CC + 4;       // patch row: 37 16-byte units
+constexpr int MAX_GRAN = 24;           // granules a block: 192 channels
+constexpr int MAX_THREADS = 16 * MAX_GRAN;
+constexpr int BARS = 128;              // bytes before the ring: 2 mbarriers
 
-__global__ void __launch_bounds__(THREADS)
-conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ bias, float* __restrict__ y,
-                   int H, int W, int Cin, int Cout, int lrelu, int tiles_x) {
-  __shared__ float s_in[CC][PH * PW];
-  __shared__ __align__(16) float s_w[CC][9][CO];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n = blockIdx.z, co0 = blockIdx.y * CO;
-  const int ty0 = (blockIdx.x / tiles_x) * TH;
-  const int tx0 = (blockIdx.x % tiles_x) * TW;
-  const float* xn = x + (size_t)n * H * W * Cin;
+struct Args {
+  const float* x;
+  const float* w;
+  const float* bias;
+  float* y;
+  int H, W, Cin, Cout, lrelu;
+  int tiles_x;   // tiles along W
+  int S, G;      // segments (16R) and granules a block
+  int ws;        // floats between weight rows (Cout, or 8G)
+  int stage;     // floats a ring stage: weights then patch
+  int vec_x;     // patch by 16-byte cp.async (Cin % 4 == 0, aligned)
+  int vec_w;     // weights by bulk copy (Cin, Cout % 4 == 0, aligned)
+};
 
-  float acc[PIX][8];
-#pragma unroll
-  for (int j = 0; j < PIX; ++j)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[j][c] = 0.f;
+__device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(bar) : "memory");
+}
 
-  for (int c0 = 0; c0 < Cin; c0 += CC) {
-    for (int i = tid; i < PH * PW * CC; i += THREADS) {
-      const int ci = i % CC, p = i / CC;
-      const int iy = ty0 - 1 + p / PW, ix = tx0 - 1 + p % PW;
-      float v = 0.f;
-      if (iy >= 0 && iy < H && ix >= 0 && ix < W && c0 + ci < Cin)
-        v = xn[((size_t)iy * W + ix) * Cin + c0 + ci];
-      s_in[ci][p] = v;
+// One bulk copy completing on `bar`; the bytes are announced elsewhere.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ float comp(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+conv3x3_f32_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem + BARS);
+  const uint32_t bar0 = nesr::smem_u32(smem);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int S = a.S, TH = S / 2, G = a.G;
+  const int seg = tid % S, gran = tid / S;
+  const int r = seg >> 1, half = seg & 1;
+  const int n = blockIdx.z, co0 = blockIdx.y * G * 8;
+  const int ty0 = (blockIdx.x / a.tiles_x) * TH;
+  const int tx0 = (blockIdx.x % a.tiles_x) * TW;
+  const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout;
+  const int wfloats = 9 * CC * a.ws;   // a stage's weights
+  const int passes = (Cin + CC - 1) / CC;
+  const float* xn = a.x + (size_t)n * H * W * Cin;
+  // Cout columns this block's weight rows hold (one group: every column)
+  const int ncols = min(8 * G, Cout - co0);
+  const bool single = gridDim.y == 1;
+
+  if (tid == 0) {
+    nesr::mbar_init(reinterpret_cast<uint64_t*>(smem), nt + 1);
+    nesr::mbar_init(reinterpret_cast<uint64_t*>(smem) + 1, nt + 1);
+    nesr::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Stages pass p into ring stage p % 2: every thread issues its share of
+  // the patch (and, by 4-byte copies, of the weights) and arrives on the
+  // stage's mbarrier when they land; thread 0 announces the bulk copies'
+  // bytes (or arrives), warp 0 issues them.
+  auto issue = [&](int p) {
+    float* sw = ring + (p & 1) * a.stage;
+    float* sx = sw + wfloats;
+    const uint32_t bar = bar0 + 8 * (p & 1);
+    const int c0 = p * CC, cc = min(CC, Cin - c0);
+    if (a.vec_x) {
+      for (int i = tid; i < (TH + 2) * PW * 2; i += nt) {
+        const int q = i & 1, px = (i >> 1) % PW, py = (i >> 1) / PW;
+        const int iy = ty0 - 1 + py, ix = tx0 - 1 + px, ci = c0 + 4 * q;
+        const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W && ci < Cin;
+        const float* src = ok ? xn + ((size_t)iy * W + ix) * Cin + ci : a.x;
+        nesr::cp_async_zfill<16>(sx + py * PRS + px * CC + 4 * q, src,
+                                 ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < (TH + 2) * PW * CC; i += nt) {
+        const int ci = i % CC, px = (i / CC) % PW, py = i / (CC * PW);
+        const int iy = ty0 - 1 + py, ix = tx0 - 1 + px;
+        const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W && ci < cc;
+        const float* src =
+            ok ? xn + ((size_t)iy * W + ix) * Cin + c0 + ci : a.x;
+        nesr::cp_async_zfill<4>(sx + py * PRS + px * CC + ci, src,
+                                ok ? 4 : 0);
+      }
     }
-    for (int i = tid; i < CC * 9 * CO; i += THREADS) {
-      const int co = i % CO, tap = (i / CO) % 9, ci = i / (CO * 9);
-      float v = 0.f;
-      if (c0 + ci < Cin && co0 + co < Cout)
-        v = w[((size_t)tap * Cin + c0 + ci) * Cout + co0 + co];
-      s_w[ci][tap][co] = v;
+    if (a.vec_w) {
+      // One run a tap (one group), or one a (tap, channel) row.
+      const int runs = single ? 9 : 9 * cc;
+      const int bytes = (single ? cc * Cout : ncols) * 4;
+      if (tid == 0) nesr::mbar_expect_tx(bar, (uint32_t)(runs * bytes));
+      if (tid < 32) {
+        for (int i = tid; i < runs; i += 32) {
+          const int tap = single ? i : i / cc, ci = single ? 0 : i % cc;
+          const float* src =
+              a.w + ((size_t)tap * Cin + c0 + ci) * Cout + (single ? 0 : co0);
+          bulk_copy(nesr::smem_u32(sw + (tap * CC + ci) * a.ws), src,
+                    (uint32_t)bytes, bar);
+        }
+      }
+    } else {
+      for (int i = tid; i < 9 * CC * a.ws; i += nt) {
+        const int co = i % a.ws, ci = (i / a.ws) % CC, tap = i / (a.ws * CC);
+        const bool ok = ci < cc && co0 + co < Cout;
+        const float* src =
+            ok ? a.w + ((size_t)tap * Cin + c0 + ci) * Cout + co0 + co : a.w;
+        nesr::cp_async_zfill<4>(sw + i, src, ok ? 4 : 0);
+      }
+      if (tid == 0) nesr::mbar_arrive(bar);
     }
-    __syncthreads();
-#pragma unroll 2
-    for (int ci = 0; ci < CC; ++ci) {
+    cp_async_arrive_noinc(bar);
+  };
+
+  float acc[8][8];
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const float4 wa =
-            *reinterpret_cast<const float4*>(&s_w[ci][tap][warp * 8]);
-        const float4 wb =
-            *reinterpret_cast<const float4*>(&s_w[ci][tap][warp * 8 + 4]);
-        const int ky = tap / 3, kx = tap % 3;
+  for (int t = 0; t < 8; ++t)
 #pragma unroll
-        for (int j = 0; j < PIX; ++j) {
-          const int p = lane + 32 * j;
-          const float v = s_in[ci][(p / TW + ky) * PW + p % TW + kx];
-          acc[j][0] += v * wa.x;
-          acc[j][1] += v * wa.y;
-          acc[j][2] += v * wa.z;
-          acc[j][3] += v * wa.w;
-          acc[j][4] += v * wb.x;
-          acc[j][5] += v * wb.y;
-          acc[j][6] += v * wb.z;
-          acc[j][7] += v * wb.w;
+    for (int c = 0; c < 8; ++c) acc[t][c] = 0.f;
+
+  issue(0);
+#pragma unroll 1
+  for (int p = 0; p < passes; ++p) {
+    __syncthreads();   // every thread is done with the other stage
+    if (p + 1 < passes) issue(p + 1);
+    nesr::mbar_wait(bar0 + 8 * (p & 1), (p >> 1) & 1);
+    const float* sw = ring + (p & 1) * a.stage + 8 * gran;
+    const float* sx = ring + (p & 1) * a.stage + wfloats + r * PRS +
+                      8 * half * CC;
+    // Channel quads of this pass that hold real channels: with Cin % 4
+    // != 0 the pass is zero-filled to CC, weights and patch alike.
+    const int nq = (Cin & 3) ? CC / 4 : min(CC, Cin - p * CC) / 4;
+    // Rolled over (quad, ky): the 768-FFMA body stays in the instruction
+    // cache.
+#pragma unroll 1
+    for (int q = 0; q < nq; ++q) {
+#pragma unroll 1
+      for (int ky = 0; ky < 3; ++ky) {
+        float4 in[10];
+#pragma unroll
+        for (int t = 0; t < 10; ++t)
+          in[t] = *reinterpret_cast<const float4*>(sx + ky * PRS + t * CC +
+                                                   4 * q);
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) {
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx) {
+            const float* wp = sw + ((ky * 3 + kx) * CC + 4 * q + ch) * a.ws;
+            const float4 wa = *reinterpret_cast<const float4*>(wp);
+            const float4 wb = *reinterpret_cast<const float4*>(wp + 4);
+#pragma unroll
+            for (int t = 0; t < 8; ++t) {
+              const float v = comp(in[t + kx], ch);
+              acc[t][0] = fmaf(v, wa.x, acc[t][0]);
+              acc[t][1] = fmaf(v, wa.y, acc[t][1]);
+              acc[t][2] = fmaf(v, wa.z, acc[t][2]);
+              acc[t][3] = fmaf(v, wa.w, acc[t][3]);
+              acc[t][4] = fmaf(v, wb.x, acc[t][4]);
+              acc[t][5] = fmaf(v, wb.y, acc[t][5]);
+              acc[t][6] = fmaf(v, wb.z, acc[t][6]);
+              acc[t][7] = fmaf(v, wb.w, acc[t][7]);
+            }
+          }
         }
       }
     }
-    __syncthreads();
   }
 
+  const int oy = ty0 + r, cb = co0 + 8 * gran;
+  if (oy >= H || cb >= Cout) return;
+  float bv[8];
 #pragma unroll
-  for (int j = 0; j < PIX; ++j) {
-    const int p = lane + 32 * j;
-    const int oy = ty0 + p / TW, ox = tx0 + p % TW;
-    if (oy >= H || ox >= W) continue;
-    float* yp = y + (((size_t)n * H + oy) * W + ox) * Cout;
+  for (int c = 0; c < 8; ++c)
+    bv[c] = a.bias != nullptr && cb + c < Cout ? a.bias[cb + c] : 0.f;
+  const bool vec_y = (Cout & 3) == 0 && cb + 8 <= Cout;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const int ox = tx0 + 8 * half + t;
+    if (ox >= W) break;
+    float v[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      const int co = co0 + warp * 8 + c;
-      if (co >= Cout) break;
-      float v = acc[j][c] + (bias != nullptr ? bias[co] : 0.f);
-      if (lrelu) v = v >= 0.f ? v : 0.2f * v;
-      yp[co] = v;
+      v[c] = acc[t][c] + bv[c];
+      if (a.lrelu) v[c] = nesr::lrelu(v[c]);
+    }
+    float* yp = a.y + (((size_t)n * H + oy) * W + ox) * Cout + cb;
+    if (vec_y) {
+      *reinterpret_cast<float4*>(yp) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(yp + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if (cb + c < Cout) yp[c] = v[c];
     }
   }
 }
 
 }  // namespace
 
+// x (N, H, W, Cin), w (3, 3, Cin, Cout), bias (Cout,) or null, y (N, H, W,
+// Cout), all float32 and contiguous (kernels/conv3x3.py checks); y is
+// 16-byte aligned (torch.empty).
 extern "C" int nesr_conv3x3_f32(const void* x, const void* w,
                                 const void* bias, void* y, int N, int H,
                                 int W, int Cin, int Cout, int lrelu,
                                 void* stream) {
-  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
-  dim3 grid(tiles_x * tiles_y, (Cout + CO - 1) / CO, N);
-  conv3x3_f32_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (const float*)bias, (float*)y, H, W,
-      Cin, Cout, lrelu, tiles_x);
+  const int gran = (Cout + 7) / 8;
+  const int groups = (gran + MAX_GRAN - 1) / MAX_GRAN;
+  Args a;
+  a.x = (const float*)x;
+  a.w = (const float*)w;
+  a.bias = (const float*)bias;
+  a.y = (float*)y;
+  a.H = H;
+  a.W = W;
+  a.Cin = Cin;
+  a.Cout = Cout;
+  a.lrelu = lrelu;
+  a.G = (gran + groups - 1) / groups;
+  const int R = a.G >= 8 ? 1 : 8 / a.G;
+  a.S = 16 * R;
+  a.tiles_x = (W + TW - 1) / TW;
+  const int tiles_y = (H + 8 * R - 1) / (8 * R);
+  a.vec_x = Cin % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  a.vec_w = Cin % 4 == 0 && Cout % 4 == 0 && ((uintptr_t)w & 15) == 0;
+  a.ws = a.vec_w && groups == 1 ? Cout : 8 * a.G;
+  // weights, then the patch; a stage is a whole number of 128 bytes
+  a.stage = (9 * CC * a.ws + (8 * R + 2) * PRS + 31) / 32 * 32;
+  const int smem = BARS + 2 * a.stage * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.tiles_x * tiles_y, groups, N);
+  conv3x3_f32_kernel<<<grid, a.S * a.G, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -158,7 +158,9 @@ def load_library() -> ctypes.CDLL:
         lib.nesr_flash_attn.argtypes = [vp] * 4 + [ci] * 5 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, vp]
         lib.nesr_flash_attn.restype = ci
-        lib.nesr_flash_attn_f32.argtypes = lib.nesr_flash_attn.argtypes
+        lib.nesr_flash_attn_f32.argtypes = [vp] * 6 + [ci] * 5 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float] + [ci] * 4 + [
+            vp]
         lib.nesr_flash_attn_f32.restype = ci
         _lib, _lib_path = lib, so
         return lib

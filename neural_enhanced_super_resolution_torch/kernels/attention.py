@@ -27,9 +27,37 @@ from neural_enhanced_super_resolution_torch.kernels._build import (
     KernelInputError)
 
 __all__ = ["flash_attention", "flash_attention_f32", "flash_attention_plain",
-           "attention_auto"]
+           "attention_auto", "flash_f32_splits", "F32_TILES"]
 
 MAX_HEAD_DIM = 512  # the kernel's widest head dim (csrc/flash_attn.cu)
+
+# K3f's instantiations (csrc/flash_attn_f32.cu, Pick<DP>): head dim padded
+# to DP -> (query rows a block BQ, keys a tile BK). The kernel refuses a
+# launch whose BQ and BK are not its own.
+F32_TILES = {32: (64, 32), 64: (64, 32), 128: (64, 32), 256: (64, 128),
+             512: (32, 256)}
+
+
+def _f32_tiles(d: int) -> tuple[int, int]:
+    return F32_TILES[next(p for p in sorted(F32_TILES) if p >= d)]
+
+
+def flash_f32_splits(sq: int, skv: int, bh: int, d: int,
+                     sms: int = 132) -> tuple[int, int]:
+    """K3f's key-range split: (splits, keys a split), from the (BQ, BK) of
+    ``F32_TILES``.
+
+    The query blocks (``bh`` x ceil(Sq / BQ)) run alone when there is one
+    for each of the ``sms`` SMs; with fewer, the keys are split into
+    2 sms / blocks ranges of whole BK-key tiles (at most one a tile), so the
+    card gets about two waves. Every split starts below Skv, so each holds
+    a real key."""
+    bq, bk = _f32_tiles(d)
+    qblocks = bh * -(-sq // bq)
+    ntiles = -(-skv // bk)
+    want = 1 if qblocks >= sms else min(ntiles, (2 * sms) // qblocks)
+    per = -(-ntiles // want)
+    return -(-ntiles // per), per * bk
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -130,8 +158,10 @@ def flash_attention_f32(q: torch.Tensor, k: torch.Tensor,
 
     On the GPU: float32 operands on one device, d a multiple of 4 up to
     512, the last dim contiguous and the other strides multiples of 4. The
-    output takes q's layout. On the CPU: ``flash_attention_plain``.
-    Anything else raises ``KernelInputError``.
+    output takes q's layout. Where ``flash_f32_splits`` splits the keys,
+    the kernel writes each split's share to scratch made here and its
+    merge kernel combines them (one launch counted). On the CPU:
+    ``flash_attention_plain``. Anything else raises ``KernelInputError``.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
@@ -166,12 +196,24 @@ def flash_attention_f32(q: torch.Tensor, k: torch.Tensor,
                 f"and 16-byte alignment, got {t.stride()}")
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
+    nsplit, kps = flash_f32_splits(
+        sq, skv, b * h, d,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    bq, bk = _f32_tiles(d)
+    part = ml = None
+    if nsplit > 1:
+        # each split's unnormalised output (nsplit, B*H, Sq, d), then its
+        # (m, l) a row (nsplit, B*H, Sq, 2), in one buffer
+        rows = nsplit * b * h * sq
+        scratch = torch.empty(rows * (d + 2), dtype=torch.float32,
+                              device=q.device)
+        part, ml = scratch.data_ptr(), scratch.data_ptr() + rows * d * 4
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         err = lib.nesr_flash_attn_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, sq, skv, d, strides, 1.0 / math.sqrt(d),
-            _build.stream_ptr())
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part,
+            ml, b, h, sq, skv, d, strides, 1.0 / math.sqrt(d), nsplit, kps,
+            bq, bk, _build.stream_ptr())
     _build.check("flash_attention_f32", err)
     flash_attention_f32.launches += 1
     return out

@@ -25,6 +25,8 @@ from neural_enhanced_super_resolution_tpu.kernels.attention import (
 from neural_enhanced_super_resolution_torch.kernels import (
     KernelInputError, attention_auto, flash_attention, flash_attention_f32,
     flash_attention_plain)
+from neural_enhanced_super_resolution_torch.kernels.attention import (
+    F32_TILES, flash_f32_splits)
 
 # (id, B, H, Sq, Skv, d, block_q, block_k, kv budget MB or None)
 CASES = [
@@ -169,6 +171,138 @@ def test_attention_auto_masked_takes_the_plain_attention():
                          mask=torch.from_numpy(mask), dtype=torch.float32)
     assert flash_attention_plain.calls == calls
     assert np.abs(got.numpy() - ref).max() < 1e-5
+
+
+# ---- K3f's key-range split and its merge ---------------------------------
+
+def _f32_tile(d):
+    return F32_TILES[next(p for p in sorted(F32_TILES) if p >= d)]
+
+
+@pytest.mark.parametrize("sq,skv,bh,d", [
+    (16384, 16384, 1, 512), (4096, 4096, 8, 64), (1872, 1872, 8, 64),
+    (64 * 132, 1000, 1, 64), (32 * 132, 333, 1, 512), (1024, 1024, 8, 64)],
+    ids=["vae_128", "unet_64", "ragged_52x36", "one_wave_d64",
+         "one_wave_d512", "unet_32"])
+def test_flash_f32_splits_one_split_when_query_blocks_fill_the_card(
+        sq, skv, bh, d):
+    """Where the query blocks alone fill 132 SMs (one a SM or more), the
+    keys are not split; below that (the UNet's 32^2 grid) they are."""
+    bq, bk = _f32_tile(d)
+    nsplit, kps = flash_f32_splits(sq, skv, bh, d)
+    qblocks = bh * -(-sq // bq)
+    assert (nsplit == 1) == (qblocks >= 132)
+    assert kps % bk == 0 and kps >= (skv if nsplit == 1 else bk)
+
+
+def test_flash_f32_splits_fill_the_card_at_the_vae_request_shape():
+    """The VAE mid-block of a 48x40 request (1920^2, d 512) runs at least
+    240 blocks, in whole 128-key tiles."""
+    nsplit, kps = flash_f32_splits(1920, 1920, 1, 512)
+    bq, bk = _f32_tile(512)
+    assert -(-1920 // bq) * nsplit >= 240
+    assert kps % bk == 0 and (nsplit - 1) * kps < 1920 <= nsplit * kps
+
+
+def test_flash_f32_splits_never_make_a_split_without_a_real_key():
+    """Every split starts below Skv and the splits cover it, over query
+    and key lengths from 1 to above the tile sizes, 1 to 64 (batch, head)
+    pairs, every instantiation and 132 or 2 SMs."""
+    for d in (4, 32, 64, 100, 128, 200, 256, 512):
+        _, bk = _f32_tile(d)
+        for sq in (1, 7, 64, 100, 1920):
+            for skv in (1, 31, 32, 33, 130, 405, 1000, 4097):
+                for bh in (1, 3, 64):
+                    for sms in (132, 2):
+                        nsplit, kps = flash_f32_splits(sq, skv, bh, d, sms)
+                        assert nsplit >= 1 and kps % bk == 0
+                        assert (nsplit - 1) * kps < skv <= nsplit * kps
+
+
+def _split_flash(q, k, v, kps):
+    """K3f's order of operations in plain PyTorch (csrc/flash_attn_f32.cu),
+    float32: the keys cut into ranges of ``kps`` keys (whole BK-key tiles,
+    as ``flash_f32_splits`` plans them); per split, per tile, scores q k^T
+    scaled by log2(e) / sqrt(d) (base 2), the online softmax (m, l and the
+    output rescaled by exp2(m_old - m_new)), the unnormalised output, m and
+    l kept; then the merge: the same online step over the splits in order,
+    and the division by l."""
+    d, skv = q.shape[-1], k.shape[-2]
+    _, bk = _f32_tile(d)
+    sl = math.log2(math.e) / math.sqrt(d)
+    lead = (*q.shape[:-1], 1)
+    splits = []
+    for s0 in range(0, skv, kps):
+        m, l = torch.full(lead, -math.inf), torch.zeros(lead)
+        acc = torch.zeros(q.shape)
+        for k0 in range(s0, min(skv, s0 + kps), bk):
+            kt, vt = k[..., k0:k0 + bk, :], v[..., k0:k0 + bk, :]
+            sc = (q @ kt.transpose(-1, -2)) * sl
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            alpha, p = torch.exp2(m - m_new), torch.exp2(sc - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p @ vt
+            m = m_new
+        splits.append((acc, m, l))
+    m, l = torch.full(lead, -math.inf), torch.zeros(lead)
+    acc = torch.zeros(q.shape)
+    for acc_s, m_s, l_s in splits:
+        m_new = torch.maximum(m, m_s)
+        alpha, beta = torch.exp2(m - m_new), torch.exp2(m_s - m_new)
+        l = l * alpha + l_s * beta
+        acc = acc * alpha + acc_s * beta
+        m = m_new
+    return acc / l
+
+
+# splits -> the SM count for which flash_f32_splits plans them at
+# (B*H 2, Sq 100, Skv 405, d 64): 4 query blocks, 13 key tiles
+SMS_FOR_SPLITS = {1: 2, 2: 5, 3: 6, 7: 14}
+
+
+@pytest.mark.parametrize("against", ["plain", "jax"])
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 7])
+def test_split_walk_and_merge_match_plain_and_jax(nsplit, against):
+    """The split walk, as flash_f32_splits plans it for a small SM count,
+    over a ragged Skv (405 keys: 13 tiles of 32, the last ragged) against
+    flash_attention_plain and the JAX Pallas kernel in float32 (interpret
+    mode), q and k of std 2; 2e-5 absolute, as
+    test_flash_plain_matches_jax_flash."""
+    planned, kps = flash_f32_splits(100, 405, 2, 64, SMS_FOR_SPLITS[nsplit])
+    assert planned == nsplit
+    q, k, v = _inputs(405 + nsplit, 1, 2, 100, 405, 64)
+    q, k = q * 2.0, k * 2.0
+    got = _split_flash(*(torch.from_numpy(t) for t in (q, k, v)),
+                       kps).numpy()
+    if against == "plain":
+        ref = _port(q, k, v, torch.float32)
+    else:
+        ref = _jax(q, k, v, jnp.float32, 128, 128)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() < 2e-5
+
+
+@pytest.mark.parametrize("against", ["plain", "jax"])
+def test_split_walk_padded_keys_extreme_scores(against):
+    """Every real score -2048 (q = 16, k = -16, d = 64) over a ragged Skv
+    of 90, in the 3 splits flash_f32_splits plans on 2 SMs: each split's m
+    is the same, the merge weights the splits by their key counts, and the
+    output is uniform over the real keys. 2e-5 absolute against the
+    reference, 2e-3 against the mean (as
+    test_flash_plain_padded_keys_extreme_scores)."""
+    nsplit, kps = flash_f32_splits(8, 90, 1, 64, sms=2)
+    assert nsplit == 3
+    v = np.random.default_rng(7).normal(size=(1, 1, 90, 64)).astype(
+        np.float32)
+    q = np.full((1, 1, 8, 64), 16.0, np.float32)
+    k = np.full((1, 1, 90, 64), -16.0, np.float32)
+    got = _split_flash(torch.from_numpy(q), torch.from_numpy(k),
+                       torch.from_numpy(v), kps).numpy()
+    ref = (_port(q, k, v, torch.float32) if against == "plain"
+           else _jax(q, k, v, jnp.float32, 8, 64))
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+    want = v.mean(axis=2, keepdims=True).repeat(8, axis=2)
+    np.testing.assert_allclose(got, want, atol=2e-3)
 
 
 # ---- K3's order of operations and its shared-memory layouts -------------

@@ -570,14 +570,21 @@ def test_float32_request_on_the_card_matches_the_cpu(cuda, tmp_path):
     (2, 37, 45, 12, 64, True, False), (1, 40, 33, 64, 192, False, False),
     (1, 30, 50, 32, 160, False, False), (2, 21, 19, 64, 3, True, False),
     (1, 18, 70, 64, 64, True, True), (1, 9, 9, 130, 32, True, True),
-    (1, 11, 13, 3, 300, True, False), (2, 24, 16, 180, 180, True, False)],
+    (1, 11, 13, 3, 300, True, False), (2, 24, 16, 180, 180, True, False),
+    (2, 40, 72, 64, 192, False, False), (2, 40, 72, 32, 160, False, False),
+    (2, 40, 72, 32, 128, False, False), (2, 40, 72, 32, 96, False, False),
+    (2, 40, 72, 32, 64, False, False), (1, 19, 23, 16, 8, True, True),
+    (1, 21, 35, 32, 200, True, False), (1, 17, 29, 64, 300, True, True)],
     ids=["conv_first", "w0", "w1", "conv_last", "head_lrelu",
-         "ragged_cin", "cin3_two_blocks", "swinir_rstb"])
+         "ragged_cin", "cin3_two_blocks", "swinir_rstb", "trunk_w0",
+         "trunk_w1", "trunk_w2", "trunk_w3", "trunk_w4", "cout8_one_granule",
+         "cout200_two_groups", "cout300_two_groups_bulk"])
 def test_conv3x3_f32_kernel_matches_plain(cuda, n, h, w, cin, cout, bias,
                                           act):
-    """K1f at the trunk's and head's shapes, Cin off the 16-channel pass,
-    Cout off the 64-channel block, ragged 8 x 16 tiles; conv3x3 routes a
-    float32 x to it."""
+    """K1f at the trunk's five and the head's shapes, Cin off the 8-channel
+    pass and off 4 (4-byte staging), Cout of one granule, off 8, and above
+    the 192 channels of one block (two channel groups, by 4-byte staging
+    and by bulk copies), ragged tiles; conv3x3 routes a float32 x to it."""
     g = torch.Generator().manual_seed(cin * cout + h)
     x = torch.randn((n, h, w, cin), generator=g).to(cuda)
     wt = (torch.randn((3, 3, cin, cout), generator=g) * 0.05).to(cuda)
@@ -596,11 +603,14 @@ def test_conv3x3_f32_kernel_matches_plain(cuda, n, h, w, cin, cout, bias,
 @pytest.mark.parametrize("b,h,sq,skv,d", [
     (1, 8, 256, 256, 64), (2, 4, 300, 300, 64), (1, 2, 200, 330, 128),
     (1, 1, 1000, 1000, 512), (1, 2, 70, 45, 256), (2, 1, 100, 257, 72),
-    (1, 2, 77, 150, 20), (1, 1, 333, 200, 264)])
+    (1, 2, 77, 150, 20), (1, 1, 333, 200, 264), (1, 1, 1920, 1920, 512),
+    (1, 2, 40, 3000, 64), (1, 8, 4096, 4096, 64)])
 def test_flash_attention_f32_kernel_matches_plain(cuda, b, h, sq, skv, d):
-    """K3f at head dims padded to 32..512, query counts off the 32-row
-    block and key counts off the 32-key tile; flash_attention routes a
-    float32 q to it."""
+    """K3f at head dims padded to 32..512, query counts off the query
+    block and key counts off the key tile, key-range splits (the VAE
+    mid-block's 1920^2 at d 512, and Skv far above Sq) and the UNet's
+    64^2 self-attention with none; flash_attention routes a float32 q to
+    it."""
     q, k, v = (t.float() for t in _qkv(cuda, b, h, sq, skv, d, seed=sq))
     launches, k3 = flash_attention_f32.launches, flash_attention.launches
     got = flash_attention(q, k, v)

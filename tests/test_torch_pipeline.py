@@ -310,11 +310,10 @@ def test_float32_request_matches_jax(tmp_path, ckpt, test_image):
     assert "esrgan+post/streamed" in pipes["torch"].timer.totals
 
 
-def test_float32_on_the_gpu_runs_the_plain_versions(tmp_path, ckpt,
-                                                    monkeypatch, caplog):
+def test_float32_on_the_gpu_runs_the_float32_kernels(tmp_path, ckpt,
+                                                     monkeypatch, caplog):
     """float32 on cuda is a mode, not a refusal: the pipeline turns TF32
-    off and says, once, that the kernels' float32 forms run (the name is
-    older than those forms: no plain version runs on the card)."""
+    off and says, once, that the kernels' float32 forms run."""
     import logging
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)

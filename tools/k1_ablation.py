@@ -22,12 +22,11 @@ import ctypes
 import importlib
 import os
 import re
-import shutil
 import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PKG = os.path.join(ROOT, "neural_enhanced_super_resolution_torch")
+from ablation_build import ROOT, prepare, timed
+
 OUT = os.path.join(ROOT, "build", "k1_ablation")
 REPS = 20
 # (label, Cin, Cout) at the tile batch.
@@ -95,33 +94,14 @@ TRACE_EDITS = [
 ]
 
 
-def _nvcc() -> str:
-    sys.path.insert(0, ROOT)
-    from neural_enhanced_super_resolution_torch.kernels import _build
-    return _build._nvcc()
-
-
-def _prepare(name: str, edits) -> tuple[str, subprocess.Popen]:
-    src_dir = os.path.join(OUT, name)
-    shutil.rmtree(src_dir, ignore_errors=True)
-    shutil.copytree(os.path.join(PKG, "csrc"), src_dir)
-    path = os.path.join(src_dir, "conv3x3.cu")
-    with open(path) as f:
-        text = f.read()
-    for old, new in edits:
-        if old not in text:
-            raise SystemExit(f"{name}: edit no longer matches: {old!r}")
-        text = text.replace(old, new)
-    text = re.sub(r"    case (\d+): return launch_ks<\d+>\(p, ks, N, s\);\n",
+def _keep_widths(text: str) -> str:
+    return re.sub(r"    case (\d+): return launch_ks<\d+>\(p, ks, N, s\);\n",
                   lambda m: m.group(0) if int(m.group(1)) in KEEP_WIDTHS
                   else "", text)
-    with open(path, "w") as f:
-        f.write(text)
-    so = os.path.join(src_dir, "libk1.so")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xcompiler", "-fPIC", "-shared", path, "-o", so]
-    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
+
+
+def _prepare(name: str, edits):
+    return prepare(OUT, name, "conv3x3.cu", edits, finish=_keep_widths)
 
 
 def main() -> int:
@@ -139,7 +119,7 @@ def main() -> int:
     jobs = {name: _prepare(name, edits) for name, edits in
             [*VARIANTS.items(), ("trace", TRACE_EDITS)]}
     libs = {}
-    for name, (so, proc) in jobs.items():
+    for name, (so, _, proc) in jobs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise SystemExit(f"{name}: nvcc failed\n{log[-3000:]}")
@@ -167,18 +147,8 @@ def main() -> int:
         if err:
             raise SystemExit(f"launch failed: CUDA error {err}")
 
-    def timed(lib, case) -> float:
-        _, cin, cout, x, packed, y = case
-        run(lib, cin, cout, x, packed, y)
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(REPS):
-            run(lib, cin, cout, x, packed, y)
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / REPS
+    def timed_case(lib, case) -> float:
+        return timed(torch, lambda: run(lib, *case[1:]), REPS)
 
     trace = libs.pop("trace")
     trace.k1_trace_copy.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -211,7 +181,7 @@ def main() -> int:
     order = list(VARIANTS) + ["base"]
     for i, name in enumerate(order):
         label = name if i < len(order) - 1 else "base (again)"
-        times = [f"{case[0]} {timed(libs[name], case):.4f} ms"
+        times = [f"{case[0]} {timed_case(libs[name], case):.4f} ms"
                  for case in cases]
         print(f"K1 {label}: " + "; ".join(times), flush=True)
     return 0

@@ -37,12 +37,11 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import shutil
 import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PKG = os.path.join(ROOT, "neural_enhanced_super_resolution_torch")
+from ablation_build import CSRC, ROOT, prepare, timed
+
 OUT = os.path.join(ROOT, "build", "k2_ablation")
 REPS = 20
 N, H, W = 4, 268, 268
@@ -101,33 +100,17 @@ class _Swapped:
         return getattr(self._lib, name)
 
 
-def _nvcc() -> str:
-    sys.path.insert(0, ROOT)
-    from neural_enhanced_super_resolution_torch.kernels import _build
-    return _build._nvcc()
-
-
 def _prepare(name: str, csrc: str, prefix: str = "", edits=()):
-    src_dir = os.path.join(OUT, name)
-    shutil.rmtree(src_dir, ignore_errors=True)
-    shutil.copytree(csrc, src_dir)
-    path = os.path.join(src_dir, "rdb_fused.cu")
-    with open(path) as f:
-        text = f.read()
-    if prefix and "K2_PHASE(" not in text:
-        raise SystemExit(f"{name}: rdb_fused.cu has no phase hooks")
-    for old, new in edits:
-        if old not in text:
-            raise SystemExit(f"{name}: edit no longer matches: {old!r}")
-        text = text.replace(old, new)
-    with open(path, "w") as f:
-        f.write(prefix + text)
-    so = os.path.join(src_dir, "libk2.so")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xcompiler", "-fPIC", "-shared", path, "-o", so]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return so, "wgmma" in text, proc
+    packed = []   # whether the source (before the prefix) issues wgmma
+
+    def finish(text: str) -> str:
+        if prefix and "K2_PHASE(" not in text:
+            raise SystemExit(f"{name}: rdb_fused.cu has no phase hooks")
+        packed.append("wgmma" in text)
+        return prefix + text
+    so, _, proc = prepare(OUT, name, "rdb_fused.cu", edits, csrc=csrc,
+                          finish=finish)
+    return so, packed[0], proc
 
 
 def main() -> int:
@@ -147,15 +130,14 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    csrc = os.path.join(PKG, "csrc")
-    jobs = {"base": _prepare("base", csrc),
-            "clock": _prepare("clock", csrc, CLOCK_DEFS)}
+    jobs = {"base": _prepare("base", CSRC),
+            "clock": _prepare("clock", CSRC, CLOCK_DEFS)}
     if args.baseline:
         jobs["baseline"] = _prepare("baseline", os.path.abspath(
             args.baseline))
     if args.faults:
         for name, edits in FAULTS.items():
-            jobs[name] = _prepare(name, csrc, edits=edits)
+            jobs[name] = _prepare(name, CSRC, edits=edits)
     libs = {}
     for name, (so, packed, proc) in jobs.items():
         log = proc.communicate()[0]
@@ -185,22 +167,11 @@ def main() -> int:
         if err:
             raise SystemExit(f"{name}: launch failed: CUDA error {err}")
 
-    def timed(name) -> float:
-        run(name)
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(REPS):
-            run(name)
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / REPS
-
     order = [name for name in ("baseline", "base", "clock", "base",
                                "baseline") if name in libs]
     for name in order:
-        print(f"K2 {name}: {timed(name):.4f} ms a launch (events, "
+        ms = timed(torch, lambda: run(name), REPS)
+        print(f"K2 {name}: {ms:.4f} ms a launch (events, "
               f"{REPS} launches) on {tuple(x.shape)}", flush=True)
 
     lib = libs["clock"][0]

@@ -21,12 +21,10 @@ import ctypes
 import math
 import os
 import re
-import shutil
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PKG = os.path.join(ROOT, "neural_enhanced_super_resolution_torch")
+from ablation_build import ROOT, prepare
+
 OUT = os.path.join(ROOT, "build", "k3_ablation")
 REPS = 10
 # (label, B, H, Sq, Skv, d): chip_smoke.py's FLASH_SHAPES that lose most
@@ -36,12 +34,11 @@ SHAPES = [("unet 64^2 d64", 1, 8, 4096, 4096, 64),
           ("vae 128^2 d512", 1, 1, 16384, 16384, 512),
           ("ragged 4000 d512", 1, 1, 4000, 4000, 512)]
 # variant: [(old text, new text), ...] applied to flash_attn.cu, each to
-# every place the old text appears (a regular expression where the old text
-# starts with the expect-tx call)
+# every place the old text appears (a compiled pattern substituted)
 VARIANTS = {
     "base": [],
     # no Q/K/V copies: every tile's barrier completes at once
-    "no_loads": [(r"nesr::mbar_expect_tx\(([^,]+), [^;]+\);",
+    "no_loads": [(re.compile(r"nesr::mbar_expect_tx\(([^,]+), [^;]+\);"),
                   r"nesr::mbar_arrive(\1);"),
                  ("nesr::tma_load_4d(", "if (b < 0) nesr::tma_load_4d(")],
     # S = Q K^T skipped (the softmax runs on whatever the registers hold)
@@ -113,35 +110,9 @@ PHASES = ("between steps", "wait K + issue S", "refill + rescale + wait V",
           "issue P V", "wait S", "softmax", "wait P V")
 
 
-def _nvcc() -> str:
-    sys.path.insert(0, ROOT)
-    from neural_enhanced_super_resolution_torch.kernels import _build
-    return _build._nvcc()
-
-
-def _prepare(name: str, edits) -> tuple[str, subprocess.Popen]:
-    src_dir = os.path.join(OUT, name)
-    shutil.rmtree(src_dir, ignore_errors=True)
-    shutil.copytree(os.path.join(PKG, "csrc"), src_dir)
-    path = os.path.join(src_dir, "flash_attn.cu")
-    with open(path) as f:
-        text = f.read()
-    for old, new in edits:
-        if old.startswith("nesr::mbar_expect_tx\\("):   # a pattern
-            text, n = re.subn(old, new, text)
-        else:
-            n = text.count(old)
-            text = text.replace(old, new)
-        if n == 0:
-            raise SystemExit(f"{name}: edit no longer matches: {old!r}")
-    with open(path, "w") as f:
-        f.write(text)
-    so = os.path.join(src_dir, "libk3.so")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-shared", path,
-           "-o", so]
-    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
+def _prepare(name: str, edits):
+    so, _, proc = prepare(OUT, name, "flash_attn.cu", edits, ptxas=True)
+    return so, proc
 
 
 def main() -> int:
