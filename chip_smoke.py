@@ -66,7 +66,20 @@ weights:
   with its device time split into K1f and the rest; then K1f against its
   plain version at the shapes of that forward and of the requests, and
   K3f at every FLASH_SHAPES row and the request's shapes (with the split
-  count of each).
+  count of each);
+* the multi-device layer over a mesh of every card, or of the one card
+  listed four times (a one-card rehearsal: no time is a multi-card
+  speed): tile-batch DP of the full-width RRDBNet x4 on 1024x768 against
+  one device bit for bit, with its K1 launches (forwards x 351) and no
+  host sync in the shard dispatch loop (sync debug mode "error"); strips
+  against a sequential emulation; the member ensemble of two RRDBNets;
+  split CFG of the full-width SD x4 UNet against ``cfg_split`` bit for
+  bit; a TP UNet pass at tp 2 against the replicated pass; the default
+  config and a strips request through ``enhance_array`` with
+  ``data_parallel: "auto"`` (the pipeline sees the mesh through a
+  replaced ``runtime.device.visible_devices``); ``init_multihost`` on
+  NCCL at world size 1 with one ``all_gather``; and the dry run of
+  ``parallel/dryrun.py``, one PASS line a step.
 
 Prints the card, every measurement, a JSON line of per-kernel results and,
 last, a JSON status line. Any failure exits non-zero without the status
@@ -77,6 +90,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import math
 import os
 import subprocess
@@ -2393,6 +2407,432 @@ def check_flash_attention_f32(torch, gen, shapes) -> dict:
     return dict(rows[F32_VAE_SHAPE], max_abs_err=worst)
 
 
+MD_IMAGE = (768, 1024)       # H, W of the tile-DP and strip checks
+MD_MEMBER = 268              # the member ensemble's image edge
+MD_LATENT = 128              # split CFG and TP: a 128^2 latent
+TOL_TP = 1e-2                # TP UNet pass: max|err| / max|ref|, bf16
+# ... unless the replicated pass's own bf16 floor (the same pass at batch 2
+# against batch 1: another GEMM shape, other roundings) is above it: then
+# TP is held to within TP_FLOOR_MARGIN of that floor, measured in the run.
+TP_FLOOR_MARGIN = 1.25
+TP_INPUTS = 3                # seeded UNet inputs the TP check compares on
+LADDER_WARNINGS = ("Sharded tile path failed", "Strip-sharded path failed")
+
+
+class _Warnings(logging.Handler):
+    """Collects the WARNING records of the pipeline's logger."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages: list[str] = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def multi_device_mesh(torch) -> tuple[tuple, bool]:
+    """Every card when there are two or more; else the one card listed
+    four times (a one-card rehearsal of a four-slot layout)."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return tuple(torch.device("cuda", i) for i in range(n)), False
+    return (torch.device("cuda", 0),) * 4, True
+
+
+def strip_emulation(torch, fn, image, n: int, halo: int, scale: int):
+    """Strip sharding done sequentially by indexing: each strip with its
+    neighbours' rows or its reflected edge, one forward each."""
+    from neural_enhanced_super_resolution_torch.ops.pad import reflect_pad
+    h = int(image.shape[0])
+    padded = reflect_pad(image, 0, 0, (-h) % n)
+    rows = int(padded.shape[0]) // n
+    outs = []
+    for i in range(n):
+        lo, hi = i * rows, (i + 1) * rows
+        s = padded[lo:hi]
+        top = padded[lo - halo:lo] if i > 0 else s[1:halo + 1].flip(0)
+        bot = (padded[hi:hi + halo] if i < n - 1
+               else s[-halo - 1:-1].flip(0))
+        y = fn(torch.cat([top, s, bot])[None].contiguous())[0]
+        outs.append(y[halo * scale:y.shape[0] - halo * scale])
+    return torch.cat(outs)[:h * scale]
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
+                       name: str) -> dict:
+    """The multi-device layer at full width over a mesh of the card(s):
+    tile DP and strips of the RRDBNet x4, the member ensemble, split CFG
+    and TP of the SD x4 UNet, the default config and a strips request
+    through the product with ``data_parallel: "auto"``, NCCL at world size
+    1, and the dry run. Each sharded result is held against its
+    single-device counterpart. Returns the K1 and K3 launches of the
+    sharded runs."""
+    from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv3x3, conv3x3_plain, flash_attention, flash_attention_plain)
+    from neural_enhanced_super_resolution_torch.models import (
+        RRDBNet, RRDBNetConfig, init_rrdbnet)
+    from neural_enhanced_super_resolution_torch.models.diffusion import (
+        load_upscale_pipeline, unet_forward)
+    from neural_enhanced_super_resolution_torch.models.diffusion.cfg_shard \
+        import cfg_mesh, denoise_cfg_sharded
+    from neural_enhanced_super_resolution_torch.ops.enhance import (
+        contrast_stage)
+    from neural_enhanced_super_resolution_torch.parallel import (
+        ensemble_members_sharded, process_strips_sharded, process_tiled,
+        process_tiled_sharded, shard_tiles)
+    from neural_enhanced_super_resolution_torch.parallel.dryrun import (
+        dryrun_multichip, visible)
+    from neural_enhanced_super_resolution_torch.parallel.mesh import module_on
+    from neural_enhanced_super_resolution_torch.parallel.tensor import (
+        TensorParallelUNet)
+    from neural_enhanced_super_resolution_torch.pipeline import esrgan_step
+    from neural_enhanced_super_resolution_torch.runtime import distributed
+    from neural_enhanced_super_resolution_torch.runtime.profiler import (
+        StageTimer)
+    from neural_enhanced_super_resolution_torch.utils.io import imread_rgb
+    from neural_enhanced_super_resolution_torch.utils.metrics import psnr
+
+    t_phase = time.perf_counter()
+    mesh, repeated = multi_device_mesh(torch)
+    n = len(mesh)
+    tag = (f"one-card rehearsal, not a multi-card speed; {name}" if repeated
+           else f"{n} cards; {name}")
+    log(f"multi-device: mesh of {n} slots {[str(d) for d in mesh]}"
+        + (" (the one card listed 4 times: every time below is a one-card "
+           "rehearsal, not a multi-card speed)" if repeated else ""))
+    counts = {"conv3x3": 0, "flash_attention": 0}
+    warnings = _Warnings()
+    logging.getLogger("nesr").addHandler(warnings)
+
+    def zero():
+        conv3x3.launches = flash_attention.launches = 0
+        conv3x3_plain.calls = flash_attention_plain.calls = 0
+
+    def no_plain(label):
+        if conv3x3_plain.calls or flash_attention_plain.calls:
+            raise AssertionError(f"{label}: plain versions ran on the card")
+
+    # ---- tile DP: the full-width RRDBNet x4 on a 1024x768 image ----------
+    model = RRDBNet(RRDBNetConfig(**ARCH), sd, dtype=torch.bfloat16,
+                    device="cuda").eval()
+    replicas = {}
+
+    def fn(tiles, member=None):
+        m = member or model
+        key = (id(m), tiles.device)
+        if key not in replicas:
+            replicas[key] = module_on(m, tiles.device)
+        return esrgan_step(replicas[key], tiles, "stack12")
+
+    hh, ww = MD_IMAGE
+    img = torch.from_numpy(_noisy_images(np, 1, hh, ww, SEED + 40)[0]).cuda()
+    tile, halo, batch = 256, 6, 16   # the cuda overlay's geometry
+    process_tiled_sharded(fn, img, mesh, tile, halo, 4, batch_tiles=batch)
+    process_tiled(fn, img, tile, halo, 4, batch_tiles=batch)   # warm both
+    single, single_ms = _timed(torch, lambda: process_tiled(
+        fn, img, tile, halo, 4, batch_tiles=batch))
+    shards = []
+
+    def counted(tiles):
+        shards.append(int(tiles.shape[0]))
+        return fn(tiles)
+
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")   # any host sync raises
+    try:
+        out = process_tiled_sharded(counted, img, mesh, tile, halo, 4,
+                                    batch_tiles=batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sharded_ms = (time.perf_counter() - t0) * 1e3
+    k1 = conv3x3.launches
+    no_plain("tile DP")
+    log(f"multi-device tile DP: RRDBNet x4 (64/23/32, bf16) on {ww}x{hh}, "
+        f"{tile}-px tiles, halo {halo}, batch {batch} a slot: {len(shards)} "
+        f"shards of {shards} tiles, K1 launches {k1} (forwards x 351 = "
+        f"{len(shards) * 351}), 0 host syncs from the first shard's "
+        f"dispatch to the last one's (sync debug mode 'error'); equal to "
+        f"process_tiled bit for bit: {torch.equal(out, single)}; dispatch "
+        f"{dispatch_ms:.2f} ms, sharded {sharded_ms:.2f} ms, one device "
+        f"{single_ms:.2f} ms ({tag})")
+    if not torch.equal(out, single) or k1 != len(shards) * 351:
+        raise AssertionError(f"tile DP: equal {torch.equal(out, single)}, "
+                             f"K1 {k1}, shards {shards}")
+    counts["conv3x3"] += k1
+
+    # ---- strips over the mesh against a sequential emulation ---------------
+    zero()
+    strips, strips_ms = _timed(torch, lambda: process_strips_sharded(
+        fn, img, mesh, halo=halo, scale=4))
+    k1 = conv3x3.launches
+    emulated = strip_emulation(torch, fn, img, n, halo, 4)
+    no_plain("strips")
+    log(f"multi-device strips: {n} strips of {ww}x{-(-hh // n)} + 2x{halo} "
+        f"halo rows, K1 launches {k1} (forwards x 351 = {n * 351}); equal to "
+        f"the sequential emulation bit for bit: "
+        f"{torch.equal(strips, emulated)}; {strips_ms:.2f} ms ({tag})")
+    if not torch.equal(strips, emulated) or k1 != n * 351:
+        raise AssertionError(f"strips: K1 {k1}")
+    counts["conv3x3"] += k1
+
+    # ---- the member ensemble: two seeded full-width RRDBNets ---------------
+    member2 = RRDBNet(RRDBNetConfig(**ARCH), init_rrdbnet(
+        RRDBNetConfig(**ARCH), torch.Generator().manual_seed(SEED + 1)),
+        dtype=torch.bfloat16, device="cuda").eval()
+    small = img[:MD_MEMBER, :MD_MEMBER].contiguous()
+
+    def member_fn(member, x):
+        return esrgan_step(member, x[None], "stack12")[0]
+
+    zero()
+    ens, ens_ms = _timed(torch, lambda: ensemble_members_sharded(
+        member_fn, [model, member2], small, mesh[:2], weights=[0.5, 0.5]))
+    k1 = conv3x3.launches
+    ref = (member_fn(model, small).float() * 0.5
+           + member_fn(member2, small).float() * 0.5)
+    err = (ens - ref).abs().max().item()
+    log(f"multi-device member ensemble: 2 RRDBNets (seeds {SEED}, "
+        f"{SEED + 1}) on {MD_MEMBER}^2 over 2 slots, weights 0.5/0.5: max "
+        f"abs err {err:.3g} against the weighted sum on one device (bar "
+        f"1e-6), K1 launches {k1}; {ens_ms:.2f} ms ({tag})")
+    if not err <= 1e-6 or k1 != 2 * 351:
+        raise AssertionError(f"member ensemble: err {err}, K1 {k1}")
+    counts["conv3x3"] += k1
+    del member2
+
+    # ---- split CFG: the full-width SD x4 on a 128x128 image, 2 DDIM steps -
+    pipe = load_upscale_pipeline(snap, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(SEED + 41)
+    s = MD_LATENT
+    image = pipe._image(torch.randint(0, 256, (s, s, 3), generator=gen,
+                                      device="cuda", dtype=torch.uint8))
+    embeds = pipe.encode_prompt(PROMPT)
+    noise = torch.randn((1, s, s, 3), generator=gen, device="cuda")
+    latents = torch.randn((1, s, s, 4), generator=gen, device="cuda")
+    steps = pipe.scheduler.timesteps(2)
+    args = (embeds, image, noise, latents, None, steps, 20, 7.5)
+    pair = cfg_mesh(mesh[:2])
+    unets = [pipe._unet_on(d) for d in pair]
+    pipe._denoise(*args)   # warm
+    zero()
+    lat_single, single_ms = _timed(torch, lambda: pipe._denoise(*args))
+    k3_single = flash_attention.launches
+    zero()
+    lat_sharded, sharded_ms = _timed(torch, lambda: denoise_cfg_sharded(
+        unets, *args, pipe.scheduler, pipe.low_res_scheduler, pair))
+    k3 = flash_attention.launches
+    equal = torch.equal(lat_sharded.to(lat_single.device), lat_single)
+    no_plain("split CFG")
+    log(f"multi-device split CFG: SD x4 UNet (full width), {s}^2 latent, 2 "
+        f"DDIM steps, uncond on slot 0 and cond on slot 1: latents equal to "
+        f"cfg_split on one device bit for bit: {equal}; K3 launches {k3} "
+        f"(one device {k3_single}); sharded {sharded_ms:.2f} ms, one device "
+        f"{single_ms:.2f} ms ({tag})")
+    if not equal or k3 != k3_single or k3 != SD_ATTN_PER_PASS * 2 * 2:
+        raise AssertionError(f"split CFG: equal {equal}, K3 {k3} vs "
+                             f"{k3_single}")
+    counts["flash_attention"] += k3
+
+    # ---- TP: one full-width UNet pass at a 128^2 latent, tp 2 --------------
+    ctx, labels = embeds[1:], torch.tensor([20], device="cuda")
+    tp_unet = TensorParallelUNet(pipe.unet, mesh[:2])
+    xs = [torch.randn((1, s, s, 7), generator=gen, device="cuda")
+          for _ in range(TP_INPUTS)]
+    tp_unet(xs[0], 500, ctx, labels)   # warm
+    tp_unet.attn_calls = [0, 0]
+    zero()
+    got, tp_ms = _timed(torch, lambda: tp_unet(xs[0], 500, ctx, labels))
+    k3 = flash_attention.launches
+    per_slot = list(tp_unet.attn_calls)
+    _, ref_ms = _timed(torch, lambda: unet_forward(pipe.unet, xs[0], 500,
+                                                   ctx, labels))
+    rels, floors, finite = [], [], True
+    for x in xs:
+        got = tp_unet(x, 500, ctx, labels)
+        ref = unet_forward(pipe.unet, x, 500, ctx, labels)
+        ref2 = unet_forward(pipe.unet, x.repeat(2, 1, 1, 1), 500,
+                            ctx.repeat(2, 1, 1), labels.repeat(2))[:1]
+        rels.append(((got - ref).abs().max() / ref.abs().max()).item())
+        floors.append(((ref2 - ref).abs().max() / ref.abs().max()).item())
+        finite = finite and bool(torch.isfinite(got).all())
+    bars = [max(TOL_TP, TP_FLOOR_MARGIN * f) for f in floors]
+    no_plain("TP")
+    log(f"multi-device TP: SD x4 UNet pass (full width) at {s}^2, tp 2 "
+        f"(heads, GEGLU halves and row-parallel sums split over 2 slots), "
+        f"{TP_INPUTS} seeded inputs: rel err "
+        f"{', '.join(f'{r:.4g}' for r in rels)} against the replicated pass "
+        f"(bar {TOL_TP}, bf16: "
+        f"{'met' if max(rels) <= TOL_TP else 'NOT met'}); the replicated "
+        f"pass at batch 2 differs from itself at batch 1 by rel "
+        f"{', '.join(f'{f:.4g}' for f in floors)} (its bf16 floor at this "
+        f"measure), so the check holds TP to "
+        f"{', '.join(f'{b:.4g}' for b in bars)}; K3 launches {k3} a pass, "
+        f"per slot {per_slot}; TP {tp_ms:.2f} ms, replicated {ref_ms:.2f} "
+        f"ms ({tag})")
+    if not finite or any(r > b for r, b in zip(rels, bars)) or \
+            per_slot != [SD_ATTN_PER_PASS] * 2 or \
+            k3 != 2 * SD_ATTN_PER_PASS:
+        raise AssertionError(f"TP: rel {rels}, K3 {k3}, per slot "
+                             f"{per_slot}")
+    counts["flash_attention"] += k3
+    del pipe, tp_unet, unets
+    torch.cuda.empty_cache()
+
+    # ---- the product: the default config over the mesh --------------------
+    base = {"use_diffusion": True, "diffusion_model_path": snap,
+            "esrgan_model_path": ckpt, "segmentation_model_path": seg,
+            "iterations": 1, "output_dir": os.path.join(OUT, "md_out")}
+    small_img = imread_rgb(os.path.join(OUT, "default_128.png"))
+    one = SuperResolutionPipeline("cuda", dict(base, data_parallel="off"))
+    one._load_models()
+    streams = one._stream_final_ok(0, 1, small_img)
+    if streams:
+        one.config["streamed_output"] = False
+    one.enhance_array(small_img, PROMPT)   # warm
+    out_one, one_ms = _timed(torch, lambda: one.enhance_array(small_img,
+                                                              PROMPT))
+    del one
+    with visible(mesh):
+        multi = SuperResolutionPipeline("cuda", dict(base,
+                                                     data_parallel="auto"))
+        multi._load_models()
+        layout = multi._parallel_layout()
+        multi.enhance_array(small_img, PROMPT)   # warm
+        multi.timer = StageTimer()
+        zero()
+        out_multi, multi_ms = _timed(torch, lambda: multi.enhance_array(
+            small_img, PROMPT))
+    k1, k3 = conv3x3.launches, flash_attention.launches
+    no_plain("default config over the mesh")
+    equal = np.array_equal(out_multi, out_one)
+    log(f"multi-device default config 128x128 -n 1 (denoise, segmentation, "
+        f"ESRGAN, diffusion), data_parallel auto: ESRGAN slots "
+        f"{layout['slots']}, diffusion on slot {layout['diffusion_slot']}; "
+        f"equal to the single-device request bit for bit: {equal} (the "
+        "single-device side "
+        + ("would take the streamed final, so it ran with streamed_output "
+           "false" if streams else "takes the standard chain here, as "
+           "diffusion joins the ensemble; streamed_output at its default")
+        + f"); K1 {k1}, K3 {k3}; {multi_ms:.1f} ms over the mesh, "
+        f"{one_ms:.1f} ms on one device ({tag}); StageTimer (esrgan, swinir "
+        "and diffusion time dispatch only under stage overlap):")
+    for line in multi.timer.summary_lines():
+        log(line)
+    if layout["mesh"] is None or not equal or not (
+            len(layout["slots"]) == max(1, n - max(1, n // 4))
+            and layout["diffusion_slot"] == n - 1) or \
+            k3 != SD_ATTN_PER_PASS * 2 * SD_STEPS + 1 or k1 == 0:
+        raise AssertionError(f"default config over the mesh: layout "
+                             f"{layout}, equal {equal}, K1 {k1}, K3 {k3}")
+    counts["conv3x3"] += k1
+    counts["flash_attention"] += k3
+    del multi
+
+    # ---- the product: strips against tiles at 1024x768 --------------------
+    esr = {"use_diffusion": False, "segment_enhancement": False,
+           "denoise_level": 0, "adaptive_sharpening": False,
+           "upscale_factor": 4, "esrgan_model_path": ckpt, "iterations": 1,
+           "data_parallel": "auto", "output_dir": os.path.join(OUT, "md_out")}
+    big = img.cpu().numpy()
+    outs, ms, k1s = {}, {}, {}
+    with visible(mesh):
+        for strategy in ("strips", "tiles"):
+            p = SuperResolutionPipeline("cuda", dict(
+                esr, shard_strategy=strategy))
+            p._load_models()
+            if p._parallel_layout()["mesh"] is None:
+                raise AssertionError(f"{strategy}: no mesh")
+            zero()
+            outs[strategy], ms[strategy] = _timed(
+                torch, lambda p=p: p.enhance_array(big))
+            k1s[strategy] = conv3x3.launches
+            no_plain(f"{strategy} request")
+    emulated = strip_emulation(torch, fn, contrast_stage(img), n, halo,
+                               4).cpu().numpy()
+    exact = np.array_equal(outs["strips"], emulated)
+    db = float(psnr(outs["strips"], outs["tiles"]))
+    same = float(np.mean(outs["strips"] == outs["tiles"]))
+    log(f"multi-device request {ww}x{hh} ESRGAN-only, shard_strategy strips "
+        f"over {n} slots (halo {halo}): equal bit for bit to the sequential "
+        f"strip emulation of the same preprocessed image: {exact}; PSNR "
+        f"{db:.2f} dB against shard_strategy tiles (bar 30; {same:.4f} of "
+        f"the values identical: the RRDBNet's receptive field exceeds the "
+        f"{halo}-px halo, so the two cuts differ near their seams); K1 "
+        f"{k1s['strips']} (strips) and {k1s['tiles']} (tiles); "
+        f"{ms['strips']:.1f} ms and {ms['tiles']:.1f} ms ({tag})")
+    if not exact or not db > 30.0 or k1s["strips"] != n * 351:
+        raise AssertionError(f"strips request: exact {exact}, PSNR {db}, "
+                             f"K1 {k1s}")
+    counts["conv3x3"] += k1s["strips"] + k1s["tiles"]
+
+    # ---- one process group on NCCL at world size 1 -------------------------
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": "1", "RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        joined = distributed.init_multihost()
+        init_s = time.perf_counter() - t0
+        backend = torch.distributed.get_backend() if joined else None
+        hmesh = distributed.make_hybrid_mesh(devices=list(mesh))
+        tiles = torch.rand((2 * n, 268, 268, 3), generator=gen,
+                           device="cuda")
+        gathered = [torch.empty_like(tiles)]
+        torch.distributed.all_gather(gathered, tiles)
+        # the gathered batch through the hybrid mesh's local slots
+        ok = torch.equal(torch.cat([t.to(mesh[0]) for t in shard_tiles(
+            gathered[0], hmesh.local())]), tiles)
+        sliced = distributed.local_tile_slice(10)
+        torch.distributed.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"multi-device multi-process: init_multihost with WORLD_SIZE 1, RANK "
+        f"0 on 127.0.0.1 -> {joined} ({backend}, {init_s:.2f} s); hybrid mesh "
+        f"{hmesh.axis_names} {hmesh.devices.shape}; all_gather of a {2 * n} x "
+        f"268^2 tile batch, sharded over the local slots, equal: {ok}; "
+        f"local_tile_slice(10) {sliced}; process group destroyed")
+    if not (joined and backend == "nccl" and ok
+            and hmesh.devices.shape == (1, n) and sliced == slice(0, 10)):
+        raise AssertionError("multi-process init on NCCL failed")
+
+    # ---- the dry run over the mesh -----------------------------------------
+    dryrun_multichip(mesh)
+
+    logging.getLogger("nesr").removeHandler(warnings)
+    ladder = [m for m in warnings.messages
+              if m.startswith(LADDER_WARNINGS)]
+    if ladder:
+        raise AssertionError(f"a sharded rung fell back: {ladder}")
+    log(f"multi-device phase: no ladder warning; "
+        f"{time.perf_counter() - t_phase:.1f} s in all; launches {counts}")
+    return counts
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -2460,6 +2900,7 @@ def main() -> int:
     batch_counts = drive_batch_cli(np, ckpt, swin, seg)
     mode_counts = drive_int8_and_parity(torch, np, ckpt, name)
     stream_counts = drive_streamed_overlap(torch, np, ckpt, name)
+    md_counts = drive_multi_device(torch, np, sd, ckpt, snap, seg, name)
     check_against_cpu(torch, np, ckpt)
     check_against_cpu(torch, np, ckpt, seg)
     check_parity_against_cpu(torch, np, ckpt)
@@ -2480,7 +2921,7 @@ def main() -> int:
                 + tiled_counts["conv3x3"] + swin_counts["conv3x3"]
                 + batch_counts["conv3x3"]
                 + sum(c["conv3x3"] for c in mode_counts.values())
-                + stream_counts["conv3x3"],
+                + stream_counts["conv3x3"] + md_counts["conv3x3"],
                 "rdb_fused": counts["rdb_fused"],
                 "conv3x3_int8": mode_counts["int8"]["conv3x3_int8"]
                 + mode_counts["int8_cli"]["conv3x3_int8"],
@@ -2488,7 +2929,8 @@ def main() -> int:
                 + default_counts["flash_attention"]
                 + default_ip_counts["flash_attention"]
                 + swin_counts["flash_attention"]
-                + vae_counts["flash_attention"],
+                + vae_counts["flash_attention"]
+                + md_counts["flash_attention"],
                 "conv3x3_f32": f32_counts["conv3x3_f32"] + fwd_k1f,
                 "flash_attention_f32": f32_counts["flash_attention_f32"]}
     sources = {"conv3x3": "csrc/conv3x3.cu", "rdb_fused": "csrc/rdb_fused.cu",

@@ -16,6 +16,11 @@ device). PyTorch runs the denoise loop eagerly, step by step.
   injected from outside) run the same ops.
 * With a ``StageTimer`` in ``timer``, the call is timed as
   ``diffusion/clip``, ``diffusion/denoise`` and ``diffusion/vae``.
+* ``to_device`` moves the pipeline (and its seeded draws) to another
+  device (the stage-overlap slot); with a two-device ``cfg_shard_mesh``
+  (``cfg_shard.cfg_mesh``) the uncond and cond passes run on one device
+  each (``cfg_shard.denoise_cfg_sharded``), the result equal to
+  ``cfg_split`` on one device.
 """
 
 from __future__ import annotations
@@ -40,11 +45,26 @@ from neural_enhanced_super_resolution_torch.models.diffusion.unet import (
     UNet2DConditionModel, UNetConfig, precompute_context_kv, unet_forward)
 from neural_enhanced_super_resolution_torch.models.diffusion.vae import (
     AutoencoderKL, VAEConfig, vae_decode)
+from neural_enhanced_super_resolution_torch.parallel.mesh import module_on
 from neural_enhanced_super_resolution_torch.runtime.device import torch_dtype
 
 logger = logging.getLogger("nesr.diffusion")
 
-__all__ = ["UpscalePipeline", "load_upscale_pipeline", "build_module"]
+__all__ = ["UpscalePipeline", "load_upscale_pipeline", "build_module",
+           "guided_step"]
+
+
+def guided_step(scheduler, eps_uncond: torch.Tensor, eps_cond: torch.Tensor,
+                guidance_scale: float, t: int, prev_t: int,
+                latents: torch.Tensor,
+                step_noise: torch.Tensor | None) -> torch.Tensor:
+    """Classifier-free guidance, then one scheduler step; a DDPM step adds
+    ``step_noise`` where t > 0."""
+    eps = eps_uncond + guidance_scale * (eps_cond - eps_uncond)
+    if isinstance(scheduler, DDPMScheduler):
+        noise = step_noise if t > 0 else torch.zeros_like(latents)
+        return scheduler.step(eps, t, prev_t, latents, noise)
+    return scheduler.step(eps, t, prev_t, latents)
 
 
 class UpscalePipeline:
@@ -66,6 +86,24 @@ class UpscalePipeline:
         self.max_noise_level = max_noise_level
         self.device = unet.conv_in.weight.device
         self.timer = None  # a StageTimer times the three sub-stages
+        self.cfg_shard_mesh = None  # two devices: split CFG across them
+        self._unet_replicas: dict = {}
+
+    def to_device(self, device) -> "UpscalePipeline":
+        """Move the UNet, the VAE, the text encoder and the seeded draws
+        to ``device`` (the stage-overlap placement)."""
+        for module in (self.unet, self.vae, self.text_encoder):
+            module.to(device)
+        self.device = torch.device(device)
+        self._unet_replicas = {}
+        return self
+
+    def _unet_on(self, device) -> UNet2DConditionModel:
+        """The UNet on ``device``: itself, or a replica made once."""
+        device = torch.device(device)
+        if device not in self._unet_replicas:
+            self._unet_replicas[device] = module_on(self.unet, device)
+        return self._unet_replicas[device]
 
     # ------------------------------------------------------------- text ----
 
@@ -98,7 +136,17 @@ class UpscalePipeline:
         """Noise the conditioning image, run the step loop, return the final
         latents (N, H, W, 4) f32. image: (N, H, W, 3) in [-1, 1]; the noises
         are explicit; step_noises is None for DDIM. With ``trace``, each
-        step's latents are appended to it."""
+        step's latents are appended to it. With a ``cfg_shard_mesh`` (and no
+        trace) the two passes run on its two devices."""
+        if self.cfg_shard_mesh is not None and trace is None:
+            from neural_enhanced_super_resolution_torch.models.diffusion \
+                .cfg_shard import denoise_cfg_sharded
+            mesh = self.cfg_shard_mesh
+            return denoise_cfg_sharded(
+                [self._unet_on(d) for d in mesh], embeds, image, image_noise,
+                init_latents, step_noises, timesteps, noise_level,
+                guidance_scale, self.scheduler, self.low_res_scheduler,
+                mesh).to(self.device)
         n = image.shape[0]
         noisy = self.low_res_scheduler.add_noise(image, image_noise,
                                                  noise_level)
@@ -108,7 +156,6 @@ class UpscalePipeline:
         kv_uncond = {k: (a[:n], b[:n]) for k, (a, b) in kv.items()}
         kv_cond = {k: (a[n:], b[n:]) for k, (a, b) in kv.items()}
         latents = init_latents
-        ddpm = isinstance(self.scheduler, DDPMScheduler)
         for i, t in enumerate(int(s) for s in timesteps):
             prev_t = int(timesteps[i + 1]) if i + 1 < len(timesteps) else -1
             if self.cfg_split:
@@ -123,13 +170,9 @@ class UpscalePipeline:
                 eps_u, eps_c = unet_forward(
                     self.unet, unet_in, t, embeds, labels.repeat(2),
                     kv).chunk(2)
-            eps = eps_u + guidance_scale * (eps_c - eps_u)
-            if ddpm:
-                noise = (step_noises[i] if t > 0
-                         else torch.zeros_like(latents))
-                latents = self.scheduler.step(eps, t, prev_t, latents, noise)
-            else:
-                latents = self.scheduler.step(eps, t, prev_t, latents)
+            latents = guided_step(
+                self.scheduler, eps_u, eps_c, guidance_scale, t, prev_t,
+                latents, None if step_noises is None else step_noises[i])
             if trace is not None:
                 trace.append(latents)
         return latents

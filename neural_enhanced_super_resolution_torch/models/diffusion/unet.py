@@ -131,19 +131,24 @@ class _BasicTransformerBlock(nn.Module):
         self.ff = _FeedForward(dim)
 
     def forward(self, x, context, kv=None):
-        dt = self.attn1.to_q.weight.dtype
-        a1, a2 = self.attn1, self.attn2
-        h = layer_norm(x, self.norm1)
+        x = x + self.self_attention(layer_norm(x, self.norm1))
+        x = x + self.cross_attention(layer_norm(x, self.norm2), context, kv)
+        return x + self.ff(layer_norm(x, self.norm3))
+
+    def self_attention(self, h):
+        a1 = self.attn1
         h = _attn.attention_auto(linear(h, a1.to_q), linear(h, a1.to_k),
-                                 linear(h, a1.to_v), self.heads, dtype=dt)
-        x = x + linear(h, a1.to_out[0])
-        h = layer_norm(x, self.norm2)
+                                 linear(h, a1.to_v), self.heads,
+                                 dtype=a1.to_q.weight.dtype)
+        return linear(h, a1.to_out[0])
+
+    def cross_attention(self, h, context, kv=None):
+        a2 = self.attn2
         if kv is None:
             kv = self.context_kv(context)
         h = attention_qmajor(linear(h, a2.to_q), kv[0], kv[1], self.heads,
-                             dtype=dt)
-        x = x + linear(h, a2.to_out[0])
-        return x + self.ff(layer_norm(x, self.norm3))
+                             dtype=a2.to_q.weight.dtype)
+        return linear(h, a2.to_out[0])
 
     def context_kv(self, context):
         """The cross-attention's K and V of the text context."""
@@ -160,11 +165,13 @@ class Transformer2DModel(nn.Module):
             [_BasicTransformerBlock(dim, cross_dim, heads)])
         self.proj_out = nn.Linear(dim, dim)
 
-    def forward(self, x, context, kv=None):
+    def forward(self, x, context, kv=None, block=None):
+        """``block`` replaces the transformer block's forward (the
+        tensor-parallel one of ``parallel/tensor.py``)."""
         n, h, w, c = x.shape
         y = linear(group_norm(x, self.norm).reshape(n, h * w, c),
                    self.proj_in)
-        y = self.transformer_blocks[0](y, context, kv)
+        y = (block or self.transformer_blocks[0])(y, context, kv)
         return linear(y, self.proj_out).reshape(n, h, w, c) + x
 
 
@@ -250,9 +257,11 @@ class UNet2DConditionModel(nn.Module):
 
     @torch.no_grad()
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states,
-                class_labels=None, context_kv: dict | None = None):
+                class_labels=None, context_kv: dict | None = None,
+                blocks: dict | None = None):
         cfg = self.cfg
         ckv = context_kv or {}
+        blk_for = (blocks or {}).get
         ctx = encoder_hidden_states
         n = sample.shape[0]
         t = torch.as_tensor(timestep, device=sample.device).reshape(-1)
@@ -269,7 +278,8 @@ class UNet2DConditionModel(nn.Module):
                 x = resnet(x, temb)
                 if hasattr(blk, "attentions"):
                     name = f"down_blocks.{bi}.attentions.{li}"
-                    x = blk.attentions[li](x, ctx, ckv.get(name))
+                    x = blk.attentions[li](x, ctx, ckv.get(name),
+                                           blk_for(name))
                 skips.append(x)
             if hasattr(blk, "downsamplers"):
                 # diffusers Downsample2D: stride 2, one zero row/column on
@@ -280,7 +290,8 @@ class UNet2DConditionModel(nn.Module):
         mid = self.mid_block
         x = mid.resnets[0](x, temb)
         if hasattr(mid, "attentions"):
-            x = mid.attentions[0](x, ctx, ckv.get("mid_block.attentions.0"))
+            name = "mid_block.attentions.0"
+            x = mid.attentions[0](x, ctx, ckv.get(name), blk_for(name))
         x = mid.resnets[1](x, temb)
 
         for ui, blk in enumerate(self.up_blocks):
@@ -288,7 +299,8 @@ class UNet2DConditionModel(nn.Module):
                 x = resnet(torch.cat([x, skips.pop()], dim=-1), temb)
                 if hasattr(blk, "attentions"):
                     name = f"up_blocks.{ui}.attentions.{li}"
-                    x = blk.attentions[li](x, ctx, ckv.get(name))
+                    x = blk.attentions[li](x, ctx, ckv.get(name),
+                                           blk_for(name))
             if hasattr(blk, "upsamplers"):
                 x = conv2d(nearest_upsample_x2(x), blk.upsamplers[0].conv)
 
@@ -299,13 +311,16 @@ class UNet2DConditionModel(nn.Module):
 def unet_forward(unet: UNet2DConditionModel, sample: torch.Tensor, timestep,
                  encoder_hidden_states: torch.Tensor,
                  class_labels: torch.Tensor | None = None,
-                 context_kv: dict | None = None) -> torch.Tensor:
+                 context_kv: dict | None = None,
+                 blocks: dict | None = None) -> torch.Tensor:
     """sample (N, H, W, in_channels) -> eps (N, H, W, out_channels) f32.
 
     context_kv: per-layer cross-attention K/V from
-    ``precompute_context_kv``, hoisted out of a step loop."""
+    ``precompute_context_kv``, hoisted out of a step loop. blocks:
+    {transformer name: callable} run in place of that layer's transformer
+    block (``parallel/tensor.TensorParallelUNet``)."""
     return unet(sample, timestep, encoder_hidden_states, class_labels,
-                context_kv)
+                context_kv, blocks)
 
 
 def crossattn_layer_names(cfg: UNetConfig) -> tuple:

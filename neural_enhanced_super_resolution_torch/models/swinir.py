@@ -391,6 +391,13 @@ class SwinIRModel(nn.Module):
         self.device = torch.device(device)
         self._grids: dict[tuple[int, int], tuple] = {}
 
+    def _apply(self, fn, recurse=True):
+        # .to() / .cuda(): the device and the grid tables follow the buffers
+        super()._apply(fn, recurse)
+        self.device = self.mean.device
+        self._grids = {}
+        return self
+
     def _grid(self, hp: int, wp: int) -> tuple:
         """Per padded size, on the device, made once: the window gathers
         and their inverses without and with the shift, and the shift

@@ -1,5 +1,6 @@
 """RRDBNet checkpoints: load, save, convert from the JAX layout, synthesise;
-and SegFormer and SwinIR parameters carried over from the JAX layout.
+SegFormer and SwinIR parameters carried over from the JAX layout; and the
+JAX member ensemble's stacked params as one state dict a member.
 
 State dicts use the basicsr RRDBNet layout (``conv_first.weight`` OIHW,
 ``body.{i}.rdb{k}.conv{c}.weight`` ...), which is what the published
@@ -18,7 +19,8 @@ logger = logging.getLogger("nesr.weights")
 
 __all__ = ["load_state_dict", "save_state_dict", "params_from_jax",
            "int8_rrdbnet_params_from_jax", "segformer_params_from_jax",
-           "swinir_params_from_jax", "init_rrdbnet", "HEAD_CONVS"]
+           "swinir_params_from_jax", "members_from_jax", "init_rrdbnet",
+           "HEAD_CONVS"]
 
 HEAD_CONVS = ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr",
               "conv_last")
@@ -129,6 +131,25 @@ def swinir_params_from_jax(np_params: Mapping[str, Any]
             a = a.T
         sd[name] = torch.from_numpy(np.ascontiguousarray(a))
     return sd
+
+
+def _tree_index(tree: Any, i: int) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _tree_index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def members_from_jax(stacked: Mapping[str, Any],
+                     convert=params_from_jax) -> list:
+    """The JAX package's member-ensemble params (a pytree whose leaves
+    carry a leading member axis, ``parallel/ensemble.py``) -> one port
+    state dict a member: member i's slice of every leaf, through
+    ``convert`` (default: the RRDBNet layout, ``params_from_jax``)."""
+    first = stacked
+    while isinstance(first, Mapping):
+        first = next(iter(first.values()))
+    return [convert(_tree_index(stacked, i))
+            for i in range(np.asarray(first).shape[0])]
 
 
 def init_rrdbnet(cfg, generator: torch.Generator) -> dict[str, torch.Tensor]:

@@ -7,24 +7,22 @@ axis (repeated reflection). ``F.pad(mode="reflect")`` covers neither.
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
 __all__ = ["reflect_index", "reflect_pad"]
 
 
-@functools.lru_cache(maxsize=256)
-def _reflect_index_np(n: int, before: int, after: int) -> np.ndarray:
-    return np.pad(np.arange(n), (before, after), mode="reflect")
-
-
 def reflect_index(n: int, before: int, after: int,
                   device: torch.device | str = "cpu") -> torch.Tensor:
     """Source indices of an axis of length n reflect-padded by (before,
-    after)."""
-    return torch.from_numpy(_reflect_index_np(n, before, after)).to(device)
+    after). Computed on ``device`` (reflection is periodic with period
+    2 (n - 1)), so no host-to-device copy waits on the host."""
+    idx = torch.arange(-before, n + after, device=device)
+    if n == 1:
+        return torch.zeros_like(idx)
+    period = 2 * (n - 1)
+    idx = idx.abs() % period
+    return torch.where(idx >= n, period - idx, idx)
 
 
 def reflect_pad(x: torch.Tensor, dim: int, before: int,

@@ -9,13 +9,23 @@ and masked sharpening -> tiled ESRGAN (RRDBNet on K1, its trunk on K1,
 K2 or, with ``esrgan_trunk: "int8"``, K4; ``parity_tiling`` runs the
 reference's per-tile loop), SwinIR (its
 convs on K1; ``use_swinir``) and the Stable Diffusion x4 upscaler (its
-self-attention on K3), one after the other on the one device -> ensemble
+self-attention on K3) -> ensemble
 -> adaptive sharpen. An input above ``diffusion_max_megapixels`` skips
 diffusion; a last iteration with ESRGAN as the only branch runs ESRGAN +
 sharpen per tile and streams the tiles to the host, each chunk's copy
 overlapping the next chunk's compute. ``precision: "float32"`` (the JAX
 package's parity mode) runs K1's and K3's float32 forms on the card with
 TF32 off, and the fused trunk for ``esrgan_trunk: "dform"``.
+
+Several devices (``runtime/device.visible_devices``): with
+``data_parallel`` ``"auto"`` (or an int cap) the tile batch is sharded
+over them (``shard_strategy: "strips"`` strip-shards the image with halo
+exchange), each device running its own replica of the model; with the
+diffusion branch on and ``stage_overlap``, the last quarter of the
+devices is kept for the denoise loop, which runs while ESRGAN's tiles
+are still in flight; ``sd_cfg_shard`` splits the CFG pair over the last
+two devices. One process drives them all; ``runtime/distributed``
+joins hosts.
 
 The graceful-degradation ladder (primary -> 3-channel -> tiled-3ch(256) ->
 bicubic, a stage skipped, a branch whose weights do not load turned off,
@@ -55,12 +65,19 @@ from neural_enhanced_super_resolution_torch.ops.enhance import (
     adaptive_sharpen, adaptive_sharpen_batch, contrast_stage, denoise_stage,
     ensemble, masked_sharpen)
 from neural_enhanced_super_resolution_torch.ops.resize import resize
+from neural_enhanced_super_resolution_torch.parallel import sharded
+from neural_enhanced_super_resolution_torch.parallel.mesh import module_on
+from neural_enhanced_super_resolution_torch.parallel.overlap import (
+    split_mesh)
 from neural_enhanced_super_resolution_torch.parallel.tiling import (
     TilingCancelled, process_tiled, process_tiled_to_host,
     process_with_tiling_parity)
+from neural_enhanced_super_resolution_torch.runtime import device as devices
 from neural_enhanced_super_resolution_torch.runtime.config import merge_config
 from neural_enhanced_super_resolution_torch.runtime.device import (
     default_compute_dtype, determine_device, device_fetch, torch_dtype)
+from neural_enhanced_super_resolution_torch.runtime.distributed import (
+    init_multihost)
 from neural_enhanced_super_resolution_torch.runtime.profiler import StageTimer
 
 logger = logging.getLogger("nesr")
@@ -121,6 +138,9 @@ class SuperResolutionPipeline:
     (reference-compatible API)."""
 
     def __init__(self, device: str = "auto", config: dict | None = None):
+        # Multi-host init: a no-op without a coordinator in the environment
+        # (runtime/distributed.py).
+        init_multihost()
         self.device = determine_device(device)
         logger.info("Using device: %s", self.device)
         self.config = merge_config(self.device, config)
@@ -136,6 +156,83 @@ class SuperResolutionPipeline:
         os.makedirs(self.config["output_dir"], exist_ok=True)
         self.models: dict = {}
         self.timer = StageTimer()
+        self._dp_state: dict | None = None   # the multi-device layout
+        self._replicas: dict = {}            # (model, device) -> replica
+
+    # --------------------------------------------------------- parallelism --
+
+    def _parallel_layout(self) -> dict:
+        """The multi-device layout, resolved once.
+
+        config["data_parallel"]: "auto" spreads the tile batch over every
+        visible device when there is more than one; "off" (or 0/1) keeps
+        one device; an int caps the count. With the diffusion branch on
+        and stage_overlap, the devices are split (parallel/overlap
+        .split_mesh): ESRGAN's tile batch shards over the first slots and
+        the denoise loop owns the last one, so both branches run at once.
+
+        Returns {"mesh": tuple of devices | None, "slots": their slots,
+        "diffusion_slot": int | None, "diffusion_device": device | None};
+        slots index the device list, which may repeat a device.
+        """
+        if self._dp_state is not None:
+            return self._dp_state
+        mode = self.config.get("data_parallel", "auto")
+        devs = devices.visible_devices(self.device)
+        if mode in ("off", False, None, 0, 1):
+            want = 1
+        elif mode == "auto":
+            want = len(devs)
+        else:
+            want = min(int(mode), len(devs))
+        state = {"mesh": None, "slots": (), "diffusion_slot": None,
+                 "diffusion_device": None}
+        if want > 1:
+            devs = devs[:want]
+            slots, diff = tuple(range(want)), None
+            if self.config["use_diffusion"] and self.config.get(
+                    "stage_overlap", True):
+                slots, diff_slots = split_mesh(devs)
+                diff = diff_slots[-1]
+            state = {"mesh": tuple(devs[i] for i in slots), "slots": slots,
+                     "diffusion_slot": diff,
+                     "diffusion_device": None if diff is None else devs[diff]}
+            logger.info("Data parallelism: %d-slot tile mesh%s", len(slots),
+                        "" if diff is None else
+                        f" + diffusion on slot {diff} ({devs[diff]})")
+        self._dp_state = state
+        return state
+
+    def _use_strips(self, image, mesh, halo: int) -> bool:
+        """config["shard_strategy"]: "tiles" (default) shards the tile
+        batch; "strips" strip-shards the image; "auto" strips above 16 MP
+        (the reference's force-tiling threshold), tiles below. A strip must
+        be at least halo + 1 rows (the edge strips reflect strip[1:halo+1]),
+        else tiles; ``halo`` is the one this _run_tiled call uses."""
+        strategy = self.config.get("shard_strategy", "tiles")
+        if strategy not in ("strips", "auto"):
+            return False
+        h, w = int(image.shape[0]), int(image.shape[1])
+        if strategy == "auto" and (h * w) / 1e6 <= 16:
+            return False
+        rows = -(-h // len(mesh))
+        if rows < halo + 1:
+            logger.warning("shard_strategy=%s: %d rows a slot over %d slots "
+                           "is thinner than the %d-px halo; using tiles",
+                           strategy, rows, len(mesh), halo)
+            return False
+        return True
+
+    def _replica(self, key: str, device) -> torch.nn.Module:
+        """The model of branch ``key`` on ``device``: itself, or a replica
+        made once (K1's packed weights moved along)."""
+        model = self.models[key]
+        if isinstance(model, dict):
+            model = model["model"]
+        cache_key = (key, id(model), torch.device(device))
+        if cache_key not in self._replicas:
+            self._replicas[cache_key] = module_on(model, device)
+        return self._replicas[cache_key]
 
     # ------------------------------------------------------------- models --
 
@@ -240,15 +337,29 @@ class SuperResolutionPipeline:
             return
         try:
             logger.info("Loading Stable Diffusion upscaler...")
-            self.models["diffusion"] = load_upscale_pipeline(
+            pipe = load_upscale_pipeline(
                 cfg.get("diffusion_model_path"), device=self.device,
                 compute_dtype=cfg["precision"],
                 cfg_split=cfg.get("sd_cfg_split"))
+            diff_dev = self._parallel_layout()["diffusion_device"]
+            if diff_dev is not None:
+                # stage overlap: the denoise loop on its own slot
+                pipe.to_device(diff_dev)
+            devs = devices.visible_devices(self.device)
+            if cfg.get("sd_cfg_shard") and len(devs) >= 2:
+                # the last two devices: with the overlap split, the tail of
+                # the list is the diffusion slot, so this composes with the
+                # tile mesh on the head of it
+                pipe.cfg_shard_mesh = tuple(devs[-2:])
+                logger.info("Split-CFG sharded over %s", devs[-2:])
+            self.models["diffusion"] = pipe
             logger.info("Stable Diffusion upscaler loaded successfully")
         except Exception as exc:  # noqa: BLE001 - ladder: branch disabled
             _reraise(exc, "diffusion model load")
             logger.error("Error loading Stable Diffusion upscaler: %s", exc)
             cfg["use_diffusion"] = False
+            # the layout kept a slot for a branch that will not run
+            self._dp_state = None
 
     def _load_segmentation(self):
         cfg = self.config
@@ -268,8 +379,9 @@ class SuperResolutionPipeline:
 
     # ------------------------------------------------------------ helpers --
 
-    def _stage(self, name: str):
-        return self.timer.stage(name + getattr(self, "_stage_sfx", ""))
+    def _stage(self, name: str, **sync):
+        return self.timer.stage(name + getattr(self, "_stage_sfx", ""),
+                                **sync)
 
     def _callback(self, stage, iteration, total, message):
         cb = self.config.get("progress_callback")
@@ -333,22 +445,48 @@ class SuperResolutionPipeline:
             return image
 
     def _esrgan_batch_forward(self, tiles_u8, three_channel: bool):
-        entry = self.models["esrgan"]
-        if entry["cfg"].num_in_ch == 12:
+        """esrgan_step on the model replica of the tiles' device."""
+        if self.models["esrgan"]["cfg"].num_in_ch == 12:
             mode = "repeat12" if three_channel else "stack12"
         else:
             mode = "direct"
-        return esrgan_step(entry["model"], tiles_u8, mode)
+        return esrgan_step(self._replica("esrgan", tiles_u8.device),
+                           tiles_u8, mode)
 
     def _esrgan_out_scale(self) -> int:
         return self.models["esrgan"]["cfg"].scale
 
     def _run_tiled(self, model_fn, image, tile_size: int, halo: int,
                    scale: int, batch_tiles: int | None = None):
-        """batch_tiles overrides the config's tile_batch for a branch with
-        its own batch size (SwinIR's swinir_tile_batch)."""
+        """Tiled execution: strip-sharded or tile-sharded over the mesh
+        when one is active, else on the image's device. ``model_fn`` runs
+        a batch on whatever device it is given (each branch picks its
+        replica by the tiles' device). An ordinary failure of a sharded
+        rung falls back to the next one; cancellation and device faults
+        propagate (``_reraise``). batch_tiles overrides the config's
+        tile_batch for a branch with its own batch size (SwinIR's
+        swinir_tile_batch)."""
         if batch_tiles is None:
             batch_tiles = self.config.get("tile_batch")
+        mesh = self._parallel_layout()["mesh"]
+        if mesh is not None and self._use_strips(image, mesh, halo):
+            try:
+                return sharded.process_strips_sharded(
+                    model_fn, image, mesh, halo=halo, scale=scale)
+            except Exception as exc:  # noqa: BLE001 - ladder
+                _reraise(exc, "strip-sharded tiling")
+                logger.warning("Strip-sharded path failed (%s); falling "
+                               "back to tile sharding", exc)
+        if mesh is not None:
+            try:
+                return sharded.process_tiled_sharded(
+                    model_fn, image, mesh, tile_size=tile_size, halo=halo,
+                    scale=scale, batch_tiles=batch_tiles,
+                    cancel_check=self._cancel_check())
+            except Exception as exc:  # noqa: BLE001 - ladder
+                _reraise(exc, "sharded tiling")
+                logger.warning("Sharded tile path failed (%s); falling back "
+                               "to single-device tiling", exc)
         return process_tiled(model_fn, image, tile_size=tile_size, halo=halo,
                              scale=scale, batch_tiles=batch_tiles,
                              cancel_check=self._cancel_check())
@@ -450,7 +588,8 @@ class SuperResolutionPipeline:
             if max(h, w) <= 2 * tile:
                 return model.upscale_batch(image[None])[0]
             return self._run_tiled(
-                model.upscale_batch, image, tile_size=tile,
+                lambda t: self._replica("swinir", t.device).upscale_batch(t),
+                image, tile_size=tile,
                 halo=self.config.get("tile_halo", 16), scale=model.cfg.scale,
                 batch_tiles=int(self.config.get("swinir_tile_batch", 1)))
         except Exception as exc:  # noqa: BLE001 - ladder: branch skipped
@@ -489,12 +628,21 @@ class SuperResolutionPipeline:
             if steps is None:
                 # the reference's tiers by device: cuda 20, cpu 10
                 steps = {"cuda": 20}.get(self.device, 10)
-            return pipe(prompt=prompt, image=image, noise_level=20,
-                        num_inference_steps=steps, guidance_scale=7.5)
+            out = pipe(prompt=prompt, image=image, noise_level=20,
+                       num_inference_steps=steps, guidance_scale=7.5)
+            # from the diffusion slot to the home slot, for the ensemble
+            return out.to(image.device, non_blocking=True)
         except Exception as exc:  # noqa: BLE001 - ladder: branch skipped
             _reraise(exc, "diffusion")
             logger.warning("Diffusion-based upscaling failed: %s", exc)
             return None
+
+    def _overlap_active(self) -> bool:
+        """Stage overlap applies when both model branches run: ESRGAN's
+        work is left in flight while diffusion is dispatched."""
+        return bool(self.config.get("stage_overlap", True)
+                    and self.config["use_diffusion"]
+                    and "diffusion" in self.models)
 
     def _postprocess_image(self, image):
         if self.config["adaptive_sharpening"]:
@@ -509,7 +657,8 @@ class SuperResolutionPipeline:
 
     def _stream_final_ok(self, iteration, iterations, image) -> bool:
         """The fused streamed tail applies to the last iteration when the
-        output keeps the model's raw scale (no canvas-shrink tiling)."""
+        output keeps the model's raw scale (no canvas-shrink tiling) and no
+        mesh is active (the sharded flows own their output)."""
         cfg = self.config
         if not cfg.get("streamed_output", True):
             return False
@@ -523,6 +672,8 @@ class SuperResolutionPipeline:
         if cfg.get("use_swinir") and "swinir" in self.models:
             return False  # SwinIR joins the ensemble
         if cfg["parity_tiling"] or cfg.get("memory_efficient"):
+            return False
+        if self._parallel_layout()["mesh"] is not None:
             return False
         h, w = int(image.shape[0]), int(image.shape[1])
         megapixels = (h * w) / (1024 * 1024)
@@ -607,12 +758,18 @@ class SuperResolutionPipeline:
             if streamed is not None:
                 current = streamed
             else:
+                # Under stage overlap the branches' stages do not wait for
+                # their work: ESRGAN's stays in flight while diffusion is
+                # dispatched (on its own slot when the layout split the
+                # devices), and the ensemble stage waits for both. Their
+                # times are then dispatch times.
+                overlap = self._overlap_active()
                 upscaled = []
                 if self.config["use_esrgan"] and "esrgan" in self.models:
                     logger.info("Applying Real-ESRGAN upscaling...")
                     self._callback("ESRGAN", iteration, iterations,
                                    "Applying Real-ESRGAN upscaling")
-                    with self._stage("esrgan"):
+                    with self._stage("esrgan", sync_end=not overlap):
                         result = self._apply_esrgan(current)
                     if result is not None:
                         upscaled.append(result)
@@ -620,7 +777,8 @@ class SuperResolutionPipeline:
                     logger.info("Applying SwinIR upscaling...")
                     self._callback("SwinIR", iteration, iterations,
                                    "Applying SwinIR upscaling")
-                    with self._stage("swinir"):
+                    with self._stage("swinir", sync_start=not overlap,
+                                     sync_end=not overlap):
                         result = self._apply_swinir(current)
                     if result is not None:
                         upscaled.append(result)
@@ -629,14 +787,15 @@ class SuperResolutionPipeline:
                     self._callback("Diffusion", iteration, iterations,
                                    "Applying diffusion-based upscaling with "
                                    f"prompt: {prompt}")
-                    with self._stage("diffusion"):
+                    with self._stage("diffusion", sync_start=not overlap,
+                                     sync_end=not overlap):
                         result = self._apply_diffusion(current, prompt)
                     if result is not None:
                         upscaled.append(result)
                 self._callback("Ensemble", iteration, iterations,
                                "Combining results from multiple models")
                 if upscaled:
-                    with self._stage("ensemble"):
+                    with self._stage("ensemble", sync_start=not overlap):
                         current = ensemble(upscaled)
                 else:
                     logger.warning("All models failed, falling back to "

@@ -11,11 +11,12 @@ input: attention grows with the square of the latent area, and the canvas
 grows 4x per iteration); it does not take that overlay's remote-host
 workarounds (``tile_tail: "full"``, ``prewarm``, ``fallback_to_cpu``).
 
-Every single-device key of the JAX package is carried: segmentation and
-NL-means denoise, which the defaults turn on, the SwinIR branch
-(``use_swinir``), the int8 trunk (``esrgan_trunk: "int8"``) and the
-reference-exact per-tile stitch (``parity_tiling``); the JAX package's
-default config runs here unchanged. ``merge_config`` raises ``ValueError``
+Every key of the JAX package is carried: segmentation and NL-means
+denoise, which the defaults turn on, the SwinIR branch (``use_swinir``),
+the int8 trunk (``esrgan_trunk: "int8"``), the reference-exact per-tile
+stitch (``parity_tiling``) and the multi-device keys (``data_parallel``,
+``shard_strategy``, ``stage_overlap``, ``sd_cfg_shard``); the JAX
+package's default config runs here unchanged. ``merge_config`` raises ``ValueError``
 only for an ``esrgan_trunk`` that neither package knows.
 """
 
@@ -67,8 +68,22 @@ def default_config() -> dict[str, Any]:
         },
         "precision": None,            # None -> per-device default
         "parity_tiling": False,
+        # Stage overlap: leave ESRGAN's work in flight while the diffusion
+        # branch is dispatched (on its own device when the layout splits
+        # the devices; parallel/overlap.py).
         "stage_overlap": True,
+        # Multi-device execution from the product entry points: "auto"
+        # shards the ESRGAN (and SwinIR) tile batch over every visible
+        # device (and, with use_diffusion + stage_overlap, keeps the last
+        # quarter of them for the denoise loop; pipeline._parallel_layout).
+        # "off" (or 0/1) forces one device; an int caps the device count.
+        # One-GPU hosts are unaffected.
         "data_parallel": "auto",
+        # Multi-device sharding strategy for the upscale branches: "tiles"
+        # (default) = tile-batch data parallelism; "strips" = strip-shard
+        # the image with halo exchange (parallel/sharded.py); "auto" =
+        # strips above the reference's 16 MP force-tiling threshold, tiles
+        # otherwise. One-GPU hosts ignore this.
         "shard_strategy": "tiles",
         "tile_batch": 16,
         "tile_halo": 16,
@@ -91,6 +106,10 @@ def default_config() -> dict[str, Any]:
         "sd_stage_detail": False,
         "num_inference_steps": None,
         "sd_cfg_split": None,
+        # Split the two CFG UNet passes over the last two devices
+        # (models/diffusion/cfg_shard.py): uncond on one, cond on the
+        # other, one eps swap per step; equal to cfg_split on one device.
+        # Engages only when >= 2 devices are visible.
         "sd_cfg_shard": False,
     }
 

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 __all__ = ["determine_device", "default_compute_dtype", "device_fetch",
-           "torch_dtype"]
+           "torch_dtype", "visible_devices"]
 
 
 def determine_device(requested: str = "auto") -> str:
@@ -30,6 +30,17 @@ def determine_device(requested: str = "auto") -> str:
                                "GPU is available")
         return "cuda"
     raise ValueError(f"unknown device {requested!r} (auto, cuda or cpu)")
+
+
+def visible_devices(device: str) -> list[torch.device]:
+    """Every device a request on ``device`` may spread over: each visible
+    GPU (``cuda:0`` ... ``cuda:n-1``) for ``cuda``, the one CPU for
+    ``cpu``. What ``jax.devices()`` is to the JAX pipeline, and the only
+    place the multi-device layout learns the device count."""
+    if device == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device(device)]
 
 
 def default_compute_dtype(device: str) -> str:

@@ -3,8 +3,11 @@
 Counterpart of ``neural_enhanced_super_resolution_tpu/runtime/profiler.py``.
 Each stage is a ``torch.profiler.record_function`` range (visible in a
 ``torch.profiler`` trace) and accumulates host wall clock. CUDA work is
-asynchronous, so the clock is read only after ``torch.cuda.synchronize()``
-at both ends of the stage; a stage that raises is recorded all the same.
+asynchronous, so by default the clock is read only after every GPU has been
+synchronised, at both ends of the stage; a stage that raises is recorded
+all the same. A stage opened with ``sync_start`` or ``sync_end`` false
+leaves that end unsynchronised (under stage overlap the ESRGAN branch's
+stage times its dispatch only, and its work is waited for later).
 """
 
 from __future__ import annotations
@@ -22,8 +25,10 @@ __all__ = ["StageTimer"]
 
 
 def _sync() -> None:
+    """Wait for every GPU of the process (a mesh may span them all)."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 class StageTimer:
@@ -34,8 +39,10 @@ class StageTimer:
         self.counts: dict[str, int] = defaultdict(int)
 
     @contextlib.contextmanager
-    def stage(self, name: str):
-        _sync()
+    def stage(self, name: str, sync_start: bool = True,
+              sync_end: bool = True):
+        if sync_start:
+            _sync()
         t0 = time.perf_counter()
         try:
             with torch.profiler.record_function(f"nesr/{name}"):
@@ -44,7 +51,8 @@ class StageTimer:
             # Record even when the stage raises: a failing stage must show
             # up in the table, not vanish.
             try:
-                _sync()
+                if sync_end:
+                    _sync()
             finally:
                 dt = time.perf_counter() - t0
                 self.totals[name] += dt
