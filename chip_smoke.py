@@ -2597,9 +2597,11 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     def member_fn(member, x):
         return esrgan_step(member, x[None], "stack12")[0]
 
+    members = [model, module_on(member2, mesh[1])]   # placed once
+    ensemble_members_sharded(member_fn, members, small, mesh[:2])   # warm
     zero()
     ens, ens_ms = _timed(torch, lambda: ensemble_members_sharded(
-        member_fn, [model, member2], small, mesh[:2], weights=[0.5, 0.5]))
+        member_fn, members, small, mesh[:2], weights=[0.5, 0.5]))
     k1 = conv3x3.launches
     ref = (member_fn(model, small).float() * 0.5
            + member_fn(member2, small).float() * 0.5)
@@ -2626,7 +2628,9 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     args = (embeds, image, noise, latents, None, steps, 20, 7.5)
     pair = cfg_mesh(mesh[:2])
     unets = [pipe._unet_on(d) for d in pair]
-    pipe._denoise(*args)   # warm
+    pipe._denoise(*args)   # warm both
+    denoise_cfg_sharded(unets, *args, pipe.scheduler, pipe.low_res_scheduler,
+                        pair)
     zero()
     lat_single, single_ms = _timed(torch, lambda: pipe._denoise(*args))
     k3_single = flash_attention.launches

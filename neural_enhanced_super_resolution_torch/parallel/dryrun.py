@@ -18,7 +18,8 @@ listed several times, or ``[cpu] * 8``) it runs, one ``PASS`` line a step:
 
     python3 -m neural_enhanced_super_resolution_torch.parallel.dryrun [N]
 
-runs it over N copies of the CPU (default 8). Any failure raises.
+runs it over N copies of the CPU (default 8); with ``cuda`` in place of
+N, over every visible GPU. Any failure raises.
 """
 
 from __future__ import annotations
@@ -245,5 +246,10 @@ def dryrun_multichip(devices: Sequence) -> None:
 
 
 if __name__ == "__main__":
-    dryrun_multichip([torch.device("cpu")] * int(
-        sys.argv[1] if len(sys.argv) > 1 else 8))
+    arg = sys.argv[1] if len(sys.argv) > 1 else "8"
+    if arg == "cuda":
+        from neural_enhanced_super_resolution_torch.runtime.device import (
+            visible_devices)
+        dryrun_multichip(visible_devices("cuda"))
+    else:
+        dryrun_multichip([torch.device("cpu")] * int(arg))
