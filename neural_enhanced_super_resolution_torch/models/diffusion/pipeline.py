@@ -222,7 +222,9 @@ class UpscalePipeline:
         if noise_level > self.max_noise_level:
             raise ValueError(f"noise_level {noise_level} > max "
                              f"{self.max_noise_level}")
-        stage = (self.timer.stage if self.timer is not None
+        devices = (self.device, *(self.cfg_shard_mesh or ()))
+        stage = ((lambda name: self.timer.stage(name, devices=devices))
+                 if self.timer is not None
                  else lambda name: contextlib.nullcontext())
         img = self._image(image)
         n, h, w, _ = img.shape

@@ -16,10 +16,12 @@ listed several times, or ``[cpu] * 8``) it runs, one ``PASS`` line a step:
      for bit
   6  the hybrid mesh with a tile batch through it
 
-    python3 -m neural_enhanced_super_resolution_torch.parallel.dryrun [N]
+    python3 -m neural_enhanced_super_resolution_torch.parallel.dryrun
+    python3 -m neural_enhanced_super_resolution_torch.parallel.dryrun cpu 8
 
-runs it over N copies of the CPU (default 8); with ``cuda`` in place of
-N, over every visible GPU. Any failure raises.
+runs it over every visible GPU (``cuda``, the default; it raises when
+there is none), or, when ``cpu`` is asked for, over N copies of the CPU
+(default 8). Any failure raises.
 """
 
 from __future__ import annotations
@@ -245,11 +247,16 @@ def dryrun_multichip(devices: Sequence) -> None:
             "tile batch through it")
 
 
-if __name__ == "__main__":
-    arg = sys.argv[1] if len(sys.argv) > 1 else "8"
-    if arg == "cuda":
-        from neural_enhanced_super_resolution_torch.runtime.device import (
-            visible_devices)
-        dryrun_multichip(visible_devices("cuda"))
+def main(argv: Sequence[str]) -> None:
+    from neural_enhanced_super_resolution_torch.runtime.device import (
+        determine_device, visible_devices)
+    device = determine_device(argv[0] if argv else "cuda")
+    if device == "cpu":
+        dryrun_multichip([torch.device("cpu")] * int(argv[1] if len(argv) > 1
+                                                     else 8))
     else:
-        dryrun_multichip([torch.device("cpu")] * int(arg))
+        dryrun_multichip(visible_devices(device))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -8,10 +8,10 @@ work enqueued on its device's current stream before any result is read.
 * ``process_tiled_sharded``: each chunk of the tile batch is split into
   one equal shard a slot (the JAX package's chunk policy: ``batch_tiles``
   tiles a slot a chunk, a power-of-two bucket a slot, the tail padded by
-  repeating the last tile); each slot runs its own model callable (a
-  PyTorch module lives on one device: the caller passes one callable a
-  slot, e.g. over a model replica per device), and the tiles are gathered
-  and stitched on the home slot (slot 0).
+  repeating the last tile); the model callable runs each slot's shard on
+  the slot's device (a PyTorch module lives on one device, so the callable
+  picks its model replica by the tiles' device), and the tiles are
+  gathered and stitched on the home slot (slot 0).
 * ``halo_exchange_strips`` / ``process_strips_sharded``: the image is cut
   into one horizontal strip a slot; each strip takes ``halo`` rows from
   each neighbour (a peer copy), the first and last strips reflect their own
@@ -32,22 +32,14 @@ from neural_enhanced_super_resolution_torch.parallel.tiling import (
 __all__ = ["process_tiled_sharded", "halo_exchange_strips",
            "process_strips_sharded"]
 
-ModelFns = Callable[[torch.Tensor], torch.Tensor] | Sequence[
-    Callable[[torch.Tensor], torch.Tensor]]
-
-
-def _per_slot(model_fns: ModelFns, n: int) -> list:
-    fns = [model_fns] * n if callable(model_fns) else list(model_fns)
-    if len(fns) != n:
-        raise ValueError(f"{len(fns)} model callables for {n} slots")
-    return fns
+ModelFn = Callable[[torch.Tensor], torch.Tensor]
 
 
 def _gather(parts: list[torch.Tensor], home: torch.device) -> torch.Tensor:
     return torch.cat([p.to(home, non_blocking=True) for p in parts], dim=0)
 
 
-def process_tiled_sharded(model_fns: ModelFns, image: torch.Tensor,
+def process_tiled_sharded(model_fn: ModelFn, image: torch.Tensor,
                           mesh: Sequence[torch.device], tile_size: int = 512,
                           halo: int = 16, scale: int = 2,
                           batch_tiles: int | None = None,
@@ -55,8 +47,8 @@ def process_tiled_sharded(model_fns: ModelFns, image: torch.Tensor,
                           ) -> torch.Tensor:
     """Tile-batch data parallelism over ``mesh``.
 
-    model_fns: one callable a slot (or one for every slot), each taking
-    (n, T+2h, T+2h, C) on its slot's device to (n, s(T+2h), s(T+2h), C').
+    model_fn: (n, T+2h, T+2h, C) on a slot's device to
+    (n, s(T+2h), s(T+2h), C') on the same device.
     A chunk holds ``batch_tiles`` tiles a slot (all tiles when None); its
     tail is padded by repeating the last tile up to a power-of-two count a
     slot (at most the chunk), the padded outputs are dropped. Returns
@@ -65,7 +57,6 @@ def process_tiled_sharded(model_fns: ModelFns, image: torch.Tensor,
     """
     mesh = tuple(mesh)
     n_dev = len(mesh)
-    fns = _per_slot(model_fns, n_dev)
     home = mesh[0]
     tiles, ny, nx, orig_h, orig_w = _tile_grid(image.to(home), tile_size,
                                                halo)
@@ -88,9 +79,9 @@ def process_tiled_sharded(model_fns: ModelFns, image: torch.Tensor,
                 target - valid, *chunk.shape[1:])], dim=0)
         per = target // n_dev
         # every slot's shard is dispatched before any output is gathered
-        outs = [fn(chunk[i * per:(i + 1) * per].to(dev, non_blocking=True)
-                   .contiguous())
-                for i, (fn, dev) in enumerate(zip(fns, mesh))]
+        outs = [model_fn(chunk[i * per:(i + 1) * per]
+                         .to(dev, non_blocking=True).contiguous())
+                for i, dev in enumerate(mesh)]
         chunks.append(_gather(outs, home)[:valid])
     out_tiles = chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=0)
     out = stitch_tiles(out_tiles, ny, nx, tile_size * scale, halo * scale)
@@ -118,18 +109,18 @@ def halo_exchange_strips(strips: Sequence[torch.Tensor], halo: int
     return out
 
 
-def process_strips_sharded(model_fns: ModelFns, image: torch.Tensor,
+def process_strips_sharded(model_fn: ModelFn, image: torch.Tensor,
                            mesh: Sequence[torch.device], halo: int = 16,
                            scale: int = 2) -> torch.Tensor:
     """Strip-shard an (H, W, C) image over ``mesh`` with halo exchange.
 
     H is reflect-padded to a multiple of the mesh size; slot i holds rows
-    [i r, (i+1) r) and its callable maps (1, r + 2 halo, W, C) to
-    (1, scale (r + 2 halo), scale W, C'); the upscaled halos are cropped
-    and the strips gathered on slot 0, cut back to H * scale rows."""
+    [i r, (i+1) r) and ``model_fn`` maps it as (1, r + 2 halo, W, C) to
+    (1, scale (r + 2 halo), scale W, C') on its device; the upscaled halos
+    are cropped and the strips gathered on slot 0, cut back to H * scale
+    rows."""
     mesh = tuple(mesh)
     n_dev = len(mesh)
-    fns = _per_slot(model_fns, n_dev)
     h = int(image.shape[0])
     image = reflect_pad(image.to(mesh[0]), 0, 0, (-h) % n_dev)
     rows = int(image.shape[0]) // n_dev
@@ -137,7 +128,7 @@ def process_strips_sharded(model_fns: ModelFns, image: torch.Tensor,
               for i, dev in enumerate(mesh)]
     cut = halo * scale
     outs = []
-    for fn, ext in zip(fns, halo_exchange_strips(strips, halo)):
-        y = fn(ext[None].contiguous())[0]
+    for ext in halo_exchange_strips(strips, halo):
+        y = model_fn(ext[None].contiguous())[0]
         outs.append(y[cut:y.shape[0] - cut])
     return _gather(outs, mesh[0])[:h * scale]

@@ -166,9 +166,10 @@ class _TPBlock:
         return acc + bias if bias is not None else acc
 
     def _attention(self, i: int, q, k, v, cross: bool) -> torch.Tensor:
+        """Slot ``i``'s attention over its heads: K3 (``attention_auto``)
+        for the self-attention, the plain path for the cross-attention."""
         if cross:
             return attention_qmajor(q, k, v, self.heads, dtype=self.dt)
-        self.owner.attn_calls[i] += 1
         return _attn.attention_auto(q, k, v, self.heads, dtype=self.dt)
 
     def _attn(self, a: str, h, context, kv) -> torch.Tensor:
@@ -217,15 +218,12 @@ class TensorParallelUNet:
 
     The UNet module stays on the home slot (slot 0) and runs everything
     else; ``shard_transformer_params`` places the blocks' shards on every
-    slot. Called like ``unet_forward`` without its first argument.
-    ``attn_calls[i]`` counts slot i's self-attention calls (K3 launches on
-    the card)."""
+    slot. Called like ``unet_forward`` without its first argument."""
 
     def __init__(self, unet: UNet2DConditionModel,
                  mesh: Sequence[torch.device]):
         self.unet = unet
         self.mesh = tuple(mesh)
-        self.attn_calls = [0] * len(self.mesh)
         names = crossattn_layer_names(unet.cfg)
         prefixes = [f"{n}.transformer_blocks.0." for n in names]
         sd = {k: v for k, v in unet.state_dict().items()

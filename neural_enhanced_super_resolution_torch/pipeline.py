@@ -379,9 +379,23 @@ class SuperResolutionPipeline:
 
     # ------------------------------------------------------------ helpers --
 
+    def _sync_devices(self) -> tuple:
+        """The devices a stage synchronises: the home device, the layout's
+        tile mesh and diffusion slot, and the split-CFG pair, each once."""
+        home = torch.device(self.device)
+        if home.type == "cuda" and home.index is None:
+            home = torch.device("cuda", torch.cuda.current_device())
+        layout = self._parallel_layout()
+        devs = [home, *(layout["mesh"] or ())]
+        if layout["diffusion_device"] is not None:
+            devs.append(layout["diffusion_device"])
+        devs.extend(getattr(self.models.get("diffusion"), "cfg_shard_mesh",
+                            None) or ())
+        return tuple(dict.fromkeys(torch.device(d) for d in devs))
+
     def _stage(self, name: str, **sync):
         return self.timer.stage(name + getattr(self, "_stage_sfx", ""),
-                                **sync)
+                                devices=self._sync_devices(), **sync)
 
     def _callback(self, stage, iteration, total, message):
         cb = self.config.get("progress_callback")
@@ -820,7 +834,7 @@ class SuperResolutionPipeline:
                         time.time() - t0)
         if isinstance(current, np.ndarray):
             return current  # the streamed final iteration landed on host
-        with self.timer.stage("finalize/d2h"):
+        with self.timer.stage("finalize/d2h", devices=self._sync_devices()):
             return device_fetch(current)
 
     def enhance_image(self, image_path: str, prompt: str | None = None) -> str:

@@ -3,11 +3,14 @@
 Counterpart of ``neural_enhanced_super_resolution_tpu/runtime/profiler.py``.
 Each stage is a ``torch.profiler.record_function`` range (visible in a
 ``torch.profiler`` trace) and accumulates host wall clock. CUDA work is
-asynchronous, so by default the clock is read only after every GPU has been
-synchronised, at both ends of the stage; a stage that raises is recorded
-all the same. A stage opened with ``sync_start`` or ``sync_end`` false
-leaves that end unsynchronised (under stage overlap the ESRGAN branch's
-stage times its dispatch only, and its work is waited for later).
+asynchronous, so by default the clock is read only after the GPU has been
+synchronised, at both ends of the stage: the current GPU, or each CUDA
+device of ``devices`` (the devices a multi-device layout uses, and no
+other: a synchronize on a GPU the process does not use would create a CUDA
+context there). A stage that raises is recorded all the same. A stage
+opened with ``sync_start`` or ``sync_end`` false leaves that end
+unsynchronised (under stage overlap the ESRGAN branch's stage times its
+dispatch only, and its work is waited for later).
 """
 
 from __future__ import annotations
@@ -24,11 +27,17 @@ logger = logging.getLogger("nesr.profiler")
 __all__ = ["StageTimer"]
 
 
-def _sync() -> None:
-    """Wait for every GPU of the process (a mesh may span them all)."""
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        for i in range(torch.cuda.device_count()):
-            torch.cuda.synchronize(i)
+def _sync(devices) -> None:
+    """Wait for the CUDA devices among ``devices``, or for the current GPU
+    when ``devices`` is None."""
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+        return
+    if devices is None:
+        torch.cuda.synchronize()
+        return
+    for device in dict.fromkeys(torch.device(d) for d in devices):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 class StageTimer:
@@ -40,9 +49,9 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str, sync_start: bool = True,
-              sync_end: bool = True):
+              sync_end: bool = True, devices=None):
         if sync_start:
-            _sync()
+            _sync(devices)
         t0 = time.perf_counter()
         try:
             with torch.profiler.record_function(f"nesr/{name}"):
@@ -52,7 +61,7 @@ class StageTimer:
             # up in the table, not vanish.
             try:
                 if sync_end:
-                    _sync()
+                    _sync(devices)
             finally:
                 dt = time.perf_counter() - t0
                 self.totals[name] += dt

@@ -70,12 +70,15 @@ from neural_enhanced_super_resolution_torch.parallel import (
     shard_tiles, sharded)
 from neural_enhanced_super_resolution_torch.parallel.dryrun import (
     dryrun_multichip)
+from neural_enhanced_super_resolution_torch.parallel.dryrun import (
+    main as dryrun_main)
 from neural_enhanced_super_resolution_torch.parallel.mesh import (
     module_device, module_on)
 from neural_enhanced_super_resolution_torch.parallel.overlap import (
     overlap_branches, split_mesh)
 from neural_enhanced_super_resolution_torch.parallel.tensor import (
-    TensorParallelUNet, shard_transformer_params, tp_mesh, tp_spec_for)
+    TensorParallelUNet, _TPBlock, shard_transformer_params, tp_mesh,
+    tp_spec_for)
 from neural_enhanced_super_resolution_torch.pipeline import (
     EnhancementCancelled)
 from neural_enhanced_super_resolution_torch.runtime import device as devices
@@ -227,21 +230,18 @@ def test_process_tiled_sharded_matches_jax(hw, batch_tiles, shard_sizes):
 
 
 def test_process_tiled_sharded_takes_one_callable_a_slot():
+    """The one model callable runs once a slot a chunk, on that slot's
+    shard, and the stitched result equals process_tiled."""
     img = torch.rand((64, 64, 3), generator=torch.Generator().manual_seed(1))
-    calls = [0] * 4
+    shards = []
 
-    def slot(i):
-        def fn(tiles):
-            calls[i] += 1
-            return _up2_torch(tiles)
-        return fn
+    def fn(tiles):
+        shards.append(int(tiles.shape[0]))
+        return _up2_torch(tiles)
 
-    got = process_tiled_sharded([slot(i) for i in range(4)], img, _cpus(4),
-                                16, 2, 2, batch_tiles=2)
-    assert calls == [2] * 4
+    got = process_tiled_sharded(fn, img, _cpus(4), 16, 2, 2, batch_tiles=2)
+    assert shards == [2] * 8   # 16 tiles: 2 chunks of 4 slots x 2 tiles
     assert torch.equal(got, process_tiled(_up2_torch, img, 16, 2, 2))
-    with pytest.raises(ValueError):
-        process_tiled_sharded([slot(0)], img, _cpus(4), 16, 2, 2)
 
 
 # ------------------------------------------------------------------ strips --
@@ -459,15 +459,25 @@ def tp_case():
 @pytest.mark.parametrize("hoisted", [False, True], ids=["kv_in_layer",
                                                         "kv_hoisted"])
 @pytest.mark.parametrize("tp", [2, 4])
-def test_tp_unet_forward_matches_replicated_and_jax(tp_case, tp, hoisted):
+def test_tp_unet_forward_matches_replicated_and_jax(tp_case, tp, hoisted,
+                                                    monkeypatch):
     """TINY has 2 heads a block: at tp 2 each slot runs one head's
     attention; at tp 4 the attentions stay replicated and the GEGLU FF
     splits. Against the port's replicated forward and JAX's unet_forward,
-    atol 2e-5 (float32)."""
+    atol 2e-5 (float32). Each slot runs one self-attention a block (K3 on
+    the card)."""
     unet, _, x, ctx, ref = tp_case
     labels = torch.tensor([20])
     kv = precompute_context_kv(unet, ctx) if hoisted else None
     tp_unet = TensorParallelUNet(unet, _cpus(tp))
+    per_slot = [0] * tp
+    slot_attention = _TPBlock._attention
+
+    def counted(self, i, q, k, v, cross):
+        per_slot[i] += not cross
+        return slot_attention(self, i, q, k, v, cross)
+
+    monkeypatch.setattr(_TPBlock, "_attention", counted)
     got = tp_unet(x, 3, ctx, labels, kv).numpy()
     want = unet_forward(unet, x, 3, ctx, labels, kv).numpy()
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
@@ -475,7 +485,7 @@ def test_tp_unet_forward_matches_replicated_and_jax(tp_case, tp, hoisted):
     blocks = tp_unet.blocks.values()
     assert all(b.split_ff for b in blocks)
     assert all(b.split_attn1 == b.split_attn2 == (tp == 2) for b in blocks)
-    assert tp_unet.attn_calls == [len(blocks) if tp == 2 else 0] * tp
+    assert per_slot == [len(blocks) if tp == 2 else 0] * tp
 
 
 def test_tp_shards_the_tensors_jax_shards(tp_case):
@@ -705,23 +715,54 @@ def test_stage_overlap_and_sd_cfg_shard_through_the_product(
     np.testing.assert_array_equal(outs["cfg_shard"], outs["off"])
 
 
-def test_stage_timer_synchronises_every_gpu(monkeypatch):
+def _record_syncs(monkeypatch) -> list:
+    """CUDA reported present; each torch.cuda.synchronize call recorded."""
     synced = []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
-    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: synced.append(device))
+    return synced
+
+
+def test_stage_timer_synchronises_every_gpu(monkeypatch):
+    """A stage waits for every CUDA device it is given, each once, and for
+    the current GPU when given none; an end left open waits for none."""
+    synced = _record_syncs(monkeypatch)
+    cards = [torch.device("cuda", i) for i in range(3)]
     timer = profiler.StageTimer()
-    with timer.stage("a"):
+    with timer.stage("a", devices=cards + [cards[0], CPU]):
         pass
-    assert synced == [0, 1, 2, 0, 1, 2]
+    assert synced == cards * 2
     synced.clear()
-    with timer.stage("esrgan", sync_end=False):
+    with timer.stage("b"):
         pass
-    with timer.stage("diffusion", sync_start=False, sync_end=False):
+    assert synced == [None, None]
+    synced.clear()
+    with timer.stage("esrgan", sync_end=False, devices=cards):
         pass
-    assert synced == [0, 1, 2]
-    assert timer.counts == {"a": 1, "esrgan": 1, "diffusion": 1}
+    with timer.stage("diffusion", sync_start=False, sync_end=False,
+                     devices=cards):
+        pass
+    assert synced == cards
+    assert timer.counts == {"a": 1, "b": 1, "esrgan": 1, "diffusion": 1}
+
+
+@pytest.mark.parametrize("mode,used", [("off", 1), ("auto", 4)])
+def test_stages_synchronise_only_the_layouts_devices(tmp_path, ckpt,
+                                                     monkeypatch, mode, used):
+    """On a host with 4 GPUs a one-device layout's stages synchronise its
+    own card only (a synchronize on another card would open a CUDA context
+    there); a 4-slot layout's stages synchronise each of its cards."""
+    cards = [torch.device("cuda", i) for i in range(4)]
+    monkeypatch.setattr(devices, "visible_devices", lambda device: cards)
+    pipe = _pipe(tmp_path, ckpt, data_parallel=mode)
+    pipe.device = "cuda"   # the layout only: no tensor is placed
+    synced = _record_syncs(monkeypatch)
+    with pipe._stage("esrgan"):
+        pass
+    assert synced == cards[:used] * 2
 
 
 # --------------------------------------------------------- dry run, imports --
@@ -732,6 +773,20 @@ def test_dryrun_multichip_over_eight_cpu_slots(capsys):
              if ln.startswith("PASS ")]
     assert [ln.split(":")[0][5:] for ln in lines] == [
         "1", "2", "3", "3b", "4", "5", "5b", "6b", "6"]
+
+
+def test_dryrun_entry_point_takes_the_card_unless_cpu_is_asked(
+        monkeypatch, capsys):
+    """With no argument the dry run asks for the card and raises without
+    one; ``cpu N`` runs it over N CPU slots."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        dryrun_main([])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        dryrun_main(["cuda"])
+    dryrun_main(["cpu", "2"])
+    out = capsys.readouterr().out
+    assert out.count("PASS ") == 9 and "tile DP over 2 slots" in out
 
 
 def test_multi_device_modules_import_without_jax():
