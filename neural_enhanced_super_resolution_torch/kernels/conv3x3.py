@@ -11,6 +11,9 @@ interface, weights HWIO (3, 3, Cin, Cout) as in the JAX package.
 The kernel reads its weights pre-packed by ``pack_conv3x3_weights`` into the
 image of its shared-memory slabs; models pack once at build and pass the
 buffer as ``packed``, and a call without it packs on the fly.
+
+``Conv3x3Function`` is the float32 conv with a gradient, for training: its
+forward and its input gradient are K1f launches on the card.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from neural_enhanced_super_resolution_torch.kernels._build import (
     KernelInputError)
 
 __all__ = ["conv3x3", "conv3x3_f32", "conv3x3_plain", "pack_conv3x3_weights",
-           "pass_width",
+           "Conv3x3Function", "pass_width",
            "tile_width", "packed_numel", "TILE_WIDTHS"]
 
 # The kernel's instantiations: the output-channel width N of one tile; a
@@ -212,3 +215,46 @@ def conv3x3_f32(x: torch.Tensor, w: torch.Tensor,
 
 
 conv3x3_f32.launches = 0
+
+
+class Conv3x3Function(torch.autograd.Function):
+    """The float32 SAME 3x3 conv (+ bias, + optional LeakyReLU(0.2)) with a
+    gradient: what the JAX trainer differentiates through
+    ``lax.conv_general_dilated`` in float32 (``tools/train_tiny_esrgan.py``).
+
+    x (N, H, W, Cin) and w (3, 3, Cin, Cout) float32, bias (Cout,). On a
+    CUDA tensor the forward and the input gradient are K1f launches: the
+    input gradient of a SAME stride-1 3x3 conv is the SAME 3x3 conv of the
+    output gradient with the weight flipped in both spatial axes and Cin
+    and Cout swapped, no bias, no activation. On the CPU both are
+    ``conv3x3_plain``. The LeakyReLU's derivative, 1 where y >= 0 and 0.2
+    elsewhere (JAX's ``_lrelu``, 1 at 0), is read from the saved output,
+    whose sign is the pre-activation's. The weight gradient, a reduction
+    over pixels that no kernel of the port computes (XLA's autodiff in the
+    JAX package), is ``torch.nn.grad.conv2d_weight`` with TF32 off.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, bias, lrelu: bool):
+        y = conv3x3_f32(x, w, bias, lrelu)
+        ctx.lrelu = bool(lrelu)
+        ctx.save_for_backward(x, w, y if lrelu else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, y = ctx.saved_tensors
+        g = gy * torch.where(y >= 0, 1.0, 0.2) if ctx.lrelu else gy
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3x3_f32(g, w.flip(0, 1).transpose(2, 3).contiguous())
+        if ctx.needs_input_grad[1]:
+            if g.is_cuda:
+                torch.backends.cudnn.allow_tf32 = False
+            dw = torch.nn.grad.conv2d_weight(
+                x.permute(0, 3, 1, 2), (w.shape[3], w.shape[2], 3, 3),
+                g.permute(0, 3, 1, 2), padding=1).permute(2, 3, 1, 0)
+        if ctx.needs_input_grad[2]:
+            db = g.sum((0, 1, 2))
+        return dx, dw, db, None

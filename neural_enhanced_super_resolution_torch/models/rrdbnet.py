@@ -17,6 +17,11 @@ accumulates in fp32. The trunk is one of:
   its rounding points (the head stays on K1 in the compute dtype);
 * ``"stock"``: the unfused basicsr RDB (``fuse_rdb: false``).
 
+``TrainableRRDBNet`` is the stock network as the JAX trainer differentiates
+it (``tools/train_tiny_esrgan.py``): float32 ``nn.Parameter``s under the
+basicsr names, every conv through ``kernels.conv3x3.Conv3x3Function`` (K1f
+forward and input gradient on the card).
+
 The upsampling head is the stock one (nearest x2 + conv, twice, then
 conv_hr and conv_last): the JAX package's folded head is a TPU matrix-unit
 shape trick and is not ported.
@@ -31,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-    conv3x3, conv3x3_plain, pack_conv3x3_weights)
+    Conv3x3Function, conv3x3, conv3x3_plain, pack_conv3x3_weights)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
     conv3x3_int8, conv3x3_int8_plain, pack_conv3x3_int8_weights,
     quantize_int8)
@@ -39,7 +44,8 @@ from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
     rdb_fused, rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.models.weights import HEAD_CONVS
 
-__all__ = ["RRDBNetConfig", "RRDBNet", "FusedRDB", "Int8RDB", "Conv3x3",
+__all__ = ["RRDBNetConfig", "RRDBNet", "TrainableRRDBNet", "FusedRDB",
+           "Int8RDB", "Conv3x3",
            "pixel_unshuffle", "nearest_x2", "fuse_rdb", "quantize_rdb",
            "TRUNKS"]
 
@@ -353,3 +359,90 @@ class RRDBNet(nn.Module):
         feat = self.conv_up2(nearest_x2(feat), lrelu=True, plain=p)
         out = self.conv_last(self.conv_hr(feat, lrelu=True, plain=p), plain=p)
         return out.float()
+
+
+class _TrainConv(nn.Module):
+    """A float32 3x3 conv with basicsr's parameters: ``weight`` (Cout, Cin,
+    3, 3), ``bias`` (Cout,)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((cout, cin, 3, 3)))
+        self.bias = nn.Parameter(torch.empty((cout,)))
+
+    def forward(self, x: torch.Tensor, lrelu: bool = False,
+                plain: bool = False) -> torch.Tensor:
+        w = _hwio(self.weight).contiguous()
+        if plain:
+            return conv3x3_plain(x, w, self.bias, lrelu)
+        return Conv3x3Function.apply(x, w, self.bias, lrelu)
+
+
+class _TrainRDB(nn.Module):
+    """JAX ``_rdb``: five dense convs (concatenated inputs) + x + 0.2 x5."""
+
+    def __init__(self, nf: int, gc: int):
+        super().__init__()
+        for c in range(1, 6):
+            setattr(self, f"conv{c}",
+                    _TrainConv(nf + (c - 1) * gc, gc if c < 5 else nf))
+
+    def forward(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
+        c = x
+        for k in range(1, 5):
+            c = torch.cat([c, getattr(self, f"conv{k}")(c, True, plain)],
+                          dim=-1)
+        return x + 0.2 * self.conv5(c, plain=plain)
+
+
+class _TrainRRDB(nn.Module):
+    def __init__(self, nf: int, gc: int):
+        super().__init__()
+        self.rdb1, self.rdb2, self.rdb3 = (_TrainRDB(nf, gc) for _ in range(3))
+
+    def forward(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
+        out = self.rdb3(self.rdb2(self.rdb1(x, plain), plain), plain)
+        return x + 0.2 * out
+
+
+class TrainableRRDBNet(nn.Module):
+    """The stock RRDBNet in float32 with trainable parameters.
+
+    Its parameters carry the basicsr names, so ``state_dict()`` is the
+    checkpoint; ``state_dict`` (from ``init_rrdbnet``, ``params_from_jax`` or
+    a file) loads strictly. forward: x (N, H, W, num_in_ch) float32 ->
+    (N, H*scale, W*scale, num_out_ch) float32, with the stock trunk's
+    concatenations and the unfolded head, as JAX ``rrdbnet_forward`` runs
+    stock params in float32. plain=True runs ``conv3x3_plain`` (autograd
+    through ``F.conv2d``), the reference the kernel path is held against.
+    """
+
+    def __init__(self, cfg: RRDBNetConfig,
+                 state_dict: Mapping[str, torch.Tensor],
+                 device: str | torch.device = "cuda"):
+        super().__init__()
+        self.cfg = cfg
+        nf, gc = cfg.num_feat, cfg.num_grow_ch
+        self.conv_first = _TrainConv(cfg.conv_first_in_ch, nf)
+        self.body = nn.ModuleList(_TrainRRDB(nf, gc)
+                                  for _ in range(cfg.num_block))
+        for name in HEAD_CONVS[1:-1]:
+            setattr(self, name, _TrainConv(nf, nf))
+        self.conv_last = _TrainConv(nf, cfg.num_out_ch)
+        self.load_state_dict({k: torch.as_tensor(v).float()
+                              for k, v in state_dict.items()})
+        self.to(device)
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        if self.cfg.scale == 2:
+            x = pixel_unshuffle(x, 2)
+        elif self.cfg.scale == 1:
+            x = pixel_unshuffle(x, 4)
+        feat = self.conv_first(x.contiguous(), plain=plain)
+        body = feat
+        for block in self.body:
+            body = block(body, plain)
+        feat = feat + self.conv_body(body, plain=plain)
+        feat = self.conv_up1(nearest_x2(feat), True, plain)
+        feat = self.conv_up2(nearest_x2(feat), True, plain)
+        return self.conv_last(self.conv_hr(feat, True, plain), plain=plain)

@@ -7,7 +7,7 @@ from neural_enhanced_super_resolution_torch.ops.color import (
     lab_to_rgb, rgb_to_gray, rgb_to_lab)
 from neural_enhanced_super_resolution_torch.ops.enhance import (
     adaptive_sharpen, adaptive_sharpen_batch, contrast_stage, denoise_stage,
-    ensemble, masked_sharpen, unsharp_mask)
+    ensemble, masked_sharpen, preprocess, unsharp_mask)
 from neural_enhanced_super_resolution_torch.ops.nlmeans import (
     nl_means, nl_means_colored)
 from neural_enhanced_super_resolution_torch.ops.pointwise import (
@@ -18,7 +18,7 @@ __all__ = [
     "box_blur", "dilate", "filter2d", "gaussian_blur", "gaussian_kernel1d",
     "clahe", "lab_to_rgb", "rgb_to_gray", "rgb_to_lab", "adaptive_sharpen",
     "adaptive_sharpen_batch", "contrast_stage", "denoise_stage", "ensemble",
-    "masked_sharpen", "unsharp_mask", "nl_means", "nl_means_colored",
-    "add_weighted", "convert_scale_abs", "subtract", "threshold_binary",
-    "resize",
+    "masked_sharpen", "preprocess", "unsharp_mask", "nl_means",
+    "nl_means_colored", "add_weighted", "convert_scale_abs", "subtract",
+    "threshold_binary", "resize",
 ]

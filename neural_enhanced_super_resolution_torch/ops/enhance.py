@@ -28,7 +28,7 @@ from neural_enhanced_super_resolution_torch.ops.pointwise import (
     add_weighted, convert_scale_abs, subtract, threshold_binary)
 from neural_enhanced_super_resolution_torch.ops.resize import resize
 
-__all__ = ["denoise_stage", "contrast_stage", "unsharp_mask",
+__all__ = ["denoise_stage", "contrast_stage", "preprocess", "unsharp_mask",
            "masked_sharpen", "adaptive_sharpen", "adaptive_sharpen_batch",
            "ensemble"]
 
@@ -96,6 +96,16 @@ def contrast_stage(img: torch.Tensor) -> torch.Tensor:
     l_eq = clahe(lab[:, :, 0].contiguous(), clip_limit=2.0,
                  tile_grid_size=(8, 8))
     return lab_to_rgb(torch.cat([l_eq[:, :, None], lab[:, :, 1:]], dim=-1))
+
+
+def preprocess(img: torch.Tensor, denoise_level: float = 0.5
+               ) -> torch.Tensor:
+    """NL-means denoise (h = 10 * level) when the level is above 0, then
+    CLAHE(2.0, 8x8) on Lab L: the pipeline's preprocessing as one call, on
+    an (H, W, 3) uint8 image."""
+    if denoise_level > 0:
+        img = denoise_stage(img, denoise_level)
+    return contrast_stage(img)
 
 
 def unsharp_mask(img: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,10 @@ setup(
             "nesr = neural_enhanced_super_resolution_tpu.cli:main",
             "nesr-download = "
             "neural_enhanced_super_resolution_tpu.utils.downloader:_main",
+            # the PyTorch port's CLI and model download
+            "nesr-torch = neural_enhanced_super_resolution_torch.cli:main",
+            "nesr-torch-download = "
+            "neural_enhanced_super_resolution_torch.utils.downloader:_main",
         ],
     },
 )
