@@ -8,12 +8,15 @@ from neural_enhanced_super_resolution_torch.kernels.attention import (
 from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
     conv3x3, conv3x3_f32, conv3x3_plain)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
-    conv3x3_int8, conv3x3_int8_plain)
+    conv3x3_int8, conv3x3_int8_plain, conv3x3_int8_rdb, conv3x3_int8_rdb_plain,
+    int8_amax, int8_amax_plain)
 from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
     rdb_fused, rdb_fused_plain)
 
 __all__ = ["KernelError", "KernelInputError", "attention_auto",
            "conv3x3", "conv3x3_f32", "conv3x3_int8", "conv3x3_int8_plain",
+           "conv3x3_int8_rdb", "conv3x3_int8_rdb_plain", "int8_amax",
+           "int8_amax_plain",
            "conv3x3_plain", "flash_attention", "flash_attention_f32",
            "flash_attention_plain", "rdb_fused",
            "rdb_fused_plain"]

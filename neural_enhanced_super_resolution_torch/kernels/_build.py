@@ -153,6 +153,15 @@ def load_library() -> ctypes.CDLL:
         lib.nesr_conv3x3_f32.restype = ci
         lib.nesr_conv3x3_int8.argtypes = [vp] * 5 + [ci] * 6 + [vp]
         lib.nesr_conv3x3_int8.restype = ci
+        lib.nesr_rdb_int8_step.argtypes = [vp] * 11 + [ci] * 12 + [vp]
+        lib.nesr_rdb_int8_step.restype = ci
+        lib.nesr_int8_amax.argtypes = [vp, ci, ctypes.c_longlong, ci, vp,
+                                       ci, vp]
+        lib.nesr_int8_amax.restype = ci
+        lib.nesr_rdb_int8_occupancy.argtypes = [ci, ci,
+                                                ctypes.POINTER(ci),
+                                                ctypes.POINTER(ci)]
+        lib.nesr_rdb_int8_occupancy.restype = ci
         lib.nesr_rdb_fused.argtypes = [vp] * 8 + [ci, ci, ci, vp]
         lib.nesr_rdb_fused.restype = ci
         lib.nesr_flash_attn.argtypes = [vp] * 4 + [ci] * 5 + [

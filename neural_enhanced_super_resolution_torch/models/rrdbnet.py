@@ -12,9 +12,14 @@ accumulates in fp32. The trunk is one of:
   ``_rdb_fused``;
 * ``"dform"``: one K2 launch (``kernels.rdb_fused``) per RDB, bf16 only;
 * ``"int8"``: the fused RDB with per-output-channel int8 weights and
-  dynamic per-tensor int8 activations, its five convs through K4
-  (``kernels.conv3x3_int8``): the JAX package's ``_rdb_fused_int8``, with
-  its rounding points (the head stays on K1 in the compute dtype);
+  dynamic per-tensor int8 activations: the JAX package's
+  ``_rdb_fused_int8``, with its rounding points. Each of its five convs is
+  one launch of K4's redesign (``kernels.conv3x3_int8.conv3x3_int8_rdb``),
+  which quantises its input while it loads it and does its share of the
+  dense-block assembly in its epilogue; the scales pass from launch to
+  launch on the device, started by one ``int8_amax`` a forward, and each
+  RRDB's residual is folded into its third RDB's last step (the head
+  stays on K1 in the compute dtype);
 * ``"stock"``: the unfused basicsr RDB (``fuse_rdb: false``).
 
 ``TrainableRRDBNet`` is the stock network as the JAX trainer differentiates
@@ -23,8 +28,9 @@ basicsr names, every conv through ``kernels.conv3x3.Conv3x3Function`` (K1f
 forward and input gradient on the card).
 
 The upsampling head is the stock one (nearest x2 + conv, twice, then
-conv_hr and conv_last): the JAX package's folded head is a TPU matrix-unit
-shape trick and is not ported.
+conv_hr and conv_last). The JAX package's folded head (``fold_head_params``
+/ ``_head_forward``) is not ported yet: it is the next slice of the port
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -38,8 +44,8 @@ from torch import nn
 from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
     Conv3x3Function, conv3x3, conv3x3_plain, pack_conv3x3_weights)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
-    conv3x3_int8, conv3x3_int8_plain, pack_conv3x3_int8_weights,
-    quantize_int8)
+    conv3x3_int8_plain, conv3x3_int8_rdb, int8_amax,
+    pack_conv3x3_int8_weights, quantize_int8)
 from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
     rdb_fused, rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.models.weights import HEAD_CONVS
@@ -246,14 +252,16 @@ class FusedRDB(nn.Module):
 
 
 class Int8RDB(nn.Module):
-    """The fused RDB on int8 operands: five K4 convs and the JAX package's
-    float32 assembly (``_rdb_fused_int8``).
+    """The fused RDB on int8 operands (``_rdb_fused_int8``): five launches
+    of ``conv3x3_int8_rdb``, or with ``plain=True`` the composition each
+    launch replaces: ``quantize_int8``, ``conv3x3_int8_plain`` and the
+    JAX package's float32 assembly in PyTorch.
 
     wq: w0..w4 int8 HWIO, ws: their (Cout,) float32 scales (from
     ``quantize_rdb``), b: the (4g + nf,) biases; q0..q4 / s0..s4 hold them,
-    p0..p4 K4's packed images. Each conv quantises its input over the whole
-    batch tensor, so the output depends on how tiles are batched, as in the
-    JAX package."""
+    p0..p4 their packed images. Each conv quantises its input over the
+    whole batch tensor, so the output depends on how tiles are batched, as
+    in the JAX package."""
 
     def __init__(self, wq, ws, b, device):
         super().__init__()
@@ -267,15 +275,39 @@ class Int8RDB(nn.Module):
                              .contiguous())
         self.gc = wq[1].shape[2]
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                scales: torch.Tensor | None = None,
+                skip: torch.Tensor | None = None) -> torch.Tensor:
+        """scales: the (6,) slice of an ``int8_amax`` chain whose [0] is
+        max|x| (made here when None; the steps fill [1..5], [5] being
+        max|out|). skip: an RRDB's input, which makes the result the
+        RRDB's, skip + 0.2 * out."""
+        if plain:
+            out = self._composition(x)
+            return out if skip is None else skip + 0.2 * out
+        x = x.contiguous()
+        if scales is None:
+            scales = int8_amax(x, 5)
+        n, h, w, _ = x.shape
+        slots = torch.empty((n, h, w, self.b.numel()), dtype=torch.bfloat16,
+                            device=x.device)
+        t = x
+        for k in range(5):
+            last = k == 4
+            t = conv3x3_int8_rdb(
+                k, t, scales[k], scales[k + 1], getattr(self, f"q{k}"),
+                getattr(self, f"s{k}"), self.b, slots,
+                x=x if last else None, skip=skip if last else None,
+                packed=getattr(self, f"p{k}"))
+        return t
+
+    def _composition(self, x: torch.Tensor) -> torch.Tensor:
         g, b = self.gc, self.b
 
         def conv(h, k):
             q, s_x = quantize_int8(h)
-            w, ws = getattr(self, f"q{k}"), getattr(self, f"s{k}")
-            if plain:
-                return conv3x3_int8_plain(q, w, s_x, ws)
-            return conv3x3_int8(q, w, s_x, ws, packed=getattr(self, f"p{k}"))
+            return conv3x3_int8_plain(q, getattr(self, f"q{k}"), s_x,
+                                      getattr(self, f"s{k}"))
 
         # The conv outputs are bf16; x1..x4 stay float32 (bf16 slices summed
         # left to right in bf16, plus the float32 bias, LeakyReLU), as
@@ -309,9 +341,23 @@ class _RRDB(nn.Module):
                 return Int8RDB(*quantize_rdb(fw), fb, device)
             return FusedRDB(fw, fb, dtype, device, kernel=trunk == "dform")
 
+        self.int8 = trunk == "int8"
         self.rdbs = nn.ModuleList(mk(f"body.{i}.rdb{k}") for k in (1, 2, 3))
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                scales: torch.Tensor | None = None) -> torch.Tensor:
+        """scales (int8 trunk): the (16,) slice of an ``int8_amax`` chain
+        whose [0] is max|x| (made here when None); the third RDB's last
+        step adds the residual x + 0.2 * out and fills [15] with its
+        max, the next RRDB's scale."""
+        if self.int8 and not plain:
+            if scales is None:
+                scales = int8_amax(x, 15)
+            out = x
+            for r, rdb in enumerate(self.rdbs):
+                out = rdb(out, scales=scales[5 * r:5 * r + 6],
+                          skip=x if r == 2 else None)
+            return out
         out = x
         for rdb in self.rdbs:
             out = rdb(out, plain=plain)
@@ -341,6 +387,21 @@ class RRDBNet(nn.Module):
         self.body = nn.ModuleList(_RRDB(sd, i, dtype, device, trunk)
                                   for i in range(cfg.num_block))
 
+    def body_forward(self, feat: torch.Tensor, plain: bool = False
+                     ) -> torch.Tensor:
+        """The trunk's RRDBs on conv_first's output. The int8 trunk runs
+        one chain of scales for all of them (15 steps an RRDB), started by
+        one ``int8_amax``."""
+        body = feat
+        if self.trunk == "int8" and not plain:
+            scales = int8_amax(feat, 15 * len(self.body))
+            for i, block in enumerate(self.body):
+                body = block(body, scales=scales[15 * i:15 * i + 16])
+            return body
+        for block in self.body:
+            body = block(body, plain=plain)
+        return body
+
     @torch.no_grad()
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """plain=True runs every kernel's plain version instead (the
@@ -351,10 +412,8 @@ class RRDBNet(nn.Module):
             x = pixel_unshuffle(x, 4)
         p = plain
         feat = self.conv_first(x.to(self.dtype), plain=p)
-        body = feat
-        for block in self.body:
-            body = block(body, plain=p)
-        feat = feat + self.conv_body(body, plain=p)
+        feat = feat + self.conv_body(self.body_forward(feat, plain=p),
+                                     plain=p)
         feat = self.conv_up1(nearest_x2(feat), lrelu=True, plain=p)
         feat = self.conv_up2(nearest_x2(feat), lrelu=True, plain=p)
         out = self.conv_last(self.conv_hr(feat, lrelu=True, plain=p), plain=p)

@@ -9,7 +9,10 @@ machine with the card and without JAX it runs as
 Tolerance: max|kernel - plain| <= 1e-2 * max(1, max|plain|) per conv
 kernel (bf16 outputs; the two sum in another order), 3e-2 for a whole
 forward; K4 (the int8 conv) equals its plain version bit for bit (exact
-integer sums, the same float32 epilogue); K3 (flash attention) 2e-2 of max|plain| with no floor, on q and k
+integer sums, the same float32 epilogue), and so does its redesign, the
+int8 RDB step (conv3x3_int8_rdb: x_{k+1} or out, the slots and the scale
+chain), with int8_amax; K3 (flash attention) 2e-2 of max|plain| with no
+floor, on q and k
 of std 2 so that each softmax row is peaked. The float32 forms (K1f, K3f)
 1e-5 of max|plain| (float32 sums in another order), 1e-4 for a forward. The stages without a kernel
 against the same function on the CPU: NL-means' uint8 Lab max |diff| <= 1
@@ -23,8 +26,10 @@ import torch
 
 from neural_enhanced_super_resolution_torch.kernels import (
     KernelError, KernelInputError, attention_auto, conv3x3, conv3x3_f32,
-    conv3x3_int8, conv3x3_int8_plain, conv3x3_plain, flash_attention,
-    flash_attention_f32, flash_attention_plain, rdb_fused, rdb_fused_plain)
+    conv3x3_int8, conv3x3_int8_plain, conv3x3_int8_rdb,
+    conv3x3_int8_rdb_plain, conv3x3_plain, flash_attention,
+    flash_attention_f32, flash_attention_plain, int8_amax, int8_amax_plain,
+    rdb_fused, rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
     pack_conv3x3_int8_weights)
 from neural_enhanced_super_resolution_torch.models import (
@@ -209,6 +214,87 @@ def test_conv3x3_int8_refuses_what_the_kernel_does_not_take(cuda):
             16, dtype=torch.int8, device=cuda))          # not its packing
 
 
+def _int8_rdb(cuda, nf, g, seed):
+    from neural_enhanced_super_resolution_torch.models.rrdbnet import (
+        Int8RDB, quantize_rdb)
+    gen = torch.Generator().manual_seed(seed)
+    shapes = [(nf, 4 * g + nf)] + [(g, (4 - k) * g + nf) for k in range(1, 5)]
+    fw = [torch.randn((3, 3, ci, co), generator=gen) * 0.05
+          for ci, co in shapes]
+    return Int8RDB(*quantize_rdb(fw), torch.randn((4 * g + nf,),
+                                                  generator=gen) * 0.1, cuda)
+
+
+def _bits(t):
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.parametrize("n,h,w,nf,g,dtype,skip", [
+    (2, 40, 36, 64, 32, torch.bfloat16, False),
+    (2, 40, 36, 64, 32, torch.bfloat16, True),
+    (1, 80, 80, 16, 8, torch.bfloat16, False),
+    (3, 13, 29, 64, 32, torch.float32, True),
+    (2, 21, 35, 12, 4, torch.bfloat16, False)],
+    ids=["trunk", "trunk_skip", "fixture", "float32_ragged", "scalar_paths"])
+def test_int8_rdb_steps_match_plain(cuda, n, h, w, nf, g, dtype, skip):
+    """The K4 step at every step of an RDB against its plain version on the
+    same inputs, bit for bit: the returned x_{k+1} / out, the whole slot
+    buffer and the whole scale chain; int8_amax against its plain version;
+    the RDB on the kernels against Int8RDB's plain composition."""
+    rdb = _int8_rdb(cuda, nf, g, seed=nf + g)
+    gen = torch.Generator().manual_seed(n + h)
+    x = (torch.randn((n, h, w, nf), generator=gen) * 0.5).to(cuda, dtype)
+    sk = (torch.randn((n, h, w, nf), generator=gen) * 0.5).to(
+        cuda, dtype) if skip else None
+    scales = int8_amax(x, 5)
+    assert torch.equal(_bits(scales), _bits(int8_amax_plain(x, 5)))
+    slots = torch.zeros((n, h, w, 4 * g + nf), dtype=torch.bfloat16,
+                        device=cuda)
+    t = x
+    for k in range(5):
+        sl, sc = slots.clone(), scales.clone()
+        extra = dict(x=x, skip=sk) if k == 4 else {}
+        args = (getattr(rdb, f"q{k}"), getattr(rdb, f"s{k}"), rdb.b)
+        got = conv3x3_int8_rdb(k, t, scales[k], scales[k + 1], *args, slots,
+                               packed=getattr(rdb, f"p{k}"), **extra)
+        ref = conv3x3_int8_rdb_plain(k, t, sc[k], sc[k + 1], *args, sl,
+                                     **extra)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(ref)), k
+        assert torch.equal(_bits(slots), _bits(sl)), k
+        assert torch.equal(_bits(scales), _bits(sc)), k
+        t = got
+    assert torch.equal(_bits(rdb(x, skip=sk)),
+                       _bits(rdb(x, plain=True, skip=sk)))
+
+
+def test_int8_rdb_step_refuses_what_the_kernel_does_not_take(cuda):
+    rdb = _int8_rdb(cuda, 64, 32, seed=1)
+    x = torch.zeros((1, 8, 8, 64), dtype=torch.bfloat16, device=cuda)
+    scales = int8_amax(x, 5)
+    slots = torch.zeros((1, 8, 8, 192), dtype=torch.bfloat16, device=cuda)
+    args = (rdb.q0, rdb.s0, rdb.b)
+    with pytest.raises(KernelInputError):     # step 1 takes a float32 x_k
+        conv3x3_int8_rdb(1, x[..., :32].contiguous(), scales[1], scales[2],
+                         rdb.q1, rdb.s1, rdb.b, slots)
+    with pytest.raises(KernelInputError):     # slots must be bf16
+        conv3x3_int8_rdb(0, x, scales[0], scales[1], *args, slots.float())
+    with pytest.raises(KernelInputError):     # weights of another step
+        conv3x3_int8_rdb(0, x, scales[0], scales[1], rdb.q1, rdb.s0, rdb.b,
+                         slots)
+    with pytest.raises(KernelInputError):     # x belongs to step 4
+        conv3x3_int8_rdb(0, x, scales[0], scales[1], *args, slots, x=x)
+    with pytest.raises(KernelInputError):     # not contiguous
+        conv3x3_int8_rdb(0, x.transpose(1, 2), scales[0], scales[1], *args,
+                         slots)
+    with pytest.raises(KernelInputError):     # not its packing
+        conv3x3_int8_rdb(0, x, scales[0], scales[1], *args, slots,
+                         packed=torch.zeros(16, dtype=torch.int8,
+                                            device=cuda))
+    with pytest.raises(KernelInputError):     # int8_amax: not bf16/float32
+        int8_amax(x.half(), 5)
+
+
 @pytest.mark.parametrize("trunk", ["fused", "dform", "int8"])
 def test_full_width_forward_matches_plain(cuda, trunk):
     """12ch x4 at the full width (64 features, growth 32), two blocks."""
@@ -261,8 +347,10 @@ def test_product_path_goes_through_the_kernels(cuda, tmp_path, trunk):
     {"parity_tiling": True, "memory_efficient": True, "max_tile_size": 96},
 ], ids=["int8", "parity_tiling"])
 def test_config_modes_go_through_the_kernels(cuda, tmp_path, overrides):
-    """The int8 trunk runs its convs on K4 and its head on K1, and a
-    parity-tiling request each tile's forward on K1; no plain version."""
+    """The int8 trunk runs its convs on the K4 step (15 launches an RRDB,
+    one int8_amax a forward, the standalone K4 never) and its head on K1,
+    and a parity-tiling request each tile's forward on K1; no plain
+    version."""
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
     cfg = RRDBNetConfig(num_in_ch=12, num_out_ch=3, scale=4, num_feat=64,
                         num_block=1, num_grow_ch=32)
@@ -276,16 +364,21 @@ def test_config_modes_go_through_the_kernels(cuda, tmp_path, overrides):
     img = np.kron(np.random.default_rng(6).integers(0, 256, (20, 19, 3),
                                                     dtype=np.uint8),
                   np.ones((8, 8, 1), np.uint8))[:150, :136]
-    before = (conv3x3.launches, conv3x3_int8.launches, conv3x3_plain.calls,
-              conv3x3_int8_plain.calls)
+    def counts():
+        return (conv3x3.launches, conv3x3_int8_rdb.launches,
+                int8_amax.launches, conv3x3_int8.launches,
+                conv3x3_plain.calls, conv3x3_int8_plain.calls,
+                conv3x3_int8_rdb_plain.calls, int8_amax_plain.calls)
+
+    before = counts()
     out = pipe.enhance_array(img)
-    k1, k4, p1, p4 = (a - b for a, b in zip(
-        (conv3x3.launches, conv3x3_int8.launches, conv3x3_plain.calls,
-         conv3x3_int8_plain.calls), before))
+    k1, k4s, amax, k4, *plain = (a - b for a, b in zip(counts(), before))
     want = (300, 272, 3) if overrides.get("parity_tiling") else (600, 544, 3)
     assert out.shape == want and out.std() > 0
-    assert k1 > 0 and (k4 > 0) == ("esrgan_trunk" in overrides)
-    assert p1 == 0 and p4 == 0
+    int8 = "esrgan_trunk" in overrides
+    assert k1 > 0 and (k4s > 0) == int8 and (amax > 0) == int8
+    assert k4s == 15 * amax and k4 == 0
+    assert not any(plain)
 
 
 def _swinir_ckpt(path, depths=(2, 2)):
