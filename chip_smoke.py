@@ -105,6 +105,15 @@ weights:
   against the same steps on the plain convs (losses, first-step
   gradients, 701 K1f launches a step, step time, busy share, peak memory).
 
+Since PR 16 the forward checks hold the folded head (the JAX package's
+``_head_forward`` under ``fuse_rdb: true``: K1's head 3x3 form for up1
+and up2, its 2x2 form for hr and last; K1f's forms in float32) on every
+trunk: against its plain versions, four launches a call and no other
+kernel, and timed in turns with the stock head on the same trunk output;
+``check_conv3x3`` and ``check_conv3x3_f32`` hold the forms at the head's
+shapes beside cuDNN's conv and the bound; every path counts the 2x2
+form's launches beside K1's.
+
 Prints the card, every measurement, a JSON line of per-kernel results and,
 last, a JSON status line. Any failure exits non-zero without the status
 line. Needs no JAX and no network; writes only under ``build/chip_smoke/``.
@@ -127,6 +136,13 @@ PKG = "neural_enhanced_super_resolution_torch"
 ARCH = dict(num_in_ch=12, num_out_ch=3, scale=4, num_feat=64, num_block=23,
             num_grow_ch=32)
 TILE_BATCH = (4, 268, 268)   # 4 tiles of 256 + 2 * 6 halo (cuda overlay)
+# K1 launches a full-width forward: the 345 trunk convs, conv_first,
+# conv_body and the folded head's two 3x3 convs (up1, up2); the folded head
+# adds two launches of K1's 2x2 form (hr, last). The stock head (stock
+# trunk, fuse_rdb false) takes four K1 launches and no 2x2.
+K1_FOLDED = 15 * ARCH["num_block"] + 4
+K1_2X2 = 2
+K1_STOCK = 15 * ARCH["num_block"] + 6
 TOL_KERNEL = 1e-2            # max|err| / max(1, max|ref|), per kernel
 TOL_FORWARD = 3e-2           # the same for the full forward
 TOL_FLASH = 2e-2             # K3: max|err| / max|ref|, no floor
@@ -172,7 +188,10 @@ TOL_F32 = 1e-5               # K1f, K3f: float32 sums in another order
 # carry that through 351 convs, so the bar is ten times one conv's.
 TOL_F32_FORWARD = 1e-4
 F32_VAE_SHAPE = (1, 1, 1920, 1920, 512)   # the 48x40 request's VAE mid-block
-F32_TRUNK_W0 = (*TILE_BATCH, 64, 192, False, False)   # K1f's JSON row
+F32_TRUNK_W0 = (*TILE_BATCH, 64, 192, False, False, False)   # K1f's row
+# The 2x2 form's JSON row: hr of the full-width float32 forward's head.
+F32_HEAD_HR = (TILE_BATCH[0], 2 * TILE_BATCH[1], 2 * TILE_BATCH[2], 256,
+               256, True, 1, True, False)
 TOL_SD_CPU = 5e-2            # tiny snapshot latents, card bf16 vs CPU f32
 SD_STEPS = 20                # the cuda tier of num_inference_steps
 SD_ATTN_PER_PASS = 16        # self-attentions per SD x4 UNet pass
@@ -182,9 +201,10 @@ PROMPT = "a photo of a lighthouse on a cliff"
 CLI_COUNTED = (
     "import json, runpy, sys\n"
     "from neural_enhanced_super_resolution_torch.kernels import (\n"
-    "    conv3x3, conv3x3_int8, conv3x3_int8_plain, conv3x3_int8_rdb,\n"
-    "    conv3x3_int8_rdb_plain, conv3x3_plain, flash_attention,\n"
-    "    flash_attention_plain, int8_amax, int8_amax_plain)\n"
+    "    conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_int8,\n"
+    "    conv3x3_int8_plain, conv3x3_int8_rdb, conv3x3_int8_rdb_plain,\n"
+    "    conv3x3_plain, flash_attention, flash_attention_plain, int8_amax,\n"
+    "    int8_amax_plain)\n"
     "sys.argv = ['neural_enhanced_super_resolution_torch'] + sys.argv[1:]\n"
     "rc = 0\n"
     "try:\n"
@@ -194,6 +214,8 @@ CLI_COUNTED = (
     "    rc = exc.code\n"
     "print('COUNTS ' + json.dumps({\n"
     "    'conv3x3': conv3x3.launches,\n"
+    "    'conv2x2_s2d': conv2x2_s2d.launches,\n"
+    "    'conv2x2_s2d_plain': conv2x2_s2d_plain.calls,\n"
     "    'flash_attention': flash_attention.launches,\n"
     "    'conv3x3_plain': conv3x3_plain.calls,\n"
     "    'conv3x3_int8': conv3x3_int8.launches,\n"
@@ -282,10 +304,10 @@ def device_ms(fn, reps: int = 10, floor_ms: float = 0.0) -> float:
                          f" ms a call against a floor of {floor_ms}")
 
 
-def device_ms_named(fa, fb, needle: str, reps: int = 10,
+def device_ms_named(fa, fb, needle, reps: int = 10,
                     floor_ms: tuple = (0.0, 0.0)) -> tuple:
-    """Device time a call in the kernels whose name holds ``needle`` and in
-    every other kernel, from one torch.profiler window that runs ``fa``
+    """Device time a call in the kernels whose name holds ``needle`` (a
+    string, or a tuple of strings any of which) and in every other kernel, from one torch.profiler window that runs ``fa``
     and then ``fb`` ``reps`` times each (``fa`` a kernel's wrapper and
     ``fb`` its library call, or ``fa`` a model and ``fb`` nothing). A
     window sometimes loses device events (CUPTI), wholly or in part, so it
@@ -305,9 +327,11 @@ def device_ms_named(fa, fb, needle: str, reps: int = 10,
                 fb()
             torch.cuda.synchronize()
         us = [0, 0]
+        needles = (needle,) if isinstance(needle, str) else needle
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                us[needle not in e.name] += e.time_range.elapsed_us()
+                us[not any(k in e.name for k in needles)] += (
+                    e.time_range.elapsed_us())
         ms = (us[0] / 1e3 / reps, us[1] / 1e3 / reps)
         if min(us) > 0 and ms[0] >= floor_ms[0] and ms[1] >= floor_ms[1]:
             return ms
@@ -328,6 +352,24 @@ def launches_per_call(fn, reps: int = 2) -> float:
         torch.cuda.synchronize()
     return sum(e.device_type == DeviceType.CUDA
                for e in prof.events()) / reps
+
+
+def aten_ops(fn) -> list[str]:
+    """The PyTorch operators one call of ``fn`` dispatches (every ATen op
+    below autograd, by a TorchDispatchMode): the port's kernels launch
+    through ctypes and dispatch none, so a call that dispatches nothing
+    but allocations puts no kernel or copy on the card besides them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    seen: list[str] = []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Log():
+        fn()
+    return seen
 
 
 def wall_ms(fn, reps: int = 10) -> float:
@@ -351,11 +393,12 @@ def card_line() -> str:
 
 
 def build_kernels() -> None:
-    """Builds the kernels; prints K2's, K4's and K4 step's registers and
-    spills from the build log and fails on any wgmma that ptxas
-    serialized; checks in the SASS that every instantiation of K1 (21), K2
-    (1) and K3 (6) issues bf16 wgmma (HGMMA) and every one of K4 (14) and
-    of its redesign, the step (14), the int8 form (IGMMA)."""
+    """Builds the kernels; prints K2's, K4's, K4 step's and the folded
+    head's forms' (K1's and K1f's) registers and spills from the build log
+    and fails on any wgmma that ptxas serialized; checks in the SASS that
+    every instantiation of K1 (21), of its head 3x3 (3) and 2x2 (3) forms,
+    K2 (1) and K3 (6) issues bf16 wgmma (HGMMA) and every one of K4 (14)
+    and of its redesign, the step (14), the int8 form (IGMMA)."""
     from neural_enhanced_super_resolution_torch.kernels import _build
     t0 = time.perf_counter()
     _build.load_library()
@@ -372,11 +415,15 @@ def build_kernels() -> None:
                     x.split(":", 1)[-1].strip() for x in lines[i:i + 4]))
             if ("Compiling entry function" in line
                     and ("conv3x3_f32_kernel" in line
+                         or "conv2x2_f32_kernel" in line
+                         or "conv3x3_f32_head_kernel" in line
                          or "attn_f32_kernel" in line)):
                 log("K1f/K3f ptxas " + line.split("'")[1] + ": " + " | ".join(
                     x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]))
             for kernel, tag in (("conv3x3_int8_kernel", "K4"),
-                                ("rdb_int8_step_kernel", "K4 step")):
+                                ("rdb_int8_step_kernel", "K4 step"),
+                                ("conv2x2_kernel", "K1 2x2"),
+                                ("conv3x3_head_kernel", "K1 head 3x3")):
                 if "Compiling entry function" in line and kernel in line:
                     rest = line.split("'")[1].split(kernel, 1)[1]
                     args = [p.split("E")[0] for p in rest.split("Li")[1:3]]
@@ -393,10 +440,13 @@ def build_kernels() -> None:
         timeout=300).stdout
     # K1-K3 issue bf16 wgmma (HGMMA in SASS), K4 the 8-bit integer form
     # (IGMMA).
-    hgmma = {"K1": {}, "K2": {}, "K3": {}, "K4": {}, "K4 step": {}}
+    hgmma = {"K1": {}, "K1 head 3x3": {}, "K1 2x2": {}, "K2": {}, "K3": {},
+             "K4": {}, "K4 step": {}}
     for func in sass.split("Function : ")[1:]:
         name = func.split(None, 1)[0]
         for kernel, tag in (("conv3x3_kernel", "K1"),
+                            ("conv3x3_head_kernel", "K1 head 3x3"),
+                            ("conv2x2_kernel", "K1 2x2"),
                             ("rdb_fused_kernel", "K2"), ("flash_narrow", "K3"),
                             ("flash_wide", "K3"),
                             ("conv3x3_int8_kernel", "K4"),
@@ -408,8 +458,8 @@ def build_kernels() -> None:
                         ] if rest.startswith("I") else []
                 hgmma[tag][f"{kernel}<{','.join(args)}>"] = func.count(
                     "IGMMA" if tag.startswith("K4") else "HGMMA")
-    for tag, want in (("K1", 21), ("K2", 1), ("K3", 6), ("K4", 14),
-                      ("K4 step", 14)):
+    for tag, want in (("K1", 21), ("K1 head 3x3", 3), ("K1 2x2", 3),
+                      ("K2", 1), ("K3", 6), ("K4", 14), ("K4 step", 14)):
         log(f"{tag} SASS: {'IGMMA' if tag.startswith('K4') else 'HGMMA'} "
             f"instructions per instantiation {hgmma[tag]}")
         if len(hgmma[tag]) != want or min(hgmma[tag].values()) == 0:
@@ -436,11 +486,43 @@ def _rnd(torch, gen, *shape, scale=1.0, dtype=None):
         "cuda", dtype or torch.bfloat16).contiguous()
 
 
-def check_conv3x3(torch, gen) -> dict:
-    """K1 at every conv shape of the path, against conv3x3_plain."""
+# The folded head's four convs on TILE_BATCH (n, h, w): (label, taps, H,
+# W, Cin, Cout, lrelu, pad, mask, d2s), H and W in units of h and w plus
+# a pixel; JAX rounding (bf16 before the LeakyReLU) on all four.
+HEAD_SHAPES = [("head up1 64->256 d2s", 3, (1, 0), (1, 0), 64, 256, True, 1,
+                False, True),
+               ("head up2 2x 64->256", 3, (2, 0), (2, 0), 64, 256, True, 1,
+                False, False),
+               ("head hr 2x2 2x 256->256 pad 1 mask", 2, (2, 0), (2, 0), 256,
+                256, True, 1, True, False),
+               ("head last 2x2 2x+1 256->12 VALID d2s", 2, (2, 1), (2, 1),
+                256, 12, False, 0, False, True)]
+
+
+def conv_bound(n, hh, ww, taps, cin, cout, pad, nbytes: int,
+               peak: float = PEAK_BF16_FLOPS,
+               bias: bool = True) -> tuple[float, str]:
+    """The bound of a taps x taps conv at padding ``pad`` on (n, hh, ww,
+    cin): its output pixels x Cout x taps^2 x Cin multiply-adds; its
+    input, weights and output in ``nbytes`` a value, and the fp32 bias.
+    A depth-to-space store moves the same bytes."""
+    ho, wo = hh + 2 * pad - taps + 1, ww + 2 * pad - taps + 1
+    return bound(2.0 * n * ho * wo * cout * taps * taps * cin,
+                 nbytes * (n * hh * ww * cin + n * ho * wo * cout
+                           + taps * taps * cin * cout)
+                 + (4.0 * cout if bias else 0.0), peak)
+
+
+def check_conv3x3(torch, gen) -> tuple:
+    """K1 at every conv shape of the path, against conv3x3_plain; then the
+    folded head's four convs (K1's d2s form for up1, K1 for up2, K1's 2x2
+    form for hr and last) against conv3x3_plain / conv2x2_s2d_plain, each
+    with cuDNN's bf16 conv at its shape (padding 1 or 0) and its bound.
+    Returns K1's JSON row (trunk w0) and the 2x2 form's (hr)."""
     import torch.nn.functional as F
     from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-        conv3x3, conv3x3_plain, pack_conv3x3_weights)
+        conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_plain,
+        pack_conv2x2_weights, pack_conv3x3_weights)
 
     n, h, w = TILE_BATCH
     result = {}
@@ -497,8 +579,54 @@ def check_conv3x3(torch, gen) -> dict:
             result = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
                       "bound_by": by, "library_ms": cms}
         del x, got, ref
+    head, head_err, sums = {}, 0.0, [0.0, 0.0, 0.0]
+    for (label, taps, (ah, bh), (aw, bw), cin, cout, act, pad, mask,
+         d2s) in HEAD_SHAPES:
+        hh, ww = ah * h + bh, aw * w + bw
+        x = _rnd(torch, gen, n, hh, ww, cin)
+        wt = _rnd(torch, gen, taps, taps, cin, cout,
+                  scale=(2.0 / (taps * taps * cin)) ** 0.5)
+        b = _rnd(torch, gen, cout, scale=0.1, dtype=torch.float32)
+        if taps == 3:
+            wpk = pack_conv3x3_weights(wt)
+            run = (lambda: conv3x3(x, wt, b, act, packed=wpk, d2s=d2s,
+                                   round_first=True))
+            plain = lambda: conv3x3_plain(x, wt, b, act, d2s, True)
+        else:
+            wpk = pack_conv2x2_weights(wt)
+            run = lambda: conv2x2_s2d(x, wt, b, act, pad, mask, d2s,
+                                      packed=wpk)
+            plain = lambda: conv2x2_s2d_plain(x, wt, b, act, pad, mask, d2s)
+        got, ref = run(), plain()
+        d, r = rel_err(got, ref)
+        ms, pms = cuda_ms(run), cuda_ms(plain)
+        xc = x.permute(0, 3, 1, 2)
+        wc = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bc = b.to(torch.bfloat16)
+        cms = cuda_ms(lambda: F.conv2d(xc, wc, bc, padding=pad))
+        bms, by = conv_bound(n, hh, ww, taps, cin, cout, pad, 2)
+        for i, t in enumerate((ms, pms, cms)):
+            sums[i] += t
+        log(f"K1 {'2x2 form' if taps == 2 else 'conv3x3'} {label} "
+            f"{tuple(x.shape)} -> {tuple(got.shape)}: max_abs_err {d:.6g} "
+            f"rel {r:.3g} (tol {TOL_KERNEL}) kernel {ms:.4f} ms plain "
+            f"{pms:.4f} ms cuDNN bf16 conv {cms:.4f} ms bound {bms:.4f} ms "
+            f"({by}); kernel/cuDNN {ms / cms:.3f}, bound/kernel "
+            f"{bms / ms:.3f}")
+        if not (r <= TOL_KERNEL and got.shape == ref.shape):
+            raise AssertionError(f"K1 {label}: rel err {r} > {TOL_KERNEL}")
+        if taps == 2:
+            head_err = max(head_err, d)
+        if label.startswith("head hr"):
+            head = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                    "bound_by": by, "library_ms": cms}
+        del x, got, ref
+    log(f"K1 folded head, four convs one at a time: kernels {sums[0]:.4f} ms,"
+        f" plain {sums[1]:.4f} ms, cuDNN {sums[2]:.4f} ms")
     result["max_abs_err"] = k1_err
-    return result
+    head["max_abs_err"] = head_err
+    return result, head
 
 
 def check_rdb_fused(torch, gen) -> dict:
@@ -626,14 +754,65 @@ def check_flash_attention(torch, gen) -> dict:
     return dict(timed["unet 64^2 d64"], max_abs_err=worst)
 
 
+def check_head(torch, model, x, tol: float, name: str) -> dict:
+    """The folded head of ``model`` on its trunk's output for ``x``:
+    against the head on its plain versions (``tol``) and against the stock
+    head on the same output (printed); its launches a call: two of K1's
+    (or K1f's) head 3x3 form and two of its 2x2 form, by the wrappers'
+    counts, and no other kernel or copy on the card (no PyTorch op but
+    its outputs' allocations, ``aten_ops``); its time (CUDA events over 5 calls, the head's
+    calls being device work alone) in turns with the stock head's (folded,
+    stock, stock, folded)."""
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv2x2_s2d, conv2x2_s2d_f32, conv3x3, conv3x3_f32)
+    f32 = model.dtype == torch.float32
+    k3, k2 = (conv3x3_f32, conv2x2_s2d_f32) if f32 else (conv3x3,
+                                                          conv2x2_s2d)
+    head = model.folded_head
+    with torch.no_grad():
+        feat = model.conv_first(x.to(model.dtype))
+        feat = feat + model.conv_body(model.body_forward(feat))
+        before = (k3.launches, k2.launches)
+        out = head(feat)
+        launches = (k3.launches - before[0], k2.launches - before[1])
+        d, r = rel_err(out, head(feat, plain=True))
+        ds, rs = rel_err(out, model.stock_head(feat))
+        # Besides its four launches the folded head dispatches nothing
+        # but its outputs' allocations: no copy, no depth-to-space.
+        ops = aten_ops(lambda: head(feat))
+        stock_ops = aten_ops(lambda: model.stock_head(feat))
+        foreign = [op for op in ops if not op.startswith("aten.empty")]
+        runs = {"folded": lambda: head(feat),
+                "stock": lambda: model.stock_head(feat)}
+        ms = {"folded": [], "stock": []}
+        for key in ("folded", "stock", "stock", "folded"):
+            ms[key].append(cuda_ms(runs[key], reps=5))
+    log(f"folded head ({model.trunk} trunk, {str(model.dtype)[6:]}) on "
+        f"{tuple(feat.shape)} -> {tuple(out.shape)}: max_abs_err {d:.6g} rel "
+        f"{r:.3g} vs its plain versions (tol {tol}); vs the stock head "
+        f"max_abs_err {ds:.6g} rel {rs:.3g}; launches a call "
+        f"{'K1f' if f32 else 'K1'} {launches[0]}, 2x2 form {launches[1]}; "
+        f"PyTorch ops a call {sorted(set(ops))} (the stock head's "
+        f"{sorted(set(stock_ops))}); ms (CUDA events) in turns (folded, "
+        f"stock, stock, folded) {ms} on {name}")
+    if not (r <= tol and launches == (2, 2) and not foreign
+            and torch.isfinite(out).all()):
+        raise AssertionError(f"folded head ({model.trunk}): rel err {r}, "
+                             f"launches {launches}, PyTorch ops {ops}")
+    return ms
+
+
 def check_forward(torch, gen, sd, name: str) -> None:
-    """Both trunks' full-width forward against the plain trunk.
+    """Both trunks' full-width forward against the plain trunk, and the
+    folded head on each (check_head).
 
     At init_rrdbnet's scale each RDB's dense branch is a few percent of its
     output, so this holds the model's wiring (head, trunk order, weights),
     not each RDB's dense chain: a K2 that drops one conv passes here and
     fails check_rdb_fused.
     """
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv2x2_s2d, conv3x3, rdb_fused)
     from neural_enhanced_super_resolution_torch.models import (
         RRDBNet, RRDBNetConfig)
 
@@ -643,19 +822,31 @@ def check_forward(torch, gen, sd, name: str) -> None:
     mp_out = n * (4 * h) * (4 * w) / 1e6
     ref = RRDBNet(cfg, sd, torch.bfloat16, "cuda", "fused")(x, plain=True)
     torch.cuda.empty_cache()
+    counters = (conv3x3, conv2x2_s2d, rdb_fused)
+    # K1, its 2x2 form and K2 a forward
+    wants = {"fused": (K1_FOLDED, K1_2X2, 0),
+             "dform": (4, K1_2X2, 3 * cfg.num_block)}
     for trunk in ("fused", "dform"):
         model = RRDBNet(cfg, sd, torch.bfloat16, "cuda", trunk)
+        before = [c.launches for c in counters]
         out = model(x)
+        launches = tuple(c.launches - b for c, b in zip(counters, before))
         d, r = rel_err(out, ref)
         ms = cuda_ms(lambda: model(x), reps=3)
         log(f"forward {trunk} trunk ({'K1' if trunk == 'fused' else 'K2+K1'})"
             f" 12ch x4 nf64 nb23 gc32 on {tuple(x.shape)}: max_abs_err "
             f"{d:.6g} rel {r:.3g} vs plain trunk (tol {TOL_FORWARD}); "
+            f"launches K1, 2x2 form, K2 {launches} (want {wants[trunk]}); "
             f"{ms:.2f} ms/batch = {mp_out / (ms / 1e3):.3f} MP_out/s "
             f"(output incl. halo) on {name}")
-        if not (r <= TOL_FORWARD and torch.isfinite(out).all()):
-            raise AssertionError(f"forward {trunk}: rel err {r}")
-        del model, out
+        if not (r <= TOL_FORWARD and torch.isfinite(out).all()
+                and launches == wants[trunk]):
+            raise AssertionError(f"forward {trunk}: rel err {r}, launches "
+                                 f"{launches}")
+        del out
+        check_head(torch, model, x, TOL_FORWARD, name)
+        del model
+        torch.cuda.empty_cache()
     plain = RRDBNet(cfg, sd, torch.bfloat16, "cuda", "fused")
     pms = cuda_ms(lambda: plain(x, plain=True), reps=1)
     log(f"forward plain trunk: {pms:.2f} ms/batch = "
@@ -781,7 +972,7 @@ def check_nlmeans(torch, np, name: str) -> None:
 def drive_product_path(torch, np, ckpt: str) -> dict:
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
     from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-        conv3x3, conv3x3_plain)
+        conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_plain)
     from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
         rdb_fused, rdb_fused_plain)
     from neural_enhanced_super_resolution_torch.utils.io import (imread_rgb,
@@ -834,8 +1025,8 @@ def drive_product_path(torch, np, ckpt: str) -> dict:
         if "esrgan" not in p.models:
             raise AssertionError("ESRGAN did not load")
 
-    conv3x3.launches = rdb_fused.launches = 0
-    conv3x3_plain.calls = rdb_fused_plain.calls = 0
+    conv3x3.launches = rdb_fused.launches = conv2x2_s2d.launches = 0
+    conv3x3_plain.calls = rdb_fused_plain.calls = conv2x2_s2d_plain.calls = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for label, path, iters, trunk in requests:
@@ -855,13 +1046,17 @@ def drive_product_path(torch, np, ckpt: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {"conv3x3": conv3x3.launches, "rdb_fused": rdb_fused.launches,
+              "conv2x2_s2d": conv2x2_s2d.launches,
               "conv3x3_plain": conv3x3_plain.calls,
-              "rdb_fused_plain": rdb_fused_plain.calls}
+              "rdb_fused_plain": rdb_fused_plain.calls,
+              "conv2x2_s2d_plain": conv2x2_s2d_plain.calls}
     log(f"product path: {len(requests)} requests in {wall:.3f} s; "
         f"counts {counts}")
-    if counts["conv3x3"] == 0 or counts["rdb_fused"] == 0:
+    if (counts["conv3x3"] == 0 or counts["rdb_fused"] == 0
+            or counts["conv2x2_s2d"] == 0):
         raise AssertionError(f"a kernel was not launched: {counts}")
-    if counts["conv3x3_plain"] or counts["rdb_fused_plain"]:
+    if (counts["conv3x3_plain"] or counts["rdb_fused_plain"]
+            or counts["conv2x2_s2d_plain"]):
         raise AssertionError(f"plain versions ran on the card: {counts}")
     for trunk, p in pipes.items():
         log(f"StageTimer ({trunk or 'fused'} trunk pipeline):")
@@ -1899,15 +2094,17 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
     model on the plain versions (TOL_FORWARD) and its trunk bit for bit
     against the plain trunk; no quantize_int8, no plain call and no host
     sync on the kernel path (sync debug mode "error"), 345 step, 1
-    int8_amax and 6 K1 launches; against the fused bf16 trunk (PSNR of the
-    uint8 outputs); device ms and wall in turns with the K4
-    composition (quantise, K4, the PyTorch assembly), the fused and the
-    dform trunk, each split by kernel family."""
+    int8_amax, 4 K1 and 2 K1 2x2-form launches (the folded head: up1, up2,
+    hr, last); against the fused bf16 trunk (PSNR of the uint8 outputs);
+    device ms and wall in turns with the K4 composition (quantise, K4, the
+    PyTorch assembly), the fused and the dform trunk, each split by kernel
+    family; the folded head on the int8 trunk (check_head)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv3x3, conv3x3_int8, conv3x3_int8_plain, conv3x3_int8_rdb,
-        conv3x3_int8_rdb_plain, conv3x3_plain, int8_amax, int8_amax_plain)
+        conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_int8,
+        conv3x3_int8_plain, conv3x3_int8_rdb, conv3x3_int8_rdb_plain,
+        conv3x3_plain, int8_amax, int8_amax_plain)
     from neural_enhanced_super_resolution_torch.models import (
         RRDBNet, RRDBNetConfig)
     from neural_enhanced_super_resolution_torch.models import rrdbnet
@@ -1919,9 +2116,10 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
     ref = model(x, plain=True)
     feat = model.conv_first(x.to(torch.bfloat16))
     body_ref = model.body_forward(feat, plain=True)
-    counters = (conv3x3, conv3x3_int8_rdb, int8_amax, conv3x3_int8)
+    counters = (conv3x3, conv3x3_int8_rdb, int8_amax, conv3x3_int8,
+                conv2x2_s2d)
     plains = (conv3x3_plain, conv3x3_int8_rdb_plain, int8_amax_plain,
-              conv3x3_int8_plain)
+              conv3x3_int8_plain, conv2x2_s2d_plain)
     before = [c.launches for c in counters] + [c.calls for c in plains]
     seen = []
     real = rrdbnet.quantize_int8
@@ -1944,8 +2142,8 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
     counts = [a - b for a, b in zip(
         [c.launches for c in counters] + [c.calls for c in plains], before)]
     # Two trunk passes (the forward's and body_forward's), one head.
-    k1, k4s, amax, k4 = (counts[0], counts[1] // 2, counts[2] // 2,
-                         counts[3])
+    k1, k4s, amax, k4, k2x2 = (counts[0], counts[1] // 2, counts[2] // 2,
+                               counts[3], counts[4])
     d, r = rel_err(out, ref)
     body_same = _same(body, body_ref)
     del ref, body_ref, body
@@ -1973,11 +2171,10 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
         m = runs[key]
         dev[key].append(device_ms(lambda: m(x), reps=3))
         wall[key].append(wall_ms(lambda: m(x), reps=3))
-    # K1's head instantiations (conv_first <64,1>; conv_body, the up convs
-    # and conv_hr <64,4>; conv_last <8,4>); the fused trunk's five convs
-    # take the others.
+    # K1's head instantiations (conv_first <64,1>; conv_body <64,4>; the
+    # folded head's forms); the fused trunk's five convs take the others.
     head = ("conv3x3_kernel<64,1>", "conv3x3_kernel<64,4>",
-            "conv3x3_kernel<8,4>")
+            "conv3x3_head_kernel", "conv2x2_kernel")
     fams = ("K4 step", "int8_amax", "K4", "K2", "K1 trunk", "K1 head",
             "other")
 
@@ -2005,9 +2202,9 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
         f"versions (tol {TOL_FORWARD}); trunk "
         f"{'bitwise equal' if body_same else 'DIFFERENT'} to the plain "
         f"trunk; uint8 PSNR vs the fused bf16 trunk {p:.2f} dB; a forward "
-        f"launches K4 step {k4s}, int8_amax {amax}, K1 {k1}, K4 {k4}; "
-        f"plain calls {counts[4:]}; quantize_int8 calls {len(seen)}; no "
-        "host sync (sync debug mode error)")
+        f"launches K4 step {k4s}, int8_amax {amax}, K1 {k1}, K4 {k4}, K1 "
+        f"2x2 form {k2x2}; plain calls {counts[5:]}; quantize_int8 calls "
+        f"{len(seen)}; no host sync (sync debug mode error)")
     log(f"forward device ms in turns (composition, int8, fused, dform, "
         f"dform, fused, int8, composition) {dev}; wall ms {wall}; int8 "
         f"{mp_out / (min(dev['int8']) / 1e3):.3f} MP_out/s of device time "
@@ -2018,13 +2215,15 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
         log(f"forward {key} split (device ms, one forward, {tot:.3f} in "
             "all): " + ", ".join(f"{k} {v:.3f} ({100 * v / tot:.1f}%)"
                                  for k, v in fam.items()))
-    want = (15 * cfg.num_block, 1, 6, 0)
-    if not (r <= TOL_FORWARD and body_same and (k4s, amax, k1, k4) == want
-            and not any(counts[4:]) and not seen):
+    want = (15 * cfg.num_block, 1, 4, 0, K1_2X2)
+    got = (k4s, amax, k1, k4, k2x2)
+    if not (r <= TOL_FORWARD and body_same and got == want
+            and not any(counts[5:]) and not seen):
         raise AssertionError(
             f"int8 forward: rel err {r}, trunk bitwise {body_same}, "
-            f"launches step/amax/K1/K4 {(k4s, amax, k1, k4)} (want {want}), "
-            f"plain calls {counts[4:]}, quantize_int8 calls {len(seen)}")
+            f"launches step/amax/K1/K4/2x2 {got} (want {want}), "
+            f"plain calls {counts[5:]}, quantize_int8 calls {len(seen)}")
+    check_head(torch, model, x, TOL_FORWARD, name)
     del model, fused, dform, comp
     torch.cuda.empty_cache()
 
@@ -2078,8 +2277,9 @@ def _int8_counters():
     from neural_enhanced_super_resolution_torch import kernels as k
     return ({"conv3x3": k.conv3x3, "conv3x3_int8": k.conv3x3_int8,
              "conv3x3_int8_rdb": k.conv3x3_int8_rdb,
-             "int8_amax": k.int8_amax},
+             "int8_amax": k.int8_amax, "conv2x2_s2d": k.conv2x2_s2d},
             {"conv3x3_plain": k.conv3x3_plain,
+             "conv2x2_s2d_plain": k.conv2x2_s2d_plain,
              "conv3x3_int8_plain": k.conv3x3_int8_plain,
              "conv3x3_int8_rdb_plain": k.conv3x3_int8_rdb_plain,
              "int8_amax_plain": k.int8_amax_plain})
@@ -2137,7 +2337,7 @@ def drive_int8_and_parity(torch, np, ckpt: str, name: str) -> dict:
             c["conv3x3_int8_rdb"] or c["int8_amax"] or c["conv3x3_int8"]
             or any(c[k] for k in c if k.endswith("_plain")))
         if (out.shape != want or out.std() == 0 or c["conv3x3"] == 0
-                or not int8_ok):
+                or c["conv2x2_s2d"] == 0 or not int8_ok):
             raise AssertionError(f"{label} request: output {out.shape} "
                                  f"(want {want}), counts {c}")
         del pipe
@@ -2162,7 +2362,7 @@ def drive_int8_and_parity(torch, np, ckpt: str, name: str) -> dict:
     log(f"int8 CLI request 160x160 -n 1: rc 0 in {wall:.2f} s, output "
         f"{got.shape}, counts {c}")
     if (got.shape != (640, 640, 3) or got.std() == 0 or c["conv3x3"] == 0
-            or not _int8_path_ok(c)):
+            or c["conv2x2_s2d"] == 0 or not _int8_path_ok(c)):
         raise AssertionError(f"int8 CLI: output {got.shape}, counts {c}")
     counts["int8_cli"] = c
     return counts
@@ -2460,23 +2660,41 @@ def recording(module, name: str, shapes: set, key):
 
 def _f32_counts():
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv3x3, conv3x3_f32, conv3x3_plain, flash_attention,
-        flash_attention_f32, flash_attention_plain)
+        conv2x2_s2d, conv2x2_s2d_f32, conv2x2_s2d_plain, conv3x3,
+        conv3x3_f32, conv3x3_plain, flash_attention, flash_attention_f32,
+        flash_attention_plain)
     return {"conv3x3_f32": conv3x3_f32.launches,
+            "conv2x2_s2d_f32": conv2x2_s2d_f32.launches,
             "flash_attention_f32": flash_attention_f32.launches,
             "conv3x3": conv3x3.launches,
+            "conv2x2_s2d": conv2x2_s2d.launches,
             "flash_attention": flash_attention.launches,
             "conv3x3_plain": conv3x3_plain.calls,
+            "conv2x2_s2d_plain": conv2x2_s2d_plain.calls,
             "flash_attention_plain": flash_attention_plain.calls}
 
 
 def _zero_f32_counts():
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv3x3, conv3x3_f32, conv3x3_plain, flash_attention,
-        flash_attention_f32, flash_attention_plain)
-    for fn in (conv3x3, conv3x3_f32, flash_attention, flash_attention_f32):
+        conv2x2_s2d, conv2x2_s2d_f32, conv2x2_s2d_plain, conv3x3,
+        conv3x3_f32, conv3x3_plain, flash_attention, flash_attention_f32,
+        flash_attention_plain)
+    for fn in (conv3x3, conv3x3_f32, conv2x2_s2d, conv2x2_s2d_f32,
+               flash_attention, flash_attention_f32):
         fn.launches = 0
     conv3x3_plain.calls = flash_attention_plain.calls = 0
+    conv2x2_s2d_plain.calls = 0
+
+
+def _conv_key(x, w, bias=None, lrelu=False, d2s=False):
+    """A K1f call's shape: (N, H, W, Cin, Cout, bias, lrelu, d2s)."""
+    return (*x.shape, w.shape[3], bias is not None, bool(lrelu), bool(d2s))
+
+
+def _conv2x2_key(x, w, bias, lrelu, pad, mask, d2s):
+    """A call of K1f's 2x2 form: (N, H, W, Cin, Cout, lrelu, pad, mask,
+    d2s); the folded head's convs always carry a bias."""
+    return (*x.shape, w.shape[3], bool(lrelu), pad, bool(mask), bool(d2s))
 
 
 F32_SD_INPUT = (40, 48)   # the float32 diffusion request's input (H, W)
@@ -2493,7 +2711,8 @@ def drive_float32(torch, np, ckpt: str, snap: str, name: str):
     attention on flash_attention_plain. Bar for both: >= 99.9% of the
     uint8 values equal, max 1 level. The counts of each request show the
     float32 forms only: no bf16 kernel and no plain version. Returns the
-    summed counts and the shapes K1f and K3f were given."""
+    summed counts and the shapes K1f (its 3x3 and 2x2 forms) and K3f were
+    given."""
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
     from neural_enhanced_super_resolution_torch.kernels import attention
     # the module: the package's name conv3x3 is the wrapper
@@ -2504,10 +2723,7 @@ def drive_float32(torch, np, ckpt: str, snap: str, name: str):
             "esrgan_arch": {"num_block": 1}, "precision": "float32",
             "adaptive_sharpening": False,
             "output_dir": os.path.join(OUT, "ref")}
-    k1_shapes, k3_shapes = set(), set()
-
-    def conv_key(x, w, bias=None, lrelu=False):
-        return (*x.shape, w.shape[3], bias is not None, bool(lrelu))
+    k1_shapes, k3_shapes, k2x2_shapes = set(), set(), set()
 
     def attn_key(q, k, v):
         return (*q.shape[:3], k.shape[2], q.shape[3])
@@ -2517,9 +2733,11 @@ def drive_float32(torch, np, ckpt: str, snap: str, name: str):
         return float(np.mean(diff == 0)), int(diff.max())
 
     def only_f32(counts, k3: int | None):
-        return (counts["conv3x3_f32"] > 0 and counts["conv3x3"] == 0
+        return (counts["conv3x3_f32"] > 0 and counts["conv2x2_s2d_f32"] > 0
+                and counts["conv3x3"] == 0 and counts["conv2x2_s2d"] == 0
                 and counts["flash_attention"] == 0
                 and counts["conv3x3_plain"] == 0
+                and counts["conv2x2_s2d_plain"] == 0
                 and counts["flash_attention_plain"] == 0
                 and (k3 is None or counts["flash_attention_f32"] == k3))
 
@@ -2533,7 +2751,8 @@ def drive_float32(torch, np, ckpt: str, snap: str, name: str):
     pipe._load_models()   # set-up: weights to the card before the window
     _zero_f32_counts()
     t0 = time.perf_counter()
-    with recording(k1mod, "conv3x3_f32", k1_shapes, conv_key):
+    with recording(k1mod, "conv3x3_f32", k1_shapes, _conv_key), \
+            recording(k1mod, "conv2x2_s2d_f32", k2x2_shapes, _conv2x2_key):
         got = pipe.enhance_array(img)
     card_s = time.perf_counter() - t0
     esr_counts = _f32_counts()
@@ -2563,7 +2782,8 @@ def drive_float32(torch, np, ckpt: str, snap: str, name: str):
     _zero_f32_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with recording(k1mod, "conv3x3_f32", k1_shapes, conv_key), \
+    with recording(k1mod, "conv3x3_f32", k1_shapes, _conv_key), \
+            recording(k1mod, "conv2x2_s2d_f32", k2x2_shapes, _conv2x2_key), \
             recording(attention, "flash_attention_f32", k3_shapes, attn_key):
         got = pipe.enhance_array(img, prompt=PROMPT)
     card_s = time.perf_counter() - t0
@@ -2583,17 +2803,19 @@ def drive_float32(torch, np, ckpt: str, snap: str, name: str):
     del pipe
     torch.cuda.empty_cache()
     counts = {k: esr_counts[k] + sd_counts[k] for k in esr_counts}
-    return counts, sorted(k1_shapes), sorted(k3_shapes)
+    return counts, sorted(k1_shapes), sorted(k2x2_shapes), sorted(k3_shapes)
 
 
 def check_forward_f32(torch, gen, sd, name: str):
     """The full-width RRDBNet x4 (64/23/32, fused trunk) in float32 on
     TILE_BATCH through K1f against the same forward with plain=True on the
     card (cuDNN's float32 conv, TF32 off), under TOL_F32_FORWARD; its
-    device time, split into K1f and the rest (the float32 assembly of the
-    trunk, the head's upsampling), and its K1f launches (351: 345 in the
-    trunk, 6 in the head) with no bf16 kernel and no plain call. Returns
-    the K1f launches and the shapes K1f was given."""
+    device time, split into K1f (both forms) and the rest (the float32
+    assembly of the trunk), and its K1f launches (349: 345 in the trunk,
+    conv_first, conv_body, the folded head's up1 and up2; and 2 of the 2x2
+    form, hr and last) with no bf16 kernel and no plain call; the folded
+    head (check_head, bar TOL_F32_FORWARD). Returns the K1f launches (both
+    forms) and the shapes K1f's 3x3 and 2x2 forms were given."""
     from neural_enhanced_super_resolution_torch.models import (
         RRDBNet, RRDBNetConfig)
     k1mod = sys.modules[
@@ -2603,22 +2825,22 @@ def check_forward_f32(torch, gen, sd, name: str):
     x = torch.rand((n, h, w, 12), generator=gen).to("cuda")
     model = RRDBNet(cfg, sd, torch.float32, "cuda", "fused")
     ref = model(x, plain=True)
-    shapes = _Tally()
-
-    def conv_key(x, w, bias=None, lrelu=False):
-        return (*x.shape, w.shape[3], bias is not None, bool(lrelu))
-
+    shapes, shapes_2x2 = _Tally(), _Tally()
     _zero_f32_counts()
-    with recording(k1mod, "conv3x3_f32", shapes, conv_key):
+    with recording(k1mod, "conv3x3_f32", shapes, _conv_key), \
+            recording(k1mod, "conv2x2_s2d_f32", shapes_2x2, _conv2x2_key):
         out = model(x)
     counts = _f32_counts()
     d, r = rel_err(out, ref)
     del ref
     torch.cuda.empty_cache()
     flops = sum(2.0 * a * b * c * ci * co * 9
-                for a, b, c, ci, co, _, _ in shapes)
+                for a, b, c, ci, co, *_ in shapes) + sum(
+        2.0 * a * (b + 2 * pad - 1) * (c + 2 * pad - 1) * ci * co * 4
+        for a, b, c, ci, co, _, pad, _, _ in shapes_2x2)
     k1f, rest = device_ms_named(lambda: model(x), lambda: None,
-                                "conv3x3_f32_kernel", reps=2,
+                                ("conv3x3_f32", "conv2x2_f32"),
+                                reps=2,
                                 floor_ms=(flops / PEAK_FP32_FLOPS * 1e3, 0.0))
     wall = wall_ms(lambda: model(x), reps=2)
     log(f"forward float32 (K1f) 12ch x4 nf64 nb23 gc32 on {tuple(x.shape)}:"
@@ -2627,20 +2849,25 @@ def check_forward_f32(torch, gen, sd, name: str):
         f"{wall:.3f}), "
         f"K1f {k1f:.3f} ({100 * k1f / (k1f + rest):.1f}%; "
         f"{flops / 1e12:.3f} TFLOP, {flops / k1f / 1e9:.1f} TFLOP/s), the "
-        f"rest (float32 assembly, upsampling) {rest:.3f}; K1f launches "
-        f"{counts['conv3x3_f32']} over {len(set(shapes))} shapes; counts "
+        f"rest (float32 assembly) {rest:.3f}; K1f launches "
+        f"{counts['conv3x3_f32']} over {len(set(shapes))} shapes, 2x2 form "
+        f"{counts['conv2x2_s2d_f32']} over {len(set(shapes_2x2))}; counts "
         f"{counts} on {name}")
-    want = 15 * cfg.num_block + 6
+    want = (K1_FOLDED, K1_2X2)
     if (not (r <= TOL_F32_FORWARD and torch.isfinite(out).all())
-            or counts["conv3x3_f32"] != want
-            or any(counts[k] for k in ("conv3x3", "flash_attention",
-                                       "conv3x3_plain",
+            or (counts["conv3x3_f32"], counts["conv2x2_s2d_f32"]) != want
+            or any(counts[k] for k in ("conv3x3", "conv2x2_s2d",
+                                       "flash_attention", "conv3x3_plain",
+                                       "conv2x2_s2d_plain",
                                        "flash_attention_plain"))):
         raise AssertionError(f"float32 forward: rel err {r}, counts {counts}"
                              f" (want {want} K1f launches only)")
-    del model, out
+    del out
+    check_head(torch, model, x, TOL_F32_FORWARD, name)
+    del model
     torch.cuda.empty_cache()
-    return counts["conv3x3_f32"], sorted(set(shapes))
+    return ((counts["conv3x3_f32"], counts["conv2x2_s2d_f32"]),
+            sorted(set(shapes)), sorted(set(shapes_2x2)))
 
 
 class _Tally(list):
@@ -2648,51 +2875,64 @@ class _Tally(list):
     add = list.append
 
 
-def check_conv3x3_f32(torch, gen, shapes) -> dict:
+def check_conv3x3_f32(torch, gen, shapes, shapes_2x2) -> tuple:
     """K1f against conv3x3_plain at every shape of the full-width float32
-    forward and of the float32 requests; the JSON row is trunk w0 on
-    TILE_BATCH (F32_TRUNK_W0)."""
+    forward and of the float32 requests, and K1f's 2x2 form against
+    conv2x2_s2d_plain at every shape they gave it, each beside cuDNN's
+    float32 conv (TF32 off) at its shape and its bound; the JSON rows are
+    trunk w0 on TILE_BATCH (F32_TRUNK_W0) and the folded head's hr there
+    (F32_HEAD_HR)."""
     import torch.nn.functional as F
     from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-        conv3x3_f32, conv3x3_plain)
-    worst, rows, failed = 0.0, {}, []
-    for n, h, w, cin, cout, bias, act in shapes:
+        conv2x2_s2d_f32, conv2x2_s2d_plain, conv3x3_f32, conv3x3_plain)
+    worst, rows, failed = [0.0, 0.0], {}, []
+    cases = ([(3, s, s[:5] + (1, False)) for s in shapes]
+             + [(2, s, s[:5] + s[6:8]) for s in shapes_2x2])
+    for taps, key, (n, h, w, cin, cout, pad, mask) in cases:
         x = _rnd(torch, gen, n, h, w, cin, dtype=torch.float32)
-        wt = _rnd(torch, gen, 3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5,
+        wt = _rnd(torch, gen, taps, taps, cin, cout,
+                  scale=(2.0 / (taps * taps * cin)) ** 0.5,
                   dtype=torch.float32)
-        b = (_rnd(torch, gen, cout, scale=0.1, dtype=torch.float32)
-             if bias else None)
-        got = conv3x3_f32(x, wt, b, act)
-        ref = conv3x3_plain(x, wt, b, act)
+        if taps == 3:
+            bias, act, d2s = key[5:]
+            b = (_rnd(torch, gen, cout, scale=0.1, dtype=torch.float32)
+                 if bias else None)
+            run = lambda: conv3x3_f32(x, wt, b, act, d2s)
+            plain = lambda: conv3x3_plain(x, wt, b, act, d2s)
+            what = f"conv3x3_f32 {(n, h, w, cin)} -> {cout} bias {bias}"
+        else:
+            bias, (act, _, _, d2s) = True, key[5:]
+            b = _rnd(torch, gen, cout, scale=0.1, dtype=torch.float32)
+            run = lambda: conv2x2_s2d_f32(x, wt, b, act, pad, mask, d2s)
+            plain = lambda: conv2x2_s2d_plain(x, wt, b, act, pad, mask, d2s)
+            what = (f"2x2 form conv2x2_s2d_f32 {(n, h, w, cin)} -> {cout} "
+                    f"pad {pad} mask {mask}")
+        got, ref = run(), plain()
         d, r = rel_err(got, ref)
-        ms = cuda_ms(lambda: conv3x3_f32(x, wt, b, act))
-        pms = cuda_ms(lambda: conv3x3_plain(x, wt, b, act))
+        ms, pms = cuda_ms(run), cuda_ms(plain)
         # For scale only: the library's float32 conv (cuDNN, TF32 off,
         # channels_last).
         xc = x.permute(0, 3, 1, 2)
         wc = wt.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        cms = cuda_ms(lambda: F.conv2d(xc, wc, b, padding=1))
-        pix = n * h * w
-        flops = 2.0 * pix * cout * 9 * cin
-        bms, by = bound(flops, 4.0 * (pix * (cin + cout) + 9 * cin * cout)
-                        + (4.0 * cout if bias else 0.0), PEAK_FP32_FLOPS)
-        log(f"K1f conv3x3_f32 {(n, h, w, cin)} -> {cout} bias {bias} lrelu "
-            f"{act}: max_abs_err {d:.6g} rel {r:.3g} (tol {TOL_F32}) kernel "
-            f"{ms:.4f} ms plain {pms:.4f} ms cuDNN f32 conv {cms:.4f} ms "
-            f"bound {bms:.4f} ms ({by}); kernel/cuDNN {ms / cms:.3f}, "
-            f"bound/kernel {bms / ms:.3f}")
-        if not r <= TOL_F32:
-            failed.append(f"{(n, h, w, cin, cout)}: rel {r}")
-        worst = max(worst, d)
-        rows[(n, h, w, cin, cout, bias, act)] = {
-            "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-            "library_ms": cms}
+        cms = cuda_ms(lambda: F.conv2d(xc, wc, b, padding=pad))
+        bms, by = conv_bound(n, h, w, taps, cin, cout, pad, 4,
+                             PEAK_FP32_FLOPS, bias)
+        log(f"K1f {what} lrelu {act} d2s {d2s}: max_abs_err {d:.6g} rel "
+            f"{r:.3g} (tol {TOL_F32}) kernel {ms:.4f} ms plain {pms:.4f} ms "
+            f"cuDNN f32 conv {cms:.4f} ms bound {bms:.4f} ms ({by}); "
+            f"kernel/cuDNN {ms / cms:.3f}, bound/kernel {bms / ms:.3f}")
+        if not (r <= TOL_F32 and got.shape == ref.shape):
+            failed.append(f"{what}: rel {r}")
+        worst[taps == 2] = max(worst[taps == 2], d)
+        rows[key] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                     "bound_by": by, "library_ms": cms}
         del x, got, ref
-    if failed or F32_TRUNK_W0 not in rows:
+    if failed or F32_TRUNK_W0 not in rows or F32_HEAD_HR not in rows:
         raise AssertionError(f"K1f disagrees with its plain version: "
-                             f"{failed or 'trunk w0 not recorded'}")
-    return dict(rows[F32_TRUNK_W0], max_abs_err=worst)
+                             f"{failed or 'trunk w0 or head hr not recorded'}")
+    return (dict(rows[F32_TRUNK_W0], max_abs_err=worst[0]),
+            dict(rows[F32_HEAD_HR], max_abs_err=worst[1]))
 
 
 def check_flash_attention_f32(torch, gen, shapes) -> dict:
@@ -2834,11 +3074,12 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     and TP of the SD x4 UNet, the default config and a strips request
     through the product with ``data_parallel: "auto"``, NCCL at world size
     1, and the dry run. Each sharded result is held against its
-    single-device counterpart. Returns the K1 and K3 launches of the
-    sharded runs."""
+    single-device counterpart. Returns the K1 (3x3 and 2x2 forms) and K3
+    launches of the sharded runs."""
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv3x3, conv3x3_plain, flash_attention, flash_attention_plain)
+        conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_plain,
+        flash_attention, flash_attention_plain)
     from neural_enhanced_super_resolution_torch.models import (
         RRDBNet, RRDBNetConfig, init_rrdbnet)
     from neural_enhanced_super_resolution_torch.models.diffusion import (
@@ -2871,17 +3112,28 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     log(f"multi-device: mesh of {n} slots {[str(d) for d in mesh]}"
         + (" (the one card listed 4 times: every time below is a one-card "
            "rehearsal, not a multi-card speed)" if repeated else ""))
-    counts = {"conv3x3": 0, "flash_attention": 0}
+    counts = {"conv3x3": 0, "conv2x2_s2d": 0, "flash_attention": 0}
     warnings = _Warnings()
     logging.getLogger("nesr").addHandler(warnings)
 
     def zero():
         conv3x3.launches = flash_attention.launches = 0
+        conv2x2_s2d.launches = conv2x2_s2d_plain.calls = 0
         conv3x3_plain.calls = flash_attention_plain.calls = 0
 
     def no_plain(label):
-        if conv3x3_plain.calls or flash_attention_plain.calls:
+        if (conv3x3_plain.calls or flash_attention_plain.calls
+                or conv2x2_s2d_plain.calls):
             raise AssertionError(f"{label}: plain versions ran on the card")
+
+    def k1_per(forwards: int) -> bool:
+        """The folded model's K1 and 2x2-form launches for ``forwards``."""
+        return (conv3x3.launches, conv2x2_s2d.launches) == (
+            forwards * K1_FOLDED, forwards * K1_2X2)
+
+    def add_k1():
+        counts["conv3x3"] += conv3x3.launches
+        counts["conv2x2_s2d"] += conv2x2_s2d.launches
 
     # ---- tile DP: the full-width RRDBNet x4 on a 1024x768 image ----------
     model = RRDBNet(RRDBNetConfig(**ARCH), sd, dtype=torch.bfloat16,
@@ -2920,35 +3172,37 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     dispatch_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     sharded_ms = (time.perf_counter() - t0) * 1e3
-    k1 = conv3x3.launches
+    k1, k2x2 = conv3x3.launches, conv2x2_s2d.launches
     no_plain("tile DP")
     log(f"multi-device tile DP: RRDBNet x4 (64/23/32, bf16) on {ww}x{hh}, "
         f"{tile}-px tiles, halo {halo}, batch {batch} a slot: {len(shards)} "
-        f"shards of {shards} tiles, K1 launches {k1} (forwards x 351 = "
-        f"{len(shards) * 351}), 0 host syncs from the first shard's "
+        f"shards of {shards} tiles, K1 launches {k1} and 2x2 form {k2x2} "
+        f"(forwards x {K1_FOLDED} and x {K1_2X2}), 0 host syncs from the "
+        f"first shard's "
         f"dispatch to the last one's (sync debug mode 'error'); equal to "
         f"process_tiled bit for bit: {torch.equal(out, single)}; dispatch "
         f"{dispatch_ms:.2f} ms, sharded {sharded_ms:.2f} ms, one device "
         f"{single_ms:.2f} ms ({tag})")
-    if not torch.equal(out, single) or k1 != len(shards) * 351:
+    if not torch.equal(out, single) or not k1_per(len(shards)):
         raise AssertionError(f"tile DP: equal {torch.equal(out, single)}, "
-                             f"K1 {k1}, shards {shards}")
-    counts["conv3x3"] += k1
+                             f"K1 {k1}, 2x2 {k2x2}, shards {shards}")
+    add_k1()
 
     # ---- strips over the mesh against a sequential emulation ---------------
     zero()
     strips, strips_ms = _timed(torch, lambda: process_strips_sharded(
         fn, img, mesh, halo=halo, scale=4))
-    k1 = conv3x3.launches
+    k1, k2x2, strips_ok = conv3x3.launches, conv2x2_s2d.launches, k1_per(n)
+    add_k1()
     emulated = strip_emulation(torch, fn, img, n, halo, 4)
     no_plain("strips")
     log(f"multi-device strips: {n} strips of {ww}x{-(-hh // n)} + 2x{halo} "
-        f"halo rows, K1 launches {k1} (forwards x 351 = {n * 351}); equal to "
-        f"the sequential emulation bit for bit: "
-        f"{torch.equal(strips, emulated)}; {strips_ms:.2f} ms ({tag})")
-    if not torch.equal(strips, emulated) or k1 != n * 351:
-        raise AssertionError(f"strips: K1 {k1}")
-    counts["conv3x3"] += k1
+        f"halo rows, K1 launches {k1} and 2x2 form {k2x2} (forwards x "
+        f"{K1_FOLDED} and x {K1_2X2}); equal to the sequential emulation bit "
+        f"for bit: {torch.equal(strips, emulated)}; {strips_ms:.2f} ms "
+        f"({tag})")
+    if not torch.equal(strips, emulated) or not strips_ok:
+        raise AssertionError(f"strips: K1 {k1}, 2x2 {k2x2}")
 
     # ---- the member ensemble: two seeded full-width RRDBNets ---------------
     member2 = RRDBNet(RRDBNetConfig(**ARCH), init_rrdbnet(
@@ -2964,17 +3218,18 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     zero()
     ens, ens_ms = _timed(torch, lambda: ensemble_members_sharded(
         member_fn, members, small, mesh[:2], weights=[0.5, 0.5]))
-    k1 = conv3x3.launches
+    k1, k2x2, ens_ok = conv3x3.launches, conv2x2_s2d.launches, k1_per(2)
+    add_k1()
     ref = (member_fn(model, small).float() * 0.5
            + member_fn(member2, small).float() * 0.5)
     err = (ens - ref).abs().max().item()
     log(f"multi-device member ensemble: 2 RRDBNets (seeds {SEED}, "
         f"{SEED + 1}) on {MD_MEMBER}^2 over 2 slots, weights 0.5/0.5: max "
         f"abs err {err:.3g} against the weighted sum on one device (bar "
-        f"1e-6), K1 launches {k1}; {ens_ms:.2f} ms ({tag})")
-    if not err <= 1e-6 or k1 != 2 * 351:
-        raise AssertionError(f"member ensemble: err {err}, K1 {k1}")
-    counts["conv3x3"] += k1
+        f"1e-6), K1 launches {k1}, 2x2 form {k2x2}; {ens_ms:.2f} ms ({tag})")
+    if not err <= 1e-6 or not ens_ok:
+        raise AssertionError(f"member ensemble: err {err}, K1 {k1}, "
+                             f"2x2 {k2x2}")
     del member2
 
     # ---- split CFG: the full-width SD x4 on a 128x128 image, 2 DDIM steps -
@@ -3126,6 +3381,7 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
         raise AssertionError(f"default config over the mesh: layout "
                              f"{layout}, equal {equal}, K1 {k1}, K3 {k3}")
     counts["conv3x3"] += k1
+    counts["conv2x2_s2d"] += conv2x2_s2d.launches
     counts["flash_attention"] += k3
     del multi
 
@@ -3146,7 +3402,7 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
             zero()
             outs[strategy], ms[strategy] = _timed(
                 torch, lambda p=p: p.enhance_array(big))
-            k1s[strategy] = conv3x3.launches
+            k1s[strategy] = (conv3x3.launches, conv2x2_s2d.launches)
             no_plain(f"{strategy} request")
     emulated = strip_emulation(torch, fn, contrast_stage(img), n, halo,
                                4).cpu().numpy()
@@ -3158,13 +3414,16 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
         f"strip emulation of the same preprocessed image: {exact}; PSNR "
         f"{db:.2f} dB against shard_strategy tiles (bar 30; {same:.4f} of "
         f"the values identical: the RRDBNet's receptive field exceeds the "
-        f"{halo}-px halo, so the two cuts differ near their seams); K1 "
-        f"{k1s['strips']} (strips) and {k1s['tiles']} (tiles); "
+        f"{halo}-px halo, so the two cuts differ near their seams); K1, 2x2 "
+        f"form {k1s['strips']} (strips) and {k1s['tiles']} (tiles); "
         f"{ms['strips']:.1f} ms and {ms['tiles']:.1f} ms ({tag})")
-    if not exact or not db > 30.0 or k1s["strips"] != n * 351:
+    if not exact or not db > 30.0 or k1s["strips"] != (n * K1_FOLDED,
+                                                        n * K1_2X2):
         raise AssertionError(f"strips request: exact {exact}, PSNR {db}, "
-                             f"K1 {k1s}")
-    counts["conv3x3"] += k1s["strips"] + k1s["tiles"]
+                             f"K1 and 2x2 form {k1s}")
+    for k1, k2x2 in k1s.values():
+        counts["conv3x3"] += k1
+        counts["conv2x2_s2d"] += k2x2
 
     # ---- one process group on NCCL at world size 1 -------------------------
     env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
@@ -3244,7 +3503,8 @@ ENTRY_IMAGE = (96, 128)      # H, W of the entry-point scripts' input
 SCRIPT_COUNTED = (
     "import json, runpy, sys\n"
     "from neural_enhanced_super_resolution_torch.kernels import (\n"
-    "    conv3x3, conv3x3_f32, conv3x3_plain)\n"
+    "    conv2x2_s2d, conv2x2_s2d_f32, conv2x2_s2d_plain, conv3x3,\n"
+    "    conv3x3_f32, conv3x3_plain)\n"
     "sys.argv = sys.argv[1:]\n"
     "rc = 0\n"
     "try:\n"
@@ -3253,6 +3513,9 @@ SCRIPT_COUNTED = (
     "    rc = exc.code\n"
     "print('COUNTS ' + json.dumps({\n"
     "    'conv3x3': conv3x3.launches, 'conv3x3_f32': conv3x3_f32.launches,\n"
+    "    'conv2x2_s2d': conv2x2_s2d.launches,\n"
+    "    'conv2x2_s2d_f32': conv2x2_s2d_f32.launches,\n"
+    "    'conv2x2_s2d_plain': conv2x2_s2d_plain.calls,\n"
     "    'conv3x3_plain': conv3x3_plain.calls}))\n"
     "sys.exit(rc)\n")
 
@@ -3270,18 +3533,22 @@ def repo_script(rel: str):
 
 @contextlib.contextmanager
 def plain_k1():
-    """Route RRDBNet's K1 convs to conv3x3_plain: the reference a K1 forward
-    is held against (outside the counted paths)."""
+    """Route RRDBNet's K1 convs (both forms) to their plain versions: the
+    reference a K1 forward is held against (outside the counted paths)."""
     from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-        conv3x3_plain)
+        conv2x2_s2d_plain, conv3x3_plain)
     from neural_enhanced_super_resolution_torch.models import rrdbnet
-    kernel = rrdbnet.conv3x3
-    rrdbnet.conv3x3 = (lambda x, w, b=None, lrelu=False, packed=None:
-                       conv3x3_plain(x, w, b, lrelu))
+    kernels = rrdbnet.conv3x3, rrdbnet.conv2x2_s2d
+    rrdbnet.conv3x3 = (lambda x, w, b=None, lrelu=False, packed=None,
+                       d2s=False, round_first=False:
+                       conv3x3_plain(x, w, b, lrelu, d2s, round_first))
+    rrdbnet.conv2x2_s2d = (lambda x, w, b, lrelu, pad, mask, d2s,
+                           packed=None:
+                           conv2x2_s2d_plain(x, w, b, lrelu, pad, mask, d2s))
     try:
         yield
     finally:
-        rrdbnet.conv3x3 = kernel
+        rrdbnet.conv3x3, rrdbnet.conv2x2_s2d = kernels
 
 
 def check_conv3x3_train(torch, gen, name: str) -> None:
@@ -3612,15 +3879,19 @@ def drive_training_and_entry_points(torch, np, gen, sd, ckpt: str,
         + next(line for line in outs["compare --check"].splitlines()
                if line.startswith("worst"))
         + f"; counts {counts}")
-    # K1 a forward: 351 (the 12-channel checkpoint, stock trunk, one tile;
-    # x2plus, two iterations; the check's fused trunk, one image)
-    want = {"quickstart": None, "direct_esrgan": 351,
-            "superres_project": 2 * 351, "compare --check": 351}
+    # K1 and its 2x2 form a forward: K1_STOCK and none (the 12-channel
+    # checkpoint, stock trunk, one tile; x2plus, stock trunk, two
+    # iterations), K1_FOLDED and K1_2X2 (the check's fused trunk, one image)
+    want = {"quickstart": None, "direct_esrgan": (K1_STOCK, 0),
+            "superres_project": (2 * K1_STOCK, 0),
+            "compare --check": (K1_FOLDED, K1_2X2)}
     for label, c in counts.items():
         if (c["conv3x3_plain"] or c["conv3x3_f32"] or c["conv3x3"] == 0
-                or want[label] not in (None, c["conv3x3"])):
-            raise AssertionError(f"{label}: counts {c}, K1 want "
-                                 f"{want[label]}")
+                or c["conv2x2_s2d_plain"] or c["conv2x2_s2d_f32"]
+                or want[label] not in (None, (c["conv3x3"],
+                                              c["conv2x2_s2d"]))):
+            raise AssertionError(f"{label}: counts {c}, K1 and 2x2 form "
+                                 f"want {want[label]}")
     if (not db.get("enhanced", 0) > db.get("bicubic", 1e9)
             or direct.shape != (4 * hh, 4 * ww, 3)
             or superres.shape != (4 * hh, 4 * ww, 3)):
@@ -3670,7 +3941,8 @@ def drive_training_and_entry_points(torch, np, gen, sd, ckpt: str,
     src = torch.from_numpy(imread_rgb(img_path)).to("cuda")
     shapes = set()
 
-    def conv_key(x, w, bias=None, lrelu=False, packed=None):
+    def conv_key(x, w, bias=None, lrelu=False, packed=None, d2s=False,
+                 round_first=False):
         return (*x.shape, w.shape[3], bias is not None, bool(lrelu))
 
     with recording(rrdbnet, "conv3x3", shapes, conv_key):
@@ -3709,6 +3981,7 @@ def drive_training_and_entry_points(torch, np, gen, sd, ckpt: str,
     log(f"training and entry points phase: "
         f"{time.perf_counter() - t_phase:.1f} s")
     return {"conv3x3": sum(c["conv3x3"] for c in counts.values()),
+            "conv2x2_s2d": sum(c["conv2x2_s2d"] for c in counts.values()),
             "conv3x3_f32": k1f + tcounts["conv3x3_f32"]}
 
 
@@ -3756,10 +4029,11 @@ def main() -> int:
 
     drive_precompile(name)
     build_kernels()
-    results = {"conv3x3": check_conv3x3(torch, gen),
-               "rdb_fused": check_rdb_fused(torch, gen),
-               "flash_attention": check_flash_attention(torch, gen),
-               "conv3x3_int8": check_conv3x3_int8(torch, gen)}
+    results = {}
+    results["conv3x3"], results["conv2x2_s2d"] = check_conv3x3(torch, gen)
+    results.update({"rdb_fused": check_rdb_fused(torch, gen),
+                    "flash_attention": check_flash_attention(torch, gen),
+                    "conv3x3_int8": check_conv3x3_int8(torch, gen)})
     results["conv3x3_int8_rdb"], results["int8_amax"] = (
         check_conv3x3_int8_rdb(torch, gen))
     sd = init_rrdbnet(RRDBNetConfig(**ARCH), torch.Generator().manual_seed(
@@ -3793,11 +4067,12 @@ def main() -> int:
     check_against_cpu(torch, np, ckpt, seg)
     check_parity_against_cpu(torch, np, ckpt)
     check_diffusion_against_cpu(torch, np)
-    f32_counts, k1f_shapes, k3f_shapes = drive_float32(torch, np, ckpt, snap,
-                                                       name)
-    fwd_k1f, fwd_shapes = check_forward_f32(torch, gen, sd, name)
-    results["conv3x3_f32"] = check_conv3x3_f32(
-        torch, gen, sorted(set(k1f_shapes) | set(fwd_shapes)))
+    f32_counts, k1f_shapes, k2x2f_shapes, k3f_shapes = drive_float32(
+        torch, np, ckpt, snap, name)
+    fwd_k1f, fwd_shapes, fwd_2x2 = check_forward_f32(torch, gen, sd, name)
+    results["conv3x3_f32"], results["conv2x2_s2d_f32"] = check_conv3x3_f32(
+        torch, gen, sorted(set(k1f_shapes) | set(fwd_shapes)),
+        sorted(set(k2x2f_shapes) | set(fwd_2x2)))
     results["flash_attention_f32"] = check_flash_attention_f32(
         torch, gen, k3f_shapes)
     train_launches = drive_training_and_entry_points(torch, np, gen, sd,
@@ -3824,10 +4099,16 @@ def main() -> int:
                 + swin_counts["flash_attention"]
                 + vae_counts["flash_attention"]
                 + md_counts["flash_attention"],
-                "conv3x3_f32": f32_counts["conv3x3_f32"] + fwd_k1f
+                "conv2x2_s2d": counts["conv2x2_s2d"]
+                + sum(c["conv2x2_s2d"] for c in mode_counts.values())
+                + md_counts["conv2x2_s2d"] + train_launches["conv2x2_s2d"],
+                "conv3x3_f32": f32_counts["conv3x3_f32"] + fwd_k1f[0]
                 + train_launches["conv3x3_f32"],
+                "conv2x2_s2d_f32": f32_counts["conv2x2_s2d_f32"] + fwd_k1f[1],
                 "flash_attention_f32": f32_counts["flash_attention_f32"]}
     sources = {"conv3x3": "csrc/conv3x3.cu", "rdb_fused": "csrc/rdb_fused.cu",
+               "conv2x2_s2d": "csrc/conv3x3.cu",
+               "conv2x2_s2d_f32": "csrc/conv3x3_f32.cu",
                "flash_attention": "csrc/flash_attn.cu",
                "conv3x3_int8_rdb": "csrc/rdb_int8.cu",
                "int8_amax": "csrc/rdb_int8.cu",
@@ -3853,10 +4134,17 @@ def main() -> int:
         # the float32 forms: the same Pallas kernels on float32 operands
         "conv3x3_f32": "neural_enhanced_super_resolution_tpu/kernels/"
                        "conv3x3.py:106",
+        # no Pallas kernel: XLA's convs of the folded head (_head_forward),
+        # in bf16 and in float32
+        "conv2x2_s2d": "neural_enhanced_super_resolution_tpu/models/"
+                       "rrdbnet.py:586",
+        "conv2x2_s2d_f32": "neural_enhanced_super_resolution_tpu/models/"
+                           "rrdbnet.py:586",
         "flash_attention_f32": "neural_enhanced_super_resolution_tpu/"
                                "kernels/attention.py:125"}
     # ms, plain_ms, bound_ms and library_ms at one shape a kernel: K1 at
-    # trunk w0, K2 on the tile batch, K3 at the UNet's 64^2 self-attention,
+    # trunk w0, its 2x2 form and K1f's at the folded head's hr on the tile
+    # batch (4 x 536^2 x 256 -> 4 x 537^2 x 256), K2 on the tile batch, K3 at the UNet's 64^2 self-attention,
     # the K4 step as one RDB's five launches on the tile batch, int8_amax
     # on the trunk's input there, K1f at trunk w0 on TILE_BATCH (the
     # full-width float32 forward's), K3f at the VAE mid-block's 1920^2, d
@@ -3870,8 +4158,9 @@ def main() -> int:
                 **{key: results[k][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
-               for k in ("conv3x3", "rdb_fused", "flash_attention",
-                         "conv3x3_int8_rdb", "int8_amax", "conv3x3_f32",
+               for k in ("conv3x3", "conv2x2_s2d", "rdb_fused",
+                         "flash_attention", "conv3x3_int8_rdb", "int8_amax",
+                         "conv3x3_f32", "conv2x2_s2d_f32",
                          "flash_attention_f32")]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

@@ -45,6 +45,31 @@
 //  * The epilogue adds the bias, applies LeakyReLU, rounds to bf16 once,
 //    stages the tile in its own shared buffer and writes it with 16-byte
 //    coalesced stores.
+//
+// The 2x2 form (conv2x2_kernel) runs the folded RRDBNet head's two
+// space-to-depth convs, conv_hr and conv_last folded into 2x2 convs over
+// 4 x 64 channels. It replaces no Pallas kernel: the JAX package runs them
+// as XLA convs in _head_forward (models/rrdbnet.py:586). It is the same
+// implicit GEMM with the tap geometry a template parameter: 4 taps of a
+// 2x2 conv at padding 1 (the output gains a row and a column) or 0 (it
+// loses one), a (TH+1) x (TW+1) patch at offset -pad, passes of 64 input
+// channels (Cin 256: four), and N tiles of 16, 64 or 128 (Cout 256: two
+// of 128; Cout 12: one of 16). What bounds it on the path's 4 x 268^2
+// tiles: conv_hr's 4 x 537^2 x 256 x 256 x 4 multiply-adds (0.611 ms at
+// the bf16 peak), conv_last's bytes (0.185 ms).
+// The head's 3x3 form (conv3x3_head_kernel: up1 and up2, 64 -> 256) is
+// the 3x3 conv with these passes and N tiles. Their epilogue has three
+// flags, which the SAME 3x3 kernel is compiled without:
+//  * ROUND_FIRST: round acc + bias to bf16, then LeakyReLU on the bf16
+//    value with 0.2 * y rounded to bf16 (the JAX package's _conv then
+//    _lrelu, in PyTorch's op order);
+//  * MASK: the frame border of a padding-1 2x2 output: in channel group
+//    g = 2 oi + oj (Cout = 4 D), row 0 when oi = 0, row Ho-1 when oi = 1,
+//    column 0 when oj = 0 and column Wo-1 when oj = 1 are stored as zeros;
+//  * D2S: depth-to-space on the store: channel (2 oi + oj) D + f of pixel
+//    (r, s) goes to pixel (2r + oi, 2s + oj), channel f of a (2Ho, 2Wo, D)
+//    output; with D % 8 == 0 the 16-byte stores stay whole, otherwise the
+//    scalar store path takes it.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -63,13 +88,20 @@ constexpr int THREADS = WARPS * 32;
 constexpr int TH = WARPS;
 constexpr int SM_SMEM = 233472;   // shared memory of an H100 SM (228 KB)
 
+// Epilogue flags (the C entry points' `flags`).
+constexpr int LRELU = 1, ROUND_FIRST = 2, MASK = 4, D2S = 8;
+
 struct Params {
   const bf16* x;
-  const bf16* wp;      // packed weights (pack_conv3x3_weights)
+  const bf16* wp;      // packed weights (pack_conv3x3_weights or
+                       // pack_conv2x2_weights)
   const float* bias;   // may be null
   bf16* y;
   int H, W, Cin, Cout, kp;   // kp: Cin rounded up to the pass width
-  int lrelu, tiles_x, vec;   // vec: channels a patch copy (8, 4 or 1)
+  int Ho, Wo, pad;           // output size; the patch starts at -pad
+  int flags, D;              // epilogue flags; D = Cout / 4 (MASK, D2S)
+  int tiles_x, vec;          // vec: channels a patch copy (8, 4 or 1)
+  int vec_out;               // 16-byte output stores
   int n_tiles;               // Cout in N-wide tiles, walked in the block
   int wave;                  // blocks the card runs at once (2 an SM)
 };
@@ -80,14 +112,16 @@ __host__ __device__ constexpr int round_up(int a, int b) {
 
 // Shared memory: [weight ring] [output tile] [patch] [full bars] [empty
 // bars]. A pass is KS k-steps of 16 input channels (KC = 16 KS); the patch
-// pixel pitch is KC + 8 and the output row pitch N + 8, so each 8-row
-// ldmatrix phase and each fragment store is conflict free. The ring has
-// four slots, or three where four would keep two blocks off one SM.
-template <int N, int KS>
+// (TH + KT - 1 rows of TW + KT - 1 pixels for a KT x KT conv) has pixel
+// pitch KC + 8 and the output row pitch N + 8, so each 8-row ldmatrix
+// phase and each fragment store is conflict free. The ring has four
+// slots, or three where four would keep two blocks off one SM.
+template <int N, int KS, int KT>
 struct Smem {
   static constexpr int KC = 16 * KS, PITCH = KC + 8, SLAB = KC * N;
+  static constexpr int PW = TW + KT - 1;   // patch row, pixels
   static constexpr int OUT = TH * TW * (N + 8) * 2;
-  static constexpr int PATCH = round_up((TH + 2) * (TW + 2) * PITCH * 2, 16);
+  static constexpr int PATCH = round_up((TH + KT - 1) * PW * PITCH * 2, 16);
   static constexpr int STAGES =
       2 * (4 * SLAB * 2 + OUT + PATCH + 64 + 1024) <= SM_SMEM ? 4 : 3;
   static constexpr int OUT_OFF = STAGES * SLAB * 2;
@@ -98,15 +132,17 @@ struct Smem {
   static_assert(2 * (BYTES + 1024) <= SM_SMEM, "K1: two blocks an SM");
 };
 
-// Stage channels [c0, c0 + kc) of the (TH+2) x (TW+2) input patch, VEC
-// channels a copy, zero-filling out-of-image pixels and channels >= Cin.
-template <int VEC>
+// Stage channels [c0, c0 + kc) of the (TH + KT - 1) x (TW + KT - 1) input
+// patch at (oy - pad, ox - pad), VEC channels a copy, zero-filling
+// out-of-image pixels and channels >= Cin.
+template <int VEC, int KT>
 __device__ void stage_patch(const Params& p, bf16* patch, int pitch, int n,
-                            int oy, int ox, int c0, int kc) {
+                            int oy, int ox, int c0, int kc, int pad) {
+  constexpr int PW = TW + KT - 1;
   const int nv = kc / VEC;
-  for (int it = threadIdx.x; it < (TH + 2) * (TW + 2) * nv; it += THREADS) {
+  for (int it = threadIdx.x; it < (TH + KT - 1) * PW * nv; it += THREADS) {
     const int v = it % nv, px = it / nv;
-    const int gy = oy - 1 + px / (TW + 2), gx = ox - 1 + px % (TW + 2);
+    const int gy = oy - pad + px / PW, gx = ox - pad + px % PW;
     const int ch = c0 + v * VEC;
     const bool ok = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W && ch < p.Cin;
     const bf16* src =
@@ -120,11 +156,34 @@ __device__ void stage_patch(const Params& p, bf16* patch, int pitch, int n,
   }
 }
 
-template <int N, int KS>
-__global__ void __launch_bounds__(THREADS, 2)
-conv3x3_kernel(const Params p) {
-  using S = Smem<N, KS>;
-  constexpr int STAGES = S::STAGES;
+// MASK: whether output channel co of pixel (gy, gx) lies inside the frame.
+__device__ __forceinline__ bool kept(const Params& p, int gy, int gx,
+                                     int co) {
+  if (!(p.flags & MASK)) return true;
+  const int g = co / p.D, oi = g >> 1, oj = g & 1;
+  return !((oi == 0 && gy == 0) || (oi == 1 && gy == p.Ho - 1) ||
+           (oj == 0 && gx == 0) || (oj == 1 && gx == p.Wo - 1));
+}
+
+// Where output channel co of pixel (gy, gx) of image n is stored.
+__device__ __forceinline__ size_t out_index(const Params& p, int n, int gy,
+                                            int gx, int co) {
+  if (p.flags & D2S) {
+    const int g = co / p.D, f = co - g * p.D;
+    return (((size_t)n * 2 * p.Ho + 2 * gy + (g >> 1)) * 2 * p.Wo + 2 * gx +
+            (g & 1)) * p.D + f;
+  }
+  return (((size_t)n * p.Ho + gy) * p.Wo + gx) * p.Cout + co;
+}
+
+// HEAD: the folded head's forms (padding, frame mask, depth-to-space,
+// ROUND_FIRST); without it the SAME 3x3 conv with bias and LeakyReLU
+// only, its epilogue free of their code.
+template <int N, int KS, int KT, bool HEAD>
+__device__ __forceinline__ void conv_body(const Params& p) {
+  using S = Smem<N, KS, KT>;
+  constexpr int STAGES = S::STAGES, T = KT * KT;
+  const int pad = HEAD ? p.pad : 1;
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* out = reinterpret_cast<bf16*>(smem + S::OUT_OFF);
   bf16* patch = reinterpret_cast<bf16*>(smem + S::PATCH_OFF);
@@ -137,13 +196,13 @@ conv3x3_kernel(const Params p) {
   const int oy = ty * TH, ox = tx * TW;
   const int npass = p.kp / S::KC;
   // Slabs g = (N tile, pass, tap), contiguous in that order in p.wp.
-  const int total = p.n_tiles * 9 * npass;
+  const int total = p.n_tiles * T * npass;
   // Shared addresses: the ring, the barriers, and this lane's ldmatrix row
   // (patch pixel (warp, lane % 16), channel 8 (lane / 16)) at tap (0, 0).
   const uint32_t ring_s = nesr::smem_u32(smem);
   const uint32_t full_s = nesr::smem_u32(full), empty_s = full_s + 8 * STAGES;
   const uint32_t a_s = nesr::smem_u32(patch) +
-      ((warp * (TW + 2) + lane % 16) * S::PITCH + lane / 16 * 8) * 2;
+      ((warp * S::PW + lane % 16) * S::PITCH + lane / 16 * 8) * 2;
   auto issue = [&](int g) {
     const int s = g % STAGES;
     nesr::bulk_load(ring_s + s * S::SLAB * 2, p.wp + (size_t)g * S::SLAB,
@@ -169,13 +228,13 @@ conv3x3_kernel(const Params p) {
   // order of their index): one bulk prefetch a patch row, so that block's
   // cp.async finds its input in L2 instead of HBM.
   const int later = blockIdx.z * gridDim.x + blockIdx.x + p.wave;
-  if (warp == 0 && lane < TH + 2 && p.vec == 8 &&
+  if (warp == 0 && lane < TH + KT - 1 && p.vec == 8 &&
       later < gridDim.x * gridDim.z) {
     const int lx = later % gridDim.x, ln = later / gridDim.x;
-    const int gy = lx / p.tiles_x * TH - 1 + lane;
-    const int x0 = max(lx % p.tiles_x * TW - 1, 0);
-    const int x1 = min(lx % p.tiles_x * TW + TW + 1, p.W);
-    if (gy >= 0 && gy < p.H)
+    const int gy = lx / p.tiles_x * TH - pad + lane;
+    const int x0 = max(lx % p.tiles_x * TW - pad, 0);
+    const int x1 = min(lx % p.tiles_x * TW + S::PW - pad, p.W);
+    if (gy >= 0 && gy < p.H && x1 > x0)
       nesr::prefetch_l2(p.x + ((size_t)(ln * p.H + gy) * p.W + x0) * p.Cin,
                         (x1 - x0) * p.Cin * 2);
   }
@@ -195,21 +254,21 @@ conv3x3_kernel(const Params p) {
       if (nt == 0 || npass > 1) {
         if (nt + c > 0) __syncthreads();   // every warp done reading it
         switch (p.vec) {
-          case 8: stage_patch<8>(p, patch, S::PITCH, n, oy, ox, c * S::KC,
-                                 S::KC);
+          case 8: stage_patch<8, KT>(p, patch, S::PITCH, n, oy, ox,
+                                     c * S::KC, S::KC, pad);
                   break;
-          case 4: stage_patch<4>(p, patch, S::PITCH, n, oy, ox, c * S::KC,
-                                 S::KC);
+          case 4: stage_patch<4, KT>(p, patch, S::PITCH, n, oy, ox,
+                                     c * S::KC, S::KC, pad);
                   break;
-          default: stage_patch<1>(p, patch, S::PITCH, n, oy, ox, c * S::KC,
-                                  S::KC);
+          default: stage_patch<1, KT>(p, patch, S::PITCH, n, oy, ox,
+                                      c * S::KC, S::KC, pad);
         }
         nesr::cp_async_wait_all();
         __syncthreads();
       }
-      const int g0 = (nt * npass + c) * 9;
+      const int g0 = (nt * npass + c) * T;
 #pragma unroll
-      for (int t = 0; t < 9; ++t) {
+      for (int t = 0; t < T; ++t) {
         const int g = g0 + t, s = g % STAGES;
         nesr::mbar_wait(full_s + 8 * s, (g / STAGES) & 1);
         __syncwarp();
@@ -217,7 +276,7 @@ conv3x3_kernel(const Params p) {
         // 16 channels a k-step; B: the slab's k-steps by descriptor
         // (K-major, no swizzle, core matrices 128 bytes apart along K, 256
         // along N).
-        const int tap_off = ((t / 3) * (TW + 2) + t % 3) * S::PITCH * 2;
+        const int tap_off = ((t / KT) * S::PW + t % KT) * S::PITCH * 2;
         const uint32_t bs = ring_s + s * S::SLAB * 2;
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk)
@@ -244,16 +303,20 @@ conv3x3_kernel(const Params p) {
         __syncwarp();
       }
       nesr::wgmma_wait<0>();
-      release(g0 + 8);
+      release(g0 + T - 1);
     }
 #pragma unroll
     for (int e = 0; e < N / 2; ++e) nesr::reg_fence(acc[e]);
 
-    // Epilogue of this N tile: bias, LeakyReLU, one bf16 rounding; the
-    // tile through its own shared buffer, then 16-byte stores, which drain
-    // under the next N tile's MMAs.
+    // Epilogue of this N tile: bias, LeakyReLU, bf16 rounding (once, or
+    // before the LeakyReLU and after it under ROUND_FIRST); the tile
+    // through its own shared buffer, then 16-byte stores (zeros outside
+    // the frame under MASK, to the depth-to-space pixel under D2S), which
+    // drain under the next N tile's MMAs.
     __syncthreads();   // every warp done storing the last N tile
     const int co0 = nt * N;
+    const bool act = p.flags & LRELU;
+    const bool first = HEAD && (p.flags & ROUND_FIRST);
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       const int co = co0 + 8 * j + 2 * q;
@@ -263,7 +326,11 @@ conv3x3_kernel(const Params p) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float v0 = acc[4 * j + 2 * h] + b0, v1 = acc[4 * j + 2 * h + 1] + b1;
-        if (p.lrelu) {
+        if (first) {
+          v0 = nesr::round_bf16(v0);
+          v1 = nesr::round_bf16(v1);
+        }
+        if (act) {
           v0 = nesr::lrelu(v0);
           v1 = nesr::lrelu(v1);
         }
@@ -274,37 +341,90 @@ conv3x3_kernel(const Params p) {
     }
     __syncthreads();
     const int nvalid = min(N, p.Cout - co0);
-    bf16* y = p.y + (size_t)n * p.H * p.W * p.Cout + co0;
-    if (p.Cout % 8 == 0) {
+    if (!HEAD || !(p.flags & (MASK | D2S))) {
+      // The NHWC output: 16-byte row segments, or channel by channel when
+      // Cout is not a multiple of 8.
+      bf16* y = p.y + (size_t)n * p.Ho * p.Wo * p.Cout + co0;
+      if (p.vec_out) {
+        const int nv = nvalid / 8;
+        for (int it = tid; it < TH * TW * nv; it += THREADS) {
+          const int v = it % nv, px = it / nv;
+          const int gy = oy + px / TW, gx = ox + px % TW;
+          if (gy < p.Ho && gx < p.Wo)
+            *reinterpret_cast<uint4*>(y + ((size_t)gy * p.Wo + gx) * p.Cout +
+                                      8 * v) =
+                *reinterpret_cast<const uint4*>(out + px * (N + 8) + 8 * v);
+        }
+      } else {
+        for (int it = tid; it < TH * TW * nvalid; it += THREADS) {
+          const int v = it % nvalid, px = it / nvalid;
+          const int gy = oy + px / TW, gx = ox + px % TW;
+          if (gy < p.Ho && gx < p.Wo)
+            y[((size_t)gy * p.Wo + gx) * p.Cout + v] = out[px * (N + 8) + v];
+        }
+      }
+    } else if (p.vec_out) {
       const int nv = nvalid / 8;
       for (int it = tid; it < TH * TW * nv; it += THREADS) {
         const int v = it % nv, px = it / nv;
-        const int gy = oy + px / TW, gx = ox + px % TW;
-        if (gy < p.H && gx < p.W)
-          *reinterpret_cast<uint4*>(y + ((size_t)gy * p.W + gx) * p.Cout +
-                                    8 * v) =
-              *reinterpret_cast<const uint4*>(out + px * (N + 8) + 8 * v);
+        const int gy = oy + px / TW, gx = ox + px % TW, co = co0 + 8 * v;
+        if (gy < p.Ho && gx < p.Wo)
+          *reinterpret_cast<uint4*>(p.y + out_index(p, n, gy, gx, co)) =
+              kept(p, gy, gx, co)
+                  ? *reinterpret_cast<const uint4*>(out + px * (N + 8) +
+                                                    8 * v)
+                  : make_uint4(0, 0, 0, 0);
       }
     } else {
       for (int it = tid; it < TH * TW * nvalid; it += THREADS) {
         const int v = it % nvalid, px = it / nvalid;
-        const int gy = oy + px / TW, gx = ox + px % TW;
-        if (gy < p.H && gx < p.W)
-          y[((size_t)gy * p.W + gx) * p.Cout + v] = out[px * (N + 8) + v];
+        const int gy = oy + px / TW, gx = ox + px % TW, co = co0 + v;
+        if (gy < p.Ho && gx < p.Wo)
+          p.y[out_index(p, n, gy, gx, co)] =
+              kept(p, gy, gx, co) ? out[px * (N + 8) + v]
+                                  : __float2bfloat16(0.f);
       }
     }
   }
 }
 
+// The forms, by name: the SAME 3x3 conv; the folded head's 3x3 form
+// (ROUND_FIRST, D2S); its 2x2 form at padding 0 or 1 (ROUND_FIRST, MASK,
+// D2S).
 template <int N, int KS>
+__global__ void __launch_bounds__(THREADS, 2)
+conv3x3_kernel(const Params p) {
+  conv_body<N, KS, 3, false>(p);
+}
+
+template <int N, int KS>
+__global__ void __launch_bounds__(THREADS, 2)
+conv3x3_head_kernel(const Params p) {
+  conv_body<N, KS, 3, true>(p);
+}
+
+template <int N, int KS>
+__global__ void __launch_bounds__(THREADS, 2)
+conv2x2_kernel(const Params p) {
+  conv_body<N, KS, 2, true>(p);
+}
+
+template <int N, int KS, int KT, bool HEAD>
 int launch(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int smem = Smem<N, KS>::BYTES;
+  constexpr int smem = Smem<N, KS, KT>::BYTES;
+  void (*kernel)(const Params);
+  if constexpr (KT == 2) {
+    kernel = conv2x2_kernel<N, KS>;
+  } else if constexpr (HEAD) {
+    kernel = conv3x3_head_kernel<N, KS>;
+  } else {
+    kernel = conv3x3_kernel<N, KS>;
+  }
   // Set per call: the attribute is per device, and the call is cheap.
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_kernel<N, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles_y = (p.H + TH - 1) / TH;
+  const int tiles_y = (p.Ho + TH - 1) / TH;
   dim3 grid(p.tiles_x * tiles_y, 1, batch);
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
@@ -313,30 +433,22 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   Params q = p;
   q.wave = 2 * sms;
-  conv3x3_kernel<N, KS><<<grid, THREADS, smem, stream>>>(q);
+  kernel<<<grid, THREADS, smem, stream>>>(q);
   return (int)cudaGetLastError();
 }
 
 template <int N>
 int launch_ks(const Params& p, int ks, int batch, cudaStream_t stream) {
   switch (ks) {
-    case 1: return launch<N, 1>(p, batch, stream);
-    case 2: return launch<N, 2>(p, batch, stream);
-    default: return launch<N, 4>(p, batch, stream);
+    case 1: return launch<N, 1, 3, false>(p, batch, stream);
+    case 2: return launch<N, 2, 3, false>(p, batch, stream);
+    default: return launch<N, 4, 3, false>(p, batch, stream);
   }
 }
 
-}  // namespace
-
-// n_width: the tile width the weights were packed for (one of 8, 16, 32,
-// 64, 80, 96, 128); Cout is ceil(Cout / n_width) such tiles. A pass is 16,
-// 32 or 64 input channels as Cin is at most 16, at most 32 or more; Cin is
-// padded to a whole number of passes (kernels/conv3x3.py: tile_width,
-// pass_width).
-extern "C" int nesr_conv3x3(const void* x, const void* wp, const void* bias,
-                            void* y, int N, int H, int W, int Cin, int Cout,
-                            int n_width, int lrelu, void* stream) {
-  const int ks = Cin <= 16 ? 1 : Cin <= 32 ? 2 : 4;
+Params make_params(const void* x, const void* wp, const void* bias, void* y,
+                   int H, int W, int Cin, int Cout, int kc, int taps,
+                   int pad, int flags) {
   Params p;
   p.x = (const bf16*)x;
   p.wp = (const bf16*)wp;
@@ -346,12 +458,60 @@ extern "C" int nesr_conv3x3(const void* x, const void* wp, const void* bias,
   p.W = W;
   p.Cin = Cin;
   p.Cout = Cout;
-  p.kp = round_up(Cin, 16 * ks);
-  p.lrelu = lrelu;
-  p.tiles_x = (W + TW - 1) / TW;
+  p.kp = round_up(Cin, kc);
+  p.pad = pad;
+  p.Ho = H + 2 * pad - (taps - 1);
+  p.Wo = W + 2 * pad - (taps - 1);
+  p.flags = flags;
+  p.D = Cout / 4;
+  p.tiles_x = (p.Wo + TW - 1) / TW;
   p.vec = Cin % 8 == 0 ? 8 : Cin % 4 == 0 ? 4 : 1;
-  p.n_tiles = (Cout + n_width - 1) / n_width;
+  p.vec_out = Cout % 8 == 0 && (!(flags & (MASK | D2S)) || p.D % 8 == 0);
+  return p;
+}
+
+bool bad_flags(int flags, int Cout) {
+  return (flags & ~(LRELU | ROUND_FIRST | MASK | D2S)) ||
+         ((flags & (MASK | D2S)) && Cout % 4);
+}
+
+// The folded head's forms: passes of 64 input channels, n_width one of
+// 16, 64, 128 (kernels/conv3x3.py: pack_conv3x3_weights(head=True),
+// pack_conv2x2_weights, tile_width_2x2).
+template <int KT>
+int launch_head(const Params& p, int n_width, int batch, cudaStream_t s) {
+  switch (n_width) {
+    case 16: return launch<16, 4, KT, true>(p, batch, s);
+    case 64: return launch<64, 4, KT, true>(p, batch, s);
+    case 128: return launch<128, 4, KT, true>(p, batch, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// SAME 3x3 conv. n_width: the tile width the weights were packed for (one
+// of 8, 16, 32, 64, 80, 96, 128); Cout is ceil(Cout / n_width) such tiles.
+// A pass is 16, 32 or 64 input channels as Cin is at most 16, at most 32
+// or more; Cin is padded to a whole number of passes (kernels/conv3x3.py:
+// tile_width, pass_width). flags: LRELU 1; with ROUND_FIRST 2 or D2S 8
+// (Cout % 4 == 0; y is then (N, 2H, 2W, Cout / 4)) the folded head's 3x3
+// form runs, with its passes and widths.
+extern "C" int nesr_conv3x3(const void* x, const void* wp, const void* bias,
+                            void* y, int N, int H, int W, int Cin, int Cout,
+                            int n_width, int flags, void* stream) {
+  if (bad_flags(flags, Cout) || (flags & MASK))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (flags & ~LRELU) {
+    Params p = make_params(x, wp, bias, y, H, W, Cin, Cout, 64, 3, 1, flags);
+    p.n_tiles = (Cout + n_width - 1) / n_width;
+    return launch_head<3>(p, n_width, N, s);
+  }
+  const int ks = Cin <= 16 ? 1 : Cin <= 32 ? 2 : 4;
+  Params p = make_params(x, wp, bias, y, H, W, Cin, Cout, 16 * ks, 3, 1,
+                         flags);
+  p.n_tiles = (Cout + n_width - 1) / n_width;
   switch (n_width) {
     case 8: return launch_ks<8>(p, ks, N, s);
     case 16: return launch_ks<16>(p, ks, N, s);
@@ -362,4 +522,18 @@ extern "C" int nesr_conv3x3(const void* x, const void* wp, const void* bias,
     case 128: return launch_ks<128>(p, ks, N, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// 2x2 conv at padding `pad` (0 or 1): y is (N, H + 2 pad - 1, W + 2 pad -
+// 1, Cout), or its depth-to-space form under D2S; the head forms' passes
+// and widths.
+extern "C" int nesr_conv2x2(const void* x, const void* wp, const void* bias,
+                            void* y, int N, int H, int W, int Cin, int Cout,
+                            int n_width, int pad, int flags, void* stream) {
+  if (bad_flags(flags, Cout) || (pad != 0 && pad != 1))
+    return (int)cudaErrorInvalidValue;
+  Params p = make_params(x, wp, bias, y, H, W, Cin, Cout, 64, 2, pad, flags);
+  if (p.Ho < 1 || p.Wo < 1) return (int)cudaErrorInvalidValue;
+  p.n_tiles = (Cout + n_width - 1) / n_width;
+  return launch_head<2>(p, n_width, N, (cudaStream_t)stream);
 }

@@ -43,6 +43,16 @@
 // (tools/f32_ablation.py, PERF.md): the FFMA issue rate itself, at 168
 // registers and at most 12 warps an SM; the staging is 2-5% of the time
 // at the trunk's and the 64->64 shapes.
+// The 2x2 form (conv2x2_f32_kernel) runs the folded RRDBNet head's two
+// space-to-depth convs in float32 (the JAX package's _head_forward,
+// models/rrdbnet.py:586, runs them as XLA convs; no Pallas kernel): the
+// same design with two taps a row, so a segment reads its 9 input pixels
+// once for both kx taps, a (rows + 1) x 17 patch at offset -pad (padding 1
+// or 0), and the epilogue's frame mask and depth-to-space store, which
+// also serve the head's 3x3 form (conv3x3_f32_head_kernel; flags as
+// csrc/conv3x3.cu's: LRELU 1, MASK 4, D2S 8; ROUND_FIRST is moot in
+// float32). Cout 256 runs as two channel groups on grid rows. The SAME
+// 3x3 kernel is compiled without that epilogue code.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,19 +62,27 @@ namespace {
 
 constexpr int CC = 8;                  // input channels a pass
 constexpr int TW = 16;                 // output columns a tile (2 segments)
-constexpr int PW = TW + 2;             // patch columns with the halo
-constexpr int PRS = PW * CC + 4;       // patch row: 37 16-byte units
 constexpr int MAX_GRAN = 24;           // granules a block: 192 channels
 constexpr int MAX_THREADS = 16 * MAX_GRAN;
 constexpr int BARS = 128;              // bytes before the ring: 2 mbarriers
+constexpr int LRELU = 1, MASK = 4, D2S = 8;   // epilogue flags
+
+// Patch columns with the halo, and the patch row in floats: two 16-byte
+// units a pixel plus one, an odd number (37 for 3x3, 35 for 2x2).
+template <int KT>
+struct Patch {
+  static constexpr int PW = TW + KT - 1;
+  static constexpr int PRS = PW * CC + 4;
+};
 
 struct Args {
   const float* x;
   const float* w;
   const float* bias;
   float* y;
-  int H, W, Cin, Cout, lrelu;
-  int tiles_x;   // tiles along W
+  int H, W, Cin, Cout, flags;
+  int Ho, Wo, pad, D;   // output size; the patch starts at -pad; Cout / 4
+  int tiles_x;   // tiles along Wo
   int S, G;      // segments (16R) and granules a block
   int ws;        // floats between weight rows (Cout, or 8G)
   int stage;     // floats a ring stage: weights then patch
@@ -90,8 +108,32 @@ __device__ __forceinline__ float comp(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
-conv3x3_f32_kernel(const Args a) {
+// MASK: whether output channel co of pixel (oy, ox) lies inside the frame.
+__device__ __forceinline__ bool kept(const Args& a, int oy, int ox, int co) {
+  if (!(a.flags & MASK)) return true;
+  const int g = co / a.D, oi = g >> 1, oj = g & 1;
+  return !((oi == 0 && oy == 0) || (oi == 1 && oy == a.Ho - 1) ||
+           (oj == 0 && ox == 0) || (oj == 1 && ox == a.Wo - 1));
+}
+
+// Where output channel co of pixel (oy, ox) of image n is stored.
+__device__ __forceinline__ size_t out_index(const Args& a, int n, int oy,
+                                            int ox, int co) {
+  if (a.flags & D2S) {
+    const int g = co / a.D, f = co - g * a.D;
+    return (((size_t)n * 2 * a.Ho + 2 * oy + (g >> 1)) * 2 * a.Wo + 2 * ox +
+            (g & 1)) * a.D + f;
+  }
+  return (((size_t)n * a.Ho + oy) * a.Wo + ox) * a.Cout + co;
+}
+
+// HEAD: the folded head's forms (padding, frame mask, depth-to-space);
+// without it the SAME 3x3 conv with bias and LeakyReLU only, its epilogue
+// free of their code.
+template <int KT, bool HEAD>
+__device__ __forceinline__ void conv_f32_body(const Args& a) {
+  constexpr int T = KT * KT, PW = Patch<KT>::PW, PRS = Patch<KT>::PRS;
+  const int pad = HEAD ? a.pad : 1;
   extern __shared__ __align__(128) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem + BARS);
   const uint32_t bar0 = nesr::smem_u32(smem);
@@ -103,7 +145,7 @@ conv3x3_f32_kernel(const Args a) {
   const int ty0 = (blockIdx.x / a.tiles_x) * TH;
   const int tx0 = (blockIdx.x % a.tiles_x) * TW;
   const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout;
-  const int wfloats = 9 * CC * a.ws;   // a stage's weights
+  const int wfloats = T * CC * a.ws;   // a stage's weights
   const int passes = (Cin + CC - 1) / CC;
   const float* xn = a.x + (size_t)n * H * W * Cin;
   // Cout columns this block's weight rows hold (one group: every column)
@@ -127,18 +169,19 @@ conv3x3_f32_kernel(const Args a) {
     const uint32_t bar = bar0 + 8 * (p & 1);
     const int c0 = p * CC, cc = min(CC, Cin - c0);
     if (a.vec_x) {
-      for (int i = tid; i < (TH + 2) * PW * 2; i += nt) {
+      for (int i = tid; i < (TH + KT - 1) * PW * 2; i += nt) {
         const int q = i & 1, px = (i >> 1) % PW, py = (i >> 1) / PW;
-        const int iy = ty0 - 1 + py, ix = tx0 - 1 + px, ci = c0 + 4 * q;
+        const int iy = ty0 - pad + py, ix = tx0 - pad + px;
+        const int ci = c0 + 4 * q;
         const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W && ci < Cin;
         const float* src = ok ? xn + ((size_t)iy * W + ix) * Cin + ci : a.x;
         nesr::cp_async_zfill<16>(sx + py * PRS + px * CC + 4 * q, src,
                                  ok ? 16 : 0);
       }
     } else {
-      for (int i = tid; i < (TH + 2) * PW * CC; i += nt) {
+      for (int i = tid; i < (TH + KT - 1) * PW * CC; i += nt) {
         const int ci = i % CC, px = (i / CC) % PW, py = i / (CC * PW);
-        const int iy = ty0 - 1 + py, ix = tx0 - 1 + px;
+        const int iy = ty0 - pad + py, ix = tx0 - pad + px;
         const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W && ci < cc;
         const float* src =
             ok ? xn + ((size_t)iy * W + ix) * Cin + c0 + ci : a.x;
@@ -148,7 +191,7 @@ conv3x3_f32_kernel(const Args a) {
     }
     if (a.vec_w) {
       // One run a tap (one group), or one a (tap, channel) row.
-      const int runs = single ? 9 : 9 * cc;
+      const int runs = single ? T : T * cc;
       const int bytes = (single ? cc * Cout : ncols) * 4;
       if (tid == 0) nesr::mbar_expect_tx(bar, (uint32_t)(runs * bytes));
       if (tid < 32) {
@@ -161,7 +204,7 @@ conv3x3_f32_kernel(const Args a) {
         }
       }
     } else {
-      for (int i = tid; i < 9 * CC * a.ws; i += nt) {
+      for (int i = tid; i < T * CC * a.ws; i += nt) {
         const int co = i % a.ws, ci = (i / a.ws) % CC, tap = i / (a.ws * CC);
         const bool ok = ci < cc && co0 + co < Cout;
         const float* src =
@@ -196,17 +239,17 @@ conv3x3_f32_kernel(const Args a) {
 #pragma unroll 1
     for (int q = 0; q < nq; ++q) {
 #pragma unroll 1
-      for (int ky = 0; ky < 3; ++ky) {
-        float4 in[10];
+      for (int ky = 0; ky < KT; ++ky) {
+        float4 in[8 + KT - 1];
 #pragma unroll
-        for (int t = 0; t < 10; ++t)
+        for (int t = 0; t < 8 + KT - 1; ++t)
           in[t] = *reinterpret_cast<const float4*>(sx + ky * PRS + t * CC +
                                                    4 * q);
 #pragma unroll
         for (int ch = 0; ch < 4; ++ch) {
 #pragma unroll
-          for (int kx = 0; kx < 3; ++kx) {
-            const float* wp = sw + ((ky * 3 + kx) * CC + 4 * q + ch) * a.ws;
+          for (int kx = 0; kx < KT; ++kx) {
+            const float* wp = sw + ((ky * KT + kx) * CC + 4 * q + ch) * a.ws;
             const float4 wa = *reinterpret_cast<const float4*>(wp);
             const float4 wb = *reinterpret_cast<const float4*>(wp + 4);
 #pragma unroll
@@ -228,43 +271,93 @@ conv3x3_f32_kernel(const Args a) {
   }
 
   const int oy = ty0 + r, cb = co0 + 8 * gran;
-  if (oy >= H || cb >= Cout) return;
+  if (oy >= a.Ho || cb >= Cout) return;
   float bv[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c)
     bv[c] = a.bias != nullptr && cb + c < Cout ? a.bias[cb + c] : 0.f;
-  const bool vec_y = (Cout & 3) == 0 && cb + 8 <= Cout;
+  if constexpr (!HEAD) {
+    const bool vec_y = (Cout & 3) == 0 && cb + 8 <= Cout;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int ox = tx0 + 8 * half + t;
+      if (ox >= W) break;
+      float v[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        v[c] = acc[t][c] + bv[c];
+        if (a.flags & LRELU) v[c] = nesr::lrelu(v[c]);
+      }
+      float* yp = a.y + (((size_t)n * H + oy) * W + ox) * Cout + cb;
+      if (vec_y) {
+        *reinterpret_cast<float4*>(yp) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(yp + 4) =
+            make_float4(v[4], v[5], v[6], v[7]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          if (cb + c < Cout) yp[c] = v[c];
+      }
+    }
+    return;
+  }
+  // 8 channels in one piece: one group of D % 8 == 0 channels under MASK
+  // or D2S.
+  const bool whole = !(a.flags & (MASK | D2S)) || a.D % 8 == 0;
+  const bool vec_y = (Cout & 3) == 0 && cb + 8 <= Cout && whole;
 #pragma unroll
   for (int t = 0; t < 8; ++t) {
     const int ox = tx0 + 8 * half + t;
-    if (ox >= W) break;
+    if (ox >= a.Wo) break;
     float v[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       v[c] = acc[t][c] + bv[c];
-      if (a.lrelu) v[c] = nesr::lrelu(v[c]);
+      if (a.flags & LRELU) v[c] = nesr::lrelu(v[c]);
     }
-    float* yp = a.y + (((size_t)n * H + oy) * W + ox) * Cout + cb;
     if (vec_y) {
-      *reinterpret_cast<float4*>(yp) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(yp + 4) = make_float4(v[4], v[5], v[6], v[7]);
+      const bool in_frame = kept(a, oy, ox, cb);
+      float* yp = a.y + out_index(a, n, oy, ox, cb);
+      *reinterpret_cast<float4*>(yp) =
+          in_frame ? make_float4(v[0], v[1], v[2], v[3])
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(yp + 4) =
+          in_frame ? make_float4(v[4], v[5], v[6], v[7])
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
     } else {
 #pragma unroll
       for (int c = 0; c < 8; ++c)
-        if (cb + c < Cout) yp[c] = v[c];
+        if (cb + c < Cout)
+          a.y[out_index(a, n, oy, ox, cb + c)] =
+              kept(a, oy, ox, cb + c) ? v[c] : 0.f;
     }
   }
 }
 
-}  // namespace
+// The forms, by name: the SAME 3x3 conv; the folded head's 3x3 form
+// (D2S); its 2x2 form at padding 0 or 1 (MASK, D2S).
+__global__ void __launch_bounds__(MAX_THREADS)
+conv3x3_f32_kernel(const Args a) {
+  conv_f32_body<3, false>(a);
+}
 
-// x (N, H, W, Cin), w (3, 3, Cin, Cout), bias (Cout,) or null, y (N, H, W,
-// Cout), all float32 and contiguous (kernels/conv3x3.py checks); y is
-// 16-byte aligned (torch.empty).
-extern "C" int nesr_conv3x3_f32(const void* x, const void* w,
-                                const void* bias, void* y, int N, int H,
-                                int W, int Cin, int Cout, int lrelu,
-                                void* stream) {
+__global__ void __launch_bounds__(MAX_THREADS)
+conv3x3_f32_head_kernel(const Args a) {
+  conv_f32_body<3, true>(a);
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+conv2x2_f32_kernel(const Args a) {
+  conv_f32_body<2, true>(a);
+}
+
+template <int KT>
+int launch_f32(const void* x, const void* w, const void* bias, void* y,
+               int N, int H, int W, int Cin, int Cout, int pad, int flags,
+               void* stream) {
+  if ((flags & ~(LRELU | 2 | MASK | D2S)) ||
+      ((flags & (MASK | D2S)) && Cout % 4))
+    return (int)cudaErrorInvalidValue;
   const int gran = (Cout + 7) / 8;
   const int groups = (gran + MAX_GRAN - 1) / MAX_GRAN;
   Args a;
@@ -276,22 +369,57 @@ extern "C" int nesr_conv3x3_f32(const void* x, const void* w,
   a.W = W;
   a.Cin = Cin;
   a.Cout = Cout;
-  a.lrelu = lrelu;
+  a.flags = flags;
+  a.pad = pad;
+  a.Ho = H + 2 * pad - (KT - 1);
+  a.Wo = W + 2 * pad - (KT - 1);
+  a.D = Cout / 4;
+  if (a.Ho < 1 || a.Wo < 1) return (int)cudaErrorInvalidValue;
   a.G = (gran + groups - 1) / groups;
   const int R = a.G >= 8 ? 1 : 8 / a.G;
   a.S = 16 * R;
-  a.tiles_x = (W + TW - 1) / TW;
-  const int tiles_y = (H + 8 * R - 1) / (8 * R);
+  a.tiles_x = (a.Wo + TW - 1) / TW;
+  const int tiles_y = (a.Ho + 8 * R - 1) / (8 * R);
   a.vec_x = Cin % 4 == 0 && ((uintptr_t)x & 15) == 0;
   a.vec_w = Cin % 4 == 0 && Cout % 4 == 0 && ((uintptr_t)w & 15) == 0;
   a.ws = a.vec_w && groups == 1 ? Cout : 8 * a.G;
   // weights, then the patch; a stage is a whole number of 128 bytes
-  a.stage = (9 * CC * a.ws + (8 * R + 2) * PRS + 31) / 32 * 32;
+  a.stage = (KT * KT * CC * a.ws + (8 * R + KT - 1) * Patch<KT>::PRS + 31) /
+            32 * 32;
   const int smem = BARS + 2 * a.stage * 4;
+  void (*kernel)(const Args);
+  if constexpr (KT == 2) {
+    kernel = conv2x2_f32_kernel;
+  } else {
+    kernel = flags & ~LRELU ? conv3x3_f32_head_kernel : conv3x3_f32_kernel;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.tiles_x * tiles_y, groups, N);
-  conv3x3_f32_kernel<<<grid, a.S * a.G, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<grid, a.S * a.G, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x (N, H, W, Cin), w (3, 3, Cin, Cout), bias (Cout,) or null, y (N, H, W,
+// Cout) or, under D2S, (N, 2H, 2W, Cout / 4), all float32 and contiguous
+// (kernels/conv3x3.py checks); y is 16-byte aligned (torch.empty).
+extern "C" int nesr_conv3x3_f32(const void* x, const void* w,
+                                const void* bias, void* y, int N, int H,
+                                int W, int Cin, int Cout, int flags,
+                                void* stream) {
+  return launch_f32<3>(x, w, bias, y, N, H, W, Cin, Cout, 1, flags, stream);
+}
+
+// The 2x2 form at padding `pad` (0 or 1): w (2, 2, Cin, Cout), y (N, H +
+// 2 pad - 1, W + 2 pad - 1, Cout) or its depth-to-space form under D2S.
+extern "C" int nesr_conv2x2_f32(const void* x, const void* w,
+                                const void* bias, void* y, int N, int H,
+                                int W, int Cin, int Cout, int pad, int flags,
+                                void* stream) {
+  if (pad != 0 && pad != 1) return (int)cudaErrorInvalidValue;
+  return launch_f32<2>(x, w, bias, y, N, H, W, Cin, Cout, pad, flags,
+                       stream);
 }

@@ -151,6 +151,10 @@ def load_library() -> ctypes.CDLL:
         lib.nesr_conv3x3.restype = ci
         lib.nesr_conv3x3_f32.argtypes = [vp] * 4 + [ci] * 6 + [vp]
         lib.nesr_conv3x3_f32.restype = ci
+        lib.nesr_conv2x2.argtypes = [vp] * 4 + [ci] * 8 + [vp]
+        lib.nesr_conv2x2.restype = ci
+        lib.nesr_conv2x2_f32.argtypes = [vp] * 4 + [ci] * 7 + [vp]
+        lib.nesr_conv2x2_f32.restype = ci
         lib.nesr_conv3x3_int8.argtypes = [vp] * 5 + [ci] * 6 + [vp]
         lib.nesr_conv3x3_int8.restype = ci
         lib.nesr_rdb_int8_step.argtypes = [vp] * 11 + [ci] * 12 + [vp]

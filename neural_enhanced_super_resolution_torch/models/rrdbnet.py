@@ -27,10 +27,18 @@ it (``tools/train_tiny_esrgan.py``): float32 ``nn.Parameter``s under the
 basicsr names, every conv through ``kernels.conv3x3.Conv3x3Function`` (K1f
 forward and input gradient on the card).
 
-The upsampling head is the stock one (nearest x2 + conv, twice, then
-conv_hr and conv_last). The JAX package's folded head (``fold_head_params``
-/ ``_head_forward``) is not ported yet: it is the next slice of the port
-(ROADMAP.md, Queue 1).
+The upsampling head of the ``fused``, ``dform`` and ``int8`` trunks (the
+JAX package's ``fuse_rdb: true`` layouts) is the folded one, as the JAX
+package's ``fold_head_params`` / ``_head_forward`` make and run it
+(``FoldedHead``): conv_up1 and conv_up2 folded with their nearest x2 into
+3x3 convs 64 -> 256 at the lower resolution (K1's head 3x3 form, the
+first storing its output depth-to-space), then conv_hr and conv_last
+folded into 2x2 convs over the space-to-depth form (K1's 2x2 form; the
+first masks the frame, the second stores depth-to-space), with the JAX
+package's rounding points, in any compute dtype (K1f's forms in float32). The ``stock`` trunk and ``TrainableRRDBNet`` run the
+stock head (nearest x2 + conv, twice, then conv_hr and conv_last), as the
+JAX package does for unfused parameters; ``RRDBNet.stock_head`` runs it
+on any trunk.
 """
 
 from __future__ import annotations
@@ -42,7 +50,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-    Conv3x3Function, conv3x3, conv3x3_plain, pack_conv3x3_weights)
+    Conv3x3Function, conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_plain,
+    d2s, frame_border_mask, pack_conv2x2_weights, pack_conv3x3_weights)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
     conv3x3_int8_plain, conv3x3_int8_rdb, int8_amax,
     pack_conv3x3_int8_weights, quantize_int8)
@@ -51,9 +60,10 @@ from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
 from neural_enhanced_super_resolution_torch.models.weights import HEAD_CONVS
 
 __all__ = ["RRDBNetConfig", "RRDBNet", "TrainableRRDBNet", "FusedRDB",
-           "Int8RDB", "Conv3x3",
+           "Int8RDB", "Conv3x3", "Conv2x2", "FoldedHead",
            "pixel_unshuffle", "nearest_x2", "fuse_rdb", "quantize_rdb",
-           "TRUNKS"]
+           "fold_upconv_weights", "fold_s2d2x2_weights", "fold_head_weights",
+           "d2s", "frame_border_mask", "TRUNKS"]
 
 TRUNKS = ("fused", "dform", "stock", "int8")
 
@@ -150,28 +160,160 @@ def _hwio(w_oihw: torch.Tensor) -> torch.Tensor:
     return w_oihw.permute(2, 3, 1, 0)
 
 
-def _k1(x, w, b, lrelu, packed, plain):
+def fold_upconv_weights(w: torch.Tensor, b: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(3,3,C,D) + (D,) -> (3,3,C,4D) + (4D,): conv3x3 o nearest_x2 as one
+    3x3 conv at the low resolution (the JAX package's
+    ``fold_upconv_weights``, in float32 with its loop order, so the sums
+    are its bit for bit).
+
+    Output channel (oi*2+oj)*D + f holds the 2x-res output at subpixel
+    (oi, oj); per subpixel, nearest duplication collapses kernel taps:
+    oi=0: rows {W[0] | W[1]+W[2]}, oi=1: {W[0]+W[1] | W[2]} (cols same).
+    """
+    w = w.detach().to("cpu", torch.float32)
+    b = b.detach().to("cpu", torch.float32)
+    c, d = w.shape[2], w.shape[3]
+    rowmaps = {0: {0: [0], 1: [1, 2]}, 1: {1: [0, 1], 2: [2]}}
+    out = torch.zeros((3, 3, c, 4 * d))
+    for oi in range(2):
+        for oj in range(2):
+            sub = torch.zeros((3, 3, c, d))
+            for drp, srcs_r in rowmaps[oi].items():
+                for dcp, srcs_c in rowmaps[oj].items():
+                    for dr in srcs_r:
+                        for dc in srcs_c:
+                            sub[drp, dcp] += w[dr, dc]
+            out[..., (oi * 2 + oj) * d:(oi * 2 + oj + 1) * d] = sub
+    return out, b.repeat(4)
+
+
+def fold_s2d2x2_weights(w: torch.Tensor, b: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(3,3,C,D) + (D,) -> (2,2,4C,4D) + (4D,): the 3x3 conv on the
+    space-to-depth form (channel (pi*2+pj)*C + c) as a 2x2 conv (the JAX
+    package's ``fold_s2d2x2_weights``). Kernel tap (ki,kj) takes w[di,dj]
+    with di = 2ki+pi-oi (dj likewise) when within 0..2.
+
+    At padding (1,1) the output gains a row and a column and covers the
+    half-pixel frame; a second fold applied VALID consumes that frame and
+    restores alignment (``FoldedHead``).
+    """
+    w = w.detach().to("cpu", torch.float32)
+    b = b.detach().to("cpu", torch.float32)
+    c, d = w.shape[2], w.shape[3]
+    out = torch.zeros((2, 2, 4 * c, 4 * d))
+    for ki in range(2):
+        for kj in range(2):
+            for pi in range(2):
+                for pj in range(2):
+                    for oi in range(2):
+                        for oj in range(2):
+                            di, dj = 2 * ki + pi - oi, 2 * kj + pj - oj
+                            if 0 <= di <= 2 and 0 <= dj <= 2:
+                                ci = (pi * 2 + pj) * c
+                                co = (oi * 2 + oj) * d
+                                out[ki, kj, ci:ci + c, co:co + d] = w[di, dj]
+    return out, b.repeat(4)
+
+
+def fold_head_weights(sd: Mapping[str, torch.Tensor]
+                      ) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
+    """The folded head's float32 HWIO weights and biases from a basicsr
+    state dict, under the JAX package's ``fold_head_params`` names:
+    up1_fold, up2_fold (3, 3, nf, 4 nf), hr_fold (2, 2, 4 nf, 4 nf),
+    last_fold (2, 2, 4 nf, 4 out)."""
+    def wb(key):
+        return _hwio(sd[f"{key}.weight"]), sd[f"{key}.bias"]
+
+    return {"up1_fold": fold_upconv_weights(*wb("conv_up1")),
+            "up2_fold": fold_upconv_weights(*wb("conv_up2")),
+            "hr_fold": fold_s2d2x2_weights(*wb("conv_hr")),
+            "last_fold": fold_s2d2x2_weights(*wb("conv_last"))}
+
+
+def _k1(x, w, b, lrelu, packed, plain, to_d2s=False, round_first=False):
     if plain:
-        return conv3x3_plain(x, w, b, lrelu)
-    return conv3x3(x, w, b, lrelu, packed=packed)
+        return conv3x3_plain(x, w, b, lrelu, to_d2s, round_first)
+    return conv3x3(x, w, b, lrelu, packed=packed, d2s=to_d2s,
+                   round_first=round_first)
 
 
 class Conv3x3(nn.Module):
     """One 3x3 conv through K1: HWIO weight (3, 3, Cin, Cout) in the compute
-    dtype, its packed image (packed once at build; the CPU's plain version
-    reads HWIO), fp32 bias."""
+    dtype, its packed image (packed once at build, for the folded head's
+    3x3 form with ``head``; the CPU's plain version reads HWIO), fp32
+    bias."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor, dtype, device,
+                 head: bool = False):
+        super().__init__()
+        self.register_buffer("w", w.to(device=device, dtype=dtype)
+                             .contiguous())
+        self.register_buffer("wp", pack_conv3x3_weights(self.w, head))
+        self.register_buffer("b", b.to(device=device, dtype=torch.float32)
+                             .contiguous())
+
+    def forward(self, x: torch.Tensor, lrelu: bool = False,
+                plain: bool = False, d2s: bool = False,
+                round_first: bool = False) -> torch.Tensor:
+        return _k1(x.contiguous(), self.w, self.b, lrelu, self.wp, plain, d2s,
+                   round_first)
+
+
+class Conv2x2(nn.Module):
+    """One 2x2 conv over a space-to-depth form through K1's 2x2 form
+    (``conv2x2_s2d``): HWIO weight (2, 2, Cin, Cout) in the compute dtype,
+    its packed image (packed once at build), fp32 bias."""
 
     def __init__(self, w: torch.Tensor, b: torch.Tensor, dtype, device):
         super().__init__()
         self.register_buffer("w", w.to(device=device, dtype=dtype)
                              .contiguous())
-        self.register_buffer("wp", pack_conv3x3_weights(self.w))
+        self.register_buffer("wp", pack_conv2x2_weights(self.w))
         self.register_buffer("b", b.to(device=device, dtype=torch.float32)
                              .contiguous())
 
-    def forward(self, x: torch.Tensor, lrelu: bool = False,
-                plain: bool = False) -> torch.Tensor:
-        return _k1(x.contiguous(), self.w, self.b, lrelu, self.wp, plain)
+    def forward(self, x: torch.Tensor, lrelu: bool, pad: int, mask: bool,
+                d2s: bool, plain: bool = False) -> torch.Tensor:
+        x = x.contiguous()
+        if plain:
+            return conv2x2_s2d_plain(x, self.w, self.b, lrelu, pad, mask, d2s)
+        return conv2x2_s2d(x, self.w, self.b, lrelu, pad, mask, d2s,
+                           packed=self.wp)
+
+
+class FoldedHead(nn.Module):
+    """The JAX package's folded upsampling head (``_head_forward``), four
+    launches (K1's or K1f's head 3x3 form twice, their 2x2 form twice):
+    feat (N, H, W, nf) -> (N, 4H, 4W, num_out_ch) in the compute dtype.
+
+    up1: the folded 3x3 conv nf -> 4 nf, bias, LeakyReLU, stored
+    depth-to-space (N, 2H, 2W, nf); up2: the same without the
+    depth-to-space, (N, 2H, 2W, 4 nf), the space-to-depth form of the 4x
+    map; hr: the 2x2 conv 4 nf -> 4 nf at padding 1, LeakyReLU, the frame
+    mask, (N, 2H+1, 2W+1, 4 nf); last: the 2x2 conv 4 nf -> 4 out VALID,
+    stored depth-to-space. Each rounds as JAX's ``_conv`` then ``_lrelu``:
+    fp32 accumulation and bias, the compute dtype, then the LeakyReLU. The
+    weights are folded in float32 from the state dict
+    (``fold_head_weights``), cast to the compute dtype and packed once."""
+
+    def __init__(self, sd: Mapping[str, torch.Tensor], dtype, device):
+        super().__init__()
+        f = fold_head_weights(sd)
+        self.up1 = Conv3x3(*f["up1_fold"], dtype, device, head=True)
+        self.up2 = Conv3x3(*f["up2_fold"], dtype, device, head=True)
+        self.hr = Conv2x2(*f["hr_fold"], dtype, device)
+        self.last = Conv2x2(*f["last_fold"], dtype, device)
+
+    def forward(self, feat: torch.Tensor, plain: bool = False
+                ) -> torch.Tensor:
+        y = self.up1(feat, lrelu=True, plain=plain, d2s=True,
+                     round_first=True)
+        z = self.up2(y, lrelu=True, plain=plain, round_first=True)
+        h = self.hr(z, lrelu=True, pad=1, mask=True, d2s=False, plain=plain)
+        return self.last(h, lrelu=False, pad=0, mask=False, d2s=True,
+                         plain=plain)
 
 
 def _conv(sd: Mapping[str, torch.Tensor], key: str, dtype, device
@@ -386,6 +528,10 @@ class RRDBNet(nn.Module):
             setattr(self, name, _conv(sd, name, dtype, device))
         self.body = nn.ModuleList(_RRDB(sd, i, dtype, device, trunk)
                                   for i in range(cfg.num_block))
+        # The fused layouts run the folded head, as the JAX package's
+        # fuse_rrdbnet_params (and its int8 form) attach it.
+        self.folded_head = (None if trunk == "stock"
+                            else FoldedHead(sd, dtype, device))
 
     def body_forward(self, feat: torch.Tensor, plain: bool = False
                      ) -> torch.Tensor:
@@ -414,10 +560,20 @@ class RRDBNet(nn.Module):
         feat = self.conv_first(x.to(self.dtype), plain=p)
         feat = feat + self.conv_body(self.body_forward(feat, plain=p),
                                      plain=p)
+        if self.folded_head is not None:
+            return self.folded_head(feat, plain=p).float()
+        return self.stock_head(feat, plain=p).float()
+
+    def stock_head(self, feat: torch.Tensor, plain: bool = False
+                   ) -> torch.Tensor:
+        """The stock upsampling head on the trunk's output: nearest x2 +
+        conv_up1, nearest x2 + conv_up2, conv_hr, conv_last (four K1
+        launches and two copies), in the compute dtype."""
+        p = plain
         feat = self.conv_up1(nearest_x2(feat), lrelu=True, plain=p)
         feat = self.conv_up2(nearest_x2(feat), lrelu=True, plain=p)
-        out = self.conv_last(self.conv_hr(feat, lrelu=True, plain=p), plain=p)
-        return out.float()
+        return self.conv_last(self.conv_hr(feat, lrelu=True, plain=p),
+                              plain=p)
 
 
 class _TrainConv(nn.Module):

@@ -1,7 +1,7 @@
 """Where K1's time goes: the kernel against copies of itself with one part
 taken out, on one CUDA GPU.
 
-    python3 tools/k1_ablation.py
+    python3 tools/k1_ablation.py [--baseline CSRC_DIR]
 
 Copies ``csrc/`` into ``build/k1_ablation/<variant>/``, edits each copy's
 ``conv3x3.cu`` as listed in VARIANTS (the edits are textual; a variant
@@ -12,12 +12,15 @@ over REPS launches after a warm-up, in the order base, variants, base.
 The variants compute wrong outputs on purpose; only their times mean
 anything. One more copy stamps the GPU's clock (thread 0 of each block)
 at each phase of a block, and the median phase times are printed for
-each shape. Prints the card (name, power limit) and one line per variant
-and shape.
+each shape. With ``--baseline``, another ``csrc/`` (e.g. a ``git
+archive`` of an earlier commit) is built unedited and timed first and last,
+beside this one's, and both builds' registers and spills are printed.
+Prints the card (name, power limit) and one line per variant and shape.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import importlib
 import os
@@ -39,10 +42,10 @@ VARIANTS = {
     "base": [],
     # the output's global stores skipped (the tile still goes through
     # shared memory, so the MMAs stay live)
-    "no_store": [("        if (gy < p.H && gx < p.W)\n"
-                  "          *reinterpret_cast<uint4*>(",
-                  "        if (gy < p.H && gx < p.W && p.Cout < 0)\n"
-                  "          *reinterpret_cast<uint4*>(")],
+    "no_store": [("          if (gy < p.Ho && gx < p.Wo)\n"
+                  "            *reinterpret_cast<uint4*>(",
+                  "          if (gy < p.Ho && gx < p.Wo && p.Cout < 0)\n"
+                  "            *reinterpret_cast<uint4*>(")],
     # the MMAs skipped (loads, barriers and ldmatrix kept)
     "no_mma": [("          nesr::wgmma_rs<N>(acc,",
                 "          if (p.Cout < 0) nesr::wgmma_rs<N>(acc,")],
@@ -76,21 +79,21 @@ TRACE_EDITS = [
      "#define K1_MARK(i) if (threadIdx.x == 0) { unsigned long long t_; "
      'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); '
      "k1_trace[(blockIdx.z * gridDim.x + blockIdx.x) * 8 + (i)] = t_; }\n"),
-    ("  constexpr int STAGES = S::STAGES;\n",
-     "  constexpr int STAGES = S::STAGES;\n  K1_MARK(0);\n"),
+    ("  constexpr int STAGES = S::STAGES, T = KT * KT;\n",
+     "  constexpr int STAGES = S::STAGES, T = KT * KT;\n  K1_MARK(0);\n"),
     ("        nesr::cp_async_wait_all();\n        __syncthreads();\n      }\n",
      "        nesr::cp_async_wait_all();\n        __syncthreads();\n      }\n"
      "      if (nt == 0) K1_MARK(1);\n"),
     ("        nesr::mbar_wait(full_s + 8 * s, (g / STAGES) & 1);\n",
      "        nesr::mbar_wait(full_s + 8 * s, (g / STAGES) & 1);\n"
      "        if (g == 0) K1_MARK(2);\n"),
-    ("      release(g0 + 8);\n    }\n",
-     "      release(g0 + 8);\n    }\n    if (nt < 2) K1_MARK(3 + 2 * nt);\n"),
-    ("          y[((size_t)gy * p.W + gx) * p.Cout + v] = "
-     "out[px * (N + 8) + v];\n      }\n    }\n",
-     "          y[((size_t)gy * p.W + gx) * p.Cout + v] = "
-     "out[px * (N + 8) + v];\n      }\n    }\n"
-     "    if (nt < 2) K1_MARK(4 + 2 * nt);\n"),
+    ("      release(g0 + T - 1);\n    }\n",
+     "      release(g0 + T - 1);\n    }\n"
+     "    if (nt < 2) K1_MARK(3 + 2 * nt);\n"),
+    ("                                  : __float2bfloat16(0.f);\n"
+     "      }\n    }\n",
+     "                                  : __float2bfloat16(0.f);\n"
+     "      }\n    }\n    if (nt < 2) K1_MARK(4 + 2 * nt);\n"),
 ]
 
 
@@ -100,11 +103,14 @@ def _keep_widths(text: str) -> str:
                   else "", text)
 
 
-def _prepare(name: str, edits):
-    return prepare(OUT, name, "conv3x3.cu", edits, finish=_keep_widths)
+def _prepare(name: str, edits, **kw):
+    return prepare(OUT, name, "conv3x3.cu", edits, finish=_keep_widths, **kw)
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--baseline", help="another csrc directory to time")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("k1_ablation: needs a CUDA GPU", file=sys.stderr)
@@ -116,13 +122,22 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    jobs = {name: _prepare(name, edits) for name, edits in
-            [*VARIANTS.items(), ("trace", TRACE_EDITS)]}
+    jobs = {name: _prepare(name, edits, ptxas=name == "base")
+            for name, edits in [*VARIANTS.items(), ("trace", TRACE_EDITS)]}
+    if args.baseline:
+        jobs["baseline"] = _prepare("baseline", [], ptxas=True,
+                                    csrc=os.path.abspath(args.baseline))
     libs = {}
     for name, (so, _, proc) in jobs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise SystemExit(f"{name}: nvcc failed\n{log[-3000:]}")
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and "_kernel" in line:
+                print(f"{name} ptxas {line.split(chr(39))[1]}: " + " | ".join(
+                    x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]),
+                    flush=True)
         lib = ctypes.CDLL(so)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nesr_conv3x3.argtypes = [vp] * 4 + [ci] * 7 + [vp]
@@ -178,9 +193,10 @@ def main() -> int:
               f"{(st[:, last] - st[:, 0]).median().item():.2f} = "
               + ", ".join(out), flush=True)
 
-    order = list(VARIANTS) + ["base"]
+    order = ["baseline"] * bool(args.baseline) + list(VARIANTS) + ["base"]
+    order += ["baseline"] * bool(args.baseline)
     for i, name in enumerate(order):
-        label = name if i < len(order) - 1 else "base (again)"
+        label = name if name not in order[:i] else f"{name} (again)"
         times = [f"{case[0]} {timed_case(libs[name], case):.4f} ms"
                  for case in cases]
         print(f"K1 {label}: " + "; ".join(times), flush=True)

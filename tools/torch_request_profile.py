@@ -60,6 +60,8 @@ def breakdown(prof) -> tuple[float, list[str]]:
             inst = k.split("conv3x3_kernel<", 1)[-1].split(">", 1)[0]
             part = "trunk" if inst.replace(" ", "") in k1_trunk else "head"
             name = f"K1 {part} conv3x3_kernel"
+        elif "conv2x2_kernel" in k or "conv3x3_head_kernel" in k:
+            name = "K1 head, folded head forms"
         elif "rdb_fused_kernel" in k:
             name = "K2 rdb_fused_kernel"
         elif "flash_attn_kernel" in k:
