@@ -300,8 +300,15 @@ def device_ms(fn, reps: int = 10, floor_ms: float = 0.0) -> float:
                  if e.device_type == DeviceType.CUDA)
         if us > 0 and us / 1e3 / reps >= floor_ms:
             return us / 1e3 / reps
-    raise AssertionError(f"torch.profiler lost device time: {us / 1e3 / reps}"
-                         f" ms a call against a floor of {floor_ms}")
+    # Still none: the calls are timed by CUDA events instead, which
+    # counts the gaps between a call's kernels too.
+    ms = cuda_ms(fn, reps)
+    log(f"torch.profiler lost device time ({us / 1e3 / reps} ms a call "
+        f"against a floor of {floor_ms}); CUDA events: {ms:.4f} ms a call")
+    if not ms >= floor_ms:
+        raise AssertionError(f"{ms} ms a call by CUDA events, under the "
+                             f"floor {floor_ms}")
+    return ms
 
 
 def device_ms_named(fa, fb, needle, reps: int = 10,
@@ -396,9 +403,10 @@ def build_kernels() -> None:
     """Builds the kernels; prints K2's, K4's, K4 step's and the folded
     head's forms' (K1's and K1f's) registers and spills from the build log
     and fails on any wgmma that ptxas serialized; checks in the SASS that
-    every instantiation of K1 (21), of its head 3x3 (3) and 2x2 (3) forms,
-    K2 (1) and K3 (6) issues bf16 wgmma (HGMMA) and every one of K4 (14)
-    and of its redesign, the step (14), the int8 form (IGMMA)."""
+    every instantiation of K1 (21), of its head 3x3 form (3), of its 2x2
+    form (3: conv2x2_kernel<16>, <64>, <128>, csrc/conv2x2.cu), K2 (1) and
+    K3 (6) issues bf16 wgmma (HGMMA) and every one of K4 (14) and of its
+    redesign, the step (14), the int8 form (IGMMA)."""
     from neural_enhanced_super_resolution_torch.kernels import _build
     t0 = time.perf_counter()
     _build.load_library()
@@ -4107,8 +4115,8 @@ def main() -> int:
                 "conv2x2_s2d_f32": f32_counts["conv2x2_s2d_f32"] + fwd_k1f[1],
                 "flash_attention_f32": f32_counts["flash_attention_f32"]}
     sources = {"conv3x3": "csrc/conv3x3.cu", "rdb_fused": "csrc/rdb_fused.cu",
-               "conv2x2_s2d": "csrc/conv3x3.cu",
-               "conv2x2_s2d_f32": "csrc/conv3x3_f32.cu",
+               "conv2x2_s2d": "csrc/conv2x2.cu",
+               "conv2x2_s2d_f32": "csrc/conv2x2_f32.cu",
                "flash_attention": "csrc/flash_attn.cu",
                "conv3x3_int8_rdb": "csrc/rdb_int8.cu",
                "int8_amax": "csrc/rdb_int8.cu",

@@ -46,20 +46,15 @@
 //    stages the tile in its own shared buffer and writes it with 16-byte
 //    coalesced stores.
 //
-// The 2x2 form (conv2x2_kernel) runs the folded RRDBNet head's two
-// space-to-depth convs, conv_hr and conv_last folded into 2x2 convs over
-// 4 x 64 channels. It replaces no Pallas kernel: the JAX package runs them
-// as XLA convs in _head_forward (models/rrdbnet.py:586). It is the same
-// implicit GEMM with the tap geometry a template parameter: 4 taps of a
-// 2x2 conv at padding 1 (the output gains a row and a column) or 0 (it
-// loses one), a (TH+1) x (TW+1) patch at offset -pad, passes of 64 input
-// channels (Cin 256: four), and N tiles of 16, 64 or 128 (Cout 256: two
-// of 128; Cout 12: one of 16). What bounds it on the path's 4 x 268^2
-// tiles: conv_hr's 4 x 537^2 x 256 x 256 x 4 multiply-adds (0.611 ms at
-// the bf16 peak), conv_last's bytes (0.185 ms).
-// The head's 3x3 form (conv3x3_head_kernel: up1 and up2, 64 -> 256) is
-// the 3x3 conv with these passes and N tiles. Their epilogue has three
-// flags, which the SAME 3x3 kernel is compiled without:
+// The folded RRDBNet head's 3x3 form (conv3x3_head_kernel: up1 and up2,
+// 64 -> 256; it replaces no Pallas kernel: the JAX package runs them as
+// XLA convs in _head_forward, models/rrdbnet.py:586) is this implicit GEMM
+// with passes of 64 input channels and N tiles of 16, 64 or 128
+// (kernels/conv3x3.py: TILE_WIDTHS_2X2). The body takes the tap geometry
+// as a template parameter (KT x KT taps, a (TH + KT - 1) x (TW + KT - 1)
+// patch at offset -pad). The head's 2x2 form has its own kernel
+// (csrc/conv2x2.cu). The head form's epilogue has three flags, which the
+// SAME 3x3 kernel is compiled without:
 //  * ROUND_FIRST: round acc + bias to bf16, then LeakyReLU on the bf16
 //    value with 0.2 * y rounded to bf16 (the JAX package's _conv then
 //    _lrelu, in PyTorch's op order);
@@ -93,8 +88,7 @@ constexpr int LRELU = 1, ROUND_FIRST = 2, MASK = 4, D2S = 8;
 
 struct Params {
   const bf16* x;
-  const bf16* wp;      // packed weights (pack_conv3x3_weights or
-                       // pack_conv2x2_weights)
+  const bf16* wp;      // packed weights (pack_conv3x3_weights)
   const float* bias;   // may be null
   bf16* y;
   int H, W, Cin, Cout, kp;   // kp: Cin rounded up to the pass width
@@ -389,8 +383,7 @@ __device__ __forceinline__ void conv_body(const Params& p) {
 }
 
 // The forms, by name: the SAME 3x3 conv; the folded head's 3x3 form
-// (ROUND_FIRST, D2S); its 2x2 form at padding 0 or 1 (ROUND_FIRST, MASK,
-// D2S).
+// (ROUND_FIRST, D2S).
 template <int N, int KS>
 __global__ void __launch_bounds__(THREADS, 2)
 conv3x3_kernel(const Params p) {
@@ -403,19 +396,11 @@ conv3x3_head_kernel(const Params p) {
   conv_body<N, KS, 3, true>(p);
 }
 
-template <int N, int KS>
-__global__ void __launch_bounds__(THREADS, 2)
-conv2x2_kernel(const Params p) {
-  conv_body<N, KS, 2, true>(p);
-}
-
 template <int N, int KS, int KT, bool HEAD>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   constexpr int smem = Smem<N, KS, KT>::BYTES;
   void (*kernel)(const Params);
-  if constexpr (KT == 2) {
-    kernel = conv2x2_kernel<N, KS>;
-  } else if constexpr (HEAD) {
+  if constexpr (HEAD) {
     kernel = conv3x3_head_kernel<N, KS>;
   } else {
     kernel = conv3x3_kernel<N, KS>;
@@ -475,9 +460,9 @@ bool bad_flags(int flags, int Cout) {
          ((flags & (MASK | D2S)) && Cout % 4);
 }
 
-// The folded head's forms: passes of 64 input channels, n_width one of
+// The folded head's 3x3 form: passes of 64 input channels, n_width one of
 // 16, 64, 128 (kernels/conv3x3.py: pack_conv3x3_weights(head=True),
-// pack_conv2x2_weights, tile_width_2x2).
+// tile_width_2x2).
 template <int KT>
 int launch_head(const Params& p, int n_width, int batch, cudaStream_t s) {
   switch (n_width) {
@@ -522,18 +507,4 @@ extern "C" int nesr_conv3x3(const void* x, const void* wp, const void* bias,
     case 128: return launch_ks<128>(p, ks, N, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// 2x2 conv at padding `pad` (0 or 1): y is (N, H + 2 pad - 1, W + 2 pad -
-// 1, Cout), or its depth-to-space form under D2S; the head forms' passes
-// and widths.
-extern "C" int nesr_conv2x2(const void* x, const void* wp, const void* bias,
-                            void* y, int N, int H, int W, int Cin, int Cout,
-                            int n_width, int pad, int flags, void* stream) {
-  if (bad_flags(flags, Cout) || (pad != 0 && pad != 1))
-    return (int)cudaErrorInvalidValue;
-  Params p = make_params(x, wp, bias, y, H, W, Cin, Cout, 64, 2, pad, flags);
-  if (p.Ho < 1 || p.Wo < 1) return (int)cudaErrorInvalidValue;
-  p.n_tiles = (Cout + n_width - 1) / n_width;
-  return launch_head<2>(p, n_width, N, (cudaStream_t)stream);
 }

@@ -43,16 +43,14 @@
 // (tools/f32_ablation.py, PERF.md): the FFMA issue rate itself, at 168
 // registers and at most 12 warps an SM; the staging is 2-5% of the time
 // at the trunk's and the 64->64 shapes.
-// The 2x2 form (conv2x2_f32_kernel) runs the folded RRDBNet head's two
-// space-to-depth convs in float32 (the JAX package's _head_forward,
-// models/rrdbnet.py:586, runs them as XLA convs; no Pallas kernel): the
-// same design with two taps a row, so a segment reads its 9 input pixels
-// once for both kx taps, a (rows + 1) x 17 patch at offset -pad (padding 1
-// or 0), and the epilogue's frame mask and depth-to-space store, which
-// also serve the head's 3x3 form (conv3x3_f32_head_kernel; flags as
-// csrc/conv3x3.cu's: LRELU 1, MASK 4, D2S 8; ROUND_FIRST is moot in
-// float32). Cout 256 runs as two channel groups on grid rows. The SAME
-// 3x3 kernel is compiled without that epilogue code.
+// The folded RRDBNet head's 3x3 form (conv3x3_f32_head_kernel; the JAX
+// package's _head_forward, models/rrdbnet.py:586, runs it as an XLA conv;
+// no Pallas kernel) is this design with the epilogue's depth-to-space
+// store (flags as csrc/conv3x3.cu's: LRELU 1, MASK 4, D2S 8; ROUND_FIRST
+// is moot in float32); the body takes the tap geometry (KT x KT taps, a
+// (rows + KT - 1) x (16 + KT - 1) patch at offset -pad) as a template
+// parameter. The SAME 3x3 kernel is compiled without that epilogue code.
+// The head's 2x2 form has its own kernel (csrc/conv2x2_f32.cu).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -335,7 +333,7 @@ __device__ __forceinline__ void conv_f32_body(const Args& a) {
 }
 
 // The forms, by name: the SAME 3x3 conv; the folded head's 3x3 form
-// (D2S); its 2x2 form at padding 0 or 1 (MASK, D2S).
+// (D2S).
 __global__ void __launch_bounds__(MAX_THREADS)
 conv3x3_f32_kernel(const Args a) {
   conv_f32_body<3, false>(a);
@@ -344,11 +342,6 @@ conv3x3_f32_kernel(const Args a) {
 __global__ void __launch_bounds__(MAX_THREADS)
 conv3x3_f32_head_kernel(const Args a) {
   conv_f32_body<3, true>(a);
-}
-
-__global__ void __launch_bounds__(MAX_THREADS)
-conv2x2_f32_kernel(const Args a) {
-  conv_f32_body<2, true>(a);
 }
 
 template <int KT>
@@ -387,12 +380,8 @@ int launch_f32(const void* x, const void* w, const void* bias, void* y,
   a.stage = (KT * KT * CC * a.ws + (8 * R + KT - 1) * Patch<KT>::PRS + 31) /
             32 * 32;
   const int smem = BARS + 2 * a.stage * 4;
-  void (*kernel)(const Args);
-  if constexpr (KT == 2) {
-    kernel = conv2x2_f32_kernel;
-  } else {
-    kernel = flags & ~LRELU ? conv3x3_f32_head_kernel : conv3x3_f32_kernel;
-  }
+  void (*kernel)(const Args) =
+      flags & ~LRELU ? conv3x3_f32_head_kernel : conv3x3_f32_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -411,15 +400,4 @@ extern "C" int nesr_conv3x3_f32(const void* x, const void* w,
                                 int W, int Cin, int Cout, int flags,
                                 void* stream) {
   return launch_f32<3>(x, w, bias, y, N, H, W, Cin, Cout, 1, flags, stream);
-}
-
-// The 2x2 form at padding `pad` (0 or 1): w (2, 2, Cin, Cout), y (N, H +
-// 2 pad - 1, W + 2 pad - 1, Cout) or its depth-to-space form under D2S.
-extern "C" int nesr_conv2x2_f32(const void* x, const void* w,
-                                const void* bias, void* y, int N, int H,
-                                int W, int Cin, int Cout, int pad, int flags,
-                                void* stream) {
-  if (pad != 0 && pad != 1) return (int)cudaErrorInvalidValue;
-  return launch_f32<2>(x, w, bias, y, N, H, W, Cin, Cout, pad, flags,
-                       stream);
 }

@@ -43,7 +43,8 @@ __all__ = ["conv3x3", "conv3x3_f32", "conv3x3_plain", "pack_conv3x3_weights",
 # block walks Cout's tiles one after the other.
 TILE_WIDTHS = (8, 16, 32, 64, 80, 96, 128)
 # The 2x2 form's instantiations (its passes are 64 input channels): the
-# folded head's Cout 12 (conv_last) and 4 nf (conv_hr: 256 as 2 x 128).
+# folded head's Cout 12 (conv_last) and 4 nf (conv_hr: 256 as 2 x 128, an
+# N tile a block); the head's 3x3 form packs at the same widths.
 TILE_WIDTHS_2X2 = (16, 64, 128)
 # Epilogue flags of the C entry points (csrc/conv3x3.cu).
 _LRELU, _ROUND_FIRST, _MASK, _D2S = 1, 2, 4, 8
@@ -122,7 +123,9 @@ def pack_conv3x3_weights(w: torch.Tensor, head: bool = False
 def pack_conv2x2_weights(w: torch.Tensor) -> torch.Tensor:
     """HWIO weights (2, 2, Cin, Cout) -> the 2x2 form's flat bf16 image:
     ``pack_conv3x3_weights``'s layout with 4 taps (tap = 2 ky + kx),
-    passes of 64 input channels and N, tiles = ``tile_width_2x2(Cout)``."""
+    passes of 64 input channels and N, tiles = ``tile_width_2x2(Cout)``
+    (Cout 256: two N tiles of 128, a (pass, tap) slab 64 x 128, 16 KB, one
+    bulk copy)."""
     return _pack(w, 64, *tile_width_2x2(w.shape[3]))
 
 
@@ -312,8 +315,10 @@ def conv2x2_s2d(x: torch.Tensor, w: torch.Tensor,
 
     x (N, H, W, Cin) and w (2, 2, Cin, Cout) bf16 and bias (Cout,) fp32
     (or None), contiguous on one device, x 16-byte aligned; ``packed`` is
-    ``pack_conv2x2_weights(w)`` (made here when None). Returns (N, H + 2
-    pad - 1, W + 2 pad - 1, Cout) bf16, or its d2s form. A float32 x goes
+    ``pack_conv2x2_weights(w)`` (made here when None). A Cin that is not a
+    multiple of 8 is zero-padded to one first (a copy of x; the folded
+    head's 4 nf is one whenever nf is even). Returns (N, H + 2 pad - 1, W +
+    2 pad - 1, Cout) bf16, or its d2s form. A float32 x goes
     to ``conv2x2_s2d_f32``; a CPU tensor to the plain version. Anything
     else raises ``KernelInputError``.
     """
@@ -333,6 +338,11 @@ def conv2x2_s2d(x: torch.Tensor, w: torch.Tensor,
     if packed is None:
         packed = pack_conv2x2_weights(w)
     _check_packed("conv2x2_s2d", packed, x, cin, cout, 2, True)
+    if cin % 8:
+        # The kernel's tensor map steps pixels in 16-byte units: zero
+        # channels up to a multiple of 8 (the packing already holds them).
+        x = F.pad(x, (0, 8 - cin % 8))
+        cin = x.shape[3]
     lib = _build.load_library()
     y = torch.empty(_out_shape(n, ho, wo, cout, d2s), dtype=torch.bfloat16,
                     device=x.device)

@@ -22,7 +22,7 @@ from neural_enhanced_super_resolution_torch.kernels import (
     conv3x3_plain)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
     TILE_WIDTHS_2X2, pack_conv2x2_weights, pack_conv3x3_weights,
-    packed_numel, tile_width_2x2)
+    packed_numel, tile_width, tile_width_2x2)
 from neural_enhanced_super_resolution_torch.models import (
     RRDBNet, RRDBNetConfig, TrainableRRDBNet, init_rrdbnet, params_from_jax)
 from neural_enhanced_super_resolution_torch.models.rrdbnet import (
@@ -249,10 +249,10 @@ def _unpack_head(packed, kt, cin, cout, lbo=128, sbo=256):
 
 @pytest.mark.parametrize("kt,cin,cout,want", [
     (2, 256, 256, (128, 2)), (2, 256, 12, (16, 1)), (2, 64, 64, (64, 1)),
-    (2, 32, 12, (16, 1)), (2, 32, 32, (64, 1)), (3, 64, 256, (128, 2)),
-    (3, 8, 32, (64, 1))],
-    ids=["hr_nf64", "last_nf64", "hr_nf16", "last_nf8", "hr_nf8", "up_nf64",
-         "up_nf8"])
+    (2, 32, 12, (16, 1)), (2, 32, 32, (64, 1)), (2, 64, 320, (128, 3)),
+    (3, 64, 256, (128, 2)), (3, 8, 32, (64, 1))],
+    ids=["hr_nf64", "last_nf64", "hr_nf16", "last_nf8", "hr_nf8",
+         "two_tiles", "up_nf64", "up_nf8"])
 def test_pack_head_weights_matches_descriptor_layout(kt, cin, cout, want):
     """The folded head's two packings (pack_conv2x2_weights, and
     pack_conv3x3_weights(head=True) for up1 and up2) read back through the
@@ -268,6 +268,26 @@ def test_pack_head_weights_matches_descriptor_layout(kt, cin, cout, want):
     assert torch.equal(got[:, :, :cin, :cout], w)
     assert not got[:, :, cin:].any() and not got[:, :, :, cout:].any()
     assert torch.equal(hits, torch.ones_like(hits))
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 256), (8, 32), (64, 12),
+                                      (32, 64), (64, 300)])
+def test_pack_head_3x3_weights_keep_their_layout(cin, cout):
+    """The head 3x3 form's image is the one its kernel
+    (conv3x3_head_kernel) was built for, whatever the 2x2 form's kernel
+    takes: N tiles of 16, 64 or 128 (256 as 2 x 128) and the SAME conv's
+    slab order with 64-channel passes."""
+    w = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (3, 3, cin, cout)).astype(np.float32)).bfloat16()
+    nw, tiles = tile_width(cout, (16, 64, 128))
+    got = pack_conv3x3_weights(w, head=True)
+    kp = -(-cin // 64) * 64
+    wz = torch.zeros((3, 3, kp, tiles * nw), dtype=torch.bfloat16)
+    wz[:, :, :cin, :cout] = w
+    want = wz.reshape(9, kp // 64, 4, 2, 8, tiles, nw // 8, 8).permute(
+        5, 1, 0, 2, 6, 3, 7, 4).reshape(-1)
+    assert torch.equal(got, want)
+    assert got.numel() == packed_numel(cin, cout, taps=3, head=True)
 
 
 def test_conv2x2_wrappers_take_the_plain_version_only_on_the_cpu():

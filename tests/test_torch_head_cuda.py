@@ -50,9 +50,23 @@ def _rel(got, ref) -> float:
     (2, 1, 9, 7, 32, 32, True, 1, True, False),
     (2, 1, 10, 8, 32, 12, False, 0, False, True),
     (2, 1, 13, 11, 64, 64, True, 1, True, True),
-    (2, 1, 6, 19, 48, 20, True, 0, True, False)],
+    (2, 1, 6, 19, 48, 20, True, 0, True, False),
+    (2, 1, 7, 32, 256, 256, True, 1, True, False),
+    (2, 1, 4, 6, 256, 256, True, 1, True, False),
+    (2, 2, 16, 32, 256, 256, True, 1, True, False),
+    (2, 1, 18, 34, 256, 12, False, 0, False, True),
+    (2, 1, 12, 20, 64, 64, True, 0, False, True),
+    (2, 2, 9, 23, 64, 64, True, 1, True, False),
+    (2, 1, 10, 18, 256, 256, True, 0, False, False),
+    (2, 1, 11, 13, 64, 12, False, 1, True, True),
+    (2, 1, 6, 10, 12, 12, True, 1, True, False),
+    (2, 1, 9, 17, 320, 64, True, 1, True, False),
+    (2, 1, 9, 17, 64, 320, True, 1, False, False)],
     ids=["up1", "up2", "up1_nf8", "hr", "last", "hr_nf8", "last_nf8",
-         "hr_nf16_d2s", "ragged_nf12"])
+         "hr_nf16_d2s", "ragged_nf12", "hr_odd_tile_count",
+         "hr_under_one_wave", "hr_one_past_tiles", "last_one_past_tiles",
+         "nf16_pad0", "nf16_pad1", "nf64_pad0", "nf16_pad1_to12",
+         "cin12_padded", "cin320_patch_ring", "cout320_two_tiles"])
 def test_folded_head_forms_match_plain(cuda, dtype, taps, n, h, w, cin, cout,
                                        act, pad, mask, d2s):
     """K1's and K1f's d2s and 2x2 forms (the folded head's convs) against
