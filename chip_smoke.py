@@ -105,6 +105,19 @@ weights:
   against the same steps on the plain convs (losses, first-step
   gradients, 701 K1f launches a step, step time, busy share, peak memory).
 
+The fused trunk's RDB in bf16 runs on the K1 step
+(``csrc/rdb_bf16.cu``: five launches an RDB, each K1's conv with its share
+of the dense-block assembly in its epilogue, the RRDB residual folded into
+the third RDB's last step): ``check_conv3x3_rdb`` holds it at every step
+against its plain version and, an RDB at a time, against the composition
+it replaced (five K1 convs with the assembly in PyTorch: the count of
+unequal bf16 values, target none), times an RDB in turns with the
+composition, K2 and the K4 step, each step beside its bound and K1's bare
+conv, and shows with torch.profiler that an RDB launches nothing else;
+every path that runs the fused trunk in bf16 counts the step's launches
+(RDB_STEPS a forward) and its plain calls (none); the float32 trunk stays
+on K1f; the forward timings add the fused trunk on the composition.
+
 Since PR 16 the forward checks hold the folded head (the JAX package's
 ``_head_forward`` under ``fuse_rdb: true``: K1's head 3x3 form for up1
 and up2, its 2x2 form for hr and last; K1f's forms in float32) on every
@@ -136,11 +149,16 @@ PKG = "neural_enhanced_super_resolution_torch"
 ARCH = dict(num_in_ch=12, num_out_ch=3, scale=4, num_feat=64, num_block=23,
             num_grow_ch=32)
 TILE_BATCH = (4, 268, 268)   # 4 tiles of 256 + 2 * 6 halo (cuda overlay)
-# K1 launches a full-width forward: the 345 trunk convs, conv_first,
-# conv_body and the folded head's two 3x3 convs (up1, up2); the folded head
-# adds two launches of K1's 2x2 form (hr, last). The stock head (stock
-# trunk, fuse_rdb false) takes four K1 launches and no 2x2.
-K1_FOLDED = 15 * ARCH["num_block"] + 4
+# K1 launches a full-width bf16 forward on the fused trunk: conv_first,
+# conv_body and the folded head's two 3x3 convs (up1, up2); the trunk's
+# 345 convs run as RDB_STEPS launches of the K1 step (five an RDB, each
+# with its share of the dense-block assembly). The folded head adds two
+# launches of K1's 2x2 form (hr, last). In float32 the trunk's convs stay
+# K1f launches (K1F_FOLDED). The stock head (stock trunk, fuse_rdb false)
+# takes four K1 launches and no 2x2.
+K1_FOLDED = 4
+RDB_STEPS = 15 * ARCH["num_block"]
+K1F_FOLDED = RDB_STEPS + 4
 K1_2X2 = 2
 K1_STOCK = 15 * ARCH["num_block"] + 6
 TOL_KERNEL = 1e-2            # max|err| / max(1, max|ref|), per kernel
@@ -203,8 +221,8 @@ CLI_COUNTED = (
     "from neural_enhanced_super_resolution_torch.kernels import (\n"
     "    conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_int8,\n"
     "    conv3x3_int8_plain, conv3x3_int8_rdb, conv3x3_int8_rdb_plain,\n"
-    "    conv3x3_plain, flash_attention, flash_attention_plain, int8_amax,\n"
-    "    int8_amax_plain)\n"
+    "    conv3x3_plain, conv3x3_rdb, conv3x3_rdb_plain, flash_attention,\n"
+    "    flash_attention_plain, int8_amax, int8_amax_plain)\n"
     "sys.argv = ['neural_enhanced_super_resolution_torch'] + sys.argv[1:]\n"
     "rc = 0\n"
     "try:\n"
@@ -214,6 +232,8 @@ CLI_COUNTED = (
     "    rc = exc.code\n"
     "print('COUNTS ' + json.dumps({\n"
     "    'conv3x3': conv3x3.launches,\n"
+    "    'conv3x3_rdb': conv3x3_rdb.launches,\n"
+    "    'conv3x3_rdb_plain': conv3x3_rdb_plain.calls,\n"
     "    'conv2x2_s2d': conv2x2_s2d.launches,\n"
     "    'conv2x2_s2d_plain': conv2x2_s2d_plain.calls,\n"
     "    'flash_attention': flash_attention.launches,\n"
@@ -230,6 +250,26 @@ CLI_COUNTED = (
 
 def log(*args):
     print(*args, flush=True)
+
+
+def _zero_steps():
+    """Zeroes the K1 step's launches and its plain version's calls."""
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv3x3_rdb, conv3x3_rdb_plain)
+    conv3x3_rdb.launches = conv3x3_rdb_plain.calls = 0
+
+
+def _step_counts() -> dict:
+    from neural_enhanced_super_resolution_torch.kernels import (
+        conv3x3_rdb, conv3x3_rdb_plain)
+    return {"conv3x3_rdb": conv3x3_rdb.launches,
+            "conv3x3_rdb_plain": conv3x3_rdb_plain.calls}
+
+
+def _steps_ran(counts: dict) -> bool:
+    """The fused trunk ran on the K1 step: launched, its plain version
+    never called."""
+    return counts["conv3x3_rdb"] > 0 and not counts["conv3x3_rdb_plain"]
 
 
 # The least time an H100 SXM could take for a function (NVIDIA's data sheet:
@@ -277,6 +317,13 @@ def cuda_ms(fn, reps: int = 5) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def best_ms(fn, tries: int = 3, reps: int = 5) -> float:
+    """The least of ``tries`` cuda_ms windows: a window the host stalls
+    in (the GPU idle between launches) does not stand for a short
+    kernel's time."""
+    return min(cuda_ms(fn, reps) for _ in range(tries))
 
 
 def device_ms(fn, reps: int = 10, floor_ms: float = 0.0) -> float:
@@ -404,9 +451,10 @@ def build_kernels() -> None:
     head's forms' (K1's and K1f's) registers and spills from the build log
     and fails on any wgmma that ptxas serialized; checks in the SASS that
     every instantiation of K1 (21), of its head 3x3 form (3), of its 2x2
-    form (3: conv2x2_kernel<16>, <64>, <128>, csrc/conv2x2.cu), K2 (1) and
-    K3 (6) issues bf16 wgmma (HGMMA) and every one of K4 (14) and of its
-    redesign, the step (14), the int8 form (IGMMA)."""
+    form (3: conv2x2_kernel<16>, <64>, <128>, csrc/conv2x2.cu), of the K1
+    step (21, csrc/rdb_bf16.cu), K2 (1) and K3 (6) issues bf16 wgmma
+    (HGMMA) and every one of K4 (14) and of its redesign, the step (14),
+    the int8 form (IGMMA); prints the K1 step's registers and spills."""
     from neural_enhanced_super_resolution_torch.kernels import _build
     t0 = time.perf_counter()
     _build.load_library()
@@ -430,6 +478,7 @@ def build_kernels() -> None:
                     x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]))
             for kernel, tag in (("conv3x3_int8_kernel", "K4"),
                                 ("rdb_int8_step_kernel", "K4 step"),
+                                ("rdb_bf16_step_kernel", "K1 step"),
                                 ("conv2x2_kernel", "K1 2x2"),
                                 ("conv3x3_head_kernel", "K1 head 3x3")):
                 if "Compiling entry function" in line and kernel in line:
@@ -448,13 +497,14 @@ def build_kernels() -> None:
         timeout=300).stdout
     # K1-K3 issue bf16 wgmma (HGMMA in SASS), K4 the 8-bit integer form
     # (IGMMA).
-    hgmma = {"K1": {}, "K1 head 3x3": {}, "K1 2x2": {}, "K2": {}, "K3": {},
-             "K4": {}, "K4 step": {}}
+    hgmma = {"K1": {}, "K1 head 3x3": {}, "K1 2x2": {}, "K1 step": {},
+             "K2": {}, "K3": {}, "K4": {}, "K4 step": {}}
     for func in sass.split("Function : ")[1:]:
         name = func.split(None, 1)[0]
         for kernel, tag in (("conv3x3_kernel", "K1"),
                             ("conv3x3_head_kernel", "K1 head 3x3"),
                             ("conv2x2_kernel", "K1 2x2"),
+                            ("rdb_bf16_step_kernel", "K1 step"),
                             ("rdb_fused_kernel", "K2"), ("flash_narrow", "K3"),
                             ("flash_wide", "K3"),
                             ("conv3x3_int8_kernel", "K4"),
@@ -467,7 +517,7 @@ def build_kernels() -> None:
                 hgmma[tag][f"{kernel}<{','.join(args)}>"] = func.count(
                     "IGMMA" if tag.startswith("K4") else "HGMMA")
     for tag, want in (("K1", 21), ("K1 head 3x3", 3), ("K1 2x2", 3),
-                      ("K2", 1), ("K3", 6), ("K4", 14), ("K4 step", 14)):
+                      ("K1 step", 21), ("K2", 1), ("K3", 6), ("K4", 14), ("K4 step", 14)):
         log(f"{tag} SASS: {'IGMMA' if tag.startswith('K4') else 'HGMMA'} "
             f"instructions per instantiation {hgmma[tag]}")
         if len(hgmma[tag]) != want or min(hgmma[tag].values()) == 0:
@@ -525,8 +575,10 @@ def check_conv3x3(torch, gen) -> tuple:
     """K1 at every conv shape of the path, against conv3x3_plain; then the
     folded head's four convs (K1's d2s form for up1, K1 for up2, K1's 2x2
     form for hr and last) against conv3x3_plain / conv2x2_s2d_plain, each
-    with cuDNN's bf16 conv at its shape (padding 1 or 0) and its bound.
-    Returns K1's JSON row (trunk w0) and the 2x2 form's (hr)."""
+    with cuDNN's bf16 conv at its shape (padding 1 or 0) and its bound;
+    each time the best of three event windows (best_ms). Returns K1's
+    JSON row (conv_body, a shape the main path gives K1 on every trunk)
+    and the 2x2 form's (hr)."""
     import torch.nn.functional as F
     from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
         conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_plain,
@@ -563,14 +615,14 @@ def check_conv3x3(torch, gen) -> tuple:
         got = conv3x3(x, wt, b, act, packed=wpk)
         ref = conv3x3_plain(x, wt, b, act)
         d, r = rel_err(got, ref)
-        ms = cuda_ms(lambda: conv3x3(x, wt, b, act, packed=wpk))
-        pms = cuda_ms(lambda: conv3x3_plain(x, wt, b, act))
+        ms = best_ms(lambda: conv3x3(x, wt, b, act, packed=wpk))
+        pms = best_ms(lambda: conv3x3_plain(x, wt, b, act))
         # For scale only: the library's bf16 conv (cuDNN, channels_last).
         xc = x.permute(0, 3, 1, 2)
         wc = wt.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         bc = b.to(torch.bfloat16) if bias else None
-        cms = cuda_ms(lambda: F.conv2d(xc, wc, bc, padding=1))
+        cms = best_ms(lambda: F.conv2d(xc, wc, bc, padding=1))
         pix = nn_ * hh * ww
         bms, by = bound(2.0 * pix * cout * 9 * cin,
                         2.0 * (pix * (cin + cout) + 9 * cin * cout)
@@ -583,7 +635,7 @@ def check_conv3x3(torch, gen) -> tuple:
         if not r <= TOL_KERNEL:
             raise AssertionError(f"K1 {label}: rel err {r} > {TOL_KERNEL}")
         k1_err = max(k1_err, d)
-        if label.startswith("trunk w0"):
+        if label.startswith("conv_body"):
             result = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
                       "bound_by": by, "library_ms": cms}
         del x, got, ref
@@ -607,12 +659,12 @@ def check_conv3x3(torch, gen) -> tuple:
             plain = lambda: conv2x2_s2d_plain(x, wt, b, act, pad, mask, d2s)
         got, ref = run(), plain()
         d, r = rel_err(got, ref)
-        ms, pms = cuda_ms(run), cuda_ms(plain)
+        ms, pms = best_ms(run), best_ms(plain)
         xc = x.permute(0, 3, 1, 2)
         wc = wt.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         bc = b.to(torch.bfloat16)
-        cms = cuda_ms(lambda: F.conv2d(xc, wc, bc, padding=pad))
+        cms = best_ms(lambda: F.conv2d(xc, wc, bc, padding=pad))
         bms, by = conv_bound(n, hh, ww, taps, cin, cout, pad, 2)
         for i, t in enumerate((ms, pms, cms)):
             sums[i] += t
@@ -639,9 +691,10 @@ def check_conv3x3(torch, gen) -> tuple:
 
 def check_rdb_fused(torch, gen) -> dict:
     """K2 on a tile batch against rdb_fused_plain, by device time with the
-    wall a call beside it, and its yardstick: the default trunk's RDB
-    (``FusedRDB(kernel=False)``: five K1 convs and the elementwise
-    assembly) on the same batch and weights, with the five K1 convs alone.
+    wall a call beside it, and its yardstick: the composition of the
+    default trunk's RDB (``FusedRDB._composition``: five K1 convs and the
+    elementwise assembly, the fused trunk's RDB until the K1 step) on the
+    same batch and weights, with the five K1 convs alone.
 
     The weights (std 0.05, bias std 0.1) are large enough that each conv
     of the dense chain moves the output by more than the bar: a kernel
@@ -672,8 +725,8 @@ def check_rdb_fused(torch, gen) -> dict:
     ms = device_ms(lambda: rdb_fused(x, ws, bb, packed=packed))
     wms = wall_ms(lambda: rdb_fused(x, ws, bb, packed=packed))
     pms = device_ms(lambda: rdb_fused_plain(x, ws, bb), reps=3)
-    yms = device_ms(lambda: trunk(x))
-    ywms = wall_ms(lambda: trunk(x))
+    yms = device_ms(lambda: trunk._composition(x))
+    ywms = wall_ms(lambda: trunk._composition(x))
     x32 = x[..., :32].contiguous()
     cms = device_ms(lambda: [conv3x3(x if i == 0 else x32, wi, packed=pi)
                              for i, (wi, pi) in enumerate(zip(ws, packed))])
@@ -688,8 +741,9 @@ def check_rdb_fused(torch, gen) -> dict:
         f" max|0.2*x5| {branch:.4g}, err/branch {d / branch:.3g}) "
         f"device ms: kernel {ms:.4f} plain {pms:.4f} bound {bms:.4f} ({by});"
         f" bound/kernel {bms / ms:.3f}; wall ms a call: kernel {wms:.4f}")
-    log(f"K2 yardstick, the default trunk's RDB (FusedRDB(kernel=False): "
-        f"five K1 convs + elementwise assembly) on the same batch: device "
+    log(f"K2 yardstick, the default trunk's RDB as a composition "
+        f"(FusedRDB._composition: five K1 convs + elementwise assembly) on "
+        f"the same batch: device "
         f"{yms:.4f} ms (the five K1 convs alone {cms:.4f}), wall "
         f"{ywms:.4f} ms a call; kernel/yardstick {ms / yms:.3f} by device "
         "time; no single PyTorch call computes a whole RDB")
@@ -820,7 +874,7 @@ def check_forward(torch, gen, sd, name: str) -> None:
     fails check_rdb_fused.
     """
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv2x2_s2d, conv3x3, rdb_fused)
+        conv2x2_s2d, conv3x3, conv3x3_rdb, rdb_fused)
     from neural_enhanced_super_resolution_torch.models import (
         RRDBNet, RRDBNetConfig)
 
@@ -830,10 +884,10 @@ def check_forward(torch, gen, sd, name: str) -> None:
     mp_out = n * (4 * h) * (4 * w) / 1e6
     ref = RRDBNet(cfg, sd, torch.bfloat16, "cuda", "fused")(x, plain=True)
     torch.cuda.empty_cache()
-    counters = (conv3x3, conv2x2_s2d, rdb_fused)
-    # K1, its 2x2 form and K2 a forward
-    wants = {"fused": (K1_FOLDED, K1_2X2, 0),
-             "dform": (4, K1_2X2, 3 * cfg.num_block)}
+    counters = (conv3x3, conv2x2_s2d, rdb_fused, conv3x3_rdb)
+    # K1, its 2x2 form, K2 and the K1 step a forward
+    wants = {"fused": (K1_FOLDED, K1_2X2, 0, RDB_STEPS),
+             "dform": (4, K1_2X2, 3 * cfg.num_block, 0)}
     for trunk in ("fused", "dform"):
         model = RRDBNet(cfg, sd, torch.bfloat16, "cuda", trunk)
         before = [c.launches for c in counters]
@@ -841,10 +895,12 @@ def check_forward(torch, gen, sd, name: str) -> None:
         launches = tuple(c.launches - b for c, b in zip(counters, before))
         d, r = rel_err(out, ref)
         ms = cuda_ms(lambda: model(x), reps=3)
-        log(f"forward {trunk} trunk ({'K1' if trunk == 'fused' else 'K2+K1'})"
+        log(f"forward {trunk} trunk "
+            f"({'K1 step+K1' if trunk == 'fused' else 'K2+K1'})"
             f" 12ch x4 nf64 nb23 gc32 on {tuple(x.shape)}: max_abs_err "
             f"{d:.6g} rel {r:.3g} vs plain trunk (tol {TOL_FORWARD}); "
-            f"launches K1, 2x2 form, K2 {launches} (want {wants[trunk]}); "
+            f"launches K1, 2x2 form, K2, K1 step {launches} (want "
+            f"{wants[trunk]}); "
             f"{ms:.2f} ms/batch = {mp_out / (ms / 1e3):.3f} MP_out/s "
             f"(output incl. halo) on {name}")
         if not (r <= TOL_FORWARD and torch.isfinite(out).all()
@@ -1035,6 +1091,7 @@ def drive_product_path(torch, np, ckpt: str) -> dict:
 
     conv3x3.launches = rdb_fused.launches = conv2x2_s2d.launches = 0
     conv3x3_plain.calls = rdb_fused_plain.calls = conv2x2_s2d_plain.calls = 0
+    _zero_steps()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for label, path, iters, trunk in requests:
@@ -1057,11 +1114,12 @@ def drive_product_path(torch, np, ckpt: str) -> dict:
               "conv2x2_s2d": conv2x2_s2d.launches,
               "conv3x3_plain": conv3x3_plain.calls,
               "rdb_fused_plain": rdb_fused_plain.calls,
-              "conv2x2_s2d_plain": conv2x2_s2d_plain.calls}
+              "conv2x2_s2d_plain": conv2x2_s2d_plain.calls,
+              **_step_counts()}
     log(f"product path: {len(requests)} requests in {wall:.3f} s; "
         f"counts {counts}")
     if (counts["conv3x3"] == 0 or counts["rdb_fused"] == 0
-            or counts["conv2x2_s2d"] == 0):
+            or counts["conv2x2_s2d"] == 0 or not _steps_ran(counts)):
         raise AssertionError(f"a kernel was not launched: {counts}")
     if (counts["conv3x3_plain"] or counts["rdb_fused_plain"]
             or counts["conv2x2_s2d_plain"]):
@@ -1186,14 +1244,16 @@ def _sd_counts():
     return {"conv3x3": conv3x3.launches,
             "flash_attention": flash_attention.launches,
             "conv3x3_plain": conv3x3_plain.calls,
-            "flash_attention_plain": flash_attention_plain.calls}
+            "flash_attention_plain": flash_attention_plain.calls,
+            **_step_counts()}
 
 
 def _check_sd_request(np, label, src, out, iters, counts, runs, stages):
     """What every diffusion request must show: 4x per iteration, a picture
     that is neither constant nor saturated everywhere, K3 launched exactly
     SD_ATTN_PER_PASS x 2 (split CFG) x steps + 1 (VAE) times per diffusion
-    run, K1 launched, no plain attention, the diffusion sub-stages timed."""
+    run, K1 and the K1 step launched, no plain version, the diffusion
+    sub-stages timed."""
     want = (src.shape[0] * 4 ** iters, src.shape[1] * 4 ** iters, 3)
     k3 = runs * (SD_ATTN_PER_PASS * 2 * SD_STEPS + 1)
     saturated = float(np.mean((out == 0) | (out == 255)))
@@ -1203,7 +1263,8 @@ def _check_sd_request(np, label, src, out, iters, counts, runs, stages):
     problems = []
     if out.shape != want or out.std() == 0 or saturated == 1.0:
         problems.append(f"output {out.shape} (want {want}), std {out.std()}")
-    if counts["flash_attention"] != k3 or counts["conv3x3"] == 0:
+    if (counts["flash_attention"] != k3 or counts["conv3x3"] == 0
+            or not _steps_ran(counts)):
         problems.append(f"launches {counts}, K3 expected {k3}")
     if counts["flash_attention_plain"] or counts["conv3x3_plain"]:
         problems.append(f"plain versions ran on the card: {counts}")
@@ -1276,6 +1337,7 @@ def drive_diffusion_path(torch, np, ckpt: str, snap: str) -> dict:
         raise AssertionError(f"models loaded: {sorted(pipe.models)}")
     conv3x3.launches = flash_attention.launches = 0
     conv3x3_plain.calls = flash_attention_plain.calls = 0
+    _zero_steps()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out_path = pipe.enhance_image(paths["sd_104x72"], prompt=PROMPT)
@@ -1399,6 +1461,7 @@ def drive_default_in_process(torch, np, ckpt: str, snap: str, seg: str,
     img = imread_rgb(os.path.join(OUT, "default_128.png"))
     conv3x3.launches = flash_attention.launches = 0
     conv3x3_plain.calls = flash_attention_plain.calls = 0
+    _zero_steps()
     out, stages = timed_request(torch, pipe, img,
                                 "default-config request 128x128 -n 1 in "
                                 "process", name, PROMPT)
@@ -1428,15 +1491,17 @@ def drive_denoise_segmentation(torch, np, ckpt: str, seg: str,
         raise AssertionError(f"models loaded: {sorted(pipe.models)}")
     img = _noisy_images(np, 1, 768, 1024, SEED + 8)[0]
     conv3x3.launches = conv3x3_plain.calls = 0
+    _zero_steps()
     out, stages = timed_request(torch, pipe, img,
                                 "request 1024x768 -n 1 (ESRGAN, denoise 0.5,"
                                 " segmentation, tiled stages)", name)
     counts = {"conv3x3": conv3x3.launches,
-              "conv3x3_plain": conv3x3_plain.calls}
+              "conv3x3_plain": conv3x3_plain.calls, **_step_counts()}
     log(f"request 1024x768 counts (both runs) {counts}")
     missing = {"pre/denoise", "pre/contrast", "segmentation"} - set(stages)
     if (out.shape != (3072, 4096, 3) or out.std() == 0 or missing
-            or counts["conv3x3"] == 0 or counts["conv3x3_plain"]):
+            or counts["conv3x3"] == 0 or counts["conv3x3_plain"]
+            or not _steps_ran(counts)):
         raise AssertionError(f"1024x768 request: output {out.shape}, "
                              f"missing stages {missing}, counts {counts}")
     return counts
@@ -1645,6 +1710,7 @@ def drive_swinir_requests(torch, np, ckpt: str, swin: str, snap: str,
     img = _noisy_images(np, 1, *SWIN_REQUEST, SEED + 12)[0]
     conv3x3.launches = flash_attention.launches = 0
     conv3x3_plain.calls = flash_attention_plain.calls = 0
+    _zero_steps()
     out, stages = timed_request(torch, pipe, img,
                                 "request 1024x768 -n 1 (ESRGAN + SwinIR)",
                                 name)
@@ -1659,7 +1725,7 @@ def drive_swinir_requests(torch, np, ckpt: str, swin: str, snap: str,
     if (out.shape != (4 * SWIN_REQUEST[0], 4 * SWIN_REQUEST[1], 3)
             or out.std() == 0 or tiles != 2 * 12 or len(calls) != 2 * 12
             or swin_k1 != SWIN_K1_PER_FORWARD * tiles
-            or counts["conv3x3_plain"]
+            or counts["conv3x3_plain"] or not _steps_ran(counts)
             or not {"swinir", "esrgan", "ensemble"} <= set(stages)):
         raise AssertionError(f"1024x768 SwinIR request: output {out.shape}, "
                              f"calls {calls}, counts {counts}, stages "
@@ -1682,6 +1748,7 @@ def drive_swinir_requests(torch, np, ckpt: str, swin: str, snap: str,
     img = imread_rgb(os.path.join(OUT, "default_128.png"))
     conv3x3.launches = flash_attention.launches = 0
     conv3x3_plain.calls = flash_attention_plain.calls = 0
+    _zero_steps()
     out, stages = timed_request(torch, pipe, img,
                                 "default config + SwinIR 128x128 -n 1 in "
                                 "process", name, PROMPT)
@@ -1751,7 +1818,8 @@ def drive_batch_cli(np, ckpt: str, swin: str, seg: str) -> dict:
     got = {f: imread_rgb(os.path.join(dst, f)).shape
            for f in sorted(os.listdir(dst))}
     log(f"batch CLI outputs {got}; counts {counts}")
-    if got != want or counts["conv3x3"] == 0 or counts["conv3x3_plain"]:
+    if (got != want or counts["conv3x3"] == 0 or counts["conv3x3_plain"]
+            or not _steps_ran(counts)):
         raise AssertionError(f"batch CLI: outputs {got} (want {want}), "
                              f"counts {counts}")
     return counts
@@ -1861,21 +1929,27 @@ def rdb_int8_bytes(pix: int, nf: int, g: int, xbytes: int,
 
 def rdb_int8_bound(pix: int, nf: int, g: int, xbytes: int,
                    skip: bool = False) -> tuple:
-    """The bound of one int8 RDB's five steps: the int8 operations at
-    1,979 TOP/s against rdb_int8_bytes plus the weights, scales and biases
-    once at 3.35 TB/s; and each step's bound alone."""
+    """The bound of one int8 RDB, the function the five steps compute:
+    its int8 operations at 1,979 TOP/s against x (and skip) read and out
+    written once in x's dtype, with the weights, scales and biases, at
+    3.35 TB/s. Beside it the floor of the five-launch design, whose
+    x_1..x_4 and slots pass through HBM between steps (rdb_int8_bytes),
+    and each step's bound alone."""
     cins = [nf, g, g, g, g]
     couts = [4 * g + nf - k * g for k in range(5)]
+    macs = sum(c * o for c, o in zip(cins, couts))
+    params = 9.0 * macs + 4.0 * (sum(couts) + 4 * g + nf) + 24.0
     nbytes = rdb_int8_bytes(pix, nf, g, xbytes, skip)
     per = [bound(2.0 * pix * 9 * ci * co,
                  nb + 9.0 * ci * co + 4.0 * co + 4.0 * (4 * g + nf) + 8.0,
                  peak_flops=PEAK_INT8_OPS)
            for ci, co, nb in zip(cins, couts, nbytes)]
-    whole = bound(2.0 * pix * 9 * sum(c * o for c, o in zip(cins, couts)),
-                  sum(nbytes) + 9.0 * sum(c * o for c, o in zip(cins, couts))
-                  + 4.0 * (sum(couts) + 4 * g + nf) + 24.0,
+    whole = bound(2.0 * pix * 9 * macs,
+                  (2 + skip) * xbytes * pix * nf + params,
                   peak_flops=PEAK_INT8_OPS)
-    return whole, per
+    design = bound(2.0 * pix * 9 * macs, sum(nbytes) + params,
+                   peak_flops=PEAK_INT8_OPS)
+    return whole, design, per
 
 
 def composition_rdb(rdb, x):
@@ -2040,20 +2114,21 @@ def check_conv3x3_int8_rdb(torch, gen) -> tuple:
     dform = FusedRDB([t.to(torch.bfloat16) for t in fw], fb, torch.bfloat16,
                      "cuda", kernel=True)
     pix = n * h * w
-    (bms, by), per = rdb_int8_bound(pix, 64, 32, 2)
+    (bms, by), (dms, dby), per = rdb_int8_bound(pix, 64, 32, 2)
     runs = {"composition": composition, "steps": steps,
             "fused": lambda: fused(x), "dform": lambda: dform(x)}
     dev = {k: [] for k in runs}
     for key in ("composition", "steps", "fused", "dform",
                 "dform", "fused", "steps", "composition"):
-        dev[key].append(device_ms(runs[key], reps=10, floor_ms=bms))
+        dev[key].append(device_ms(runs[key], reps=10, floor_ms=dms))
     wms = wall_ms(steps)
     pms = device_ms(lambda: steps(conv3x3_int8_rdb_plain), reps=2)
     ms = min(dev["steps"])
     log(f"K4 step rdb_int8, one RDB (5 launches) on {tuple(x.shape)} bf16, "
         f"device ms in turns (composition, steps, fused, dform, dform, "
         f"fused, steps, composition): {dev}; bound {bms:.4f} ms ({by}), "
-        f"bound/steps {bms / ms:.3f}; steps/composition "
+        f"bound/steps {bms / ms:.3f}; the five-launch design's floor "
+        f"{dms:.4f} ms ({dby}), floor/steps {dms / ms:.3f}; steps/composition "
         f"{ms / min(dev['composition']):.3f}, steps/fused "
         f"{ms / min(dev['fused']):.3f}, steps/dform "
         f"{ms / min(dev['dform']):.3f}; wall {wms:.4f} ms an RDB; plain "
@@ -2095,6 +2170,227 @@ def check_conv3x3_int8_rdb(torch, gen) -> tuple:
              "library_ms": None, "max_abs_err": 0.0},
             {"ms": ams, "plain_ms": apms, "bound_ms": abms, "bound_by": aby,
              "library_ms": lib_ms, "max_abs_err": 0.0})
+
+
+def rdb_bf16_bytes(pix: int, nf: int, g: int, skip: bool = False) -> list:
+    """Bytes each of the K1 step's five launches must move (each input
+    read once, each output written once), times pix: the bf16 source, the
+    slots it reads and writes, x_{k+1}, and at step 4 x (and skip) and
+    out."""
+    cs = 4 * g + nf
+    steps = [2 * nf + 2 * (cs - g) + 2 * g]
+    for k in range(1, 4):
+        steps.append(2 * g + 2 * (cs - k * g) + 2 * (cs - (k + 1) * g)
+                     + 2 * g)
+    steps.append(2 * g + 2 * nf + (2 + skip) * 2 * nf)
+    return [pix * b for b in steps]
+
+
+def rdb_bf16_bound(pix: int, nf: int, g: int, skip: bool = False) -> tuple:
+    """The bound of one bf16 RDB, the function the five steps compute:
+    its operations at 989 TFLOP/s against x (and skip) read and out
+    written once, with the weights and biases, at 3.35 TB/s. Beside it
+    the floor of the five-launch design, whose x_1..x_4 and slots pass
+    through HBM between steps (rdb_bf16_bytes), and each step's bound
+    alone."""
+    cins = [nf, g, g, g, g]
+    couts = [4 * g + nf - k * g for k in range(5)]
+    macs = sum(c * o for c, o in zip(cins, couts))
+    params = 18.0 * macs + 4.0 * (4 * g + nf)
+    nbytes = rdb_bf16_bytes(pix, nf, g, skip)
+    per = [bound(2.0 * pix * 9 * ci * co,
+                 nb + 18.0 * ci * co + 4.0 * (4 * g + nf))
+           for ci, co, nb in zip(cins, couts, nbytes)]
+    whole = bound(2.0 * pix * 9 * macs, (2 + skip) * 2.0 * pix * nf + params)
+    design = bound(2.0 * pix * 9 * macs, sum(nbytes) + params)
+    return whole, design, per
+
+
+def _fused_rdb(torch, gen, nf: int, g: int, kernel: bool = False):
+    """A FusedRDB of widths (nf, g) on the card from seeded float weights
+    of std 0.05 and biases of std 0.1 (K2's check's scale: every conv of
+    the dense chain moves the output), with the float weights."""
+    from neural_enhanced_super_resolution_torch.models.rrdbnet import (
+        FusedRDB)
+    shapes = [(nf, 4 * g + nf), (g, 3 * g + nf), (g, 2 * g + nf),
+              (g, g + nf), (g, nf)]
+    fw = [(torch.randn((3, 3, ci, co), generator=gen) * 0.05).to(
+        torch.bfloat16).float() for ci, co in shapes]
+    b = torch.randn((4 * g + nf,), generator=gen) * 0.1
+    return FusedRDB(fw, b, torch.bfloat16, "cuda", kernel=kernel), fw, b
+
+
+def _bf16_ulps(a, b) -> int:
+    """The largest distance in bf16 steps between a and b (ordered
+    integers of the bit patterns; -0 and +0 one step apart)."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -32768 - i, i)
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def check_rdb_bf16_steps(torch, rdb, x, skip, label: str) -> list:
+    """The K1 step at one RDB's five steps against conv3x3_rdb_plain on
+    the same inputs, step by step (x_{k+1} or out, and the slots each step
+    wrote; the plain convs sum in another order, so the bar is K1's rel
+    1e-2), then the RDB on the steps against FusedRDB._composition on K1
+    (the target: bit for bit; printed as the count of unequal bf16 values
+    and the largest distance in bf16 steps, held to rel 1e-2). Returns the
+    failures and the RDB's max|err| against its plain steps."""
+    from neural_enhanced_super_resolution_torch.kernels.conv3x3_rdb import (
+        conv3x3_rdb, conv3x3_rdb_plain)
+    failed, notes = [], []
+    n, h, w, _ = x.shape
+    g = rdb.gc
+    slots = torch.zeros((n, h, w, rdb.b.numel()), dtype=torch.bfloat16,
+                        device="cuda")
+    src = x
+    for k, (wk, pk) in enumerate(zip(rdb.weights(), rdb.packed())):
+        sl_p = slots.clone()
+        extra = dict(x=x, skip=skip) if k == 4 else {}
+        got = conv3x3_rdb(k, src, wk, rdb.b, slots, packed=pk, **extra)
+        ref = conv3x3_rdb_plain(k, src, wk, rdb.b, sl_p, **extra)
+        torch.cuda.synchronize()
+        lo = (k + 1) * g
+        _, ry = rel_err(got, ref)
+        _, rs = rel_err(slots[..., lo:], sl_p[..., lo:]) if k < 4 else (0, 0)
+        notes.append(f"step {k} rel {ry:.3g} slots rel {rs:.3g} unequal "
+                     f"{int((got != ref).sum())}")
+        if not (ry <= TOL_KERNEL and rs <= TOL_KERNEL):
+            failed.append(f"{label} step {k}: rel {ry}, slots rel {rs}")
+        src = got
+    got = rdb(x, skip=skip)
+    plain = rdb(x, plain=True, skip=skip)
+    comp = rdb._composition(x)
+    if skip is not None:
+        comp = skip + 0.2 * comp
+    torch.cuda.synchronize()
+    d, r = rel_err(got, comp)
+    dp, rp = rel_err(got, plain)
+    unequal = int((got != comp).sum())
+    log(f"K1 step rdb_bf16 {label} {tuple(x.shape)}"
+        f"{' +skip' if skip is not None else ''}: the RDB on the steps "
+        f"against FusedRDB._composition on K1: {unequal} of {got.numel()} "
+        f"bf16 values unequal, at most {_bf16_ulps(got, comp)} bf16 steps "
+        f"apart, max_abs_err {d:.6g} rel {r:.3g} (target bit for bit, bar "
+        f"{TOL_KERNEL}); against the plain steps max_abs_err {dp:.6g} rel "
+        f"{rp:.3g}; " + "; ".join(notes))
+    if not (r <= TOL_KERNEL and rp <= TOL_KERNEL
+            and torch.isfinite(got).all()):
+        failed.append(f"{label} RDB: rel {r} vs the composition, {rp} vs "
+                      "the plain steps")
+    return failed, dp
+
+
+def check_conv3x3_rdb(torch, gen) -> dict:
+    """The K1 step (csrc/rdb_bf16.cu) on TILE_BATCH at full width (nf 64,
+    growth 32) with and without the RRDB skip, at the trained fixture's
+    widths (16, 8) on 1 x 80^2 and at widths the 16-byte paths do not take
+    (12, 4): each step against conv3x3_rdb_plain, the RDB against the
+    composition on K1 (check_rdb_bf16_steps). Then, on TILE_BATCH, device
+    time of an RDB in turns: the five steps, the composition (five K1
+    convs + the PyTorch assembly: the yardstick; no single PyTorch call
+    computes an RDB), K2 and the K4 step (with its int8_amax) on the same
+    weights; each step beside its bound and K1's bare conv of its shape;
+    and torch.profiler's kernels of an RDB on the fused trunk: five, all
+    the step's (and no PyTorch op dispatched but the buffers'
+    allocations). Returns the kernels JSON row: an RDB's five launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
+        conv3x3)
+    from neural_enhanced_super_resolution_torch.kernels.conv3x3_rdb import (
+        conv3x3_rdb)
+    from neural_enhanced_super_resolution_torch.models.rrdbnet import (
+        FusedRDB, Int8RDB, quantize_rdb)
+    failed = []
+    n, h, w = TILE_BATCH
+    rdb, fw, fb = _fused_rdb(torch, gen, 64, 32)
+    x = _rnd(torch, gen, n, h, w, 64, scale=0.5)
+    skip = _rnd(torch, gen, n, h, w, 64, scale=0.5)
+    f, err = check_rdb_bf16_steps(torch, rdb, x, None, "trunk")
+    failed += f
+    failed += check_rdb_bf16_steps(torch, rdb, x, skip, "trunk")[0]
+    fix, _, _ = _fused_rdb(torch, gen, 16, 8)
+    failed += check_rdb_bf16_steps(
+        torch, fix, _rnd(torch, gen, 1, 80, 80, 16, scale=0.5), None,
+        "fixture")[0]
+    odd, _, _ = _fused_rdb(torch, gen, 12, 4)
+    failed += check_rdb_bf16_steps(
+        torch, odd, _rnd(torch, gen, 2, 21, 35, 12, scale=0.5),
+        _rnd(torch, gen, 2, 21, 35, 12, scale=0.5),
+        "scalar paths (nf 12, g 4)")[0]
+    if failed:
+        raise AssertionError(f"K1 step differs from its references: "
+                             f"{failed}")
+
+    # What an RDB on the fused trunk puts on the card: the profiler's
+    # kernels (a window that loses events is taken again, at most three
+    # times) and the PyTorch ops it dispatches.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rdb(x)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if len(names) >= 5:
+            break
+    ops = aten_ops(lambda: rdb(x))
+    foreign = [k for k in names if "rdb_bf16_step_kernel" not in k]
+    bad_ops = [op for op in ops if not op.startswith("aten.empty")]
+    log(f"K1 step: an RDB on the fused trunk puts {len(names)} kernels on "
+        f"the card by torch.profiler, {len(names) - len(foreign)} of them "
+        f"rdb_bf16_step_kernel, other kernels {sorted(set(foreign))}; "
+        f"PyTorch ops it dispatches {sorted(set(ops))}")
+    if foreign or bad_ops or not names:
+        raise AssertionError(f"K1 step: an RDB launched {foreign} and "
+                             f"dispatched {bad_ops} besides its steps")
+
+    # Timing on TILE_BATCH, in turns.
+    pix = n * h * w
+    (bms, by), (dms, dby), per = rdb_bf16_bound(pix, 64, 32)
+    dform = FusedRDB(fw, fb, torch.bfloat16, "cuda", kernel=True)
+    k4 = Int8RDB(*quantize_rdb(fw), fb, "cuda")
+    runs = {"steps": lambda: rdb(x), "composition": lambda: rdb._composition(x),
+            "K2": lambda: dform(x), "K4 step": lambda: k4(x)}
+    dev = {k: [] for k in runs}
+    for key in ("steps", "composition", "K2", "K4 step", "K4 step", "K2",
+                "composition", "steps"):
+        dev[key].append(device_ms(runs[key], reps=10, floor_ms=dms))
+    wms = wall_ms(runs["steps"])
+    pms = device_ms(lambda: rdb(x, plain=True), reps=2)
+    ms, cms = min(dev["steps"]), min(dev["composition"])
+    log(f"K1 step rdb_bf16, one RDB (5 launches) on {tuple(x.shape)} bf16, "
+        f"device ms in turns (steps, composition, K2, K4 step, K4 step, K2, "
+        f"composition, steps): {dev}; bound {bms:.4f} ms ({by}), "
+        f"bound/steps {bms / ms:.3f}; the five-launch design's floor "
+        f"{dms:.4f} ms ({dby}), floor/steps {dms / ms:.3f}; "
+        f"steps/composition {ms / cms:.3f}, "
+        f"steps/K2 {ms / min(dev['K2']):.3f}, steps/K4 step "
+        f"{ms / min(dev['K4 step']):.3f}; wall {wms:.4f} ms an RDB; plain "
+        f"steps {pms:.4f} ms; yardstick (no single PyTorch call computes an "
+        f"RDB): the composition {cms:.4f} ms")
+    # Each step alone beside its bound and K1's bare conv of its shape.
+    slots = torch.empty((n, h, w, 192), dtype=torch.bfloat16, device="cuda")
+    srcs = [x] + [_rnd(torch, gen, n, h, w, 32, scale=0.5) for _ in range(4)]
+    xn = torch.empty((n, h, w, 32), dtype=torch.bfloat16, device="cuda")
+    for k, (wk, pk) in enumerate(zip(rdb.weights(), rdb.packed())):
+        extra = dict(x=x) if k == 4 else dict(xn=xn)
+        sk = device_ms(lambda k=k, wk=wk, pk=pk, e=extra: conv3x3_rdb(
+            k, srcs[k], wk, rdb.b, slots, packed=pk, **e), reps=10,
+            floor_ms=per[k][0])
+        bare = device_ms(lambda k=k, wk=wk, pk=pk: conv3x3(
+            srcs[k], wk, packed=pk), reps=10)
+        log(f"K1 step {k} ({wk.shape[2]}->{wk.shape[3]}) on "
+            f"{tuple(x.shape[:3])}: device {sk:.4f} ms, bound "
+            f"{per[k][0]:.4f} ({per[k][1]}), bound/step "
+            f"{per[k][0] / sk:.3f}; K1's bare conv {bare:.4f} ms")
+    del dform, k4, srcs, slots, xn
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "max_abs_err": err}
 
 
 def check_forward_int8(torch, gen, sd, name: str) -> None:
@@ -2170,12 +2466,20 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
     # composition_body (quantize_int8 -> conv3x3_int8 -> the assembly).
     comp = RRDBNet(cfg, sd, torch.bfloat16, "cuda", "int8")
     comp.body_forward = lambda f, plain=False: composition_body(comp, f)
+    # The fused trunk on its composition: each RDB five K1 convs with
+    # the assembly in PyTorch (FusedRDB._composition), each RRDB's
+    # residual a separate add.
+    fcomp = RRDBNet(cfg, sd, torch.bfloat16, "cuda", "fused")
+    for block in fcomp.body:
+        for rdb in block.rdbs:
+            rdb.folds_skip = lambda t: False
     runs = {"composition": comp, "int8": model, "fused": fused,
-            "dform": dform}
+            "dform": dform, "fused composition": fcomp}
     dev = {k: [] for k in runs}
     wall = {k: [] for k in runs}
-    for key in ("composition", "int8", "fused", "dform", "dform", "fused",
-                "int8", "composition"):
+    for key in ("composition", "int8", "fused", "dform", "fused composition",
+                "fused composition", "dform", "fused", "int8",
+                "composition"):
         m = runs[key]
         dev[key].append(device_ms(lambda: m(x), reps=3))
         wall[key].append(wall_ms(lambda: m(x), reps=3))
@@ -2183,8 +2487,8 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
     # folded head's forms); the fused trunk's five convs take the others.
     head = ("conv3x3_kernel<64,1>", "conv3x3_kernel<64,4>",
             "conv3x3_head_kernel", "conv2x2_kernel")
-    fams = ("K4 step", "int8_amax", "K4", "K2", "K1 trunk", "K1 head",
-            "other")
+    fams = ("K4 step", "int8_amax", "K4", "K2", "K1 step", "K1 trunk",
+            "K1 head", "other")
 
     def families(m):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2196,6 +2500,7 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
                 continue
             nm = e.name.replace(" ", "")
             key = ("K4 step" if "rdb_int8_step_kernel" in nm else
+                   "K1 step" if "rdb_bf16_step_kernel" in nm else
                    "int8_amax" if "amax_kernel" in nm else
                    "K4" if "conv3x3_int8_kernel" in nm else
                    "K2" if "rdb_fused_kernel" in nm else
@@ -2214,7 +2519,7 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
         f"2x2 form {k2x2}; plain calls {counts[5:]}; quantize_int8 calls "
         f"{len(seen)}; no host sync (sync debug mode error)")
     log(f"forward device ms in turns (composition, int8, fused, dform, "
-        f"dform, fused, int8, composition) {dev}; wall ms {wall}; int8 "
+        f"fused composition, and back) {dev}; wall ms {wall}; int8 "
         f"{mp_out / (min(dev['int8']) / 1e3):.3f} MP_out/s of device time "
         f"on {name}")
     for key, m in runs.items():
@@ -2232,7 +2537,7 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
             f"launches step/amax/K1/K4/2x2 {got} (want {want}), "
             f"plain calls {counts[5:]}, quantize_int8 calls {len(seen)}")
     check_head(torch, model, x, TOL_FORWARD, name)
-    del model, fused, dform, comp
+    del model, fused, dform, comp, fcomp
     torch.cuda.empty_cache()
 
 
@@ -2277,7 +2582,8 @@ def check_int8_quality(torch, np) -> None:
         f"{dq:.4f} dB, exact {de:.4f} dB, |dPSNR| {abs(dq - de):.4f} (bar "
         f"< 0.15); counts {c}")
     if not (q.shape == exact.shape and cross > 40.0
-            and abs(dq - de) < 0.15 and _int8_path_ok(c)):
+            and abs(dq - de) < 0.15 and _int8_path_ok(c)
+            and c["conv3x3_rdb"] > 0):
         raise AssertionError("int8 quality gate failed on the card")
 
 
@@ -2285,8 +2591,10 @@ def _int8_counters():
     from neural_enhanced_super_resolution_torch import kernels as k
     return ({"conv3x3": k.conv3x3, "conv3x3_int8": k.conv3x3_int8,
              "conv3x3_int8_rdb": k.conv3x3_int8_rdb,
-             "int8_amax": k.int8_amax, "conv2x2_s2d": k.conv2x2_s2d},
+             "int8_amax": k.int8_amax, "conv2x2_s2d": k.conv2x2_s2d,
+             "conv3x3_rdb": k.conv3x3_rdb},
             {"conv3x3_plain": k.conv3x3_plain,
+             "conv3x3_rdb_plain": k.conv3x3_rdb_plain,
              "conv2x2_s2d_plain": k.conv2x2_s2d_plain,
              "conv3x3_int8_plain": k.conv3x3_int8_plain,
              "conv3x3_int8_rdb_plain": k.conv3x3_int8_rdb_plain,
@@ -2341,9 +2649,11 @@ def drive_int8_and_parity(torch, np, ckpt: str, name: str) -> dict:
             name)
         counts[label] = c = _counts()
         log(f"{label} request 1024x768 counts (both runs) {c}")
-        int8_ok = _int8_path_ok(c) if label == "int8" else not (
-            c["conv3x3_int8_rdb"] or c["int8_amax"] or c["conv3x3_int8"]
-            or any(c[k] for k in c if k.endswith("_plain")))
+        int8_ok = (_int8_path_ok(c) and not c["conv3x3_rdb"]
+                   if label == "int8" else not (
+                       c["conv3x3_int8_rdb"] or c["int8_amax"]
+                       or c["conv3x3_int8"] or not c["conv3x3_rdb"]
+                       or any(c[k] for k in c if k.endswith("_plain"))))
         if (out.shape != want or out.std() == 0 or c["conv3x3"] == 0
                 or c["conv2x2_s2d"] == 0 or not int8_ok):
             raise AssertionError(f"{label} request: output {out.shape} "
@@ -2370,7 +2680,8 @@ def drive_int8_and_parity(torch, np, ckpt: str, name: str) -> dict:
     log(f"int8 CLI request 160x160 -n 1: rc 0 in {wall:.2f} s, output "
         f"{got.shape}, counts {c}")
     if (got.shape != (640, 640, 3) or got.std() == 0 or c["conv3x3"] == 0
-            or c["conv2x2_s2d"] == 0 or not _int8_path_ok(c)):
+            or c["conv2x2_s2d"] == 0 or not _int8_path_ok(c)
+            or c["conv3x3_rdb"]):
         raise AssertionError(f"int8 CLI: output {got.shape}, counts {c}")
     counts["int8_cli"] = c
     return counts
@@ -2404,8 +2715,10 @@ def check_parity_against_cpu(torch, np, ckpt: str) -> None:
         f"CPU float32 ({cpu_s:.2f} s there): PSNR {p:.2f} dB, max diff "
         f"{np.abs(got - ref).max():.0f} (bar 30 dB); card counts {c}")
     if (got.shape != ref.shape or got.shape != (144, 192, 3)
-            or not p >= 30.0 or c["conv3x3"] == 0 or c["conv3x3_plain"]):
-        raise AssertionError(f"parity card vs CPU: {got.shape} PSNR {p}")
+            or not p >= 30.0 or c["conv3x3"] == 0 or c["conv3x3_plain"]
+            or not _steps_ran(c)):
+        raise AssertionError(f"parity card vs CPU: {got.shape} PSNR {p}, "
+                             f"counts {c}")
 
 
 # ---- The single-device surface: precompile, overlapped output, vae_encode,
@@ -2477,6 +2790,7 @@ def drive_streamed_overlap(torch, np, ckpt: str, name: str) -> dict:
         "output_dir": os.path.join(OUT, "stream_out")})
     pipe._load_models()   # set-up: weights to the card before the window
     conv3x3.launches = conv3x3_plain.calls = 0
+    _zero_steps()
     outs, stage_s, busy = {}, {"overlapped": [], "blocking": []}, {}
     try:
         for variant in ("overlapped", "blocking", "blocking", "overlapped",
@@ -2510,7 +2824,7 @@ def drive_streamed_overlap(torch, np, ckpt: str, name: str) -> dict:
     finally:
         pipeline_mod.process_tiled_to_host = overlapped
     counts = {"conv3x3": conv3x3.launches,
-              "conv3x3_plain": conv3x3_plain.calls}
+              "conv3x3_plain": conv3x3_plain.calls, **_step_counts()}
     for kind in ("overlapped", "blocking"):
         wall, dev, (union, gaps) = busy[kind]
         st = [t for t, _ in stage_s[kind]]
@@ -2528,7 +2842,8 @@ def drive_streamed_overlap(torch, np, ckpt: str, name: str) -> dict:
         f"overlapped == blocking bit for bit: {equal}; counts (ten runs) "
         f"{counts}")
     if (not equal or outs["overlapped"].shape != (4 * hh, 4 * ww, 3)
-            or counts["conv3x3"] == 0 or counts["conv3x3_plain"]):
+            or counts["conv3x3"] == 0 or counts["conv3x3_plain"]
+            or not _steps_ran(counts)):
         raise AssertionError(f"streamed final: equal {equal}, counts "
                              f"{counts}")
     del pipe
@@ -2679,7 +2994,8 @@ def _f32_counts():
             "flash_attention": flash_attention.launches,
             "conv3x3_plain": conv3x3_plain.calls,
             "conv2x2_s2d_plain": conv2x2_s2d_plain.calls,
-            "flash_attention_plain": flash_attention_plain.calls}
+            "flash_attention_plain": flash_attention_plain.calls,
+            **_step_counts()}
 
 
 def _zero_f32_counts():
@@ -2692,6 +3008,7 @@ def _zero_f32_counts():
         fn.launches = 0
     conv3x3_plain.calls = flash_attention_plain.calls = 0
     conv2x2_s2d_plain.calls = 0
+    _zero_steps()
 
 
 def _conv_key(x, w, bias=None, lrelu=False, d2s=False):
@@ -2743,6 +3060,8 @@ def drive_float32(torch, np, ckpt: str, snap: str, name: str):
     def only_f32(counts, k3: int | None):
         return (counts["conv3x3_f32"] > 0 and counts["conv2x2_s2d_f32"] > 0
                 and counts["conv3x3"] == 0 and counts["conv2x2_s2d"] == 0
+                and counts["conv3x3_rdb"] == 0
+                and counts["conv3x3_rdb_plain"] == 0
                 and counts["flash_attention"] == 0
                 and counts["conv3x3_plain"] == 0
                 and counts["conv2x2_s2d_plain"] == 0
@@ -2861,13 +3180,14 @@ def check_forward_f32(torch, gen, sd, name: str):
         f"{counts['conv3x3_f32']} over {len(set(shapes))} shapes, 2x2 form "
         f"{counts['conv2x2_s2d_f32']} over {len(set(shapes_2x2))}; counts "
         f"{counts} on {name}")
-    want = (K1_FOLDED, K1_2X2)
+    want = (K1F_FOLDED, K1_2X2)
     if (not (r <= TOL_F32_FORWARD and torch.isfinite(out).all())
             or (counts["conv3x3_f32"], counts["conv2x2_s2d_f32"]) != want
             or any(counts[k] for k in ("conv3x3", "conv2x2_s2d",
                                        "flash_attention", "conv3x3_plain",
                                        "conv2x2_s2d_plain",
-                                       "flash_attention_plain"))):
+                                       "flash_attention_plain",
+                                       "conv3x3_rdb", "conv3x3_rdb_plain"))):
         raise AssertionError(f"float32 forward: rel err {r}, counts {counts}"
                              f" (want {want} K1f launches only)")
     del out
@@ -3086,8 +3406,8 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     launches of the sharded runs."""
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_plain,
-        flash_attention, flash_attention_plain)
+        conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_plain, conv3x3_rdb,
+        conv3x3_rdb_plain, flash_attention, flash_attention_plain)
     from neural_enhanced_super_resolution_torch.models import (
         RRDBNet, RRDBNetConfig, init_rrdbnet)
     from neural_enhanced_super_resolution_torch.models.diffusion import (
@@ -3120,7 +3440,8 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     log(f"multi-device: mesh of {n} slots {[str(d) for d in mesh]}"
         + (" (the one card listed 4 times: every time below is a one-card "
            "rehearsal, not a multi-card speed)" if repeated else ""))
-    counts = {"conv3x3": 0, "conv2x2_s2d": 0, "flash_attention": 0}
+    counts = {"conv3x3": 0, "conv2x2_s2d": 0, "conv3x3_rdb": 0,
+              "flash_attention": 0}
     warnings = _Warnings()
     logging.getLogger("nesr").addHandler(warnings)
 
@@ -3128,20 +3449,25 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
         conv3x3.launches = flash_attention.launches = 0
         conv2x2_s2d.launches = conv2x2_s2d_plain.calls = 0
         conv3x3_plain.calls = flash_attention_plain.calls = 0
+        conv3x3_rdb.launches = conv3x3_rdb_plain.calls = 0
 
     def no_plain(label):
         if (conv3x3_plain.calls or flash_attention_plain.calls
-                or conv2x2_s2d_plain.calls):
+                or conv2x2_s2d_plain.calls or conv3x3_rdb_plain.calls):
             raise AssertionError(f"{label}: plain versions ran on the card")
 
     def k1_per(forwards: int) -> bool:
-        """The folded model's K1 and 2x2-form launches for ``forwards``."""
-        return (conv3x3.launches, conv2x2_s2d.launches) == (
-            forwards * K1_FOLDED, forwards * K1_2X2)
+        """The folded model's K1, 2x2-form and K1 step launches for
+        ``forwards``."""
+        return (conv3x3.launches, conv2x2_s2d.launches,
+                conv3x3_rdb.launches) == (forwards * K1_FOLDED,
+                                          forwards * K1_2X2,
+                                          forwards * RDB_STEPS)
 
     def add_k1():
         counts["conv3x3"] += conv3x3.launches
         counts["conv2x2_s2d"] += conv2x2_s2d.launches
+        counts["conv3x3_rdb"] += conv3x3_rdb.launches
 
     # ---- tile DP: the full-width RRDBNet x4 on a 1024x768 image ----------
     model = RRDBNet(RRDBNetConfig(**ARCH), sd, dtype=torch.bfloat16,
@@ -3184,8 +3510,9 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     no_plain("tile DP")
     log(f"multi-device tile DP: RRDBNet x4 (64/23/32, bf16) on {ww}x{hh}, "
         f"{tile}-px tiles, halo {halo}, batch {batch} a slot: {len(shards)} "
-        f"shards of {shards} tiles, K1 launches {k1} and 2x2 form {k2x2} "
-        f"(forwards x {K1_FOLDED} and x {K1_2X2}), 0 host syncs from the "
+        f"shards of {shards} tiles, K1 launches {k1}, 2x2 form {k2x2} and "
+        f"K1 step {conv3x3_rdb.launches} (forwards x {K1_FOLDED}, x "
+        f"{K1_2X2} and x {RDB_STEPS}), 0 host syncs from the "
         f"first shard's "
         f"dispatch to the last one's (sync debug mode 'error'); equal to "
         f"process_tiled bit for bit: {torch.equal(out, single)}; dispatch "
@@ -3201,16 +3528,18 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     strips, strips_ms = _timed(torch, lambda: process_strips_sharded(
         fn, img, mesh, halo=halo, scale=4))
     k1, k2x2, strips_ok = conv3x3.launches, conv2x2_s2d.launches, k1_per(n)
+    steps = conv3x3_rdb.launches
     add_k1()
     emulated = strip_emulation(torch, fn, img, n, halo, 4)
     no_plain("strips")
     log(f"multi-device strips: {n} strips of {ww}x{-(-hh // n)} + 2x{halo} "
-        f"halo rows, K1 launches {k1} and 2x2 form {k2x2} (forwards x "
-        f"{K1_FOLDED} and x {K1_2X2}); equal to the sequential emulation bit "
+        f"halo rows, K1 launches {k1}, 2x2 form {k2x2} and K1 step {steps} "
+        f"(forwards x {K1_FOLDED}, x {K1_2X2} and x {RDB_STEPS}); equal to "
+        f"the sequential emulation bit "
         f"for bit: {torch.equal(strips, emulated)}; {strips_ms:.2f} ms "
         f"({tag})")
     if not torch.equal(strips, emulated) or not strips_ok:
-        raise AssertionError(f"strips: K1 {k1}, 2x2 {k2x2}")
+        raise AssertionError(f"strips: K1 {k1}, 2x2 {k2x2}, steps {steps}")
 
     # ---- the member ensemble: two seeded full-width RRDBNets ---------------
     member2 = RRDBNet(RRDBNetConfig(**ARCH), init_rrdbnet(
@@ -3227,6 +3556,7 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     ens, ens_ms = _timed(torch, lambda: ensemble_members_sharded(
         member_fn, members, small, mesh[:2], weights=[0.5, 0.5]))
     k1, k2x2, ens_ok = conv3x3.launches, conv2x2_s2d.launches, k1_per(2)
+    steps = conv3x3_rdb.launches
     add_k1()
     ref = (member_fn(model, small).float() * 0.5
            + member_fn(member2, small).float() * 0.5)
@@ -3234,10 +3564,11 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     log(f"multi-device member ensemble: 2 RRDBNets (seeds {SEED}, "
         f"{SEED + 1}) on {MD_MEMBER}^2 over 2 slots, weights 0.5/0.5: max "
         f"abs err {err:.3g} against the weighted sum on one device (bar "
-        f"1e-6), K1 launches {k1}, 2x2 form {k2x2}; {ens_ms:.2f} ms ({tag})")
+        f"1e-6), K1 launches {k1}, 2x2 form {k2x2}, K1 step {steps}; "
+        f"{ens_ms:.2f} ms ({tag})")
     if not err <= 1e-6 or not ens_ok:
         raise AssertionError(f"member ensemble: err {err}, K1 {k1}, "
-                             f"2x2 {k2x2}")
+                             f"2x2 {k2x2}, steps {steps}")
     del member2
 
     # ---- split CFG: the full-width SD x4 on a 128x128 image, 2 DDIM steps -
@@ -3366,7 +3697,8 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
         zero()
         out_multi, multi_ms = _timed(torch, lambda: multi.enhance_array(
             small_img, PROMPT))
-    k1, k3 = conv3x3.launches, flash_attention.launches
+    k1, k3, steps = (conv3x3.launches, flash_attention.launches,
+                     conv3x3_rdb.launches)
     no_plain("default config over the mesh")
     equal = np.array_equal(out_multi, out_one)
     log(f"multi-device default config 128x128 -n 1 (denoise, segmentation, "
@@ -3377,7 +3709,8 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
         + ("would take the streamed final, so it ran with streamed_output "
            "false" if streams else "takes the standard chain here, as "
            "diffusion joins the ensemble; streamed_output at its default")
-        + f"); K1 {k1}, K3 {k3}; {multi_ms:.1f} ms over the mesh, "
+        + f"); K1 {k1}, K1 step {steps}, K3 {k3}; {multi_ms:.1f} ms over "
+        f"the mesh, "
         f"{one_ms:.1f} ms on one device ({tag}); StageTimer (esrgan, swinir "
         "and diffusion time dispatch only under stage overlap):")
     for line in multi.timer.summary_lines():
@@ -3385,10 +3718,13 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     if layout["mesh"] is None or not equal or not (
             len(layout["slots"]) == max(1, n - max(1, n // 4))
             and layout["diffusion_slot"] == n - 1) or \
-            k3 != SD_ATTN_PER_PASS * 2 * SD_STEPS + 1 or k1 == 0:
+            k3 != SD_ATTN_PER_PASS * 2 * SD_STEPS + 1 or k1 == 0 or \
+            steps == 0:
         raise AssertionError(f"default config over the mesh: layout "
-                             f"{layout}, equal {equal}, K1 {k1}, K3 {k3}")
+                             f"{layout}, equal {equal}, K1 {k1}, K3 {k3}, "
+                             f"K1 step {steps}")
     counts["conv3x3"] += k1
+    counts["conv3x3_rdb"] += steps
     counts["conv2x2_s2d"] += conv2x2_s2d.launches
     counts["flash_attention"] += k3
     del multi
@@ -3410,7 +3746,8 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
             zero()
             outs[strategy], ms[strategy] = _timed(
                 torch, lambda p=p: p.enhance_array(big))
-            k1s[strategy] = (conv3x3.launches, conv2x2_s2d.launches)
+            k1s[strategy] = (conv3x3.launches, conv2x2_s2d.launches,
+                             conv3x3_rdb.launches)
             no_plain(f"{strategy} request")
     emulated = strip_emulation(torch, fn, contrast_stage(img), n, halo,
                                4).cpu().numpy()
@@ -3423,15 +3760,16 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
         f"{db:.2f} dB against shard_strategy tiles (bar 30; {same:.4f} of "
         f"the values identical: the RRDBNet's receptive field exceeds the "
         f"{halo}-px halo, so the two cuts differ near their seams); K1, 2x2 "
-        f"form {k1s['strips']} (strips) and {k1s['tiles']} (tiles); "
+        f"form, K1 step {k1s['strips']} (strips) and {k1s['tiles']} (tiles); "
         f"{ms['strips']:.1f} ms and {ms['tiles']:.1f} ms ({tag})")
-    if not exact or not db > 30.0 or k1s["strips"] != (n * K1_FOLDED,
-                                                        n * K1_2X2):
+    if not exact or not db > 30.0 or k1s["strips"] != (
+            n * K1_FOLDED, n * K1_2X2, n * RDB_STEPS) or not k1s["tiles"][2]:
         raise AssertionError(f"strips request: exact {exact}, PSNR {db}, "
-                             f"K1 and 2x2 form {k1s}")
-    for k1, k2x2 in k1s.values():
+                             f"K1, 2x2 form and K1 step {k1s}")
+    for k1, k2x2, steps in k1s.values():
         counts["conv3x3"] += k1
         counts["conv2x2_s2d"] += k2x2
+        counts["conv3x3_rdb"] += steps
 
     # ---- one process group on NCCL at world size 1 -------------------------
     env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
@@ -3512,7 +3850,7 @@ SCRIPT_COUNTED = (
     "import json, runpy, sys\n"
     "from neural_enhanced_super_resolution_torch.kernels import (\n"
     "    conv2x2_s2d, conv2x2_s2d_f32, conv2x2_s2d_plain, conv3x3,\n"
-    "    conv3x3_f32, conv3x3_plain)\n"
+    "    conv3x3_f32, conv3x3_plain, conv3x3_rdb, conv3x3_rdb_plain)\n"
     "sys.argv = sys.argv[1:]\n"
     "rc = 0\n"
     "try:\n"
@@ -3524,7 +3862,9 @@ SCRIPT_COUNTED = (
     "    'conv2x2_s2d': conv2x2_s2d.launches,\n"
     "    'conv2x2_s2d_f32': conv2x2_s2d_f32.launches,\n"
     "    'conv2x2_s2d_plain': conv2x2_s2d_plain.calls,\n"
-    "    'conv3x3_plain': conv3x3_plain.calls}))\n"
+    "    'conv3x3_plain': conv3x3_plain.calls,\n"
+    "    'conv3x3_rdb': conv3x3_rdb.launches,\n"
+    "    'conv3x3_rdb_plain': conv3x3_rdb_plain.calls}))\n"
     "sys.exit(rc)\n")
 
 
@@ -3541,22 +3881,29 @@ def repo_script(rel: str):
 
 @contextlib.contextmanager
 def plain_k1():
-    """Route RRDBNet's K1 convs (both forms) to their plain versions: the
-    reference a K1 forward is held against (outside the counted paths)."""
+    """Route RRDBNet's K1 convs (both forms, and the K1 step) to their
+    plain versions: the reference a K1 forward is held against (outside
+    the counted paths)."""
     from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
         conv2x2_s2d_plain, conv3x3_plain)
+    from neural_enhanced_super_resolution_torch.kernels.conv3x3_rdb import (
+        conv3x3_rdb_plain)
     from neural_enhanced_super_resolution_torch.models import rrdbnet
-    kernels = rrdbnet.conv3x3, rrdbnet.conv2x2_s2d
+    kernels = rrdbnet.conv3x3, rrdbnet.conv2x2_s2d, rrdbnet.conv3x3_rdb
     rrdbnet.conv3x3 = (lambda x, w, b=None, lrelu=False, packed=None,
                        d2s=False, round_first=False:
                        conv3x3_plain(x, w, b, lrelu, d2s, round_first))
     rrdbnet.conv2x2_s2d = (lambda x, w, b, lrelu, pad, mask, d2s,
                            packed=None:
                            conv2x2_s2d_plain(x, w, b, lrelu, pad, mask, d2s))
+    rrdbnet.conv3x3_rdb = (lambda k, src, w, b, slots, xn=None, x=None,
+                           skip=None, packed=None:
+                           conv3x3_rdb_plain(k, src, w, b, slots, xn, x,
+                                             skip))
     try:
         yield
     finally:
-        rrdbnet.conv3x3, rrdbnet.conv2x2_s2d = kernels
+        rrdbnet.conv3x3, rrdbnet.conv2x2_s2d, rrdbnet.conv3x3_rdb = kernels
 
 
 def check_conv3x3_train(torch, gen, name: str) -> None:
@@ -3887,19 +4234,22 @@ def drive_training_and_entry_points(torch, np, gen, sd, ckpt: str,
         + next(line for line in outs["compare --check"].splitlines()
                if line.startswith("worst"))
         + f"; counts {counts}")
-    # K1 and its 2x2 form a forward: K1_STOCK and none (the 12-channel
-    # checkpoint, stock trunk, one tile; x2plus, stock trunk, two
-    # iterations), K1_FOLDED and K1_2X2 (the check's fused trunk, one image)
-    want = {"quickstart": None, "direct_esrgan": (K1_STOCK, 0),
-            "superres_project": (2 * K1_STOCK, 0),
-            "compare --check": (K1_FOLDED, K1_2X2)}
+    # K1, its 2x2 form and the K1 step a forward: K1_STOCK, none and none
+    # (the 12-channel checkpoint, stock trunk, one tile; x2plus, stock
+    # trunk, two iterations), K1_FOLDED, K1_2X2 and RDB_STEPS (the check's
+    # fused trunk, one image)
+    want = {"quickstart": None, "direct_esrgan": (K1_STOCK, 0, 0),
+            "superres_project": (2 * K1_STOCK, 0, 0),
+            "compare --check": (K1_FOLDED, K1_2X2, RDB_STEPS)}
     for label, c in counts.items():
         if (c["conv3x3_plain"] or c["conv3x3_f32"] or c["conv3x3"] == 0
                 or c["conv2x2_s2d_plain"] or c["conv2x2_s2d_f32"]
+                or c["conv3x3_rdb_plain"]
                 or want[label] not in (None, (c["conv3x3"],
-                                              c["conv2x2_s2d"]))):
-            raise AssertionError(f"{label}: counts {c}, K1 and 2x2 form "
-                                 f"want {want[label]}")
+                                              c["conv2x2_s2d"],
+                                              c["conv3x3_rdb"]))):
+            raise AssertionError(f"{label}: counts {c}, K1, 2x2 form and "
+                                 f"K1 step want {want[label]}")
     if (not db.get("enhanced", 0) > db.get("bicubic", 1e9)
             or direct.shape != (4 * hh, 4 * ww, 3)
             or superres.shape != (4 * hh, 4 * ww, 3)):
@@ -3990,6 +4340,7 @@ def drive_training_and_entry_points(torch, np, gen, sd, ckpt: str,
         f"{time.perf_counter() - t_phase:.1f} s")
     return {"conv3x3": sum(c["conv3x3"] for c in counts.values()),
             "conv2x2_s2d": sum(c["conv2x2_s2d"] for c in counts.values()),
+            "conv3x3_rdb": sum(c["conv3x3_rdb"] for c in counts.values()),
             "conv3x3_f32": k1f + tcounts["conv3x3_f32"]}
 
 
@@ -4044,6 +4395,7 @@ def main() -> int:
                     "conv3x3_int8": check_conv3x3_int8(torch, gen)})
     results["conv3x3_int8_rdb"], results["int8_amax"] = (
         check_conv3x3_int8_rdb(torch, gen))
+    results["conv3x3_rdb"] = check_conv3x3_rdb(torch, gen)
     sd = init_rrdbnet(RRDBNetConfig(**ARCH), torch.Generator().manual_seed(
         SEED))
     check_forward(torch, gen, sd, name)
@@ -4097,6 +4449,14 @@ def main() -> int:
                 + stream_counts["conv3x3"] + md_counts["conv3x3"]
                 + train_launches["conv3x3"],
                 "rdb_fused": counts["rdb_fused"],
+                "conv3x3_rdb": counts["conv3x3_rdb"]
+                + sd_counts["conv3x3_rdb"] + default_counts["conv3x3_rdb"]
+                + default_ip_counts["conv3x3_rdb"]
+                + tiled_counts["conv3x3_rdb"] + swin_counts["conv3x3_rdb"]
+                + batch_counts["conv3x3_rdb"]
+                + sum(c["conv3x3_rdb"] for c in mode_counts.values())
+                + stream_counts["conv3x3_rdb"] + md_counts["conv3x3_rdb"]
+                + train_launches["conv3x3_rdb"],
                 "conv3x3_int8_rdb": mode_counts["int8"]["conv3x3_int8_rdb"]
                 + mode_counts["int8_cli"]["conv3x3_int8_rdb"],
                 "int8_amax": mode_counts["int8"]["int8_amax"]
@@ -4115,6 +4475,7 @@ def main() -> int:
                 "conv2x2_s2d_f32": f32_counts["conv2x2_s2d_f32"] + fwd_k1f[1],
                 "flash_attention_f32": f32_counts["flash_attention_f32"]}
     sources = {"conv3x3": "csrc/conv3x3.cu", "rdb_fused": "csrc/rdb_fused.cu",
+               "conv3x3_rdb": "csrc/rdb_bf16.cu",
                "conv2x2_s2d": "csrc/conv2x2.cu",
                "conv2x2_s2d_f32": "csrc/conv2x2_f32.cu",
                "flash_attention": "csrc/flash_attn.cu",
@@ -4122,12 +4483,12 @@ def main() -> int:
                "int8_amax": "csrc/rdb_int8.cu",
                "conv3x3_f32": "csrc/conv3x3_f32.cu",
                "flash_attention_f32": "csrc/flash_attn_f32.cu"}
-    # K1 also carries the math of kernels/conv3x3.py:106 and
-    # kernels/conv3x3_v2.py:103; rows_s2d_conv3x3 is the one whose shapes
-    # the default trunk runs.
+    # K1 also carries the math of kernels/conv3x3_v2.py:103 and of
+    # rdb_pallas.py:190 (rows_s2d_conv3x3), whose trunk shapes the K1 step
+    # runs on the main path.
     replaces = {
         "conv3x3": "neural_enhanced_super_resolution_tpu/kernels/"
-                   "rdb_pallas.py:190",
+                   "conv3x3.py:106",
         "rdb_fused": "neural_enhanced_super_resolution_tpu/kernels/"
                      "rdb_dform.py:575",
         "flash_attention": "neural_enhanced_super_resolution_tpu/kernels/"
@@ -4139,6 +4500,10 @@ def main() -> int:
                             "rrdbnet.py:255",
         "int8_amax": "neural_enhanced_super_resolution_tpu/models/"
                      "rrdbnet.py:252",
+        # XLA's bf16 convs of the default trunk's _rdb_fused, not a
+        # Pallas kernel, with their dense-block assembly
+        "conv3x3_rdb": "neural_enhanced_super_resolution_tpu/models/"
+                       "rrdbnet.py:167",
         # the float32 forms: the same Pallas kernels on float32 operands
         "conv3x3_f32": "neural_enhanced_super_resolution_tpu/kernels/"
                        "conv3x3.py:106",
@@ -4151,22 +4516,24 @@ def main() -> int:
         "flash_attention_f32": "neural_enhanced_super_resolution_tpu/"
                                "kernels/attention.py:125"}
     # ms, plain_ms, bound_ms and library_ms at one shape a kernel: K1 at
-    # trunk w0, its 2x2 form and K1f's at the folded head's hr on the tile
-    # batch (4 x 536^2 x 256 -> 4 x 537^2 x 256), K2 on the tile batch, K3 at the UNet's 64^2 self-attention,
-    # the K4 step as one RDB's five launches on the tile batch, int8_amax
-    # on the trunk's input there, K1f at trunk w0 on TILE_BATCH (the
-    # full-width float32 forward's), K3f at the VAE mid-block's 1920^2, d
-    # 512 (the 48x40 float32 request's). K1f's three times are CUDA events
-    # over a call; K3f's are device time (its plain version's too). K4's
-    # standalone entry (conv3x3_int8) left the main path with this
-    # redesign: its shape checks still run, and no path launches it.
+    # conv_body on the tile batch, its 2x2 form and K1f's at the folded
+    # head's hr on the tile batch (4 x 536^2 x 256 -> 4 x 537^2 x 256), K2
+    # on the tile batch, K3 at the UNet's 64^2 self-attention, the K1 step
+    # and the K4 step each as one RDB's five launches on the tile batch
+    # (each bound the RDB's own, the five-launch floor printed beside it),
+    # int8_amax on the trunk's input there, K1f at trunk w0 on TILE_BATCH
+    # (the full-width float32 forward's), K3f at the VAE mid-block's
+    # 1920^2, d 512 (the 48x40 float32 request's). K1f's three times are
+    # CUDA events over a call; K3f's are device time (its plain version's
+    # too). K4's standalone entry (conv3x3_int8) left the main path with
+    # this redesign: its shape checks still run, and no path launches it.
     kernels = [{"name": k, "route": "cuda",
                 "source": f"{PKG}/{sources[k]}", "replaces": replaces[k],
                 "launches": launches[k],
                 **{key: results[k][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
-               for k in ("conv3x3", "conv2x2_s2d", "rdb_fused",
+               for k in ("conv3x3", "conv2x2_s2d", "conv3x3_rdb", "rdb_fused",
                          "flash_attention", "conv3x3_int8_rdb", "int8_amax",
                          "conv3x3_f32", "conv2x2_s2d_f32",
                          "flash_attention_f32")]

@@ -18,33 +18,11 @@
 // rest in MMAs that keep the tensor cores near full while two blocks share
 // an SM (PERF.md, tools/k1_ablation.py).
 //
-// Design: an implicit GEMM, M = output pixels, N = output channels, K =
-// 9 taps x Cin. A block (two warpgroups, one 16-pixel output row a warp)
-// owns an 8 x 16-pixel output tile and every output channel, walked in
-// tiles of at most N = 128 (w0's 192 as 2 x 96): the input patch is staged
-// once for all of them, the first tile's stores drain under the second
-// tile's MMAs, and N/2 <= 64 accumulators let two blocks share an SM.
-//  * The patch (10 x 18 pixels, 1-px SAME halo, 16/32/64 channels a pass
-//    as Cin is <= 16, <= 32 or more, so a Cin-32 conv stages no zeros)
-//    arrives by cp.async with zero-fill for the halo, the ragged edge and
-//    the channels past Cin. Its pixel pitch is padded by 16 bytes, so each
-//    8-row ldmatrix phase is conflict free. Each block also prefetches into
-//    L2 the patch of the block one wave later, whose loads then skip HBM.
-//  * The weights are packed once on the host (kernels/conv3x3.py,
-//    pack_conv3x3_weights) into the exact shared-memory image of each
-//    (N tile, pass, tap) slab, so one cp.async.bulk moves a slab, with no
-//    index math, into a ring of 3-4 slots with full/empty mbarriers;
-//    thread 0 refills a slot two taps after its last reader released it.
-//  * Each warpgroup issues wgmma.mma_async m64nNk16 (N an immediate: the
-//    kernel is templated on N and the pass width; Cout rounds up to the
-//    next instantiation with zero weight columns): A, its four warps'
-//    16-pixel output rows, from registers (ldmatrix of the patch, two sets
-//    alternating by tap so tap t loads while tap t-1 multiplies), B from
-//    the ring by descriptor. A slot goes back to the ring only after the
-//    MMAs that read it have retired (wgmma.wait_group 1).
-//  * The epilogue adds the bias, applies LeakyReLU, rounds to bf16 once,
-//    stages the tile in its own shared buffer and writes it with 16-byte
-//    coalesced stores.
+// Design: K1's mainloop (csrc/conv3x3_body.cuh), an implicit GEMM on
+// wgmma over 8 x 16-pixel tiles with every output channel in N tiles of at
+// most 128, two blocks an SM. The epilogue adds the bias, applies
+// LeakyReLU, rounds to bf16 once, stages the tile in its own shared buffer
+// and writes it with 16-byte coalesced stores.
 //
 // The folded RRDBNet head's 3x3 form (conv3x3_head_kernel: up1 and up2,
 // 64 -> 256; it replaces no Pallas kernel: the JAX package runs them as
@@ -65,90 +43,20 @@
 //    (r, s) goes to pixel (2r + oi, 2s + oj), channel f of a (2Ho, 2Wo, D)
 //    output; with D % 8 == 0 the 16-byte stores stay whole, otherwise the
 //    scalar store path takes it.
-#include "common.cuh"
-#include "wgmma.cuh"
+#include "conv3x3_body.cuh"
 
 namespace {
-
-using nesr::bf16;
-
-constexpr int TW = 16;   // output columns per tile = one warp's M rows
-
-// Two warpgroups a block (4 warps each, one 16-pixel output row a warp:
-// 8 x 16-pixel tiles), two blocks an SM (at most 128 registers a thread:
-// N/2 <= 64 accumulators and two sets of A fragments).
-constexpr int NWG = 2;
-constexpr int WARPS = NWG * 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int TH = WARPS;
-constexpr int SM_SMEM = 233472;   // shared memory of an H100 SM (228 KB)
 
 // Epilogue flags (the C entry points' `flags`).
 constexpr int LRELU = 1, ROUND_FIRST = 2, MASK = 4, D2S = 8;
 
-struct Params {
-  const bf16* x;
-  const bf16* wp;      // packed weights (pack_conv3x3_weights)
+struct Params : ConvParams {
   const float* bias;   // may be null
   bf16* y;
-  int H, W, Cin, Cout, kp;   // kp: Cin rounded up to the pass width
-  int Ho, Wo, pad;           // output size; the patch starts at -pad
-  int flags, D;              // epilogue flags; D = Cout / 4 (MASK, D2S)
-  int tiles_x, vec;          // vec: channels a patch copy (8, 4 or 1)
-  int vec_out;               // 16-byte output stores
-  int n_tiles;               // Cout in N-wide tiles, walked in the block
-  int wave;                  // blocks the card runs at once (2 an SM)
+  int Ho, Wo, pad;     // output size; the patch starts at -pad
+  int flags, D;        // epilogue flags; D = Cout / 4 (MASK, D2S)
+  int vec_out;         // 16-byte output stores
 };
-
-__host__ __device__ constexpr int round_up(int a, int b) {
-  return (a + b - 1) / b * b;
-}
-
-// Shared memory: [weight ring] [output tile] [patch] [full bars] [empty
-// bars]. A pass is KS k-steps of 16 input channels (KC = 16 KS); the patch
-// (TH + KT - 1 rows of TW + KT - 1 pixels for a KT x KT conv) has pixel
-// pitch KC + 8 and the output row pitch N + 8, so each 8-row ldmatrix
-// phase and each fragment store is conflict free. The ring has four
-// slots, or three where four would keep two blocks off one SM.
-template <int N, int KS, int KT>
-struct Smem {
-  static constexpr int KC = 16 * KS, PITCH = KC + 8, SLAB = KC * N;
-  static constexpr int PW = TW + KT - 1;   // patch row, pixels
-  static constexpr int OUT = TH * TW * (N + 8) * 2;
-  static constexpr int PATCH = round_up((TH + KT - 1) * PW * PITCH * 2, 16);
-  static constexpr int STAGES =
-      2 * (4 * SLAB * 2 + OUT + PATCH + 64 + 1024) <= SM_SMEM ? 4 : 3;
-  static constexpr int OUT_OFF = STAGES * SLAB * 2;
-  static constexpr int PATCH_OFF = OUT_OFF + OUT;
-  static constexpr int BAR_OFF = PATCH_OFF + PATCH;
-  static constexpr int BYTES = BAR_OFF + 2 * STAGES * 8;
-  // two blocks an SM, each with 1 KB the hardware keeps
-  static_assert(2 * (BYTES + 1024) <= SM_SMEM, "K1: two blocks an SM");
-};
-
-// Stage channels [c0, c0 + kc) of the (TH + KT - 1) x (TW + KT - 1) input
-// patch at (oy - pad, ox - pad), VEC channels a copy, zero-filling
-// out-of-image pixels and channels >= Cin.
-template <int VEC, int KT>
-__device__ void stage_patch(const Params& p, bf16* patch, int pitch, int n,
-                            int oy, int ox, int c0, int kc, int pad) {
-  constexpr int PW = TW + KT - 1;
-  const int nv = kc / VEC;
-  for (int it = threadIdx.x; it < (TH + KT - 1) * PW * nv; it += THREADS) {
-    const int v = it % nv, px = it / nv;
-    const int gy = oy - pad + px / PW, gx = ox - pad + px % PW;
-    const int ch = c0 + v * VEC;
-    const bool ok = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W && ch < p.Cin;
-    const bf16* src =
-        ok ? p.x + ((size_t)(n * p.H + gy) * p.W + gx) * p.Cin + ch : p.x;
-    bf16* dst = patch + px * pitch + v * VEC;
-    if constexpr (VEC == 1) {
-      *dst = ok ? *src : __float2bfloat16(0.f);
-    } else {
-      nesr::cp_async_zfill<VEC * 2>(dst, src, ok ? VEC * 2 : 0);
-    }
-  }
-}
 
 // MASK: whether output channel co of pixel (gy, gx) lies inside the frame.
 __device__ __forceinline__ bool kept(const Params& p, int gy, int gx,
@@ -170,145 +78,32 @@ __device__ __forceinline__ size_t out_index(const Params& p, int n, int gy,
   return (((size_t)n * p.Ho + gy) * p.Wo + gx) * p.Cout + co;
 }
 
-// HEAD: the folded head's forms (padding, frame mask, depth-to-space,
-// ROUND_FIRST); without it the SAME 3x3 conv with bias and LeakyReLU
-// only, its epilogue free of their code.
-template <int N, int KS, int KT, bool HEAD>
-__device__ __forceinline__ void conv_body(const Params& p) {
-  using S = Smem<N, KS, KT>;
-  constexpr int STAGES = S::STAGES, T = KT * KT;
-  const int pad = HEAD ? p.pad : 1;
-  extern __shared__ __align__(1024) unsigned char smem[];
-  bf16* out = reinterpret_cast<bf16*>(smem + S::OUT_OFF);
-  bf16* patch = reinterpret_cast<bf16*>(smem + S::PATCH_OFF);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
-  uint64_t* empty = full + STAGES;
+// K1's epilogue (conv_body's Epi). HEAD: the folded head's forms (padding,
+// frame mask, depth-to-space, ROUND_FIRST); without it the SAME 3x3 conv
+// with bias and LeakyReLU only, its epilogue free of their code.
+template <bool HEAD>
+struct K1Epi {
+  using P = Params;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int tx = blockIdx.x % p.tiles_x, ty = blockIdx.x / p.tiles_x;
-  const int n = blockIdx.z;
-  const int oy = ty * TH, ox = tx * TW;
-  const int npass = p.kp / S::KC;
-  // Slabs g = (N tile, pass, tap), contiguous in that order in p.wp.
-  const int total = p.n_tiles * T * npass;
-  // Shared addresses: the ring, the barriers, and this lane's ldmatrix row
-  // (patch pixel (warp, lane % 16), channel 8 (lane / 16)) at tap (0, 0).
-  const uint32_t ring_s = nesr::smem_u32(smem);
-  const uint32_t full_s = nesr::smem_u32(full), empty_s = full_s + 8 * STAGES;
-  const uint32_t a_s = nesr::smem_u32(patch) +
-      ((warp * S::PW + lane % 16) * S::PITCH + lane / 16 * 8) * 2;
-  auto issue = [&](int g) {
-    const int s = g % STAGES;
-    nesr::bulk_load(ring_s + s * S::SLAB * 2, p.wp + (size_t)g * S::SLAB,
-                    S::SLAB * 2, full_s + 8 * s);
-  };
-  // Warp `warp` is done with slab g (its MMAs retired): one arrival a warp.
-  auto release = [&](int g) {
-    __syncwarp();
-    if (lane == 0) nesr::mbar_arrive(empty_s + 8 * (g % STAGES));
-  };
-
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      nesr::mbar_init(&full[s], 1);
-      nesr::mbar_init(&empty[s], WARPS);
-    }
-    nesr::mbar_init_fence();
-  }
-  __syncthreads();
-  if (tid == 0)
-    for (int g = 0; g < STAGES && g < total; ++g) issue(g);
-  // Warm L2 with the patch of the block one wave later (blocks start in
-  // order of their index): one bulk prefetch a patch row, so that block's
-  // cp.async finds its input in L2 instead of HBM.
-  const int later = blockIdx.z * gridDim.x + blockIdx.x + p.wave;
-  if (warp == 0 && lane < TH + KT - 1 && p.vec == 8 &&
-      later < gridDim.x * gridDim.z) {
-    const int lx = later % gridDim.x, ln = later / gridDim.x;
-    const int gy = lx / p.tiles_x * TH - pad + lane;
-    const int x0 = max(lx % p.tiles_x * TW - pad, 0);
-    const int x1 = min(lx % p.tiles_x * TW + S::PW - pad, p.W);
-    if (gy >= 0 && gy < p.H && x1 > x0)
-      nesr::prefetch_l2(p.x + ((size_t)(ln * p.H + gy) * p.W + x0) * p.Cin,
-                        (x1 - x0) * p.Cin * 2);
+  static __device__ __forceinline__ int pad(const P& p) {
+    return HEAD ? p.pad : 1;
   }
 
-  float acc[N / 2];
-  // A fragments, double-buffered by tap parity: the MMAs of tap t-1 may
-  // still read one set while tap t's ldmatrix fills the other.
-  uint32_t a[2][KS][4];
-  const int frow = lane / 4, q = lane % 4;   // accumulator row, column pair
+  static __device__ __forceinline__ bool prefetches(const P&) {
+    return false;
+  }
 
-  for (int nt = 0; nt < p.n_tiles; ++nt) {
-#pragma unroll
-    for (int e = 0; e < N / 2; ++e) acc[e] = 0.f;
-    for (int c = 0; c < npass; ++c) {
-      // The patch of a pass is staged once and serves every N tile when
-      // there is one pass; with more, each pass is staged again.
-      if (nt == 0 || npass > 1) {
-        if (nt + c > 0) __syncthreads();   // every warp done reading it
-        switch (p.vec) {
-          case 8: stage_patch<8, KT>(p, patch, S::PITCH, n, oy, ox,
-                                     c * S::KC, S::KC, pad);
-                  break;
-          case 4: stage_patch<4, KT>(p, patch, S::PITCH, n, oy, ox,
-                                     c * S::KC, S::KC, pad);
-                  break;
-          default: stage_patch<1, KT>(p, patch, S::PITCH, n, oy, ox,
-                                      c * S::KC, S::KC, pad);
-        }
-        nesr::cp_async_wait_all();
-        __syncthreads();
-      }
-      const int g0 = (nt * npass + c) * T;
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        const int g = g0 + t, s = g % STAGES;
-        nesr::mbar_wait(full_s + 8 * s, (g / STAGES) & 1);
-        __syncwarp();
-        // A: this warp's 16 pixels (its output row, shifted by the tap) x
-        // 16 channels a k-step; B: the slab's k-steps by descriptor
-        // (K-major, no swizzle, core matrices 128 bytes apart along K, 256
-        // along N).
-        const int tap_off = ((t / KT) * S::PW + t % KT) * S::PITCH * 2;
-        const uint32_t bs = ring_s + s * S::SLAB * 2;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          nesr::ldsm_x4_at(a[t & 1][kk], a_s + tap_off + kk * 32);
-        nesr::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          nesr::wgmma_rs<N>(acc, a[t & 1][kk],
-                            nesr::wgmma_desc(bs + kk * 32 * N, 128, 256));
-        nesr::wgmma_commit();
-        // Tap t-1's MMAs have retired once at most this tap's group is in
-        // flight: its slot goes back to the ring.
-        if (t > 0) {
-          nesr::wgmma_wait<1>();
-          release(g - 1);
-        }
-        // Refill the slot of slab g-2, which every warp released one tap
-        // ago.
-        if (tid == 0 && g >= 2 && g - 2 + STAGES < total) {
-          nesr::mbar_wait(empty_s + 8 * ((g - 2) % STAGES),
-                          ((g - 2) / STAGES) & 1);
-          issue(g - 2 + STAGES);
-        }
-        __syncwarp();
-      }
-      nesr::wgmma_wait<0>();
-      release(g0 + T - 1);
-    }
-#pragma unroll
-    for (int e = 0; e < N / 2; ++e) nesr::reg_fence(acc[e]);
+  template <int N>
+  static __device__ __forceinline__ void prefetch(const P&, bf16*, int, int,
+                                                  int, int, int) {}
 
-    // Epilogue of this N tile: bias, LeakyReLU, bf16 rounding (once, or
-    // before the LeakyReLU and after it under ROUND_FIRST); the tile
-    // through its own shared buffer, then 16-byte stores (zeros outside
-    // the frame under MASK, to the depth-to-space pixel under D2S), which
-    // drain under the next N tile's MMAs.
-    __syncthreads();   // every warp done storing the last N tile
-    const int co0 = nt * N;
+  // Bias, LeakyReLU, bf16 rounding (once, or before the LeakyReLU and
+  // after it under ROUND_FIRST).
+  template <int N>
+  static __device__ __forceinline__ void stage(const P& p, bf16* out,
+                                               const float (&acc)[N / 2],
+                                               int warp, int frow, int q,
+                                               int co0) {
     const bool act = p.flags & LRELU;
     const bool first = HEAD && (p.flags & ROUND_FIRST);
 #pragma unroll
@@ -333,8 +128,15 @@ __device__ __forceinline__ void conv_body(const Params& p) {
             __floats2bfloat162_rn(v0, v1);
       }
     }
-    __syncthreads();
-    const int nvalid = min(N, p.Cout - co0);
+  }
+
+  // 16-byte stores (zeros outside the frame under MASK, to the
+  // depth-to-space pixel under D2S).
+  template <int N>
+  static __device__ __forceinline__ void write(const P& p, const bf16* out,
+                                               int n, int oy, int ox, int co0,
+                                               int nvalid) {
+    const int tid = threadIdx.x;
     if (!HEAD || !(p.flags & (MASK | D2S))) {
       // The NHWC output: 16-byte row segments, or channel by channel when
       // Cout is not a multiple of 8.
@@ -380,54 +182,39 @@ __device__ __forceinline__ void conv_body(const Params& p) {
       }
     }
   }
-}
+};
 
 // The forms, by name: the SAME 3x3 conv; the folded head's 3x3 form
 // (ROUND_FIRST, D2S).
 template <int N, int KS>
 __global__ void __launch_bounds__(THREADS, 2)
 conv3x3_kernel(const Params p) {
-  conv_body<N, KS, 3, false>(p);
+  conv_body<N, KS, 3, K1Epi<false>>(p);
 }
 
 template <int N, int KS>
 __global__ void __launch_bounds__(THREADS, 2)
 conv3x3_head_kernel(const Params p) {
-  conv_body<N, KS, 3, true>(p);
+  conv_body<N, KS, 3, K1Epi<true>>(p);
 }
 
-template <int N, int KS, int KT, bool HEAD>
+template <int N, int KS, bool HEAD>
 int launch(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int smem = Smem<N, KS, KT>::BYTES;
   void (*kernel)(const Params);
   if constexpr (HEAD) {
     kernel = conv3x3_head_kernel<N, KS>;
   } else {
     kernel = conv3x3_kernel<N, KS>;
   }
-  // Set per call: the attribute is per device, and the call is cheap.
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_y = (p.Ho + TH - 1) / TH;
-  dim3 grid(p.tiles_x * tiles_y, 1, batch);
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  Params q = p;
-  q.wave = 2 * sms;
-  kernel<<<grid, THREADS, smem, stream>>>(q);
-  return (int)cudaGetLastError();
+  return launch_tiles(kernel, Smem<N, KS, 3>::BYTES, p, p.Ho, batch, stream);
 }
 
 template <int N>
 int launch_ks(const Params& p, int ks, int batch, cudaStream_t stream) {
   switch (ks) {
-    case 1: return launch<N, 1, 3, false>(p, batch, stream);
-    case 2: return launch<N, 2, 3, false>(p, batch, stream);
-    default: return launch<N, 4, 3, false>(p, batch, stream);
+    case 1: return launch<N, 1, false>(p, batch, stream);
+    case 2: return launch<N, 2, false>(p, batch, stream);
+    default: return launch<N, 4, false>(p, batch, stream);
   }
 }
 
@@ -463,12 +250,11 @@ bool bad_flags(int flags, int Cout) {
 // The folded head's 3x3 form: passes of 64 input channels, n_width one of
 // 16, 64, 128 (kernels/conv3x3.py: pack_conv3x3_weights(head=True),
 // tile_width_2x2).
-template <int KT>
 int launch_head(const Params& p, int n_width, int batch, cudaStream_t s) {
   switch (n_width) {
-    case 16: return launch<16, 4, KT, true>(p, batch, s);
-    case 64: return launch<64, 4, KT, true>(p, batch, s);
-    case 128: return launch<128, 4, KT, true>(p, batch, s);
+    case 16: return launch<16, 4, true>(p, batch, s);
+    case 64: return launch<64, 4, true>(p, batch, s);
+    case 128: return launch<128, 4, true>(p, batch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -491,7 +277,7 @@ extern "C" int nesr_conv3x3(const void* x, const void* wp, const void* bias,
   if (flags & ~LRELU) {
     Params p = make_params(x, wp, bias, y, H, W, Cin, Cout, 64, 3, 1, flags);
     p.n_tiles = (Cout + n_width - 1) / n_width;
-    return launch_head<3>(p, n_width, N, s);
+    return launch_head(p, n_width, N, s);
   }
   const int ks = Cin <= 16 ? 1 : Cin <= 32 ? 2 : 4;
   Params p = make_params(x, wp, bias, y, H, W, Cin, Cout, 16 * ks, 3, 1,

@@ -11,6 +11,8 @@ from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
     conv3x3_int8, conv3x3_int8_plain, conv3x3_int8_rdb, conv3x3_int8_rdb_plain,
     int8_amax, int8_amax_plain)
+from neural_enhanced_super_resolution_torch.kernels.conv3x3_rdb import (
+    conv3x3_rdb, conv3x3_rdb_plain)
 from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
     rdb_fused, rdb_fused_plain)
 
@@ -18,6 +20,7 @@ __all__ = ["KernelError", "KernelInputError", "attention_auto",
            "conv2x2_s2d", "conv2x2_s2d_f32", "conv2x2_s2d_plain", "conv3x3", "conv3x3_f32", "conv3x3_int8", "conv3x3_int8_plain",
            "conv3x3_int8_rdb", "conv3x3_int8_rdb_plain", "int8_amax",
            "int8_amax_plain",
-           "conv3x3_plain", "flash_attention", "flash_attention_f32",
+           "conv3x3_plain", "conv3x3_rdb", "conv3x3_rdb_plain",
+           "flash_attention", "flash_attention_f32",
            "flash_attention_plain", "rdb_fused",
            "rdb_fused_plain"]

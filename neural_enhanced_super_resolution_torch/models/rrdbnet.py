@@ -6,10 +6,12 @@ on the CPU); every 3x3 conv goes through K1 (``kernels.conv3x3``), which
 accumulates in fp32. The trunk is one of:
 
 * ``"fused"`` (config ``esrgan_trunk`` unset or ``"xla"``): the source-major
-  fused RDB (``fuse_rdb``), whose five convs per RDB are K1 with no bias and
-  bf16 out, and whose dense-block assembly (PyTorch elementwise ops) makes
-  the same additions in the same order as the JAX package's
-  ``_rdb_fused``;
+  fused RDB (``fuse_rdb``), the JAX package's ``_rdb_fused``: five launches
+  of the K1 step (``kernels.conv3x3_rdb``) an RDB, each K1's bias-free conv
+  rounded to bf16 with its share of the dense-block assembly (the same
+  additions in the same order) in its epilogue, and each RRDB's residual
+  folded into its third RDB's last step; in float32 (the parity mode) the
+  five convs are K1f and the assembly runs in PyTorch between them;
 * ``"dform"``: one K2 launch (``kernels.rdb_fused``) per RDB, bf16 only;
 * ``"int8"``: the fused RDB with per-output-channel int8 weights and
   dynamic per-tensor int8 activations: the JAX package's
@@ -55,6 +57,8 @@ from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
     conv3x3_int8_plain, conv3x3_int8_rdb, int8_amax,
     pack_conv3x3_int8_weights, quantize_int8)
+from neural_enhanced_super_resolution_torch.kernels.conv3x3_rdb import (
+    conv3x3_rdb, conv3x3_rdb_plain)
 from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
     rdb_fused, rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.models.weights import HEAD_CONVS
@@ -337,13 +341,21 @@ class _StockRDB(nn.Module):
             c = torch.cat([c, conv(c, lrelu=True, plain=plain)], dim=-1)
         return x + 0.2 * self.convs[4](c, plain=plain)
 
+    def folds_skip(self, x: torch.Tensor) -> bool:
+        """Whether ``forward`` takes an RRDB's input as ``skip`` (see
+        ``_RRDB.forward``): never here."""
+        return False
+
 
 class FusedRDB(nn.Module):
-    """Source-major fused RDB: five K1 convs and an elementwise assembly,
-    or one K2.
+    """Source-major fused RDB: five launches of the K1 step
+    (``conv3x3_rdb``: K1's conv with its share of the dense-block assembly
+    in the epilogue) in bf16, or one K2 (``kernel``).
 
     fw: w0..w4 HWIO (from ``fuse_rdb``), fb: the (4g + nf,) biases;
-    p0..p4 are their packed images, which K1 and K2 read alike."""
+    p0..p4 are their packed images, which K1, its step and K2 read alike.
+    In float32 (the parity mode) the RDB is ``_composition``: five K1f
+    convs and the assembly in PyTorch."""
 
     def __init__(self, fw, fb, dtype, device, kernel: bool):
         super().__init__()
@@ -363,12 +375,45 @@ class FusedRDB(nn.Module):
     def packed(self) -> list[torch.Tensor]:
         return [self.p0, self.p1, self.p2, self.p3, self.p4]
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def folds_skip(self, x: torch.Tensor) -> bool:
+        """Whether ``forward`` runs the K1 step on x, and so takes
+        ``skip``: the source-major trunk in bf16."""
+        return not self.kernel and x.dtype == torch.bfloat16
+
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                skip: torch.Tensor | None = None) -> torch.Tensor:
+        """skip (the K1 step only): an RRDB's input, which makes the
+        result the RRDB's, skip + 0.2 * out."""
         if self.kernel:
             if plain:
                 return rdb_fused_plain(x, self.weights(), self.b)
             return rdb_fused(x, self.weights(), self.b,
                              packed=self.packed())
+        if not self.folds_skip(x):
+            if skip is not None:
+                raise ValueError("skip is folded by the K1 step (bf16) only")
+            return self._composition(x, plain)
+        x = x.contiguous()
+        n, h, wd, _ = x.shape
+        # The slots, laid out as conv 0's output, and x_1..x_4 in two
+        # buffers used in turns: step k reads x_k's halo while it writes
+        # x_{k+1}.
+        slots = torch.empty((n, h, wd, self.b.numel()), dtype=x.dtype,
+                            device=x.device)
+        xs = [torch.empty((n, h, wd, self.gc), dtype=x.dtype,
+                          device=x.device) for _ in range(2)]
+        t = x
+        for k, (w, p) in enumerate(zip(self.weights(), self.packed())):
+            io = dict(x=x, skip=skip) if k == 4 else dict(xn=xs[k % 2])
+            t = (conv3x3_rdb_plain(k, t, w, self.b, slots, **io) if plain
+                 else conv3x3_rdb(k, t, w, self.b, slots, packed=p, **io))
+        return t
+
+    def _composition(self, x: torch.Tensor, plain: bool = False
+                     ) -> torch.Tensor:
+        """The RDB as five bias-free K1 (K1f) convs with the dense-block
+        assembly in PyTorch between them: the K1 step's plain composition,
+        and the float32 trunk."""
         g, b, dt = self.gc, self.b, x.dtype
         w = self.weights()
         p = self.packed()
@@ -416,6 +461,11 @@ class Int8RDB(nn.Module):
         self.register_buffer("b", b.to(device=device, dtype=torch.float32)
                              .contiguous())
         self.gc = wq[1].shape[2]
+
+    def folds_skip(self, x: torch.Tensor) -> bool:
+        """Whether ``forward`` takes ``skip``: always (its last step adds
+        the residual, and the plain version adds it after)."""
+        return True
 
     def forward(self, x: torch.Tensor, plain: bool = False,
                 scales: torch.Tensor | None = None,
@@ -491,19 +541,22 @@ class _RRDB(nn.Module):
         """scales (int8 trunk): the (16,) slice of an ``int8_amax`` chain
         whose [0] is max|x| (made here when None); the third RDB's last
         step adds the residual x + 0.2 * out and fills [15] with its
-        max, the next RRDB's scale."""
-        if self.int8 and not plain:
-            if scales is None:
-                scales = int8_amax(x, 15)
+        max, the next RRDB's scale. Where the RDBs fold the residual
+        (``folds_skip``: the K1 step, the int8 trunk), the third takes x
+        as ``skip``; otherwise it is a separate add."""
+        if not self.rdbs[0].folds_skip(x):
             out = x
-            for r, rdb in enumerate(self.rdbs):
-                out = rdb(out, scales=scales[5 * r:5 * r + 6],
-                          skip=x if r == 2 else None)
-            return out
+            for rdb in self.rdbs:
+                out = rdb(out, plain=plain)
+            return x + 0.2 * out
+        if self.int8 and not plain and scales is None:
+            scales = int8_amax(x, 15)
         out = x
-        for rdb in self.rdbs:
-            out = rdb(out, plain=plain)
-        return x + 0.2 * out
+        for r, rdb in enumerate(self.rdbs):
+            chain = ({} if scales is None
+                     else {"scales": scales[5 * r:5 * r + 6]})
+            out = rdb(out, plain=plain, skip=x if r == 2 else None, **chain)
+        return out
 
 
 class RRDBNet(nn.Module):

@@ -11,7 +11,9 @@ kernel (bf16 outputs; the two sum in another order), 3e-2 for a whole
 forward; K4 (the int8 conv) equals its plain version bit for bit (exact
 integer sums, the same float32 epilogue), and so does its redesign, the
 int8 RDB step (conv3x3_int8_rdb: x_{k+1} or out, the slots and the scale
-chain), with int8_amax; K3 (flash attention) 2e-2 of max|plain| with no
+chain), with int8_amax; the bf16 RDB step (conv3x3_rdb: K1's conv with
+the dense-block assembly) equals the composition it replaces (five K1
+convs with the assembly in PyTorch) bit for bit; K3 (flash attention) 2e-2 of max|plain| with no
 floor, on q and k
 of std 2 so that each softmax row is peaked. The float32 forms (K1f, K3f)
 1e-5 of max|plain| (float32 sums in another order), 1e-4 for a forward. The stages without a kernel
@@ -27,13 +29,15 @@ import torch
 from neural_enhanced_super_resolution_torch.kernels import (
     KernelError, KernelInputError, attention_auto, conv3x3, conv3x3_f32,
     conv3x3_int8, conv3x3_int8_plain, conv3x3_int8_rdb,
-    conv3x3_int8_rdb_plain, conv3x3_plain, flash_attention,
+    conv3x3_int8_rdb_plain, conv3x3_plain, conv3x3_rdb, conv3x3_rdb_plain,
+    flash_attention,
     flash_attention_f32, flash_attention_plain, int8_amax, int8_amax_plain,
     rdb_fused, rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
     pack_conv3x3_int8_weights)
 from neural_enhanced_super_resolution_torch.models import (
     RRDBNet, RRDBNetConfig, init_rrdbnet, save_state_dict)
+from neural_enhanced_super_resolution_torch.models.rrdbnet import FusedRDB
 from neural_enhanced_super_resolution_torch.models.segformer import (
     SegFormerConfig, load_segformer, write_synthetic_segformer)
 from neural_enhanced_super_resolution_torch.ops.nlmeans import (
@@ -326,8 +330,9 @@ def test_product_path_goes_through_the_kernels(cuda, tmp_path, trunk):
         "output_dir": str(tmp_path / "out")})
     assert pipe.config["precision"] == "bfloat16"
     rng = np.random.default_rng(6)
-    counts = (conv3x3.launches, rdb_fused.launches, conv3x3_plain.calls,
-              rdb_fused_plain.calls)
+    counts = (conv3x3.launches, rdb_fused.launches, conv3x3_rdb.launches,
+              conv3x3_plain.calls, rdb_fused_plain.calls,
+              conv3x3_rdb_plain.calls)
     for hw in ((48, 56), (150, 136)):   # whole forward; streamed final
         img = np.kron(rng.integers(0, 256, (hw[0] // 8 + 1, hw[1] // 8 + 1, 3),
                                    dtype=np.uint8),
@@ -335,11 +340,13 @@ def test_product_path_goes_through_the_kernels(cuda, tmp_path, trunk):
         out = pipe.enhance_array(img)
         assert out.shape == (4 * hw[0], 4 * hw[1], 3) and out.std() > 0
     assert "esrgan+post/streamed" in pipe.timer.totals
-    k1, k2, p1, p2 = (a - b for a, b in zip(
-        (conv3x3.launches, rdb_fused.launches, conv3x3_plain.calls,
-         rdb_fused_plain.calls), counts))
+    k1, k2, steps, p1, p2, p3 = (a - b for a, b in zip(
+        (conv3x3.launches, rdb_fused.launches, conv3x3_rdb.launches,
+         conv3x3_plain.calls, rdb_fused_plain.calls,
+         conv3x3_rdb_plain.calls), counts))
     assert k1 > 0 and (k2 > 0) == (trunk == "dform")
-    assert p1 == 0 and p2 == 0
+    assert (steps > 0) == (trunk != "dform")
+    assert p1 == 0 and p2 == 0 and p3 == 0
 
 
 @pytest.mark.parametrize("overrides", [
@@ -349,8 +356,8 @@ def test_product_path_goes_through_the_kernels(cuda, tmp_path, trunk):
 def test_config_modes_go_through_the_kernels(cuda, tmp_path, overrides):
     """The int8 trunk runs its convs on the K4 step (15 launches an RRDB,
     one int8_amax a forward, the standalone K4 never) and its head on K1,
-    and a parity-tiling request each tile's forward on K1; no plain
-    version."""
+    and a parity-tiling request each tile's forward on K1 and the K1 step;
+    no plain version."""
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
     cfg = RRDBNetConfig(num_in_ch=12, num_out_ch=3, scale=4, num_feat=64,
                         num_block=1, num_grow_ch=32)
@@ -367,18 +374,73 @@ def test_config_modes_go_through_the_kernels(cuda, tmp_path, overrides):
     def counts():
         return (conv3x3.launches, conv3x3_int8_rdb.launches,
                 int8_amax.launches, conv3x3_int8.launches,
-                conv3x3_plain.calls, conv3x3_int8_plain.calls,
-                conv3x3_int8_rdb_plain.calls, int8_amax_plain.calls)
+                conv3x3_rdb.launches, conv3x3_plain.calls,
+                conv3x3_int8_plain.calls, conv3x3_int8_rdb_plain.calls,
+                int8_amax_plain.calls, conv3x3_rdb_plain.calls)
 
     before = counts()
     out = pipe.enhance_array(img)
-    k1, k4s, amax, k4, *plain = (a - b for a, b in zip(counts(), before))
+    k1, k4s, amax, k4, steps, *plain = (
+        a - b for a, b in zip(counts(), before))
     want = (300, 272, 3) if overrides.get("parity_tiling") else (600, 544, 3)
     assert out.shape == want and out.std() > 0
     int8 = "esrgan_trunk" in overrides
     assert k1 > 0 and (k4s > 0) == int8 and (amax > 0) == int8
-    assert k4s == 15 * amax and k4 == 0
+    assert k4s == 15 * amax and k4 == 0 and (steps > 0) == (not int8)
     assert not any(plain)
+
+
+@pytest.mark.parametrize("nf,g,shape", [(64, 32, (2, 37, 45)),
+                                        (16, 8, (1, 33, 20)),
+                                        (12, 4, (2, 21, 35))],
+                         ids=["trunk", "fixture", "scalar_paths"])
+@pytest.mark.parametrize("skip", [False, True], ids=["", "skip"])
+def test_rdb_step_matches_the_composition(cuda, nf, g, shape, skip):
+    """The K1 step's five launches an RDB equal FusedRDB._composition on
+    K1 bit for bit (with the RRDB skip: skip + 0.2 * it), with no plain
+    call; each step within K1's bar of its plain version."""
+    gen = torch.Generator().manual_seed(nf + g)
+    fw = [(torch.randn((3, 3, ci, co), generator=gen) * 0.05).bfloat16()
+          .float() for ci, co in ((nf, 4 * g + nf), (g, 3 * g + nf),
+                                  (g, 2 * g + nf), (g, g + nf), (g, nf))]
+    rdb = FusedRDB(fw, torch.randn((4 * g + nf,), generator=gen) * 0.1,
+                   torch.bfloat16, cuda, kernel=False)
+    x, sk = ((torch.randn((*shape, nf), generator=gen) * 0.5).to(
+        cuda, torch.bfloat16) for _ in range(2))
+    sk = sk if skip else None
+    launches, calls = conv3x3_rdb.launches, conv3x3_rdb_plain.calls
+    got = rdb(x, skip=sk)
+    torch.cuda.synchronize()
+    assert (conv3x3_rdb.launches, conv3x3_rdb_plain.calls) == (
+        launches + 5, calls)
+    ref = rdb._composition(x)
+    ref = ref if sk is None else sk + 0.2 * ref
+    assert torch.equal(got, ref)
+    slots = torch.zeros((*shape, 4 * g + nf), dtype=torch.bfloat16,
+                        device=cuda)
+    slots_p, t = slots.clone(), x
+    for k, (w, p) in enumerate(zip(rdb.weights(), rdb.packed())):
+        extra = dict(x=x, skip=sk) if k == 4 else {}
+        y = conv3x3_rdb(k, t, w, rdb.b, slots, packed=p, **extra)
+        assert _rel(y, conv3x3_rdb_plain(k, t, w, rdb.b, slots_p,
+                                         **extra)) <= 1e-2
+        assert _rel(slots[..., (k + 1) * g:],
+                    slots_p[..., (k + 1) * g:]) <= 1e-2
+        t = y
+
+
+def test_rdb_step_refuses_what_it_does_not_take(cuda):
+    """A float32 source and x_{k+1} written over x_k raise before a
+    launch."""
+    x = torch.zeros((1, 8, 8, 16), device=cuda)
+    w = torch.zeros((3, 3, 16, 48), dtype=torch.bfloat16, device=cuda)
+    b = torch.zeros(48, device=cuda)
+    slots = torch.zeros((1, 8, 8, 48), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(KernelInputError, match="bf16"):
+        conv3x3_rdb(0, x, w, b, slots)
+    xk = torch.zeros((1, 8, 8, 8), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(KernelInputError, match="overwrite"):
+        conv3x3_rdb(1, xk, w[:, :, :8, 8:].contiguous(), b, slots, xn=xk)
 
 
 def _swinir_ckpt(path, depths=(2, 2)):

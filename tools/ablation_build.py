@@ -24,34 +24,50 @@ def nvcc() -> str:
     return _build._nvcc()
 
 
-def prepare(out: str, name: str, source: str, edits=(), *, csrc: str = CSRC,
-            finish=None, ptxas: bool = False):
-    """Copy ``csrc`` to ``out/name``, apply ``edits`` to its ``source`` and
-    start nvcc on that file alone; returns (library path, edited text,
-    the nvcc process, its output piped).
+def apply_edits(name: str, texts: dict, edits) -> dict:
+    """``texts`` (file name -> text) with each edit (old, new) applied to
+    every file: a string replaced wherever it appears, or a compiled
+    pattern substituted; one that matches nothing in any file fails
+    loudly."""
+    texts = dict(texts)
+    for old, new in edits:
+        n = 0
+        for key, text in texts.items():
+            if isinstance(old, re.Pattern):
+                texts[key], k = old.subn(new, text)
+            else:
+                k = text.count(old)
+                texts[key] = text.replace(old, new)
+            n += k
+        if n == 0:
+            raise SystemExit(f"{name}: edit no longer matches: {old!r}")
+    return texts
 
-    Each edit is (old, new): a string replaced wherever it appears, or a
-    compiled pattern substituted; one that matches nothing fails loudly.
-    ``finish`` (text -> text) runs after the edits. ``ptxas`` adds the
-    ptxas report (registers, spills) to nvcc's output."""
+
+def prepare(out: str, name: str, source: str, edits=(), *, csrc: str = CSRC,
+            finish=None, ptxas: bool = False, headers=()):
+    """Copy ``csrc`` to ``out/name``, apply ``edits`` to its ``source``
+    and to those of the ``headers`` it holds (apply_edits), and start nvcc
+    on that source alone; returns (library path, edited text of the source, the
+    nvcc process, its output piped). ``finish`` (text -> text) runs on the
+    source after the edits. ``ptxas`` adds the ptxas report (registers,
+    spills) to nvcc's output."""
     src_dir = os.path.join(out, name)
     shutil.rmtree(src_dir, ignore_errors=True)
     shutil.copytree(csrc, src_dir)
-    path = os.path.join(src_dir, source)
-    with open(path) as f:
-        text = f.read()
-    for old, new in edits:
-        if isinstance(old, re.Pattern):
-            text, n = old.subn(new, text)
-        else:
-            n = text.count(old)
-            text = text.replace(old, new)
-        if n == 0:
-            raise SystemExit(f"{name}: edit no longer matches: {old!r}")
+    texts = {}
+    for key in (source, *headers):
+        if key == source or os.path.exists(os.path.join(src_dir, key)):
+            with open(os.path.join(src_dir, key)) as f:
+                texts[key] = f.read()
+    texts = apply_edits(name, texts, edits)
     if finish is not None:
-        text = finish(text)
-    with open(path, "w") as f:
-        f.write(text)
+        texts[source] = finish(texts[source])
+    for key, text in texts.items():
+        with open(os.path.join(src_dir, key), "w") as f:
+            f.write(text)
+    text = texts[source]
+    path = os.path.join(src_dir, source)
     so = os.path.join(src_dir, f"lib_{name}.so")
     cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-Xcompiler", "-fPIC", *(["-Xptxas", "-v"] if ptxas else []),

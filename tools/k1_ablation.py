@@ -4,11 +4,12 @@ taken out, on one CUDA GPU.
     python3 tools/k1_ablation.py [--baseline CSRC_DIR]
 
 Copies ``csrc/`` into ``build/k1_ablation/<variant>/``, edits each copy's
-``conv3x3.cu`` as listed in VARIANTS (the edits are textual; a variant
-whose text no longer matches fails loudly), builds each copy with its own
-nvcc (all at once), and times every variant at the fused trunk's w0, w2
-and w4 and at conv_body on the 4 x 268 x 268 tile batch, with CUDA events
-over REPS launches after a warm-up, in the order base, variants, base.
+``conv3x3.cu`` and its mainloop ``conv3x3_body.cuh`` as listed in VARIANTS
+(the edits are textual; a variant whose text no longer matches fails
+loudly), builds each copy with its own nvcc (all at once), and times
+every variant at the fused trunk's w0, w2 and w4 and at conv_body on the
+4 x 268 x 268 tile batch, with CUDA events over REPS launches after a
+warm-up, in the order base, variants, base.
 The variants compute wrong outputs on purpose; only their times mean
 anything. One more copy stamps the GPU's clock (thread 0 of each block)
 at each phase of a block, and the median phase times are printed for
@@ -36,8 +37,8 @@ REPS = 20
 SHAPES = [("w0 64->192", 64, 192), ("w2 32->128", 32, 128),
           ("w4 32->64", 32, 64), ("conv_body 64->64", 64, 64)]
 KEEP_WIDTHS = (64, 96, 128)   # instantiations the shapes need
-# variant: [(old text, new text), ...] applied to conv3x3.cu, each to every
-# place the old text appears
+# variant: [(old text, new text), ...] applied to conv3x3.cu and
+# conv3x3_body.cuh, each to every place the old text appears
 VARIANTS = {
     "base": [],
     # the output's global stores skipped (the tile still goes through
@@ -81,19 +82,19 @@ TRACE_EDITS = [
      "k1_trace[(blockIdx.z * gridDim.x + blockIdx.x) * 8 + (i)] = t_; }\n"),
     ("  constexpr int STAGES = S::STAGES, T = KT * KT;\n",
      "  constexpr int STAGES = S::STAGES, T = KT * KT;\n  K1_MARK(0);\n"),
-    ("        nesr::cp_async_wait_all();\n        __syncthreads();\n      }\n",
-     "        nesr::cp_async_wait_all();\n        __syncthreads();\n      }\n"
-     "      if (nt == 0) K1_MARK(1);\n"),
+    ("      else cp_async_wait<0>();\n      __syncthreads();\n    }\n",
+     "      else cp_async_wait<0>();\n      __syncthreads();\n    }\n"
+     "    if (nt == 0) K1_MARK(1);\n"),
     ("        nesr::mbar_wait(full_s + 8 * s, (g / STAGES) & 1);\n",
      "        nesr::mbar_wait(full_s + 8 * s, (g / STAGES) & 1);\n"
      "        if (g == 0) K1_MARK(2);\n"),
     ("      release(g0 + T - 1);\n    }\n",
      "      release(g0 + T - 1);\n    }\n"
      "    if (nt < 2) K1_MARK(3 + 2 * nt);\n"),
-    ("                                  : __float2bfloat16(0.f);\n"
-     "      }\n    }\n",
-     "                                  : __float2bfloat16(0.f);\n"
-     "      }\n    }\n    if (nt < 2) K1_MARK(4 + 2 * nt);\n"),
+    ("    Epi::template write<N>(p, tile, n, oy, ox, co0, "
+     "min(N, p.Cout - co0));\n",
+     "    Epi::template write<N>(p, tile, n, oy, ox, co0, "
+     "min(N, p.Cout - co0));\n    if (nt < 2) K1_MARK(4 + 2 * nt);\n"),
 ]
 
 
@@ -104,7 +105,8 @@ def _keep_widths(text: str) -> str:
 
 
 def _prepare(name: str, edits, **kw):
-    return prepare(OUT, name, "conv3x3.cu", edits, finish=_keep_widths, **kw)
+    return prepare(OUT, name, "conv3x3.cu", edits, finish=_keep_widths,
+                   headers=("conv3x3_body.cuh",), **kw)
 
 
 def main() -> int:

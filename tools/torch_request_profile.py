@@ -9,9 +9,9 @@ seeded synthetic weights and prints:
 1. the card (``nvidia-smi`` name and power limit);
 2. for each trunk (K1 fused, K2 dform), one forward on four 268x268 tiles:
    the unprofiled wall clock and a ``torch.profiler`` split of device time
-   by kernel group (K1 split into the trunk's convs and the head's by
-   instantiation; the elementwise group is the fused trunk's assembly plus
-   the head's residual add, nearest-x2 copies and casts);
+   by kernel group (the fused trunk's RDBs on the K1 step, K1 split into
+   the trunk's convs and the head's by instantiation, the elementwise
+   group the trunk's residual adds and casts);
 3. for each trunk, ``enhance_image`` on a seeded 1024x768 PNG at ``-n 1``:
    three wall clocks after a warm-up, the ``StageTimer`` stages, and one
    profiled run's device-busy share of its wall clock;
@@ -56,7 +56,9 @@ def breakdown(prof) -> tuple[float, list[str]]:
         if e.device_type != DeviceType.CUDA or e.key.startswith("nesr/"):
             continue
         k = e.key
-        if "conv3x3_kernel" in k:
+        if "rdb_bf16_step_kernel" in k:
+            name = "K1 step rdb_bf16_step_kernel"
+        elif "conv3x3_kernel" in k:
             inst = k.split("conv3x3_kernel<", 1)[-1].split(">", 1)[0]
             part = "trunk" if inst.replace(" ", "") in k1_trunk else "head"
             name = f"K1 {part} conv3x3_kernel"
