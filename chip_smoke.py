@@ -2284,12 +2284,44 @@ def check_rdb_bf16_steps(torch, rdb, x, skip, label: str) -> list:
     return failed, dp
 
 
+def log_rdb_step_plans(torch, rdb, x) -> None:
+    """Each step's launch on x (kernels/conv3x3_rdb.py: step_plan): the
+    instantiation, grid, N tiles a sweep, stages, path and shared memory,
+    beside that instantiation's registers and spills from the build log."""
+    from neural_enhanced_super_resolution_torch.kernels import _build
+    from neural_enhanced_super_resolution_torch.kernels.conv3x3_rdb import (
+        step_plan)
+    tag = os.path.basename(_build.library_path())[len("libnesr_torch_"):-3]
+    path = os.path.join(_build.build_dir(), f"build_{tag}.log")
+    lines = open(path).read().splitlines() if os.path.exists(path) else []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n, h, w, nf = x.shape
+    out = []
+    for k, wk in enumerate(rdb.weights()):
+        cin, cout = wk.shape[2], wk.shape[3]
+        p = step_plan(k, cin, cout, nf, n, h, w, sms)
+        name = f"rdb_bf16_step_kernelILi{p.n_width}ELi{p.ks}E"
+        regs = next((" | ".join(ln.split(":", 1)[-1].strip()
+                                for ln in lines[i + 1:i + 4])
+                     for i, line in enumerate(lines)
+                     if "Compiling entry function" in line and name in line),
+                    "not in the build log")
+        out.append(f"step {k} ({cin}->{cout}) <{p.n_width},{p.ks}>: grid "
+                   f"{p.grid}, {p.tiles} tiles, {p.nps} N tile(s) a sweep, "
+                   f"{p.stages} stages, {'bulk' if p.bulk else 'cp.async'} "
+                   f"path, {p.smem} B shared; ptxas: {regs}")
+    log(f"K1 step launches on {tuple(x.shape)}: " + "; ".join(out))
+
+
 def check_conv3x3_rdb(torch, gen) -> dict:
     """The K1 step (csrc/rdb_bf16.cu) on TILE_BATCH at full width (nf 64,
     growth 32) with and without the RRDB skip, at the trained fixture's
-    widths (16, 8) on 1 x 80^2 and at widths the 16-byte paths do not take
-    (12, 4): each step against conv3x3_rdb_plain, the RDB against the
-    composition on K1 (check_rdb_bf16_steps). Then, on TILE_BATCH, device
+    widths (16, 8) on 1 x 80^2, at widths the 16-byte paths do not take
+    (12, 4), and at full width on the persistent walk's edges (1 x 268^2,
+    1 x 17 x 9) with and without the skip: each step against
+    conv3x3_rdb_plain, the RDB against the composition on K1
+    (check_rdb_bf16_steps); each step's launch and its instantiation's
+    registers and spills. Then, on TILE_BATCH, device
     time of an RDB in turns: the five steps, the composition (five K1
     convs + the PyTorch assembly: the yardstick; no single PyTorch call
     computes an RDB), K2 and the K4 step (with its int8_amax) on the same
@@ -2322,6 +2354,17 @@ def check_conv3x3_rdb(torch, gen) -> dict:
         torch, odd, _rnd(torch, gen, 2, 21, 35, 12, scale=0.5),
         _rnd(torch, gen, 2, 21, 35, 12, scale=0.5),
         "scalar paths (nf 12, g 4)")[0]
+    # The persistent walk's edges: 1 x 268^2 is 1,139 tiles, which no grid
+    # of at most 132 blocks of two consumers divides; 1 x 17 x 9 is 5 tiles
+    # for 3 blocks, the last block's second consumer idle.
+    for shape, label in (((1, 268, 268), "ragged walk"),
+                         ((1, 17, 9), "fewer tiles than blocks")):
+        xr = _rnd(torch, gen, *shape, 64, scale=0.5)
+        failed += check_rdb_bf16_steps(torch, rdb, xr, None, label)[0]
+        failed += check_rdb_bf16_steps(
+            torch, rdb, xr, _rnd(torch, gen, *shape, 64, scale=0.5),
+            label)[0]
+    log_rdb_step_plans(torch, rdb, x)
     if failed:
         raise AssertionError(f"K1 step differs from its references: "
                              f"{failed}")

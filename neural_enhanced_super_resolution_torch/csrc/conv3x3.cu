@@ -89,14 +89,6 @@ struct K1Epi {
     return HEAD ? p.pad : 1;
   }
 
-  static __device__ __forceinline__ bool prefetches(const P&) {
-    return false;
-  }
-
-  template <int N>
-  static __device__ __forceinline__ void prefetch(const P&, bf16*, int, int,
-                                                  int, int, int) {}
-
   // Bias, LeakyReLU, bf16 rounding (once, or before the LeakyReLU and
   // after it under ROUND_FIRST).
   template <int N>

@@ -1,10 +1,12 @@
 // K1's mainloop: a KT x KT convolution on NHWC bf16 as an implicit GEMM
-// on wgmma with fp32 sums, shared by K1 (csrc/conv3x3.cu: the SAME 3x3
-// conv and the folded head's 3x3 form) and the K1 step (csrc/rdb_bf16.cu:
-// a conv of the bf16 RDB with its share of the dense-block assembly). Its
-// epilogue is a compile-time parameter, so each kernel compiles only its
-// own, and both sum in the same K order (pass, tap, k16) over the same N
-// tiles: the step's convs equal K1's bit for bit.
+// on wgmma with fp32 sums (csrc/conv3x3.cu: the SAME 3x3 conv and the
+// folded head's 3x3 form; the epilogue a compile-time parameter, so each
+// compiles only its own). Its pieces are shared with the K1 step
+// (csrc/rdb_bf16.cu: a conv of the bf16 RDB with its share of the
+// dense-block assembly, a persistent kernel of its own): the patch
+// staging (stage_pass), a lane's ldmatrix row (lane_a_addr) and a tap's
+// wgmma issue (mma_tap), so both sum in the same K order (pass, tap, k16)
+// over the same N tiles and the step's convs equal K1's bit for bit.
 //
 // Design: M = output pixels, N = output channels, K = KT^2 taps x Cin. A
 // block (two warpgroups, one 16-pixel output row a warp) owns an 8 x
@@ -32,9 +34,7 @@
 //    the ring by descriptor. A slot goes back to the ring only after the
 //    MMAs that read it have retired (wgmma.wait_group 1).
 //  * The epilogue (Epi) stages the tile's fragments in the block's own
-//    shared buffer and writes it with 16-byte coalesced stores; before an
-//    N tile's MMAs it may fill that buffer by cp.async (the step's slots),
-//    committed after the patch so the MMAs start while it lands.
+//    shared buffer and writes it with 16-byte coalesced stores.
 #pragma once
 
 #include "common.cuh"
@@ -75,10 +75,19 @@ __host__ __device__ constexpr int round_up(int a, int b) {
 // pitch KC + 8 and the output row pitch N + 8, so each 8-row ldmatrix
 // phase and each fragment access is conflict free. The ring has four
 // slots, or three where four would keep two blocks off one SM.
+// The patch of a pass: KS k-steps of 16 input channels (KC = 16 KS) at
+// pixel pitch KC + 8, rows of TW + KT - 1 pixels.
+template <int KS, int KT>
+struct PatchGeom {
+  static constexpr int KC = 16 * KS, PITCH = KC + 8;
+  static constexpr int PW = TW + KT - 1;   // patch row, pixels
+};
+
 template <int N, int KS, int KT>
 struct Smem {
-  static constexpr int KC = 16 * KS, PITCH = KC + 8, SLAB = KC * N;
-  static constexpr int PW = TW + KT - 1;   // patch row, pixels
+  using G = PatchGeom<KS, KT>;
+  static constexpr int KC = G::KC, PITCH = G::PITCH, PW = G::PW;
+  static constexpr int SLAB = KC * N;
   static constexpr int OUT = TH * TW * (N + 8) * 2;
   static constexpr int PATCH = round_up((TH + KT - 1) * PW * PITCH * 2, 16);
   static constexpr int STAGES =
@@ -102,15 +111,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
 }
 
-// Stage channels [c0, c0 + kc) of the (TH + KT - 1) x (TW + KT - 1) input
-// patch at (oy - pad, ox - pad), VEC channels a copy, zero-filling
-// out-of-image pixels and channels >= Cin.
-template <int VEC, int KT>
+// Stage channels [c0, c0 + kc) of the ROWS x (TW + KT - 1) input patch
+// at (oy - pad, ox - pad), VEC channels a copy, zero-filling out-of-image
+// pixels and channels >= Cin; threads first, first + stride, ... share
+// the copies (cp.async, or plain stores when VEC is 1).
+template <int VEC, int KT, int ROWS>
 __device__ void stage_patch(const ConvParams& p, bf16* patch, int pitch,
-                            int n, int oy, int ox, int c0, int kc, int pad) {
+                            int n, int oy, int ox, int c0, int kc, int pad,
+                            int first, int stride) {
   constexpr int PW = TW + KT - 1;
   const int nv = kc / VEC;
-  for (int it = threadIdx.x; it < (TH + KT - 1) * PW * nv; it += THREADS) {
+  for (int it = first; it < ROWS * PW * nv; it += stride) {
     const int v = it % nv, px = it / nv;
     const int gy = oy - pad + px / PW, gx = ox - pad + px % PW;
     const int ch = c0 + v * VEC;
@@ -126,32 +137,60 @@ __device__ void stage_patch(const ConvParams& p, bf16* patch, int pitch,
   }
 }
 
-// Pass c of the patch, committed as one cp.async group.
-template <int KS, int KT>
+// Pass c of a patch of ROWS rows (K1: its tile's TH + KT - 1), the copies
+// shared by threads first, first + stride, ...; the caller commits them.
+template <int KS, int KT, int ROWS>
 __device__ __forceinline__ void stage_pass(const ConvParams& p, bf16* patch,
                                            int n, int oy, int ox, int c,
-                                           int pad) {
+                                           int pad, int first, int stride) {
   constexpr int KC = 16 * KS;
   switch (p.vec) {
-    case 8: stage_patch<8, KT>(p, patch, KC + 8, n, oy, ox, c * KC, KC, pad);
+    case 8: stage_patch<8, KT, ROWS>(p, patch, KC + 8, n, oy, ox, c * KC,
+                                     KC, pad, first, stride);
             break;
-    case 4: stage_patch<4, KT>(p, patch, KC + 8, n, oy, ox, c * KC, KC, pad);
+    case 4: stage_patch<4, KT, ROWS>(p, patch, KC + 8, n, oy, ox, c * KC,
+                                     KC, pad, first, stride);
             break;
-    default: stage_patch<1, KT>(p, patch, KC + 8, n, oy, ox, c * KC, KC,
-                                pad);
+    default: stage_patch<1, KT, ROWS>(p, patch, KC + 8, n, oy, ox, c * KC,
+                                      KC, pad, first, stride);
   }
-  cp_async_commit();
+}
+
+// This lane's ldmatrix row address at tap (0, 0) for a warp whose 16
+// output pixels are patch row `row`: patch pixel (row, lane % 16),
+// channels 8 (lane / 16) on.
+template <int KS, int KT>
+__device__ __forceinline__ uint32_t lane_a_addr(uint32_t patch_s, int row,
+                                                int lane) {
+  using G = PatchGeom<KS, KT>;
+  return patch_s + ((row * G::PW + lane % 16) * G::PITCH + lane / 16 * 8) * 2;
+}
+
+// Tap t of a warpgroup's conv: A, this warp's 16 pixels (its output row,
+// shifted by the tap) x 16 channels a k-step, by ldmatrix into `a`; B,
+// the slab's k-steps at shared address bs by descriptor (K-major, no
+// swizzle, core matrices 128 bytes apart along K, 256 along N); the KS
+// MMAs committed as one group.
+template <int N, int KS, int KT>
+__device__ __forceinline__ void mma_tap(float (&acc)[N / 2],
+                                        uint32_t (&a)[KS][4], uint32_t a_s,
+                                        int t, uint32_t bs) {
+  using G = PatchGeom<KS, KT>;
+  const int tap_off = ((t / KT) * G::PW + t % KT) * G::PITCH * 2;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    nesr::ldsm_x4_at(a[kk], a_s + tap_off + kk * 32);
+  nesr::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    nesr::wgmma_rs<N>(acc, a[kk], nesr::wgmma_desc(bs + kk * 32 * N, 128,
+                                                   256));
+  nesr::wgmma_commit();
 }
 
 // The conv of one block's tile. Epi, a struct of static device functions
 // on its Params (a ConvParams), is the epilogue:
 //   pad(p)                  the patch's offset (1: SAME);
-//   prefetches(p)           whether prefetch runs (a function of p alone,
-//                           so nothing of it stays live over the MMAs);
-//   prefetch<N>(p, tile, n, oy, ox, co0, nvalid)
-//                           before an N tile's MMAs, after its patch is
-//                           issued: copies by cp.async into the staging
-//                           tile, committed as one group;
 //   stage<N>(p, tile, acc, warp, frow, q, co0)
 //                           this thread's fp32 sums into the staging tile;
 //   write<N>(p, tile, n, oy, ox, co0, nvalid)
@@ -178,8 +217,8 @@ __device__ __forceinline__ void conv_body(const typename Epi::P& p) {
   // (patch pixel (warp, lane % 16), channel 8 (lane / 16)) at tap (0, 0).
   const uint32_t ring_s = nesr::smem_u32(smem);
   const uint32_t full_s = nesr::smem_u32(full), empty_s = full_s + 8 * STAGES;
-  const uint32_t a_s = nesr::smem_u32(patch) +
-      ((warp * S::PW + lane % 16) * S::PITCH + lane / 16 * 8) * 2;
+  const uint32_t a_s =
+      lane_a_addr<KS, KT>(nesr::smem_u32(patch), warp, lane);
   auto issue = [&](int g) {
     const int s = g % STAGES;
     nesr::bulk_load(ring_s + s * S::SLAB * 2, p.wp + (size_t)g * S::SLAB,
@@ -224,19 +263,14 @@ __device__ __forceinline__ void conv_body(const typename Epi::P& p) {
 
   for (int nt = 0; nt < p.n_tiles; ++nt) {
     // The patch of a pass is staged once and serves every N tile when
-    // there is one pass; with more, each pass is staged again. Pass 0
-    // first, then the epilogue's copies: the patch is waited for before
-    // the MMAs, the copies before the epilogue.
+    // there is one pass; with more, each pass is staged again.
     const bool restage = nt == 0 || npass > 1;
-    // every warp done reading the patch, or storing the staging tile
-    if (nt > 0 && (restage || Epi::prefetches(p))) __syncthreads();
-    if (restage) stage_pass<KS, KT>(p, patch, n, oy, ox, 0, pad);
-    if (Epi::prefetches(p))
-      Epi::template prefetch<N>(p, tile, n, oy, ox, nt * N,
-                                min(N, p.Cout - nt * N));
     if (restage) {
-      if (Epi::prefetches(p)) cp_async_wait<1>();
-      else cp_async_wait<0>();
+      if (nt > 0) __syncthreads();   // every warp done reading the patch
+      stage_pass<KS, KT, TH + KT - 1>(p, patch, n, oy, ox, 0, pad, tid,
+                                      THREADS);
+      cp_async_commit();
+      cp_async_wait<0>();
       __syncthreads();
     }
 #pragma unroll
@@ -244,7 +278,9 @@ __device__ __forceinline__ void conv_body(const typename Epi::P& p) {
     for (int c = 0; c < npass; ++c) {
       if (c > 0) {
         __syncthreads();   // every warp done reading the last pass
-        stage_pass<KS, KT>(p, patch, n, oy, ox, c, pad);
+        stage_pass<KS, KT, TH + KT - 1>(p, patch, n, oy, ox, c, pad, tid,
+                                        THREADS);
+        cp_async_commit();
         cp_async_wait<0>();
         __syncthreads();
       }
@@ -254,21 +290,7 @@ __device__ __forceinline__ void conv_body(const typename Epi::P& p) {
         const int g = g0 + t, s = g % STAGES;
         nesr::mbar_wait(full_s + 8 * s, (g / STAGES) & 1);
         __syncwarp();
-        // A: this warp's 16 pixels (its output row, shifted by the tap) x
-        // 16 channels a k-step; B: the slab's k-steps by descriptor
-        // (K-major, no swizzle, core matrices 128 bytes apart along K, 256
-        // along N).
-        const int tap_off = ((t / KT) * S::PW + t % KT) * S::PITCH * 2;
-        const uint32_t bs = ring_s + s * S::SLAB * 2;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          nesr::ldsm_x4_at(a[t & 1][kk], a_s + tap_off + kk * 32);
-        nesr::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          nesr::wgmma_rs<N>(acc, a[t & 1][kk],
-                            nesr::wgmma_desc(bs + kk * 32 * N, 128, 256));
-        nesr::wgmma_commit();
+        mma_tap<N, KS, KT>(acc, a[t & 1], a_s, t, ring_s + s * S::SLAB * 2);
         // Tap t-1's MMAs have retired once at most this tap's group is in
         // flight: its slot goes back to the ring.
         if (t > 0) {
@@ -291,9 +313,8 @@ __device__ __forceinline__ void conv_body(const typename Epi::P& p) {
     for (int e = 0; e < N / 2; ++e) nesr::reg_fence(acc[e]);
 
     // Epilogue of this N tile: the fragments into the staging tile (every
-    // warp done storing the last N tile, every copy into it landed), then
-    // 16-byte stores, which drain under the next N tile's MMAs.
-    if (Epi::prefetches(p)) cp_async_wait<0>();
+    // warp done storing the last N tile), then 16-byte stores, which drain
+    // under the next N tile's MMAs.
     __syncthreads();
     const int co0 = nt * N;
     Epi::template stage<N>(p, tile, acc, warp, frow, q, co0);

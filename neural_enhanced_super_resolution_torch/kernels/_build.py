@@ -159,7 +159,7 @@ def load_library() -> ctypes.CDLL:
         lib.nesr_conv3x3_int8.restype = ci
         lib.nesr_rdb_int8_step.argtypes = [vp] * 11 + [ci] * 12 + [vp]
         lib.nesr_rdb_int8_step.restype = ci
-        lib.nesr_rdb_bf16_step.argtypes = [vp] * 8 + [ci] * 10 + [vp]
+        lib.nesr_rdb_bf16_step.argtypes = [vp] * 8 + [ci] * 15 + [vp]
         lib.nesr_rdb_bf16_step.restype = ci
         lib.nesr_int8_amax.argtypes = [vp, ci, ctypes.c_longlong, ci, vp,
                                        ci, vp]

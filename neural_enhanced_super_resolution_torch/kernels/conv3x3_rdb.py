@@ -16,9 +16,18 @@ Layout: NHWC activations, HWIO weights (3, 3, Cin, Cout) from
 read as K1 reads them, packed by ``pack_conv3x3_weights``. The slots are
 one (N, H, W, 4g + nf) buffer laid out as conv 0's output: conv k's
 channel j is slot channel k g + j.
+
+The launch is ``step_plan``'s: a persistent grid of at most one block an
+SM, each block two consumer warpgroups on 4 x 16-pixel tiles of their own
+and two producer warps; a sweep's packed weights resident in shared
+memory (every N tile where they fit, else one N tile a sweep) and
+``step_smem`` the layout the kernel takes.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -27,11 +36,115 @@ from neural_enhanced_super_resolution_torch.kernels import _build
 from neural_enhanced_super_resolution_torch.kernels._build import (
     KernelInputError)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-    conv3x3_plain, pack_conv3x3_weights, packed_numel, tile_width)
+    conv3x3_plain, pack_conv3x3_weights, packed_numel, pass_width,
+    tile_width)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
     rdb_growth)
 
-__all__ = ["conv3x3_rdb", "conv3x3_rdb_plain"]
+__all__ = ["conv3x3_rdb", "conv3x3_rdb_plain", "StepPlan", "step_plan",
+           "step_smem", "step_tiles", "STEP_SMEM", "STEP_TILE"]
+
+# The kernel's geometry (csrc/rdb_bf16.cu): a consumer's tile is
+# STEP_TILE = (rows, columns) output pixels, its patch two rows and two
+# columns wider; four input stages (two a consumer), or two where four do
+# not fit; a TMA box at most 256 channels wide.
+STEP_TILE = (4, 16)
+STEP_BOX = 256
+# The most dynamic shared memory an H100 block may take (227 KB).
+STEP_SMEM = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    """One launch of the K1 step: the instantiation (``n_width`` x
+    ``ks`` k-steps a pass) and its ``n_tiles`` N tiles, the batch's
+    ``tiles`` (4 x 16 pixels), ``grid`` persistent blocks, ``nps`` N tiles
+    a sweep (the weights a block keeps resident while it walks all its
+    tiles), ``stages`` input stages, ``bulk`` (TMA loads and bulk stores;
+    else cp.async, and 16-byte or scalar stores) and ``smem`` bytes of
+    dynamic shared memory."""
+    n_width: int
+    ks: int
+    n_tiles: int
+    tiles: int
+    grid: int
+    nps: int
+    stages: int
+    bulk: bool
+    smem: int
+
+
+def _up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _patch_bytes(cin: int) -> int:
+    """A stage's patch, every pass: 6 x 18 pixels at pitch kc + 8, each
+    pass 128-byte aligned."""
+    kc = pass_width(cin)
+    rows, cols = STEP_TILE
+    return -(-cin // kc) * _up((rows + 2) * (cols + 2) * (kc + 8) * 2, 128)
+
+
+def step_smem(k: int, cin: int, cout: int, nf: int, nps: int,
+              stages: int = 4) -> int:
+    """Bytes of the kernel's shared memory (csrc/rdb_bf16.cu: layout):
+    ``nps`` N tiles' packed weights, then ``stages`` stages, each the
+    patch of every pass, the staging tile of the sweep (pitch nps N + 8)
+    and at step 4 x and skip, then the stages' and the weights' full and
+    empty barriers."""
+    nw, _ = tile_width(cout)
+    kc = pass_width(cin)
+    rows, cols = STEP_TILE
+    px = rows * cols
+    tile = _up(_patch_bytes(cin) + px * (nps * nw + 8) * 2, 128)
+    stage = _up(tile + (2 * px * nf * 2 if k == 4 else 0), 128)
+    weights = _up(nps * -(-cin // kc) * 9 * kc * nw * 2, 128)
+    return weights + stages * stage + 8 * (2 * stages + 2)
+
+
+def _bulk_fits(k: int, cin: int, cout: int, nf: int, nps: int) -> bool:
+    """Whether the bulk path takes this launch: TMA boxes of at most 256
+    channels, x_{k+1}'s channels all in the first sweep (out's in one),
+    and the dense x_{k+1} or out within a stage's patch."""
+    nw, n_tiles = tile_width(cout)
+    g = (cout - nf) // 4 if k == 0 else cin
+    rows, cols = STEP_TILE
+    return (nps * nw + 8 <= STEP_BOX and nf <= STEP_BOX
+            and (min(nps * nw, cout) >= g if k < 4 else nps == n_tiles)
+            and rows * cols * (g if k < 4 else nf) * 2 <= _patch_bytes(cin))
+
+
+def step_tiles(n: int, h: int, w: int) -> int:
+    """The batch's 4 x 16-pixel tiles: row-major in each image."""
+    rows, cols = STEP_TILE
+    return n * -(-h // rows) * -(-w // cols)
+
+
+def step_plan(k: int, cin: int, cout: int, nf: int, n: int, h: int,
+              w: int, sms: int, vec: bool = True) -> StepPlan:
+    """The launch of step k (cin -> cout, nf the RDB's width) on an (n,
+    h, w) batch on a card of ``sms`` SMs: one sweep of every N tile if
+    their weights fit beside four stages, else a sweep an N tile (with
+    four stages, else two); with ``vec`` (16-byte paths) the bulk path
+    where it fits; ``grid`` = min(sms, ceil(tiles / 2)), so that every
+    block's first consumer has a tile. Raises ``KernelInputError`` where
+    not even one N tile fits."""
+    nw, n_tiles = tile_width(cout)
+    for nps, stages in ((n_tiles, 4), (1, 4), (1, 2)):
+        smem = step_smem(k, cin, cout, nf, nps, stages)
+        if smem <= STEP_SMEM:
+            tiles = step_tiles(n, h, w)
+            return StepPlan(nw, pass_width(cin) // 16, n_tiles, tiles,
+                            max(1, min(sms, -(-tiles // 2))), nps, stages,
+                            vec and _bulk_fits(k, cin, cout, nf, nps), smem)
+    raise KernelInputError(f"conv3x3_rdb: step {k} ({cin} -> {cout}) does "
+                           "not fit in shared memory")
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def conv3x3_rdb_plain(k: int, src: torch.Tensor, w: torch.Tensor,
@@ -135,8 +248,9 @@ def conv3x3_rdb(k: int, src: torch.Tensor, w: torch.Tensor,
     halo); step 4 takes x (the RDB input) and returns x + 0.2 * (x5 + b),
     and with ``skip`` (the RRDB input) skip + 0.2 * that.
 
-    On the GPU one launch of ``csrc/rdb_bf16.cu``, everything bf16 but b;
-    ``packed`` is ``pack_conv3x3_weights(w)`` (made here when None).
+    On the GPU one launch of ``csrc/rdb_bf16.cu`` as ``step_plan`` lays it
+    out, everything bf16 but b; ``packed`` is ``pack_conv3x3_weights(w)``
+    (made here when None).
     Anything the kernel does not take raises ``KernelInputError``.
     """
     if src.device.type == "cpu":
@@ -157,6 +271,9 @@ def conv3x3_rdb(k: int, src: torch.Tensor, w: torch.Tensor,
     ptrs = [t for t in (slots, y, x, skip) if t is not None]
     vec = int(g % 8 == 0 and nf % 8 == 0
               and all(t.data_ptr() % 16 == 0 for t in ptrs))
+    plan = step_plan(k, cin, cout, nf, n, h, wd,
+                     _sms(src.device.index if src.device.index is not None
+                          else torch.cuda.current_device()), bool(vec))
     lib = _build.load_library()
     with torch.cuda.device(src.device):
         err = lib.nesr_rdb_bf16_step(
@@ -165,8 +282,9 @@ def conv3x3_rdb(k: int, src: torch.Tensor, w: torch.Tensor,
             None if x is None else x.data_ptr(),
             None if skip is None else skip.data_ptr(),
             None if out is None else out.data_ptr(),
-            n, h, wd, cin, cout, k, g, 4 * g + nf, tile_width(cout)[0], vec,
-            _build.stream_ptr())
+            n, h, wd, cin, cout, k, g, 4 * g + nf, plan.n_width, vec,
+            plan.grid, plan.nps, plan.stages, int(plan.bulk),
+            plan.smem, _build.stream_ptr())
     _build.check("conv3x3_rdb", err)
     conv3x3_rdb.launches += 1
     return y

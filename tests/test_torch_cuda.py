@@ -392,13 +392,24 @@ def test_config_modes_go_through_the_kernels(cuda, tmp_path, overrides):
 
 @pytest.mark.parametrize("nf,g,shape", [(64, 32, (2, 37, 45)),
                                         (16, 8, (1, 33, 20)),
-                                        (12, 4, (2, 21, 35))],
-                         ids=["trunk", "fixture", "scalar_paths"])
+                                        (12, 4, (2, 21, 35)),
+                                        (64, 32, (1, 268, 268)),
+                                        (64, 32, (1, 17, 9)),
+                                        (16, 8, (1, 80, 80)),
+                                        (64, 56, (1, 20, 24))],
+                         ids=["trunk", "fixture", "scalar_paths",
+                              "ragged_walk", "fewer_tiles_than_blocks",
+                              "fixture_80", "sweeps_two_stages"])
 @pytest.mark.parametrize("skip", [False, True], ids=["", "skip"])
 def test_rdb_step_matches_the_composition(cuda, nf, g, shape, skip):
     """The K1 step's five launches an RDB equal FusedRDB._composition on
     K1 bit for bit (with the RRDB skip: skip + 0.2 * it), with no plain
-    call; each step within K1's bar of its plain version."""
+    call; each step within K1's bar of its plain version. The persistent
+    walk's edges: 1 x 268^2 is 1,139 tiles, which no grid of at most 132
+    blocks of two consumers divides; 1 x 17 x 9 is 5 tiles for 3 blocks,
+    the last with one consumer idle; step 0 at nf 64 keeps its weights a
+    sweep of one N tile at a time; at nf 64 / g 56 steps 0-2 sweep and
+    steps 1-4 run on two stages."""
     gen = torch.Generator().manual_seed(nf + g)
     fw = [(torch.randn((3, 3, ci, co), generator=gen) * 0.05).bfloat16()
           .float() for ci, co in ((nf, 4 * g + nf), (g, 3 * g + nf),

@@ -18,6 +18,10 @@ Inputs are made with numpy from a seed. Tolerances:
   another order;
 * the slot map, the RRDB residual fold and the whole fused forward: bit
   for bit.
+
+The kernel's launch plan (``step_plan``: instantiation, sweeps, stages,
+shared memory, grid) is host logic and is held here exactly, with the
+walk of its persistent grid and its resident weights read back.
 """
 
 import os
@@ -33,9 +37,9 @@ from neural_enhanced_super_resolution_tpu.models import weights as jw
 from neural_enhanced_super_resolution_torch.kernels import (
     KernelInputError, conv3x3_plain, conv3x3_rdb, conv3x3_rdb_plain)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_rdb import (
-    _check_step)
+    STEP_SMEM, _bulk_fits, _check_step, step_plan, step_smem, step_tiles)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-    pack_conv3x3_weights)
+    pack_conv3x3_weights, pass_width, tile_width)
 from neural_enhanced_super_resolution_torch.models import (
     RRDBNet, RRDBNetConfig, init_rrdbnet, load_state_dict)
 from neural_enhanced_super_resolution_torch.models.rrdbnet import FusedRDB
@@ -304,3 +308,151 @@ def test_step_checks(case, match):
     else:
         with pytest.raises(KernelInputError, match=match):
             _check_step(**o)
+
+
+# The launch plan of the kernel (csrc/rdb_bf16.cu), computed on the host:
+# the instantiation <n_width, ks> and N tiles of each step, the N tiles a
+# sweep keeps resident, the stages, and the shared memory, which the
+# kernel's own layout must equal (the C entry point refuses another).
+PLANS = {
+    (64, 32): [((96, 4, 2), 1, 226384), ((80, 2, 2), 2, 213072),
+               ((128, 2, 1), 1, 178256), ((96, 2, 1), 1, 143440),
+               ((64, 2, 1), 1, 174160)],
+    (16, 8): [((64, 1, 1), 1, 76368), ((64, 1, 1), 1, 76368),
+              ((32, 1, 1), 1, 50768), ((32, 1, 1), 1, 50768),
+              ((16, 1, 1), 1, 54352)],
+    # widths the 16-byte paths do not take: cp.async and scalar stores
+    (12, 4): [((32, 1, 1), 1, 50768), ((32, 1, 1), 1, 50768),
+              ((32, 1, 1), 1, 50768), ((16, 1, 1), 1, 37968),
+              ((16, 1, 1), 1, 50256)],
+}
+
+
+@pytest.mark.parametrize("nf,g", list(PLANS))
+@pytest.mark.parametrize("k", range(5))
+def test_step_plan_per_step(nf, g, k):
+    """Each step's instantiation at the trunk's, the fixture's and the
+    scalar paths' widths: K1's N tiles (tile_width) and passes, every N
+    tile in one resident sweep where the weights fit beside four stages
+    (w0 at nf 64: two sweeps of one N tile), and the bytes of the layout,
+    within an H100 block's 227 KB."""
+    cin, cout = (nf if k == 0 else g), 4 * g + nf - k * g
+    vec = nf % 8 == 0 and g % 8 == 0
+    plan = step_plan(k, cin, cout, nf, 4, 268, 268, 132, vec)
+    (nw, ks, tiles), nps, smem = PLANS[(nf, g)][k]
+    assert (plan.n_width, plan.ks, plan.n_tiles) == (nw, ks, tiles)
+    assert (nw, tiles) == tile_width(cout) and 16 * ks == pass_width(cin)
+    assert (plan.nps, plan.stages) == (nps, 4)
+    assert plan.bulk == vec
+    assert plan.smem == smem == step_smem(k, cin, cout, nf, nps)
+    assert plan.smem <= STEP_SMEM
+    # a sweep's weights: nps N tiles of the packed image (the trunk's w1
+    # 92,160 B down to w4's 36,864; w0 221,184 in two sweeps)
+    weights = nps * 9 * -(-cin // (16 * ks)) * 16 * ks * nw * 2
+    if (nf, g) == (64, 32):
+        assert weights * tiles // nps == (221184, 92160, 73728, 55296,
+                                          36864)[k]
+    assert weights < smem
+
+
+def test_step_plan_falls_back_and_refuses():
+    """Where every N tile does not fit, a sweep an N tile; where that does
+    not fit with four stages, two; where nothing fits, KernelInputError.
+    The bulk path needs x_{k+1}'s channels in the first sweep, TMA boxes
+    of at most 256 channels and the dense output within the patch.
+    """
+    assert step_plan(0, 64, 192, 64, 1, 8, 8, 132).nps == 1
+    # w0's first sweep: x_1 (channels 0-31) and the slots 32-95
+    assert _bulk_fits(0, 64, 192, 64, 1)
+    assert not _bulk_fits(0, 64, 704, 64, 1)      # x_1 in two sweeps
+    assert not _bulk_fits(1, 256, 1088, 64, 2)    # a 264-channel box
+    assert not step_plan(0, 64, 704, 64, 1, 8, 8, 132).bulk
+    plan = step_plan(0, 64, 320, 64, 1, 8, 8, 132)   # g 64: N 128 x 3
+    assert (plan.n_width, plan.n_tiles, plan.nps, plan.stages) == (
+        128, 3, 1, 2)
+    assert plan.smem == step_smem(0, 64, 320, 64, 1, 2) <= STEP_SMEM
+    assert step_smem(0, 64, 320, 64, 1, 4) > STEP_SMEM
+    with pytest.raises(KernelInputError, match="does not fit"):
+        step_plan(0, 256, 512, 256, 1, 8, 8, 132)
+
+
+@pytest.mark.parametrize("shape,sms,tiles,grid", [
+    ((4, 268, 268), 132, 4556, 132),   # the tile batch: 17 x 67 tiles
+    ((1, 268, 268), 132, 1139, 132),   # a count no grid of 132 divides
+    ((1, 17, 9), 132, 5, 3),           # fewer tiles than blocks
+    ((1, 80, 80), 132, 100, 50),
+    ((2, 21, 35), 132, 36, 18),
+    ((1, 1, 1), 132, 1, 1),
+    ((4, 268, 268), 114, 4556, 114),   # a card of another SM count
+])
+def test_step_grid_and_walk(shape, sms, tiles, grid):
+    """The persistent grid: min(SMs, ceil(tiles / 2)) blocks, consumer c
+    of block b walking tiles 2 (b + i grid) + c. Every tile is walked
+    once; every block's first consumer has a tile and its second one as
+    many or one fewer, which the two consumers' turns at the tensor cores
+    (named barriers ORD0 / ORD1) and the weight epochs rely on: every
+    barrier arrival has its wait."""
+    plan = step_plan(1, 32, 160, 64, *shape, sms)
+    assert (plan.tiles, plan.grid) == (tiles, grid)
+    assert step_tiles(*shape) == tiles
+    seen = []
+    for b in range(plan.grid):
+        its = []
+        for c in range(2):
+            mine = list(range(2 * b + c, tiles, 2 * plan.grid))
+            seen += mine
+            its.append(len(mine))
+        it0, it1 = its
+        assert it0 >= 1 and it1 in (it0, it0 - 1)
+        # ORD1: consumer 0 arrives after round i if consumer 1 has it;
+        # consumer 1 waits at each of its rounds.
+        assert sum(it1 > i for i in range(it0)) == it1
+        # ORD0: consumer 1 arrives after round i if consumer 0 has round
+        # i + 1; consumer 0 waits at each round but its first.
+        assert sum(it0 > i + 1 for i in range(it1)) == it0 - 1
+        for epoch in (it0, 1):
+            loads = -(-it0 // epoch)
+            begun = sum(i % epoch == 0 for i in range(it0))
+            ended = sum(i % epoch == epoch - 1 or i == it0 - 1
+                        for i in range(it0))
+            assert loads == begun == ended
+    assert sorted(seen) == list(range(tiles))
+
+
+@pytest.mark.parametrize("cin,cout,nf", [(64, 192, 64), (32, 160, 64),
+                                         (32, 64, 64), (8, 40, 16),
+                                         (4, 24, 12)])
+def test_sweep_slabs_read_back_the_weight(cin, cout, nf):
+    """The kernel's reads of a sweep's resident weights: N tile nt of
+    sweep sw, pass pc, tap t and k-step kk at slab ((nt - sw nps) npass +
+    pc) 9 + t of the sweep's copy of the packed image (slabs sw nps npass
+    9 on), core matrices by the wgmma descriptor (128 bytes along K, 256
+    along N). Read back this way the packing is the HWIO weight, bit for
+    bit, zero past Cin and Cout."""
+    rng = np.random.default_rng(cin + cout)
+    w = torch.from_numpy(rng.standard_normal((3, 3, cin, cout)).astype(
+        np.float32)).bfloat16()
+    packed = pack_conv3x3_weights(w)
+    k = 0 if cin == nf else (4 * (cin) + nf - cout) // cin
+    plan = step_plan(k, cin, cout, nf, 1, 8, 8, 132)
+    nw, kc = plan.n_width, 16 * plan.ks
+    npass = -(-cin // kc)
+    slab = kc * nw
+    got = torch.zeros((3, 3, npass * kc, plan.n_tiles * nw),
+                      dtype=torch.bfloat16)
+    sweeps = -(-plan.n_tiles // plan.nps)
+    for sw in range(sweeps):
+        chunk = packed[sw * plan.nps * npass * 9 * slab:]
+        for nt in range(sw * plan.nps,
+                        min((sw + 1) * plan.nps, plan.n_tiles)):
+            for pc in range(npass):
+                for t in range(9):
+                    base = ((nt - sw * plan.nps) * npass + pc) * 9 + t
+                    b = chunk[base * slab:(base + 1) * slab]
+                    # k-step kk, core (j, h), row r (out), column q (in)
+                    cores = b.reshape(kc // 16, nw // 8, 2, 8, 8)
+                    blk = cores.permute(0, 2, 4, 1, 3).reshape(kc, nw)
+                    got[t // 3, t % 3, pc * kc:(pc + 1) * kc,
+                        nt * nw:(nt + 1) * nw] = blk
+    assert torch.equal(got[:, :, :cin, :cout], w)
+    assert not got[:, :, cin:].any() and not got[:, :, :, cout:].any()

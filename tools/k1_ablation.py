@@ -48,8 +48,8 @@ VARIANTS = {
                   "          if (gy < p.Ho && gx < p.Wo && p.Cout < 0)\n"
                   "            *reinterpret_cast<uint4*>(")],
     # the MMAs skipped (loads, barriers and ldmatrix kept)
-    "no_mma": [("          nesr::wgmma_rs<N>(acc,",
-                "          if (p.Cout < 0) nesr::wgmma_rs<N>(acc,")],
+    "no_mma": [("    nesr::wgmma_rs<N>(acc, a[kk],",
+                "    if (bs == 1u) nesr::wgmma_rs<N>(acc, a[kk],")],
     # the input patch not loaded (its buffer read as it is)
     "no_patch": [("      nesr::cp_async_zfill<VEC * 2>(",
                   "      if (p.Cout < 0) nesr::cp_async_zfill<VEC * 2>(")],
@@ -82,8 +82,8 @@ TRACE_EDITS = [
      "k1_trace[(blockIdx.z * gridDim.x + blockIdx.x) * 8 + (i)] = t_; }\n"),
     ("  constexpr int STAGES = S::STAGES, T = KT * KT;\n",
      "  constexpr int STAGES = S::STAGES, T = KT * KT;\n  K1_MARK(0);\n"),
-    ("      else cp_async_wait<0>();\n      __syncthreads();\n    }\n",
-     "      else cp_async_wait<0>();\n      __syncthreads();\n    }\n"
+    ("      cp_async_wait<0>();\n      __syncthreads();\n    }\n",
+     "      cp_async_wait<0>();\n      __syncthreads();\n    }\n"
      "    if (nt == 0) K1_MARK(1);\n"),
     ("        nesr::mbar_wait(full_s + 8 * s, (g / STAGES) & 1);\n",
      "        nesr::mbar_wait(full_s + 8 * s, (g / STAGES) & 1);\n"

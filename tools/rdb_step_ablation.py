@@ -4,22 +4,25 @@ one part taken out, on one CUDA GPU, beside the composition it replaced.
     python3 tools/rdb_step_ablation.py [--baseline CSRC_DIR]
 
 Copies ``csrc/`` into ``build/rdb_step_ablation/<variant>/``, edits each
-copy's ``rdb_bf16.cu`` and the mainloop it includes, ``conv3x3_body.cuh``,
-as listed in VARIANTS (textual edits; one that no longer matches fails
-loudly), builds each copy with its own nvcc (all at
+copy's ``rdb_bf16.cu`` and the mainloop pieces it includes from
+``conv3x3_body.cuh``, as listed in VARIANTS (textual edits; one that no
+longer matches fails loudly), builds each copy with its own nvcc (all at
 once, with the package's own library), and times each variant at the five
 steps of the fused trunk's RDB (nf 64, g 32) on the 4 x 268 x 268 bf16
 tile batch, with CUDA events over REPS launches after a warm-up, in the
-order base, variants, base. With ``--baseline``, another ``csrc/`` (e.g.
-a ``git archive`` of an earlier tree) is built unedited and timed first
-and last, beside this one's. The variants compute wrong outputs on
-purpose; only their times mean anything. Then, in turns, an RDB on the
-package's steps and on ``FusedRDB._composition`` (five K1 convs with the
-dense-block assembly in PyTorch: the default trunk's RDB before the
-step). One more copy counts thread 0's SM clock in each phase of every N
-tile (summed over a block's tiles) and prints the median block's split.
-Prints the card (name, power limit), each variant's registers and spills
-at the trunk's instantiations, and one line per variant.
+order base, variants, base. "streamed" reloads every step's weights for
+every round of two tiles instead of keeping them for the block's life.
+With ``--baseline``, another ``csrc/`` (e.g. a ``git archive`` of an
+earlier tree, whose step takes the earlier C signature) is built unedited
+and timed first and last, beside this one's. The variants compute wrong
+outputs on purpose; only their times mean anything. Then, in turns, an
+RDB on the package's steps and on ``FusedRDB._composition`` (five K1
+convs with the dense-block assembly in PyTorch: the default trunk's RDB
+before the step). One more copy defines the kernel's phase hooks: each
+consumer's thread 0 and the producer's lane 0 sum their SM clock by
+phase, and the median block's split is printed for each role. Prints
+the card (name, power limit) and each build's registers and spills at
+the trunk's five instantiations.
 """
 
 from __future__ import annotations
@@ -41,97 +44,81 @@ NF, G = 64, 32
 # conv3x3_body.cuh
 VARIANTS = {
     "base": [],
-    # the patch not staged (the buffer read as it is; the L2 prefetch of
-    # the next wave's patch kept)
-    "no_patch": [("    if (restage) stage_pass<KS, KT>(p, patch, n, oy, ox, "
-                  "0, pad);",
-                  "    if (restage && p.H < 0) stage_pass<KS, KT>(p, patch, "
-                  "n, oy, ox, 0, pad);\n"
-                  "    else if (restage) cp_async_commit();")],
-    # the L2 prefetch of the patch one wave later left out
-    "no_l2_prefetch": [("    if (gy >= 0 && gy < p.H && x1 > x0)\n"
-                        "      nesr::prefetch_l2(",
-                        "    if (p.H < 0)\n      nesr::prefetch_l2(")],
-    # the slots not prefetched (the staging tile read as it is)
-    "no_slots": [("    prefetch_slots<N>(p, tile, n, oy, ox, co0, nvalid);",
-                  "    if (p.H < 0) prefetch_slots<N>(p, tile, n, oy, ox, "
-                  "co0, nvalid);")],
+    # the producer loads nothing (no patch, slots, x or skip; the stage
+    # barriers still complete)
+    "no_producer_loads": [("  if (p.bulk) {\n    const uint32_t st_s",
+                           "  if (p.bulk && p.H >= 0) {\n"
+                           "    nesr::mbar_arrive(full);\n    return;\n  }\n"
+                           "  if (p.bulk) {\n    const uint32_t st_s")],
+    # the slot channels not loaded (the sums added to what the tile holds)
+    "no_slots": [("(p.k > 0 ? SPX * p.tp * 2 : 0)",
+                  "(p.k > 0 && p.H < 0 ? SPX * p.tp * 2 : 0)"),
+                 ("    if (p.k > 0)\n      nesr::tma_load_4d(",
+                  "    if (p.k > 0 && p.H < 0)\n      nesr::tma_load_4d(")],
+    # the epilogue's copies skipped: no x_{k+1}, slot or out stores (the
+    # sums and the dense output still staged)
+    "no_stores": [("    bulk_store(", "    if (p.H < 0) bulk_store(")],
+    # only the slot channels' copies (a pixel each) skipped
+    "no_slot_stores": [("    if (gy < p.H && gx < p.W)\n"
+                        "      bulk_store(p.slots",
+                        "    if (gy < p.H && gx < p.W && p.H < 0)\n"
+                        "      bulk_store(p.slots")],
+    # only x_{k+1}'s or out's copies (a tile row each) skipped
+    "no_out_stores": [("    if (gy < p.H)\n      bulk_store(dst",
+                       "    if (gy < p.H && p.H < 0)\n      bulk_store(dst")],
     # the MMAs skipped (weights, ldmatrix and barriers kept)
-    "no_mma": [("nesr::wgmma_rs<N>(", "if (p.H < 0) nesr::wgmma_rs<N>(")],
-    # the weight slabs not copied (each barrier completed at once)
-    "no_weights": [("    nesr::bulk_load(ring_s + s * S::SLAB * 2, "
-                    "p.wp + (size_t)g * S::SLAB,\n"
-                    "                    S::SLAB * 2, full_s + 8 * s);",
-                    "    nesr::mbar_arrive(full_s + 8 * s);")],
-    # the coalesced epilogue skipped: no x_{k+1}, slot or out stores (and
-    # no step-4 loads of x)
-    "no_stores": [("    if (p.vec_out) write_tile<8, N>(p, tile, n, oy, ox, "
-                   "co0, nvalid);\n    else write_tile<1, N>(p, tile, n, oy, "
-                   "ox, co0, nvalid);\n",
-                   "    if (p.H < 0) write_tile<8, N>(p, tile, n, oy, ox, "
-                   "co0, nvalid);\n")],
-    # one block an SM with up to 255 registers (no spill) instead of two
-    # at 128
-    "one_block_an_sm": [("__launch_bounds__(THREADS, 2)",
-                         "__launch_bounds__(THREADS, 1)")],
+    "no_mma": [("    nesr::wgmma_rs<N>(acc, a[kk],",
+                "    if (bs == 1u) nesr::wgmma_rs<N>(acc, a[kk],")],
+    # the weights reloaded for every round of tiles (an epoch a round)
+    "streamed": [("  p.epoch = (p.tiles + 2 * grid - 1) / (2 * grid);",
+                  "  p.epoch = 1;")],
+    # the two consumers' MMA phases not ordered (no ping-pong)
+    "unordered": [("      if (c == 1 || i > 0) named_sync(",
+                   "      if (p.H < 0) named_sync("),
+                  ("          if (c ? it0 > i + 1 : it1 > i) named_arrive(",
+                   "          if (p.H < 0) named_arrive(")],
 }
 
-PHASES = ("barrier before the N tile", "patch (and the slot copies issued)",
-          "MMAs (weights, ldmatrix)", "slot wait", "fragment add",
-          "coalesced stores")
-# A copy that adds thread 0's clock64 since its last mark to the phase
-# ending at each mark, and writes a block's sums at its end.
+CONSUMER = ("stage wait", "turn wait", "MMAs", "stage release",
+            "fragment adds", "tile barrier", "dense output",
+            "fence and barrier", "store issue")
+PRODUCER = ("empty wait", "issue loads")
+MARKS = 10   # phase sums a role
+# A copy whose phase hooks sum each role's clock64 by phase and write the
+# sums of consumer 0, consumer 1 and the producer (roles 0-2) of each block.
 TRACE_EDITS = [
-    ('#include "wgmma.cuh"\n',
-     '#include "wgmma.cuh"\n'
-     "__device__ long long rs_trace[1 << 17];\n"
+    ('#include "conv3x3_body.cuh"\n',
+     "__device__ long long rs_trace[1 << 16];\n"
      'extern "C" int rs_trace_copy(void* host, int n) {\n'
      "  return (int)cudaMemcpyFromSymbol(host, rs_trace, n * 8);\n}\n"
-     "#define RS_MARK(i) if (threadIdx.x == 0) { const long long t_ = "
-     "clock64(); rs_t[i] += t_ - rs_last; rs_last = t_; }\n"),
-    ("  const int npass = p.kp / S::KC;\n",
-     "  const int npass = p.kp / S::KC;\n"
-     "  long long rs_t[6] = {0, 0, 0, 0, 0, 0};\n"
-     "  long long rs_last = clock64();\n"),
-    ("    if (nt > 0 && (restage || Epi::prefetches(p))) __syncthreads();\n",
-     "    if (nt > 0 && (restage || Epi::prefetches(p))) __syncthreads();\n"
-     "    RS_MARK(0);\n"),
-    ("#pragma unroll\n    for (int e = 0; e < N / 2; ++e) acc[e] = 0.f;\n",
-     "    RS_MARK(1);\n#pragma unroll\n"
-     "    for (int e = 0; e < N / 2; ++e) acc[e] = 0.f;\n"),
-    ("    for (int e = 0; e < N / 2; ++e) nesr::reg_fence(acc[e]);\n",
-     "    for (int e = 0; e < N / 2; ++e) nesr::reg_fence(acc[e]);\n"
-     "    RS_MARK(2);\n"),
-    ("    if (Epi::prefetches(p)) cp_async_wait<0>();\n    __syncthreads();\n",
-     "    if (Epi::prefetches(p)) cp_async_wait<0>();\n    __syncthreads();\n"
-     "    RS_MARK(3);\n"),
-    ("    __syncthreads();\n    Epi::template write<N>",
-     "    __syncthreads();\n    RS_MARK(4);\n    Epi::template write<N>"),
-    ("    Epi::template write<N>(p, tile, n, oy, ox, co0, "
-     "min(N, p.Cout - co0));\n  }\n}\n",
-     "    Epi::template write<N>(p, tile, n, oy, ox, co0, "
-     "min(N, p.Cout - co0));\n    RS_MARK(5);\n  }\n"
-     "  if (threadIdx.x == 0)\n"
-     "    for (int i = 0; i < 6; ++i)\n"
-     "      rs_trace[(blockIdx.z * gridDim.x + blockIdx.x) * 6 + i] = "
-     "rs_t[i];\n}\n"),
+     "#define STEP_TRACE_BEGIN long long rs_t[10] = {}; "
+     "long long rs_last = clock64();\n"
+     "#define STEP_MARK(i) { const long long t_ = clock64(); "
+     "rs_t[i] += t_ - rs_last; rs_last = t_; }\n"
+     "#define STEP_TRACE_END(role) if (threadIdx.x % 128 == 0) "
+     "for (int i_ = 0; i_ < 10; ++i_) "
+     "rs_trace[(blockIdx.x * 3 + (role)) * 10 + i_] = rs_t[i_];\n"
+     '#include "conv3x3_body.cuh"\n'),
 ]
+# the trunk's five instantiations (<N, KS>)
+WANT = (("96", "4"), ("80", "2"), ("128", "2"), ("96", "2"), ("64", "2"))
 
 
 def _ptxas(log: str) -> str:
-    """Registers and spills of the trunk's instantiations (<N, KS>)."""
+    """Registers and spills of the trunk's instantiations."""
     out = []
-    want = {("96", "4"), ("80", "2"), ("128", "2"), ("96", "2"), ("64", "2")}
     lines = log.splitlines()
     for i, line in enumerate(lines):
         m = re.search(r"rdb_bf16_step_kernelILi(\d+)ELi(\d+)E", line)
-        if m and "Compiling entry function" in line and m.groups() in want:
+        if m and "Compiling entry function" in line and m.groups() in WANT:
             text = " ".join(lines[i + 1:i + 4])
             regs = re.search(r"Used (\d+) registers", text)
-            spill = re.search(r"(\d+) bytes spill stores", text)
+            st = re.search(r"(\d+) bytes spill stores", text)
+            ld = re.search(r"(\d+) bytes spill loads", text)
             out.append(f"<{m.group(1)},{m.group(2)}> "
-                       f"{regs.group(1) if regs else '?'} registers, "
-                       f"{spill.group(1) if spill else '?'} B spill stores")
+                       f"{regs.group(1) if regs else '?'} registers, spill "
+                       f"stores {st.group(1) if st else '?'} B, loads "
+                       f"{ld.group(1) if ld else '?'} B")
     return "; ".join(out)
 
 
@@ -144,6 +131,8 @@ def main() -> int:
         print("rdb_step_ablation: needs a CUDA GPU", file=sys.stderr)
         return 3
     sys.path.insert(0, ROOT)
+    step = importlib.import_module(
+        "neural_enhanced_super_resolution_torch.kernels.conv3x3_rdb")
     k1 = importlib.import_module(
         "neural_enhanced_super_resolution_torch.kernels.conv3x3")
     rr = importlib.import_module(
@@ -161,8 +150,8 @@ def main() -> int:
         jobs["baseline"] = prepare(OUT, "baseline", "rdb_bf16.cu", ptxas=True,
                                    csrc=os.path.abspath(args.baseline))
     build.load_library()   # the package's own, for the composition
-    libs = {}
-    for name, (so, _, proc) in jobs.items():
+    libs, old = {}, set()
+    for name, (so, text, proc) in jobs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise SystemExit(f"{name}: nvcc failed\n{log[-3000:]}")
@@ -171,7 +160,12 @@ def main() -> int:
         print(f"{name} ptxas: {_ptxas(log)}", flush=True)
         lib = ctypes.CDLL(so)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.nesr_rdb_bf16_step.argtypes = [vp] * 8 + [ci] * 10 + [vp]
+        # the earlier one-tile-a-block step took no launch plan
+        plan_args = "int grid, int nps" in text
+        if not plan_args:
+            old.add(name)
+        lib.nesr_rdb_bf16_step.argtypes = ([vp] * 8 + [ci] * (15 if plan_args
+                                                            else 10) + [vp])
         lib.nesr_rdb_bf16_step.restype = ci
         libs[name] = lib
     gen = torch.Generator().manual_seed(0)
@@ -189,49 +183,68 @@ def main() -> int:
                          (G, cs - 3 * G), (G, NF))]
     bias = torch.randn((cs,), generator=gen) * 0.1
     rdb = rr.FusedRDB(fw, bias, torch.bfloat16, "cuda", kernel=False)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     steps = [(k, wk.shape[2], wk.shape[3], pk)
              for k, (wk, pk) in enumerate(zip(rdb.weights(), rdb.packed()))]
 
-    def run(lib, k, cin, cout, packed):
+    def run(name, k, cin, cout, packed):
+        lib = libs[name]
         src = x if k == 0 else xk
-        err = lib.nesr_rdb_bf16_step(
-            src.data_ptr(), packed.data_ptr(), rdb.b.data_ptr(),
-            slots.data_ptr(), xn.data_ptr() if k < 4 else None,
-            x.data_ptr() if k == 4 else None, None,
-            out.data_ptr() if k == 4 else None, n, h, w, cin, cout, k, G, cs,
-            k1.tile_width(cout)[0], 1,
-            torch.cuda.current_stream().cuda_stream)
+        common = (src.data_ptr(), packed.data_ptr(), rdb.b.data_ptr(),
+                  slots.data_ptr(), xn.data_ptr() if k < 4 else None,
+                  x.data_ptr() if k == 4 else None, None,
+                  out.data_ptr() if k == 4 else None, n, h, w, cin, cout, k,
+                  G, cs, k1.tile_width(cout)[0], 1)
+        if name in old:
+            err = lib.nesr_rdb_bf16_step(
+                *common, torch.cuda.current_stream().cuda_stream)
+        else:
+            plan = step.step_plan(k, cin, cout, NF, n, h, w, sms)
+            err = lib.nesr_rdb_bf16_step(
+                *common, plan.grid, plan.nps, plan.stages, int(plan.bulk),
+                plan.smem,
+                torch.cuda.current_stream().cuda_stream)
         if err:
-            raise SystemExit(f"launch failed: CUDA error {err}")
+            raise SystemExit(f"{name}: launch failed: CUDA error {err}")
 
-    trace = libs.pop("trace")
-    trace.rs_trace_copy.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    trace.rs_trace_copy.restype = ctypes.c_int
-    blocks = n * (-(-h // 8)) * (-(-w // 16))
-    for step in steps:
-        run(trace, *step)
+    libs["trace"].rs_trace_copy.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    libs["trace"].rs_trace_copy.restype = ctypes.c_int
+    for st in steps:
+        plan = step.step_plan(st[0], st[1], st[2], NF, n, h, w, sms)
+        run("trace", *st)
         torch.cuda.synchronize()
-        stamps = torch.zeros(blocks * 6, dtype=torch.int64)
-        if trace.rs_trace_copy(stamps.data_ptr(), blocks * 6):
+        stamps = torch.zeros(plan.grid * 3 * MARKS, dtype=torch.int64)
+        if libs["trace"].rs_trace_copy(stamps.data_ptr(),
+                                       plan.grid * 3 * MARKS):
             raise SystemExit("trace copy failed")
-        st = stamps.view(blocks, 6).double()
-        tot = st.sum(dim=1)
-        med = st[tot.argsort()[blocks // 2]]
-        print(f"K1 step {step[0]} trace ({step[1]}->{step[2]}): median "
-              f"block {med.sum().item():.0f} SM clocks = " + ", ".join(
-                  f"{name} {100 * v / med.sum().item():.1f}%"
-                  for name, v in zip(PHASES, med.tolist())), flush=True)
+        roles = stamps.view(plan.grid, 3, MARKS).double()
+        parts = []
+        for role, names in ((0, CONSUMER), (1, CONSUMER), (2, PRODUCER)):
+            r = roles[:, role, :len(names)]
+            tot = r.sum(dim=1)
+            med = r[tot.argsort()[plan.grid // 2]]
+            label = f"consumer {role}" if role < 2 else "producer"
+            total = max(med.sum().item(), 1)
+            parts.append(f"{label} {total:.0f} clocks = " + ", ".join(
+                f"{nm} {100 * v / total:.1f}%"
+                for nm, v in zip(names, med.tolist())))
+        print(f"K1 step {st[0]} trace ({st[1]}->{st[2]}, <{plan.n_width},"
+              f"{plan.ks}>, grid {plan.grid}, {plan.nps} N tile(s) a sweep, "
+              f"{plan.stages} stages, smem {plan.smem} B): median block: "
+              + "; ".join(parts), flush=True)
+    libs.pop("trace")
     order = list(VARIANTS) + ["base"]
     if args.baseline:
         order = ["baseline", *order, "baseline"]
     for i, name in enumerate(order):
         label = name if name not in order[:i] else f"{name} (again)"
-        times = [timed(torch, lambda s=s: run(libs[name], *s), REPS)
+        times = [timed(torch, lambda s=s: run(name, *s), REPS)
                  for s in steps]
         print(f"K1 step {label}: " + "; ".join(
             f"step {k} {t:.4f} ms" for k, t in enumerate(times))
             + f"; RDB {sum(times):.4f} ms", flush=True)
-    runs = {"steps": lambda: rdb(x), "composition": lambda: rdb._composition(x)}
+    runs = {"steps": lambda: rdb(x),
+            "composition": lambda: rdb._composition(x)}
     res = {key: [] for key in runs}
     for key in ("steps", "composition", "composition", "steps"):
         res[key].append(timed(torch, runs[key], REPS))
