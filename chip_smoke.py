@@ -127,6 +127,15 @@ kernel, and timed in turns with the stock head on the same trunk output;
 shapes beside cuDNN's conv and the bound; every path counts the 2x2
 form's launches beside K1's.
 
+The folded head's 3x3 forms are persistent kernels of their own
+(``csrc/conv3x3_head.cu`` in bf16, ``csrc/conv3x3_head_f32.cu`` in
+float32, counted by ``conv3x3_head`` and ``conv3x3_head_f32``): every
+path counts them apart from K1 and K1f, ``check_conv3x3`` also holds the
+bf16 form bit for bit against K1's SAME conv with the bias, LeakyReLU in
+bf16 and depth-to-space at up1, up2 and a ragged 1 x 17 x 9, and the
+``kernels`` line has a row for each. ``int8_amax`` is timed with the L2
+flushed before each launch.
+
 Prints the card, every measurement, a JSON line of per-kernel results and,
 last, a JSON status line. Any failure exits non-zero without the status
 line. Needs no JAX and no network; writes only under ``build/chip_smoke/``.
@@ -149,16 +158,17 @@ PKG = "neural_enhanced_super_resolution_torch"
 ARCH = dict(num_in_ch=12, num_out_ch=3, scale=4, num_feat=64, num_block=23,
             num_grow_ch=32)
 TILE_BATCH = (4, 268, 268)   # 4 tiles of 256 + 2 * 6 halo (cuda overlay)
-# K1 launches a full-width bf16 forward on the fused trunk: conv_first,
-# conv_body and the folded head's two 3x3 convs (up1, up2); the trunk's
-# 345 convs run as RDB_STEPS launches of the K1 step (five an RDB, each
-# with its share of the dense-block assembly). The folded head adds two
-# launches of K1's 2x2 form (hr, last). In float32 the trunk's convs stay
-# K1f launches (K1F_FOLDED). The stock head (stock trunk, fuse_rdb false)
-# takes four K1 launches and no 2x2.
-K1_FOLDED = 4
+# K1 launches a full-width bf16 forward on the fused trunk: conv_first and
+# conv_body; the trunk's 345 convs run as RDB_STEPS launches of the K1
+# step (five an RDB, each with its share of the dense-block assembly). The
+# folded head adds two launches of K1's head 3x3 form (up1, up2; K1_HEAD)
+# and two of its 2x2 form (hr, last). In float32 the trunk's convs stay K1f
+# launches (K1F_FOLDED), and the head runs K1f's forms. The stock head
+# (stock trunk, fuse_rdb false) takes four K1 launches and neither form.
+K1_FOLDED = 2
+K1_HEAD = 2
 RDB_STEPS = 15 * ARCH["num_block"]
-K1F_FOLDED = RDB_STEPS + 4
+K1F_FOLDED = RDB_STEPS + 2
 K1_2X2 = 2
 K1_STOCK = 15 * ARCH["num_block"] + 6
 TOL_KERNEL = 1e-2            # max|err| / max(1, max|ref|), per kernel
@@ -208,6 +218,9 @@ TOL_F32_FORWARD = 1e-4
 F32_VAE_SHAPE = (1, 1, 1920, 1920, 512)   # the 48x40 request's VAE mid-block
 F32_TRUNK_W0 = (*TILE_BATCH, 64, 192, False, False, False)   # K1f's row
 # The 2x2 form's JSON row: hr of the full-width float32 forward's head.
+# The head 3x3 form's JSON row: up2 of that head (K1f's and K1's).
+F32_HEAD_UP2 = (TILE_BATCH[0], 2 * TILE_BATCH[1], 2 * TILE_BATCH[2], 64,
+                256, True, True, False)
 F32_HEAD_HR = (TILE_BATCH[0], 2 * TILE_BATCH[1], 2 * TILE_BATCH[2], 256,
                256, True, 1, True, False)
 TOL_SD_CPU = 5e-2            # tiny snapshot latents, card bf16 vs CPU f32
@@ -219,7 +232,8 @@ PROMPT = "a photo of a lighthouse on a cliff"
 CLI_COUNTED = (
     "import json, runpy, sys\n"
     "from neural_enhanced_super_resolution_torch.kernels import (\n"
-    "    conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_int8,\n"
+    "    conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_head,\n"
+    "    conv3x3_head_f32, conv3x3_int8,\n"
     "    conv3x3_int8_plain, conv3x3_int8_rdb, conv3x3_int8_rdb_plain,\n"
     "    conv3x3_plain, conv3x3_rdb, conv3x3_rdb_plain, flash_attention,\n"
     "    flash_attention_plain, int8_amax, int8_amax_plain)\n"
@@ -232,6 +246,8 @@ CLI_COUNTED = (
     "    rc = exc.code\n"
     "print('COUNTS ' + json.dumps({\n"
     "    'conv3x3': conv3x3.launches,\n"
+    "    'conv3x3_head': conv3x3_head.launches,\n"
+    "    'conv3x3_head_f32': conv3x3_head_f32.launches,\n"
     "    'conv3x3_rdb': conv3x3_rdb.launches,\n"
     "    'conv3x3_rdb_plain': conv3x3_rdb_plain.calls,\n"
     "    'conv2x2_s2d': conv2x2_s2d.launches,\n"
@@ -253,17 +269,21 @@ def log(*args):
 
 
 def _zero_steps():
-    """Zeroes the K1 step's launches and its plain version's calls."""
+    """Zeroes the launches of the K1 step and of the folded head's 3x3
+    forms (K1's, K1f's), and the step's plain version's calls."""
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv3x3_rdb, conv3x3_rdb_plain)
+        conv3x3_head, conv3x3_head_f32, conv3x3_rdb, conv3x3_rdb_plain)
     conv3x3_rdb.launches = conv3x3_rdb_plain.calls = 0
+    conv3x3_head.launches = conv3x3_head_f32.launches = 0
 
 
 def _step_counts() -> dict:
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv3x3_rdb, conv3x3_rdb_plain)
+        conv3x3_head, conv3x3_head_f32, conv3x3_rdb, conv3x3_rdb_plain)
     return {"conv3x3_rdb": conv3x3_rdb.launches,
-            "conv3x3_rdb_plain": conv3x3_rdb_plain.calls}
+            "conv3x3_rdb_plain": conv3x3_rdb_plain.calls,
+            "conv3x3_head": conv3x3_head.launches,
+            "conv3x3_head_f32": conv3x3_head_f32.launches}
 
 
 def _steps_ran(counts: dict) -> bool:
@@ -450,9 +470,10 @@ def build_kernels() -> None:
     """Builds the kernels; prints K2's, K4's, K4 step's and the folded
     head's forms' (K1's and K1f's) registers and spills from the build log
     and fails on any wgmma that ptxas serialized; checks in the SASS that
-    every instantiation of K1 (21), of its head 3x3 form (3), of its 2x2
-    form (3: conv2x2_kernel<16>, <64>, <128>, csrc/conv2x2.cu), of the K1
-    step (21, csrc/rdb_bf16.cu), K2 (1) and K3 (6) issues bf16 wgmma
+    every instantiation of K1 (21), of its head 3x3 form (4:
+    conv3x3_head_kernel<8>, <16>, <64>, <128>, csrc/conv3x3_head.cu), of
+    its 2x2 form (3: conv2x2_kernel<16>, <64>, <128>, csrc/conv2x2.cu), of
+    the K1 step (21, csrc/rdb_bf16.cu), K2 (1) and K3 (6) issues bf16 wgmma
     (HGMMA) and every one of K4 (14) and of its redesign, the step (14),
     the int8 form (IGMMA); prints the K1 step's registers and spills."""
     from neural_enhanced_super_resolution_torch.kernels import _build
@@ -472,7 +493,7 @@ def build_kernels() -> None:
             if ("Compiling entry function" in line
                     and ("conv3x3_f32_kernel" in line
                          or "conv2x2_f32_kernel" in line
-                         or "conv3x3_f32_head_kernel" in line
+                         or "conv3x3_head_f32_kernel" in line
                          or "attn_f32_kernel" in line)):
                 log("K1f/K3f ptxas " + line.split("'")[1] + ": " + " | ".join(
                     x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]))
@@ -483,7 +504,8 @@ def build_kernels() -> None:
                                 ("conv3x3_head_kernel", "K1 head 3x3")):
                 if "Compiling entry function" in line and kernel in line:
                     rest = line.split("'")[1].split(kernel, 1)[1]
-                    args = [p.split("E")[0] for p in rest.split("Li")[1:3]]
+                    args = [p.split("E")[0] for p in rest.split("Li")[1:3]
+                            ] if rest.startswith("I") else []
                     log(f"{tag} ptxas <{','.join(args)}>: " + " | ".join(
                         x.split(":", 1)[-1].strip()
                         for x in lines[i + 1:i + 4]))
@@ -516,7 +538,7 @@ def build_kernels() -> None:
                         ] if rest.startswith("I") else []
                 hgmma[tag][f"{kernel}<{','.join(args)}>"] = func.count(
                     "IGMMA" if tag.startswith("K4") else "HGMMA")
-    for tag, want in (("K1", 21), ("K1 head 3x3", 3), ("K1 2x2", 3),
+    for tag, want in (("K1", 21), ("K1 head 3x3", 4), ("K1 2x2", 3),
                       ("K1 step", 21), ("K2", 1), ("K3", 6), ("K4", 14), ("K4 step", 14)):
         log(f"{tag} SASS: {'IGMMA' if tag.startswith('K4') else 'HGMMA'} "
             f"instructions per instantiation {hgmma[tag]}")
@@ -573,16 +595,21 @@ def conv_bound(n, hh, ww, taps, cin, cout, pad, nbytes: int,
 
 def check_conv3x3(torch, gen) -> tuple:
     """K1 at every conv shape of the path, against conv3x3_plain; then the
-    folded head's four convs (K1's d2s form for up1, K1 for up2, K1's 2x2
-    form for hr and last) against conv3x3_plain / conv2x2_s2d_plain, each
-    with cuDNN's bf16 conv at its shape (padding 1 or 0) and its bound;
-    each time the best of three event windows (best_ms). Returns K1's
-    JSON row (conv_body, a shape the main path gives K1 on every trunk)
-    and the 2x2 form's (hr)."""
+    folded head's four convs (K1's head 3x3 form for up1, stored
+    depth-to-space, and up2; its 2x2 form for hr and last) against
+    conv3x3_plain / conv2x2_s2d_plain, each with cuDNN's bf16 conv at its
+    shape (padding 1 or 0) and its bound; each time the best of three
+    event windows (best_ms). The head 3x3 form at up1, up2 and a ragged 1
+    x 17 x 9 must also equal, in every bf16 value, K1's SAME conv with the
+    bias, then F.leaky_relu in bf16, then depth-to-space (the count of
+    differing values is printed). Returns K1's JSON row (conv_body, a
+    shape the main path gives K1 on every trunk), the 2x2 form's (hr) and
+    the head 3x3 form's (up2)."""
     import torch.nn.functional as F
     from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-        conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_plain,
-        pack_conv2x2_weights, pack_conv3x3_weights)
+        conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_head,
+        conv3x3_plain, d2s as depth_to_space, pack_conv2x2_weights,
+        pack_conv3x3_weights)
 
     n, h, w = TILE_BATCH
     result = {}
@@ -639,7 +666,15 @@ def check_conv3x3(torch, gen) -> tuple:
             result = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
                       "bound_by": by, "library_ms": cms}
         del x, got, ref
-    head, head_err, sums = {}, 0.0, [0.0, 0.0, 0.0]
+    head, head3, errs, sums = {}, {}, [0.0, 0.0], [0.0, 0.0, 0.0]
+    unequal = {}
+
+    def composition(x, wt, b, wsame, d2s):
+        """K1's SAME conv with the bias, then LeakyReLU in bf16, then
+        depth-to-space: what the head 3x3 form equals bit for bit."""
+        y = F.leaky_relu(conv3x3(x, wt, b, False, packed=wsame), 0.2)
+        return depth_to_space(y) if d2s else y
+
     for (label, taps, (ah, bh), (aw, bw), cin, cout, act, pad, mask,
          d2s) in HEAD_SHAPES:
         hh, ww = ah * h + bh, aw * w + bw
@@ -648,10 +683,13 @@ def check_conv3x3(torch, gen) -> tuple:
                   scale=(2.0 / (taps * taps * cin)) ** 0.5)
         b = _rnd(torch, gen, cout, scale=0.1, dtype=torch.float32)
         if taps == 3:
-            wpk = pack_conv3x3_weights(wt)
-            run = (lambda: conv3x3(x, wt, b, act, packed=wpk, d2s=d2s,
-                                   round_first=True))
+            wpk = pack_conv3x3_weights(wt, head=True)
+            run = (lambda: conv3x3_head(x, wt, b, act, packed=wpk, d2s=d2s,
+                                        round_first=True))
             plain = lambda: conv3x3_plain(x, wt, b, act, d2s, True)
+            unequal[label] = int((run().view(torch.int16) != composition(
+                x, wt, b, pack_conv3x3_weights(wt), d2s).view(
+                torch.int16)).sum())
         else:
             wpk = pack_conv2x2_weights(wt)
             run = lambda: conv2x2_s2d(x, wt, b, act, pad, mask, d2s,
@@ -668,25 +706,52 @@ def check_conv3x3(torch, gen) -> tuple:
         bms, by = conv_bound(n, hh, ww, taps, cin, cout, pad, 2)
         for i, t in enumerate((ms, pms, cms)):
             sums[i] += t
-        log(f"K1 {'2x2 form' if taps == 2 else 'conv3x3'} {label} "
+        log(f"K1 {'2x2 form' if taps == 2 else 'head 3x3 form'} {label} "
             f"{tuple(x.shape)} -> {tuple(got.shape)}: max_abs_err {d:.6g} "
             f"rel {r:.3g} (tol {TOL_KERNEL}) kernel {ms:.4f} ms plain "
             f"{pms:.4f} ms cuDNN bf16 conv {cms:.4f} ms bound {bms:.4f} ms "
             f"({by}); kernel/cuDNN {ms / cms:.3f}, bound/kernel "
-            f"{bms / ms:.3f}")
+            f"{bms / ms:.3f}" + (f"; bf16 values unlike K1's SAME conv + "
+                                 f"LeakyReLU{' + d2s' if d2s else ''}: "
+                                 f"{unequal[label]} of {got.numel()}"
+                                 if taps == 3 else ""))
         if not (r <= TOL_KERNEL and got.shape == ref.shape):
             raise AssertionError(f"K1 {label}: rel err {r} > {TOL_KERNEL}")
-        if taps == 2:
-            head_err = max(head_err, d)
+        errs[taps == 2] = max(errs[taps == 2], d)
+        row = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+               "library_ms": cms}
         if label.startswith("head hr"):
-            head = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
-                    "bound_by": by, "library_ms": cms}
+            head = row
+        if label.startswith("head up2"):
+            head3 = row
         del x, got, ref
     log(f"K1 folded head, four convs one at a time: kernels {sums[0]:.4f} ms,"
         f" plain {sums[1]:.4f} ms, cuDNN {sums[2]:.4f} ms")
+    # The persistent walk's edges: 5 tiles of 4 x 16 pixels over 3 blocks
+    # an N tile, a ragged row and column, with and without depth-to-space.
+    for d2s in (True, False):
+        x = _rnd(torch, gen, 1, 17, 9, 64)
+        wt = _rnd(torch, gen, 3, 3, 64, 256, scale=(2.0 / 576) ** 0.5)
+        b = _rnd(torch, gen, 256, scale=0.1, dtype=torch.float32)
+        got = conv3x3_head(x, wt, b, True, d2s=d2s, round_first=True)
+        label = f"ragged 1x17x9 64->256{' d2s' if d2s else ''}"
+        unequal[label] = int((got.view(torch.int16) != composition(
+            x, wt, b, pack_conv3x3_weights(wt), d2s).view(torch.int16)).sum())
+        d, r = rel_err(got, conv3x3_plain(x, wt, b, True, d2s, True))
+        errs[0] = max(errs[0], d)
+        log(f"K1 head 3x3 form {label} {tuple(x.shape)} -> "
+            f"{tuple(got.shape)}: max_abs_err {d:.6g} rel {r:.3g} (tol "
+            f"{TOL_KERNEL}); bf16 values unlike K1's SAME conv + LeakyReLU"
+            f"{' + d2s' if d2s else ''}: {unequal[label]} of {got.numel()}")
+        if not r <= TOL_KERNEL:
+            raise AssertionError(f"K1 head 3x3 {label}: rel err {r}")
+    if any(unequal.values()):
+        raise AssertionError(f"K1's head 3x3 form differs from K1's SAME "
+                             f"conv + LeakyReLU (+ d2s): {unequal}")
     result["max_abs_err"] = k1_err
-    head["max_abs_err"] = head_err
-    return result, head
+    head["max_abs_err"] = errs[1]
+    head3["max_abs_err"] = errs[0]
+    return result, head, head3
 
 
 def check_rdb_fused(torch, gen) -> dict:
@@ -820,16 +885,17 @@ def check_head(torch, model, x, tol: float, name: str) -> dict:
     """The folded head of ``model`` on its trunk's output for ``x``:
     against the head on its plain versions (``tol``) and against the stock
     head on the same output (printed); its launches a call: two of K1's
-    (or K1f's) head 3x3 form and two of its 2x2 form, by the wrappers'
-    counts, and no other kernel or copy on the card (no PyTorch op but
+    (or K1f's) head 3x3 form (conv3x3_head, conv3x3_head_f32) and two of
+    its 2x2 form, by the wrappers' counts, and no other kernel or copy on
+    the card (no PyTorch op but
     its outputs' allocations, ``aten_ops``); its time (CUDA events over 5 calls, the head's
     calls being device work alone) in turns with the stock head's (folded,
     stock, stock, folded)."""
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv2x2_s2d, conv2x2_s2d_f32, conv3x3, conv3x3_f32)
+        conv2x2_s2d, conv2x2_s2d_f32, conv3x3_head, conv3x3_head_f32)
     f32 = model.dtype == torch.float32
-    k3, k2 = (conv3x3_f32, conv2x2_s2d_f32) if f32 else (conv3x3,
-                                                          conv2x2_s2d)
+    k3, k2 = ((conv3x3_head_f32, conv2x2_s2d_f32) if f32
+              else (conv3x3_head, conv2x2_s2d))
     head = model.folded_head
     with torch.no_grad():
         feat = model.conv_first(x.to(model.dtype))
@@ -853,7 +919,8 @@ def check_head(torch, model, x, tol: float, name: str) -> dict:
         f"{tuple(feat.shape)} -> {tuple(out.shape)}: max_abs_err {d:.6g} rel "
         f"{r:.3g} vs its plain versions (tol {tol}); vs the stock head "
         f"max_abs_err {ds:.6g} rel {rs:.3g}; launches a call "
-        f"{'K1f' if f32 else 'K1'} {launches[0]}, 2x2 form {launches[1]}; "
+        f"{'K1f' if f32 else 'K1'} head 3x3 form {launches[0]}, 2x2 form "
+        f"{launches[1]}; "
         f"PyTorch ops a call {sorted(set(ops))} (the stock head's "
         f"{sorted(set(stock_ops))}); ms (CUDA events) in turns (folded, "
         f"stock, stock, folded) {ms} on {name}")
@@ -874,7 +941,7 @@ def check_forward(torch, gen, sd, name: str) -> None:
     fails check_rdb_fused.
     """
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv2x2_s2d, conv3x3, conv3x3_rdb, rdb_fused)
+        conv2x2_s2d, conv3x3, conv3x3_head, conv3x3_rdb, rdb_fused)
     from neural_enhanced_super_resolution_torch.models import (
         RRDBNet, RRDBNetConfig)
 
@@ -884,10 +951,10 @@ def check_forward(torch, gen, sd, name: str) -> None:
     mp_out = n * (4 * h) * (4 * w) / 1e6
     ref = RRDBNet(cfg, sd, torch.bfloat16, "cuda", "fused")(x, plain=True)
     torch.cuda.empty_cache()
-    counters = (conv3x3, conv2x2_s2d, rdb_fused, conv3x3_rdb)
-    # K1, its 2x2 form, K2 and the K1 step a forward
-    wants = {"fused": (K1_FOLDED, K1_2X2, 0, RDB_STEPS),
-             "dform": (4, K1_2X2, 3 * cfg.num_block, 0)}
+    counters = (conv3x3, conv3x3_head, conv2x2_s2d, rdb_fused, conv3x3_rdb)
+    # K1, its head 3x3 and 2x2 forms, K2 and the K1 step a forward
+    wants = {"fused": (K1_FOLDED, K1_HEAD, K1_2X2, 0, RDB_STEPS),
+             "dform": (K1_FOLDED, K1_HEAD, K1_2X2, 3 * cfg.num_block, 0)}
     for trunk in ("fused", "dform"):
         model = RRDBNet(cfg, sd, torch.bfloat16, "cuda", trunk)
         before = [c.launches for c in counters]
@@ -899,7 +966,8 @@ def check_forward(torch, gen, sd, name: str) -> None:
             f"({'K1 step+K1' if trunk == 'fused' else 'K2+K1'})"
             f" 12ch x4 nf64 nb23 gc32 on {tuple(x.shape)}: max_abs_err "
             f"{d:.6g} rel {r:.3g} vs plain trunk (tol {TOL_FORWARD}); "
-            f"launches K1, 2x2 form, K2, K1 step {launches} (want "
+            f"launches K1, head 3x3 form, 2x2 form, K2, K1 step {launches} "
+            f"(want "
             f"{wants[trunk]}); "
             f"{ms:.2f} ms/batch = {mp_out / (ms / 1e3):.3f} MP_out/s "
             f"(output incl. halo) on {name}")
@@ -2151,17 +2219,27 @@ def check_conv3x3_int8_rdb(torch, gen) -> tuple:
             f"bound/step {per[k][0] / sk:.3f}; standalone K4 "
             f"{old:.4f} + its quantise {qms:.4f}")
     # int8_amax on the trunk's input: max|x| once, a memset of the chain.
+    # The 36.8 MB input fits the 50 MB L2, where repeated launches would
+    # find it: a 96 MB fill between launches evicts it, and the kernel
+    # (amax_kernel) and the library's kernels are timed apart from the fill
+    # and the chain's memset.
     chain = 15 * ARCH["num_block"]
-    ams = device_ms(lambda: int8_amax(x, chain))
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    ams = device_ms_named(lambda: (flush.fill_(1), int8_amax(x, chain)),
+                          lambda: None, "amax_kernel")[0]
     apms = device_ms(lambda: int8_amax_plain(x, chain), reps=3)
-    lib_ms = device_ms(lambda: torch.linalg.vector_norm(x, float("inf")))
+    lib_ms = device_ms_named(
+        lambda: (flush.fill_(1), torch.linalg.vector_norm(x, float("inf"))),
+        lambda: None, "FillFunctor")[1]
+    del flush
     same = _same(int8_amax(x, chain), int8_amax_plain(x, chain))
     abms, aby = bound(float(x.numel()), 2.0 * x.numel() + 4.0 * (chain + 1))
     log(f"int8_amax on {tuple(x.shape)} bf16, chain {chain + 1}: "
         f"{'bitwise equal' if same else 'DIFFERENT'} to plain; device "
-        f"{ams:.4f} ms, bound {abms:.4f} ({aby}), bound/kernel "
-        f"{abms / ams:.3f}; plain {apms:.4f}; library "
-        f"torch.linalg.vector_norm(ord=inf) {lib_ms:.4f}")
+        f"{ams:.4f} ms (the kernel, L2 flushed before each launch), bound "
+        f"{abms:.4f} ({aby}), bound/kernel {abms / ams:.3f}; plain "
+        f"{apms:.4f}; library torch.linalg.vector_norm(ord=inf) {lib_ms:.4f}"
+        " (L2 flushed)")
     if not same:
         raise AssertionError("int8_amax differs from its plain version")
     del fused, dform, srcs, slots
@@ -2441,15 +2519,16 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
     model on the plain versions (TOL_FORWARD) and its trunk bit for bit
     against the plain trunk; no quantize_int8, no plain call and no host
     sync on the kernel path (sync debug mode "error"), 345 step, 1
-    int8_amax, 4 K1 and 2 K1 2x2-form launches (the folded head: up1, up2,
-    hr, last); against the fused bf16 trunk (PSNR of the uint8 outputs);
+    int8_amax, 2 K1 (conv_first, conv_body), 2 K1 head 3x3-form and 2 K1
+    2x2-form launches (the folded head: up1, up2, hr, last); against the
+    fused bf16 trunk (PSNR of the uint8 outputs);
     device ms and wall in turns with the K4 composition (quantise, K4, the
     PyTorch assembly), the fused and the dform trunk, each split by kernel
     family; the folded head on the int8 trunk (check_head)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_int8,
+        conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_head, conv3x3_int8,
         conv3x3_int8_plain, conv3x3_int8_rdb, conv3x3_int8_rdb_plain,
         conv3x3_plain, int8_amax, int8_amax_plain)
     from neural_enhanced_super_resolution_torch.models import (
@@ -2464,7 +2543,7 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
     feat = model.conv_first(x.to(torch.bfloat16))
     body_ref = model.body_forward(feat, plain=True)
     counters = (conv3x3, conv3x3_int8_rdb, int8_amax, conv3x3_int8,
-                conv2x2_s2d)
+                conv2x2_s2d, conv3x3_head)
     plains = (conv3x3_plain, conv3x3_int8_rdb_plain, int8_amax_plain,
               conv3x3_int8_plain, conv2x2_s2d_plain)
     before = [c.launches for c in counters] + [c.calls for c in plains]
@@ -2489,8 +2568,9 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
     counts = [a - b for a, b in zip(
         [c.launches for c in counters] + [c.calls for c in plains], before)]
     # Two trunk passes (the forward's and body_forward's), one head.
-    k1, k4s, amax, k4, k2x2 = (counts[0], counts[1] // 2, counts[2] // 2,
-                               counts[3], counts[4])
+    k1, k4s, amax, k4, k2x2, khead = (counts[0], counts[1] // 2,
+                                      counts[2] // 2, counts[3], counts[4],
+                                      counts[5])
     d, r = rel_err(out, ref)
     body_same = _same(body, body_ref)
     del ref, body_ref, body
@@ -2559,7 +2639,8 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
         f"{'bitwise equal' if body_same else 'DIFFERENT'} to the plain "
         f"trunk; uint8 PSNR vs the fused bf16 trunk {p:.2f} dB; a forward "
         f"launches K4 step {k4s}, int8_amax {amax}, K1 {k1}, K4 {k4}, K1 "
-        f"2x2 form {k2x2}; plain calls {counts[5:]}; quantize_int8 calls "
+        f"2x2 form {k2x2}, K1 head 3x3 form {khead}; plain calls "
+        f"{counts[6:]}; quantize_int8 calls "
         f"{len(seen)}; no host sync (sync debug mode error)")
     log(f"forward device ms in turns (composition, int8, fused, dform, "
         f"fused composition, and back) {dev}; wall ms {wall}; int8 "
@@ -2571,14 +2652,14 @@ def check_forward_int8(torch, gen, sd, name: str) -> None:
         log(f"forward {key} split (device ms, one forward, {tot:.3f} in "
             "all): " + ", ".join(f"{k} {v:.3f} ({100 * v / tot:.1f}%)"
                                  for k, v in fam.items()))
-    want = (15 * cfg.num_block, 1, 4, 0, K1_2X2)
-    got = (k4s, amax, k1, k4, k2x2)
+    want = (15 * cfg.num_block, 1, K1_FOLDED, 0, K1_2X2, K1_HEAD)
+    got = (k4s, amax, k1, k4, k2x2, khead)
     if not (r <= TOL_FORWARD and body_same and got == want
-            and not any(counts[5:]) and not seen):
+            and not any(counts[6:]) and not seen):
         raise AssertionError(
             f"int8 forward: rel err {r}, trunk bitwise {body_same}, "
-            f"launches step/amax/K1/K4/2x2 {got} (want {want}), "
-            f"plain calls {counts[5:]}, quantize_int8 calls {len(seen)}")
+            f"launches step/amax/K1/K4/2x2/head 3x3 {got} (want {want}), "
+            f"plain calls {counts[6:]}, quantize_int8 calls {len(seen)}")
     check_head(torch, model, x, TOL_FORWARD, name)
     del model, fused, dform, comp, fcomp
     torch.cuda.empty_cache()
@@ -2632,7 +2713,8 @@ def check_int8_quality(torch, np) -> None:
 
 def _int8_counters():
     from neural_enhanced_super_resolution_torch import kernels as k
-    return ({"conv3x3": k.conv3x3, "conv3x3_int8": k.conv3x3_int8,
+    return ({"conv3x3": k.conv3x3, "conv3x3_head": k.conv3x3_head,
+             "conv3x3_int8": k.conv3x3_int8,
              "conv3x3_int8_rdb": k.conv3x3_int8_rdb,
              "int8_amax": k.int8_amax, "conv2x2_s2d": k.conv2x2_s2d,
              "conv3x3_rdb": k.conv3x3_rdb},
@@ -3079,8 +3161,8 @@ def drive_float32(torch, np, ckpt: str, snap: str, name: str):
     attention on flash_attention_plain. Bar for both: >= 99.9% of the
     uint8 values equal, max 1 level. The counts of each request show the
     float32 forms only: no bf16 kernel and no plain version. Returns the
-    summed counts and the shapes K1f (its 3x3 and 2x2 forms) and K3f were
-    given."""
+    summed counts and the shapes K1f (its SAME conv, its head 3x3 and 2x2
+    forms) and K3f were given."""
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
     from neural_enhanced_super_resolution_torch.kernels import attention
     # the module: the package's name conv3x3 is the wrapper
@@ -3091,7 +3173,7 @@ def drive_float32(torch, np, ckpt: str, snap: str, name: str):
             "esrgan_arch": {"num_block": 1}, "precision": "float32",
             "adaptive_sharpening": False,
             "output_dir": os.path.join(OUT, "ref")}
-    k1_shapes, k3_shapes, k2x2_shapes = set(), set(), set()
+    k1_shapes, k3_shapes, k2x2_shapes, k1h_shapes = set(), set(), set(), set()
 
     def attn_key(q, k, v):
         return (*q.shape[:3], k.shape[2], q.shape[3])
@@ -3102,7 +3184,9 @@ def drive_float32(torch, np, ckpt: str, snap: str, name: str):
 
     def only_f32(counts, k3: int | None):
         return (counts["conv3x3_f32"] > 0 and counts["conv2x2_s2d_f32"] > 0
+                and counts["conv3x3_head_f32"] > 0
                 and counts["conv3x3"] == 0 and counts["conv2x2_s2d"] == 0
+                and counts["conv3x3_head"] == 0
                 and counts["conv3x3_rdb"] == 0
                 and counts["conv3x3_rdb_plain"] == 0
                 and counts["flash_attention"] == 0
@@ -3122,6 +3206,7 @@ def drive_float32(torch, np, ckpt: str, snap: str, name: str):
     _zero_f32_counts()
     t0 = time.perf_counter()
     with recording(k1mod, "conv3x3_f32", k1_shapes, _conv_key), \
+            recording(k1mod, "conv3x3_head_f32", k1h_shapes, _conv_key), \
             recording(k1mod, "conv2x2_s2d_f32", k2x2_shapes, _conv2x2_key):
         got = pipe.enhance_array(img)
     card_s = time.perf_counter() - t0
@@ -3153,6 +3238,7 @@ def drive_float32(torch, np, ckpt: str, snap: str, name: str):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with recording(k1mod, "conv3x3_f32", k1_shapes, _conv_key), \
+            recording(k1mod, "conv3x3_head_f32", k1h_shapes, _conv_key), \
             recording(k1mod, "conv2x2_s2d_f32", k2x2_shapes, _conv2x2_key), \
             recording(attention, "flash_attention_f32", k3_shapes, attn_key):
         got = pipe.enhance_array(img, prompt=PROMPT)
@@ -3173,19 +3259,21 @@ def drive_float32(torch, np, ckpt: str, snap: str, name: str):
     del pipe
     torch.cuda.empty_cache()
     counts = {k: esr_counts[k] + sd_counts[k] for k in esr_counts}
-    return counts, sorted(k1_shapes), sorted(k2x2_shapes), sorted(k3_shapes)
+    return (counts, sorted(k1_shapes), sorted(k2x2_shapes),
+            sorted(k3_shapes), sorted(k1h_shapes))
 
 
 def check_forward_f32(torch, gen, sd, name: str):
     """The full-width RRDBNet x4 (64/23/32, fused trunk) in float32 on
     TILE_BATCH through K1f against the same forward with plain=True on the
     card (cuDNN's float32 conv, TF32 off), under TOL_F32_FORWARD; its
-    device time, split into K1f (both forms) and the rest (the float32
-    assembly of the trunk), and its K1f launches (349: 345 in the trunk,
-    conv_first, conv_body, the folded head's up1 and up2; and 2 of the 2x2
-    form, hr and last) with no bf16 kernel and no plain call; the folded
-    head (check_head, bar TOL_F32_FORWARD). Returns the K1f launches (both
-    forms) and the shapes K1f's 3x3 and 2x2 forms were given."""
+    device time, split into K1f (all its forms) and the rest (the float32
+    assembly of the trunk), and its K1f launches (347: 345 in the trunk,
+    conv_first, conv_body; 2 of the head 3x3 form, up1 and up2; 2 of the
+    2x2 form, hr and last) with no bf16 kernel and no plain call; the
+    folded head (check_head, bar TOL_F32_FORWARD). Returns the K1f
+    launches (SAME conv, 2x2 form, head 3x3 form) and the shapes K1f's
+    SAME conv, 2x2 and head 3x3 forms were given."""
     from neural_enhanced_super_resolution_torch.models import (
         RRDBNet, RRDBNetConfig)
     k1mod = sys.modules[
@@ -3195,9 +3283,10 @@ def check_forward_f32(torch, gen, sd, name: str):
     x = torch.rand((n, h, w, 12), generator=gen).to("cuda")
     model = RRDBNet(cfg, sd, torch.float32, "cuda", "fused")
     ref = model(x, plain=True)
-    shapes, shapes_2x2 = _Tally(), _Tally()
+    shapes, shapes_2x2, shapes_head = _Tally(), _Tally(), _Tally()
     _zero_f32_counts()
     with recording(k1mod, "conv3x3_f32", shapes, _conv_key), \
+            recording(k1mod, "conv3x3_head_f32", shapes_head, _conv_key), \
             recording(k1mod, "conv2x2_s2d_f32", shapes_2x2, _conv2x2_key):
         out = model(x)
     counts = _f32_counts()
@@ -3205,11 +3294,12 @@ def check_forward_f32(torch, gen, sd, name: str):
     del ref
     torch.cuda.empty_cache()
     flops = sum(2.0 * a * b * c * ci * co * 9
-                for a, b, c, ci, co, *_ in shapes) + sum(
+                for a, b, c, ci, co, *_ in shapes + shapes_head) + sum(
         2.0 * a * (b + 2 * pad - 1) * (c + 2 * pad - 1) * ci * co * 4
         for a, b, c, ci, co, _, pad, _, _ in shapes_2x2)
     k1f, rest = device_ms_named(lambda: model(x), lambda: None,
-                                ("conv3x3_f32", "conv2x2_f32"),
+                                ("conv3x3_f32", "conv2x2_f32",
+                                 "conv3x3_head_f32"),
                                 reps=2,
                                 floor_ms=(flops / PEAK_FP32_FLOPS * 1e3, 0.0))
     wall = wall_ms(lambda: model(x), reps=2)
@@ -3221,12 +3311,16 @@ def check_forward_f32(torch, gen, sd, name: str):
         f"{flops / 1e12:.3f} TFLOP, {flops / k1f / 1e9:.1f} TFLOP/s), the "
         f"rest (float32 assembly) {rest:.3f}; K1f launches "
         f"{counts['conv3x3_f32']} over {len(set(shapes))} shapes, 2x2 form "
-        f"{counts['conv2x2_s2d_f32']} over {len(set(shapes_2x2))}; counts "
-        f"{counts} on {name}")
-    want = (K1F_FOLDED, K1_2X2)
+        f"{counts['conv2x2_s2d_f32']} over {len(set(shapes_2x2))}, head 3x3 "
+        f"form {counts['conv3x3_head_f32']} over {len(set(shapes_head))}; "
+        f"counts {counts} on {name}")
+    want = (K1F_FOLDED, K1_2X2, K1_HEAD)
+    got = (counts["conv3x3_f32"], counts["conv2x2_s2d_f32"],
+           counts["conv3x3_head_f32"])
     if (not (r <= TOL_F32_FORWARD and torch.isfinite(out).all())
-            or (counts["conv3x3_f32"], counts["conv2x2_s2d_f32"]) != want
+            or got != want
             or any(counts[k] for k in ("conv3x3", "conv2x2_s2d",
+                                       "conv3x3_head",
                                        "flash_attention", "conv3x3_plain",
                                        "conv2x2_s2d_plain",
                                        "flash_attention_plain",
@@ -3237,8 +3331,8 @@ def check_forward_f32(torch, gen, sd, name: str):
     check_head(torch, model, x, TOL_F32_FORWARD, name)
     del model
     torch.cuda.empty_cache()
-    return ((counts["conv3x3_f32"], counts["conv2x2_s2d_f32"]),
-            sorted(set(shapes)), sorted(set(shapes_2x2)))
+    return (got, sorted(set(shapes)), sorted(set(shapes_2x2)),
+            sorted(set(shapes_head)))
 
 
 class _Tally(list):
@@ -3246,31 +3340,34 @@ class _Tally(list):
     add = list.append
 
 
-def check_conv3x3_f32(torch, gen, shapes, shapes_2x2) -> tuple:
+def check_conv3x3_f32(torch, gen, shapes, shapes_2x2, shapes_head) -> tuple:
     """K1f against conv3x3_plain at every shape of the full-width float32
-    forward and of the float32 requests, and K1f's 2x2 form against
-    conv2x2_s2d_plain at every shape they gave it, each beside cuDNN's
-    float32 conv (TF32 off) at its shape and its bound; the JSON rows are
-    trunk w0 on TILE_BATCH (F32_TRUNK_W0) and the folded head's hr there
-    (F32_HEAD_HR)."""
+    forward and of the float32 requests, and K1f's 2x2 and head 3x3 forms
+    against conv2x2_s2d_plain / conv3x3_plain at every shape they gave
+    them, each beside cuDNN's float32 conv (TF32 off) at its shape and its
+    bound; the JSON rows are trunk w0 on TILE_BATCH (F32_TRUNK_W0), the
+    folded head's hr there (F32_HEAD_HR) and its up2 (F32_HEAD_UP2)."""
     import torch.nn.functional as F
     from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-        conv2x2_s2d_f32, conv2x2_s2d_plain, conv3x3_f32, conv3x3_plain)
-    worst, rows, failed = [0.0, 0.0], {}, []
+        conv2x2_s2d_f32, conv2x2_s2d_plain, conv3x3_f32, conv3x3_head_f32,
+        conv3x3_plain)
+    worst, rows, failed = [0.0, 0.0, 0.0], {}, []
     cases = ([(3, s, s[:5] + (1, False)) for s in shapes]
-             + [(2, s, s[:5] + s[6:8]) for s in shapes_2x2])
+             + [(2, s, s[:5] + s[6:8]) for s in shapes_2x2]
+             + [("head", s, s[:5] + (1, False)) for s in shapes_head])
     for taps, key, (n, h, w, cin, cout, pad, mask) in cases:
         x = _rnd(torch, gen, n, h, w, cin, dtype=torch.float32)
-        wt = _rnd(torch, gen, taps, taps, cin, cout,
-                  scale=(2.0 / (taps * taps * cin)) ** 0.5,
-                  dtype=torch.float32)
-        if taps == 3:
+        kt = 2 if taps == 2 else 3
+        wt = _rnd(torch, gen, kt, kt, cin, cout,
+                  scale=(2.0 / (kt * kt * cin)) ** 0.5, dtype=torch.float32)
+        if kt == 3:
             bias, act, d2s = key[5:]
             b = (_rnd(torch, gen, cout, scale=0.1, dtype=torch.float32)
                  if bias else None)
-            run = lambda: conv3x3_f32(x, wt, b, act, d2s)
+            fn = conv3x3_head_f32 if taps == "head" else conv3x3_f32
+            run = lambda: fn(x, wt, b, act, d2s)
             plain = lambda: conv3x3_plain(x, wt, b, act, d2s)
-            what = f"conv3x3_f32 {(n, h, w, cin)} -> {cout} bias {bias}"
+            what = f"{fn.__name__} {(n, h, w, cin)} -> {cout} bias {bias}"
         else:
             bias, (act, _, _, d2s) = True, key[5:]
             b = _rnd(torch, gen, cout, scale=0.1, dtype=torch.float32)
@@ -3287,7 +3384,7 @@ def check_conv3x3_f32(torch, gen, shapes, shapes_2x2) -> tuple:
         wc = wt.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         cms = cuda_ms(lambda: F.conv2d(xc, wc, b, padding=pad))
-        bms, by = conv_bound(n, h, w, taps, cin, cout, pad, 4,
+        bms, by = conv_bound(n, h, w, kt, cin, cout, pad, 4,
                              PEAK_FP32_FLOPS, bias)
         log(f"K1f {what} lrelu {act} d2s {d2s}: max_abs_err {d:.6g} rel "
             f"{r:.3g} (tol {TOL_F32}) kernel {ms:.4f} ms plain {pms:.4f} ms "
@@ -3295,15 +3392,17 @@ def check_conv3x3_f32(torch, gen, shapes, shapes_2x2) -> tuple:
             f"kernel/cuDNN {ms / cms:.3f}, bound/kernel {bms / ms:.3f}")
         if not (r <= TOL_F32 and got.shape == ref.shape):
             failed.append(f"{what}: rel {r}")
-        worst[taps == 2] = max(worst[taps == 2], d)
-        rows[key] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
-                     "bound_by": by, "library_ms": cms}
+        form = 2 if taps == "head" else int(taps == 2)
+        worst[form] = max(worst[form], d)
+        rows[form, key] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                           "bound_by": by, "library_ms": cms}
         del x, got, ref
-    if failed or F32_TRUNK_W0 not in rows or F32_HEAD_HR not in rows:
+    want = ((0, F32_TRUNK_W0), (1, F32_HEAD_HR), (2, F32_HEAD_UP2))
+    if failed or any(k not in rows for k in want):
         raise AssertionError(f"K1f disagrees with its plain version: "
-                             f"{failed or 'trunk w0 or head hr not recorded'}")
-    return (dict(rows[F32_TRUNK_W0], max_abs_err=worst[0]),
-            dict(rows[F32_HEAD_HR], max_abs_err=worst[1]))
+                             f"{failed or 'trunk w0, head hr or up2 not '}"
+                             "recorded")
+    return tuple(dict(rows[k], max_abs_err=worst[k[0]]) for k in want)
 
 
 def check_flash_attention_f32(torch, gen, shapes) -> dict:
@@ -3449,8 +3548,8 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     launches of the sharded runs."""
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_plain, conv3x3_rdb,
-        conv3x3_rdb_plain, flash_attention, flash_attention_plain)
+        conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_head, conv3x3_plain,
+        conv3x3_rdb, conv3x3_rdb_plain, flash_attention, flash_attention_plain)
     from neural_enhanced_super_resolution_torch.models import (
         RRDBNet, RRDBNetConfig, init_rrdbnet)
     from neural_enhanced_super_resolution_torch.models.diffusion import (
@@ -3484,6 +3583,7 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
         + (" (the one card listed 4 times: every time below is a one-card "
            "rehearsal, not a multi-card speed)" if repeated else ""))
     counts = {"conv3x3": 0, "conv2x2_s2d": 0, "conv3x3_rdb": 0,
+              "conv3x3_head": 0,
               "flash_attention": 0}
     warnings = _Warnings()
     logging.getLogger("nesr").addHandler(warnings)
@@ -3493,6 +3593,7 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
         conv2x2_s2d.launches = conv2x2_s2d_plain.calls = 0
         conv3x3_plain.calls = flash_attention_plain.calls = 0
         conv3x3_rdb.launches = conv3x3_rdb_plain.calls = 0
+        conv3x3_head.launches = 0
 
     def no_plain(label):
         if (conv3x3_plain.calls or flash_attention_plain.calls
@@ -3500,17 +3601,19 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
             raise AssertionError(f"{label}: plain versions ran on the card")
 
     def k1_per(forwards: int) -> bool:
-        """The folded model's K1, 2x2-form and K1 step launches for
-        ``forwards``."""
-        return (conv3x3.launches, conv2x2_s2d.launches,
-                conv3x3_rdb.launches) == (forwards * K1_FOLDED,
-                                          forwards * K1_2X2,
-                                          forwards * RDB_STEPS)
+        """The folded model's K1, 2x2-form, K1 step and head 3x3-form
+        launches for ``forwards``."""
+        return (conv3x3.launches, conv2x2_s2d.launches, conv3x3_rdb.launches,
+                conv3x3_head.launches) == (forwards * K1_FOLDED,
+                                           forwards * K1_2X2,
+                                           forwards * RDB_STEPS,
+                                           forwards * K1_HEAD)
 
     def add_k1():
         counts["conv3x3"] += conv3x3.launches
         counts["conv2x2_s2d"] += conv2x2_s2d.launches
         counts["conv3x3_rdb"] += conv3x3_rdb.launches
+        counts["conv3x3_head"] += conv3x3_head.launches
 
     # ---- tile DP: the full-width RRDBNet x4 on a 1024x768 image ----------
     model = RRDBNet(RRDBNetConfig(**ARCH), sd, dtype=torch.bfloat16,
@@ -3554,8 +3657,9 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     log(f"multi-device tile DP: RRDBNet x4 (64/23/32, bf16) on {ww}x{hh}, "
         f"{tile}-px tiles, halo {halo}, batch {batch} a slot: {len(shards)} "
         f"shards of {shards} tiles, K1 launches {k1}, 2x2 form {k2x2} and "
-        f"K1 step {conv3x3_rdb.launches} (forwards x {K1_FOLDED}, x "
-        f"{K1_2X2} and x {RDB_STEPS}), 0 host syncs from the "
+        f"K1 step {conv3x3_rdb.launches}, head 3x3 form "
+        f"{conv3x3_head.launches} (forwards x {K1_FOLDED}, x {K1_2X2}, x "
+        f"{RDB_STEPS} and x {K1_HEAD}), 0 host syncs from the "
         f"first shard's "
         f"dispatch to the last one's (sync debug mode 'error'); equal to "
         f"process_tiled bit for bit: {torch.equal(out, single)}; dispatch "
@@ -3769,6 +3873,7 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     counts["conv3x3"] += k1
     counts["conv3x3_rdb"] += steps
     counts["conv2x2_s2d"] += conv2x2_s2d.launches
+    counts["conv3x3_head"] += conv3x3_head.launches
     counts["flash_attention"] += k3
     del multi
 
@@ -3790,7 +3895,7 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
             outs[strategy], ms[strategy] = _timed(
                 torch, lambda p=p: p.enhance_array(big))
             k1s[strategy] = (conv3x3.launches, conv2x2_s2d.launches,
-                             conv3x3_rdb.launches)
+                             conv3x3_rdb.launches, conv3x3_head.launches)
             no_plain(f"{strategy} request")
     emulated = strip_emulation(torch, fn, contrast_stage(img), n, halo,
                                4).cpu().numpy()
@@ -3803,16 +3908,20 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
         f"{db:.2f} dB against shard_strategy tiles (bar 30; {same:.4f} of "
         f"the values identical: the RRDBNet's receptive field exceeds the "
         f"{halo}-px halo, so the two cuts differ near their seams); K1, 2x2 "
-        f"form, K1 step {k1s['strips']} (strips) and {k1s['tiles']} (tiles); "
+        f"form, K1 step, head 3x3 form {k1s['strips']} (strips) and "
+        f"{k1s['tiles']} (tiles); "
         f"{ms['strips']:.1f} ms and {ms['tiles']:.1f} ms ({tag})")
     if not exact or not db > 30.0 or k1s["strips"] != (
-            n * K1_FOLDED, n * K1_2X2, n * RDB_STEPS) or not k1s["tiles"][2]:
+            n * K1_FOLDED, n * K1_2X2, n * RDB_STEPS,
+            n * K1_HEAD) or not k1s["tiles"][2]:
         raise AssertionError(f"strips request: exact {exact}, PSNR {db}, "
-                             f"K1, 2x2 form and K1 step {k1s}")
-    for k1, k2x2, steps in k1s.values():
+                             f"K1, 2x2 form, K1 step and head 3x3 form "
+                             f"{k1s}")
+    for k1, k2x2, steps, khead in k1s.values():
         counts["conv3x3"] += k1
         counts["conv2x2_s2d"] += k2x2
         counts["conv3x3_rdb"] += steps
+        counts["conv3x3_head"] += khead
 
     # ---- one process group on NCCL at world size 1 -------------------------
     env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
@@ -3893,7 +4002,8 @@ SCRIPT_COUNTED = (
     "import json, runpy, sys\n"
     "from neural_enhanced_super_resolution_torch.kernels import (\n"
     "    conv2x2_s2d, conv2x2_s2d_f32, conv2x2_s2d_plain, conv3x3,\n"
-    "    conv3x3_f32, conv3x3_plain, conv3x3_rdb, conv3x3_rdb_plain)\n"
+    "    conv3x3_f32, conv3x3_head, conv3x3_head_f32, conv3x3_plain,\n"
+    "    conv3x3_rdb, conv3x3_rdb_plain)\n"
     "sys.argv = sys.argv[1:]\n"
     "rc = 0\n"
     "try:\n"
@@ -3902,6 +4012,8 @@ SCRIPT_COUNTED = (
     "    rc = exc.code\n"
     "print('COUNTS ' + json.dumps({\n"
     "    'conv3x3': conv3x3.launches, 'conv3x3_f32': conv3x3_f32.launches,\n"
+    "    'conv3x3_head': conv3x3_head.launches,\n"
+    "    'conv3x3_head_f32': conv3x3_head_f32.launches,\n"
     "    'conv2x2_s2d': conv2x2_s2d.launches,\n"
     "    'conv2x2_s2d_f32': conv2x2_s2d_f32.launches,\n"
     "    'conv2x2_s2d_plain': conv2x2_s2d_plain.calls,\n"
@@ -4277,22 +4389,24 @@ def drive_training_and_entry_points(torch, np, gen, sd, ckpt: str,
         + next(line for line in outs["compare --check"].splitlines()
                if line.startswith("worst"))
         + f"; counts {counts}")
-    # K1, its 2x2 form and the K1 step a forward: K1_STOCK, none and none
-    # (the 12-channel checkpoint, stock trunk, one tile; x2plus, stock
-    # trunk, two iterations), K1_FOLDED, K1_2X2 and RDB_STEPS (the check's
-    # fused trunk, one image)
-    want = {"quickstart": None, "direct_esrgan": (K1_STOCK, 0, 0),
-            "superres_project": (2 * K1_STOCK, 0, 0),
-            "compare --check": (K1_FOLDED, K1_2X2, RDB_STEPS)}
+    # K1, its 2x2 form, the K1 step and the head 3x3 form a forward:
+    # K1_STOCK and none (the 12-channel checkpoint, stock trunk, one tile;
+    # x2plus, stock trunk, two iterations), K1_FOLDED, K1_2X2, RDB_STEPS
+    # and K1_HEAD (the check's fused trunk, one image)
+    want = {"quickstart": None, "direct_esrgan": (K1_STOCK, 0, 0, 0),
+            "superres_project": (2 * K1_STOCK, 0, 0, 0),
+            "compare --check": (K1_FOLDED, K1_2X2, RDB_STEPS, K1_HEAD)}
     for label, c in counts.items():
         if (c["conv3x3_plain"] or c["conv3x3_f32"] or c["conv3x3"] == 0
                 or c["conv2x2_s2d_plain"] or c["conv2x2_s2d_f32"]
-                or c["conv3x3_rdb_plain"]
+                or c["conv3x3_rdb_plain"] or c["conv3x3_head_f32"]
                 or want[label] not in (None, (c["conv3x3"],
                                               c["conv2x2_s2d"],
-                                              c["conv3x3_rdb"]))):
-            raise AssertionError(f"{label}: counts {c}, K1, 2x2 form and "
-                                 f"K1 step want {want[label]}")
+                                              c["conv3x3_rdb"],
+                                              c["conv3x3_head"]))):
+            raise AssertionError(f"{label}: counts {c}, K1, 2x2 form, K1 "
+                                 f"step and head 3x3 form want "
+                                 f"{want[label]}")
     if (not db.get("enhanced", 0) > db.get("bicubic", 1e9)
             or direct.shape != (4 * hh, 4 * ww, 3)
             or superres.shape != (4 * hh, 4 * ww, 3)):
@@ -4384,6 +4498,7 @@ def drive_training_and_entry_points(torch, np, gen, sd, ckpt: str,
     return {"conv3x3": sum(c["conv3x3"] for c in counts.values()),
             "conv2x2_s2d": sum(c["conv2x2_s2d"] for c in counts.values()),
             "conv3x3_rdb": sum(c["conv3x3_rdb"] for c in counts.values()),
+            "conv3x3_head": sum(c["conv3x3_head"] for c in counts.values()),
             "conv3x3_f32": k1f + tcounts["conv3x3_f32"]}
 
 
@@ -4432,7 +4547,8 @@ def main() -> int:
     drive_precompile(name)
     build_kernels()
     results = {}
-    results["conv3x3"], results["conv2x2_s2d"] = check_conv3x3(torch, gen)
+    (results["conv3x3"], results["conv2x2_s2d"],
+     results["conv3x3_head"]) = check_conv3x3(torch, gen)
     results.update({"rdb_fused": check_rdb_fused(torch, gen),
                     "flash_attention": check_flash_attention(torch, gen),
                     "conv3x3_int8": check_conv3x3_int8(torch, gen)})
@@ -4470,12 +4586,15 @@ def main() -> int:
     check_against_cpu(torch, np, ckpt, seg)
     check_parity_against_cpu(torch, np, ckpt)
     check_diffusion_against_cpu(torch, np)
-    f32_counts, k1f_shapes, k2x2f_shapes, k3f_shapes = drive_float32(
-        torch, np, ckpt, snap, name)
-    fwd_k1f, fwd_shapes, fwd_2x2 = check_forward_f32(torch, gen, sd, name)
-    results["conv3x3_f32"], results["conv2x2_s2d_f32"] = check_conv3x3_f32(
+    (f32_counts, k1f_shapes, k2x2f_shapes, k3f_shapes,
+     k1hf_shapes) = drive_float32(torch, np, ckpt, snap, name)
+    fwd_k1f, fwd_shapes, fwd_2x2, fwd_head = check_forward_f32(
+        torch, gen, sd, name)
+    (results["conv3x3_f32"], results["conv2x2_s2d_f32"],
+     results["conv3x3_head_f32"]) = check_conv3x3_f32(
         torch, gen, sorted(set(k1f_shapes) | set(fwd_shapes)),
-        sorted(set(k2x2f_shapes) | set(fwd_2x2)))
+        sorted(set(k2x2f_shapes) | set(fwd_2x2)),
+        sorted(set(k1hf_shapes) | set(fwd_head)))
     results["flash_attention_f32"] = check_flash_attention_f32(
         torch, gen, k3f_shapes)
     train_launches = drive_training_and_entry_points(torch, np, gen, sd,
@@ -4513,11 +4632,23 @@ def main() -> int:
                 "conv2x2_s2d": counts["conv2x2_s2d"]
                 + sum(c["conv2x2_s2d"] for c in mode_counts.values())
                 + md_counts["conv2x2_s2d"] + train_launches["conv2x2_s2d"],
+                "conv3x3_head": counts["conv3x3_head"]
+                + sd_counts["conv3x3_head"] + default_counts["conv3x3_head"]
+                + default_ip_counts["conv3x3_head"]
+                + tiled_counts["conv3x3_head"] + swin_counts["conv3x3_head"]
+                + batch_counts["conv3x3_head"]
+                + sum(c["conv3x3_head"] for c in mode_counts.values())
+                + stream_counts["conv3x3_head"] + md_counts["conv3x3_head"]
+                + train_launches["conv3x3_head"],
                 "conv3x3_f32": f32_counts["conv3x3_f32"] + fwd_k1f[0]
                 + train_launches["conv3x3_f32"],
                 "conv2x2_s2d_f32": f32_counts["conv2x2_s2d_f32"] + fwd_k1f[1],
+                "conv3x3_head_f32": f32_counts["conv3x3_head_f32"]
+                + fwd_k1f[2],
                 "flash_attention_f32": f32_counts["flash_attention_f32"]}
     sources = {"conv3x3": "csrc/conv3x3.cu", "rdb_fused": "csrc/rdb_fused.cu",
+               "conv3x3_head": "csrc/conv3x3_head.cu",
+               "conv3x3_head_f32": "csrc/conv3x3_head_f32.cu",
                "conv3x3_rdb": "csrc/rdb_bf16.cu",
                "conv2x2_s2d": "csrc/conv2x2.cu",
                "conv2x2_s2d_f32": "csrc/conv2x2_f32.cu",
@@ -4554,13 +4685,18 @@ def main() -> int:
         # in bf16 and in float32
         "conv2x2_s2d": "neural_enhanced_super_resolution_tpu/models/"
                        "rrdbnet.py:586",
+        "conv3x3_head": "neural_enhanced_super_resolution_tpu/models/"
+                        "rrdbnet.py:586",
+        "conv3x3_head_f32": "neural_enhanced_super_resolution_tpu/models/"
+                            "rrdbnet.py:586",
         "conv2x2_s2d_f32": "neural_enhanced_super_resolution_tpu/models/"
                            "rrdbnet.py:586",
         "flash_attention_f32": "neural_enhanced_super_resolution_tpu/"
                                "kernels/attention.py:125"}
     # ms, plain_ms, bound_ms and library_ms at one shape a kernel: K1 at
     # conv_body on the tile batch, its 2x2 form and K1f's at the folded
-    # head's hr on the tile batch (4 x 536^2 x 256 -> 4 x 537^2 x 256), K2
+    # head's hr on the tile batch (4 x 536^2 x 256 -> 4 x 537^2 x 256), its
+    # head 3x3 form and K1f's at up2 there (4 x 536^2 x 64 -> 256), K2
     # on the tile batch, K3 at the UNet's 64^2 self-attention, the K1 step
     # and the K4 step each as one RDB's five launches on the tile batch
     # (each bound the RDB's own, the five-launch floor printed beside it),
@@ -4576,9 +4712,10 @@ def main() -> int:
                 **{key: results[k][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
-               for k in ("conv3x3", "conv2x2_s2d", "conv3x3_rdb", "rdb_fused",
-                         "flash_attention", "conv3x3_int8_rdb", "int8_amax",
-                         "conv3x3_f32", "conv2x2_s2d_f32",
+               for k in ("conv3x3", "conv3x3_head", "conv2x2_s2d",
+                         "conv3x3_rdb", "rdb_fused", "flash_attention",
+                         "conv3x3_int8_rdb", "int8_amax", "conv3x3_f32",
+                         "conv3x3_head_f32", "conv2x2_s2d_f32",
                          "flash_attention_f32")]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

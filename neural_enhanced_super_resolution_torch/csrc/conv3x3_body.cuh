@@ -1,12 +1,12 @@
 // K1's mainloop: a KT x KT convolution on NHWC bf16 as an implicit GEMM
-// on wgmma with fp32 sums (csrc/conv3x3.cu: the SAME 3x3 conv and the
-// folded head's 3x3 form; the epilogue a compile-time parameter, so each
-// compiles only its own). Its pieces are shared with the K1 step
-// (csrc/rdb_bf16.cu: a conv of the bf16 RDB with its share of the
-// dense-block assembly, a persistent kernel of its own): the patch
-// staging (stage_pass), a lane's ldmatrix row (lane_a_addr) and a tap's
-// wgmma issue (mma_tap), so both sum in the same K order (pass, tap, k16)
-// over the same N tiles and the step's convs equal K1's bit for bit.
+// on wgmma with fp32 sums (csrc/conv3x3.cu: the SAME 3x3 conv; the
+// epilogue a compile-time parameter). Its pieces are shared with two
+// persistent kernels of their own, the K1 step (csrc/rdb_bf16.cu: a conv
+// of the bf16 RDB with its share of the dense-block assembly) and the
+// folded head's 3x3 form (csrc/conv3x3_head.cu): the patch staging
+// (stage_pass), a lane's ldmatrix row (lane_a_addr) and a tap's wgmma
+// issue (mma_tap), so all sum in the same K order (pass, tap, k16) over
+// the same N tiles and their convs equal K1's bit for bit.
 //
 // Design: M = output pixels, N = output channels, K = KT^2 taps x Cin. A
 // block (two warpgroups, one 16-pixel output row a warp) owns an 8 x

@@ -43,14 +43,9 @@
 // (tools/f32_ablation.py, PERF.md): the FFMA issue rate itself, at 168
 // registers and at most 12 warps an SM; the staging is 2-5% of the time
 // at the trunk's and the 64->64 shapes.
-// The folded RRDBNet head's 3x3 form (conv3x3_f32_head_kernel; the JAX
-// package's _head_forward, models/rrdbnet.py:586, runs it as an XLA conv;
-// no Pallas kernel) is this design with the epilogue's depth-to-space
-// store (flags as csrc/conv3x3.cu's: LRELU 1, MASK 4, D2S 8; ROUND_FIRST
-// is moot in float32); the body takes the tap geometry (KT x KT taps, a
-// (rows + KT - 1) x (16 + KT - 1) patch at offset -pad) as a template
-// parameter. The SAME 3x3 kernel is compiled without that epilogue code.
-// The head's 2x2 form has its own kernel (csrc/conv2x2_f32.cu).
+// The folded RRDBNet head's forms have kernels of their own, on this
+// design: the 3x3 form (csrc/conv3x3_head_f32.cu) and the 2x2 form
+// (csrc/conv2x2_f32.cu).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,15 +58,13 @@ constexpr int TW = 16;                 // output columns a tile (2 segments)
 constexpr int MAX_GRAN = 24;           // granules a block: 192 channels
 constexpr int MAX_THREADS = 16 * MAX_GRAN;
 constexpr int BARS = 128;              // bytes before the ring: 2 mbarriers
-constexpr int LRELU = 1, MASK = 4, D2S = 8;   // epilogue flags
+constexpr int LRELU = 1;   // the epilogue flag
 
-// Patch columns with the halo, and the patch row in floats: two 16-byte
-// units a pixel plus one, an odd number (37 for 3x3, 35 for 2x2).
-template <int KT>
-struct Patch {
-  static constexpr int PW = TW + KT - 1;
-  static constexpr int PRS = PW * CC + 4;
-};
+// The 3 x 3 taps; patch columns with the halo, and the patch row in
+// floats: two 16-byte units a pixel plus one, an odd number (37).
+constexpr int KT = 3;
+constexpr int PW = TW + KT - 1;
+constexpr int PRS = PW * CC + 4;
 
 struct Args {
   const float* x;
@@ -79,8 +72,7 @@ struct Args {
   const float* bias;
   float* y;
   int H, W, Cin, Cout, flags;
-  int Ho, Wo, pad, D;   // output size; the patch starts at -pad; Cout / 4
-  int tiles_x;   // tiles along Wo
+  int tiles_x;   // tiles along W
   int S, G;      // segments (16R) and granules a block
   int ws;        // floats between weight rows (Cout, or 8G)
   int stage;     // floats a ring stage: weights then patch
@@ -106,32 +98,11 @@ __device__ __forceinline__ float comp(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
-// MASK: whether output channel co of pixel (oy, ox) lies inside the frame.
-__device__ __forceinline__ bool kept(const Args& a, int oy, int ox, int co) {
-  if (!(a.flags & MASK)) return true;
-  const int g = co / a.D, oi = g >> 1, oj = g & 1;
-  return !((oi == 0 && oy == 0) || (oi == 1 && oy == a.Ho - 1) ||
-           (oj == 0 && ox == 0) || (oj == 1 && ox == a.Wo - 1));
-}
-
-// Where output channel co of pixel (oy, ox) of image n is stored.
-__device__ __forceinline__ size_t out_index(const Args& a, int n, int oy,
-                                            int ox, int co) {
-  if (a.flags & D2S) {
-    const int g = co / a.D, f = co - g * a.D;
-    return (((size_t)n * 2 * a.Ho + 2 * oy + (g >> 1)) * 2 * a.Wo + 2 * ox +
-            (g & 1)) * a.D + f;
-  }
-  return (((size_t)n * a.Ho + oy) * a.Wo + ox) * a.Cout + co;
-}
-
-// HEAD: the folded head's forms (padding, frame mask, depth-to-space);
-// without it the SAME 3x3 conv with bias and LeakyReLU only, its epilogue
-// free of their code.
-template <int KT, bool HEAD>
+// The SAME 3x3 conv with bias and LeakyReLU (a (rows + 2) x 18 patch at
+// offset -1).
 __device__ __forceinline__ void conv_f32_body(const Args& a) {
-  constexpr int T = KT * KT, PW = Patch<KT>::PW, PRS = Patch<KT>::PRS;
-  const int pad = HEAD ? a.pad : 1;
+  constexpr int T = KT * KT;
+  const int pad = 1;
   extern __shared__ __align__(128) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem + BARS);
   const uint32_t bar0 = nesr::smem_u32(smem);
@@ -269,88 +240,44 @@ __device__ __forceinline__ void conv_f32_body(const Args& a) {
   }
 
   const int oy = ty0 + r, cb = co0 + 8 * gran;
-  if (oy >= a.Ho || cb >= Cout) return;
+  if (oy >= H || cb >= Cout) return;
   float bv[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c)
     bv[c] = a.bias != nullptr && cb + c < Cout ? a.bias[cb + c] : 0.f;
-  if constexpr (!HEAD) {
-    const bool vec_y = (Cout & 3) == 0 && cb + 8 <= Cout;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int ox = tx0 + 8 * half + t;
-      if (ox >= W) break;
-      float v[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        v[c] = acc[t][c] + bv[c];
-        if (a.flags & LRELU) v[c] = nesr::lrelu(v[c]);
-      }
-      float* yp = a.y + (((size_t)n * H + oy) * W + ox) * Cout + cb;
-      if (vec_y) {
-        *reinterpret_cast<float4*>(yp) = make_float4(v[0], v[1], v[2], v[3]);
-        *reinterpret_cast<float4*>(yp + 4) =
-            make_float4(v[4], v[5], v[6], v[7]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          if (cb + c < Cout) yp[c] = v[c];
-      }
-    }
-    return;
-  }
-  // 8 channels in one piece: one group of D % 8 == 0 channels under MASK
-  // or D2S.
-  const bool whole = !(a.flags & (MASK | D2S)) || a.D % 8 == 0;
-  const bool vec_y = (Cout & 3) == 0 && cb + 8 <= Cout && whole;
+  const bool vec_y = (Cout & 3) == 0 && cb + 8 <= Cout;
 #pragma unroll
   for (int t = 0; t < 8; ++t) {
     const int ox = tx0 + 8 * half + t;
-    if (ox >= a.Wo) break;
+    if (ox >= W) break;
     float v[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       v[c] = acc[t][c] + bv[c];
       if (a.flags & LRELU) v[c] = nesr::lrelu(v[c]);
     }
+    float* yp = a.y + (((size_t)n * H + oy) * W + ox) * Cout + cb;
     if (vec_y) {
-      const bool in_frame = kept(a, oy, ox, cb);
-      float* yp = a.y + out_index(a, n, oy, ox, cb);
-      *reinterpret_cast<float4*>(yp) =
-          in_frame ? make_float4(v[0], v[1], v[2], v[3])
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(yp) = make_float4(v[0], v[1], v[2], v[3]);
       *reinterpret_cast<float4*>(yp + 4) =
-          in_frame ? make_float4(v[4], v[5], v[6], v[7])
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
+          make_float4(v[4], v[5], v[6], v[7]);
     } else {
 #pragma unroll
       for (int c = 0; c < 8; ++c)
-        if (cb + c < Cout)
-          a.y[out_index(a, n, oy, ox, cb + c)] =
-              kept(a, oy, ox, cb + c) ? v[c] : 0.f;
+        if (cb + c < Cout) yp[c] = v[c];
     }
   }
 }
 
-// The forms, by name: the SAME 3x3 conv; the folded head's 3x3 form
-// (D2S).
 __global__ void __launch_bounds__(MAX_THREADS)
 conv3x3_f32_kernel(const Args a) {
-  conv_f32_body<3, false>(a);
+  conv_f32_body(a);
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
-conv3x3_f32_head_kernel(const Args a) {
-  conv_f32_body<3, true>(a);
-}
-
-template <int KT>
 int launch_f32(const void* x, const void* w, const void* bias, void* y,
-               int N, int H, int W, int Cin, int Cout, int pad, int flags,
+               int N, int H, int W, int Cin, int Cout, int flags,
                void* stream) {
-  if ((flags & ~(LRELU | 2 | MASK | D2S)) ||
-      ((flags & (MASK | D2S)) && Cout % 4))
-    return (int)cudaErrorInvalidValue;
+  if (flags & ~LRELU) return (int)cudaErrorInvalidValue;
   const int gran = (Cout + 7) / 8;
   const int groups = (gran + MAX_GRAN - 1) / MAX_GRAN;
   Args a;
@@ -363,41 +290,34 @@ int launch_f32(const void* x, const void* w, const void* bias, void* y,
   a.Cin = Cin;
   a.Cout = Cout;
   a.flags = flags;
-  a.pad = pad;
-  a.Ho = H + 2 * pad - (KT - 1);
-  a.Wo = W + 2 * pad - (KT - 1);
-  a.D = Cout / 4;
-  if (a.Ho < 1 || a.Wo < 1) return (int)cudaErrorInvalidValue;
   a.G = (gran + groups - 1) / groups;
   const int R = a.G >= 8 ? 1 : 8 / a.G;
   a.S = 16 * R;
-  a.tiles_x = (a.Wo + TW - 1) / TW;
-  const int tiles_y = (a.Ho + 8 * R - 1) / (8 * R);
+  a.tiles_x = (W + TW - 1) / TW;
+  const int tiles_y = (H + 8 * R - 1) / (8 * R);
   a.vec_x = Cin % 4 == 0 && ((uintptr_t)x & 15) == 0;
   a.vec_w = Cin % 4 == 0 && Cout % 4 == 0 && ((uintptr_t)w & 15) == 0;
   a.ws = a.vec_w && groups == 1 ? Cout : 8 * a.G;
   // weights, then the patch; a stage is a whole number of 128 bytes
-  a.stage = (KT * KT * CC * a.ws + (8 * R + KT - 1) * Patch<KT>::PRS + 31) /
+  a.stage = (KT * KT * CC * a.ws + (8 * R + KT - 1) * PRS + 31) /
             32 * 32;
   const int smem = BARS + 2 * a.stage * 4;
-  void (*kernel)(const Args) =
-      flags & ~LRELU ? conv3x3_f32_head_kernel : conv3x3_f32_kernel;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      conv3x3_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.tiles_x * tiles_y, groups, N);
-  kernel<<<grid, a.S * a.G, smem, (cudaStream_t)stream>>>(a);
+  conv3x3_f32_kernel<<<grid, a.S * a.G, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x (N, H, W, Cin), w (3, 3, Cin, Cout), bias (Cout,) or null, y (N, H, W,
-// Cout) or, under D2S, (N, 2H, 2W, Cout / 4), all float32 and contiguous
-// (kernels/conv3x3.py checks); y is 16-byte aligned (torch.empty).
+// Cout), all float32 and contiguous (kernels/conv3x3.py checks); y is
+// 16-byte aligned (torch.empty); flags: LRELU 1.
 extern "C" int nesr_conv3x3_f32(const void* x, const void* w,
                                 const void* bias, void* y, int N, int H,
                                 int W, int Cin, int Cout, int flags,
                                 void* stream) {
-  return launch_f32<3>(x, w, bias, y, N, H, W, Cin, Cout, 1, flags, stream);
+  return launch_f32(x, w, bias, y, N, H, W, Cin, Cout, flags, stream);
 }

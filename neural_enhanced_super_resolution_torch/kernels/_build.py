@@ -151,6 +151,10 @@ def load_library() -> ctypes.CDLL:
         lib.nesr_conv3x3.restype = ci
         lib.nesr_conv3x3_f32.argtypes = [vp] * 4 + [ci] * 6 + [vp]
         lib.nesr_conv3x3_f32.restype = ci
+        lib.nesr_conv3x3_head.argtypes = [vp] * 4 + [ci] * 9 + [vp]
+        lib.nesr_conv3x3_head.restype = ci
+        lib.nesr_conv3x3_head_f32.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+        lib.nesr_conv3x3_head_f32.restype = ci
         lib.nesr_conv2x2.argtypes = [vp] * 4 + [ci] * 8 + [vp]
         lib.nesr_conv2x2.restype = ci
         lib.nesr_conv2x2_f32.argtypes = [vp] * 4 + [ci] * 7 + [vp]

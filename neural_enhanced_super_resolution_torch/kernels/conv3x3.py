@@ -15,16 +15,22 @@ buffer as ``packed``, and a call without it packs on the fly.
 ``Conv3x3Function`` is the float32 conv with a gradient, for training: its
 forward and its input gradient are K1f launches on the card.
 
-The folded RRDBNet head (``models/rrdbnet.py:FoldedHead``) adds two things:
-K1's and K1f's 2x2 forms, ``conv2x2_s2d`` (``conv2x2_s2d_f32`` in float32;
-plain version ``conv2x2_s2d_plain``, weights packed by
-``pack_conv2x2_weights``), the space-to-depth convs that conv_hr and
-conv_last fold into; and three epilogue options, in either form: the JAX
-package's rounding order (``round_first``: bf16 before the LeakyReLU), its
-frame mask (``mask``) and depth-to-space on the store (``d2s``).
+The folded RRDBNet head (``models/rrdbnet.py:FoldedHead``) adds two pairs
+of kernels, each with three epilogue options: the JAX package's rounding
+order (``round_first``: bf16 before the LeakyReLU), its frame mask
+(``mask``) and depth-to-space on the store (``d2s``). Its 3x3 forms,
+``conv3x3_head`` (``csrc/conv3x3_head.cu``, weights packed by
+``pack_conv3x3_weights(w, head=True)``) and ``conv3x3_head_f32``
+(``csrc/conv3x3_head_f32.cu``), which ``conv3x3`` takes whenever ``d2s``
+or ``round_first`` is asked; and its 2x2 forms, ``conv2x2_s2d``
+(``conv2x2_s2d_f32`` in float32; plain version ``conv2x2_s2d_plain``,
+weights packed by ``pack_conv2x2_weights``), the space-to-depth convs that
+conv_hr and conv_last fold into.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -34,18 +40,30 @@ from neural_enhanced_super_resolution_torch.kernels._build import (
     KernelInputError)
 
 __all__ = ["conv3x3", "conv3x3_f32", "conv3x3_plain", "pack_conv3x3_weights",
-           "conv2x2_s2d", "conv2x2_s2d_f32", "conv2x2_s2d_plain",
-           "pack_conv2x2_weights", "d2s", "frame_border_mask",
-           "Conv3x3Function", "pass_width", "tile_width", "tile_width_2x2",
-           "packed_numel", "TILE_WIDTHS", "TILE_WIDTHS_2X2"]
+           "conv3x3_head", "conv3x3_head_f32", "head_plan",
+           "head_tile_width", "conv2x2_s2d", "conv2x2_s2d_f32",
+           "conv2x2_s2d_plain", "pack_conv2x2_weights", "d2s",
+           "frame_border_mask", "Conv3x3Function", "pass_width", "tile_width",
+           "tile_width_2x2", "packed_numel", "TILE_WIDTHS", "TILE_WIDTHS_2X2"]
 
 # The kernel's instantiations: the output-channel width N of one tile; a
 # block walks Cout's tiles one after the other.
 TILE_WIDTHS = (8, 16, 32, 64, 80, 96, 128)
 # The 2x2 form's instantiations (its passes are 64 input channels): the
 # folded head's Cout 12 (conv_last) and 4 nf (conv_hr: 256 as 2 x 128, an
-# N tile a block); the head's 3x3 form packs at the same widths.
+# N tile a block); the head's 3x3 form packs at the same widths while Cin
+# is one pass, narrower beyond (head_tile_width).
 TILE_WIDTHS_2X2 = (16, 64, 128)
+# The head 3x3 form's instantiations (csrc/conv3x3_head.cu): a block keeps
+# its N tile's weights resident, 9 x 64 x N bf16 a pass, so the passes
+# times N are at most 128 (147,456 bytes).
+HEAD_WIDTHS = (8, 16, 64, 128)
+_HEAD_MAX_PASSES = 16
+# The head 3x3 form's shared memory (csrc/conv3x3_head.cu: layout): three
+# patch slots of 6 x 18 pixels x 72 channels (128-byte aligned), seven
+# mbarriers.
+_HEAD_SLOT = -(-6 * 18 * 72 * 2 // 128) * 128
+_HEAD_MAX_SMEM = 232448
 # Epilogue flags of the C entry points (csrc/conv3x3.cu).
 _LRELU, _ROUND_FIRST, _MASK, _D2S = 1, 2, 4, 8
 
@@ -75,13 +93,57 @@ def tile_width_2x2(cout: int) -> tuple[int, int]:
     return tile_width(cout, TILE_WIDTHS_2X2)
 
 
+def head_tile_width(cin: int, cout: int) -> tuple[int, int]:
+    """(N, tiles) of the head 3x3 form: ``tile_width_2x2(cout)`` when Cin
+    is one 64-channel pass (the trunk's nf up to 64); with more passes the
+    widest ``HEAD_WIDTHS`` whose resident weights fit (passes x N at most
+    128: Cin up to 128 takes N 64, up to 512 N 16, up to 1024 N 8).
+    Raises ``KernelInputError`` past 1024 input channels."""
+    npass = -(-cin // 64)
+    if npass == 1:
+        return tile_width_2x2(cout)
+    if npass > _HEAD_MAX_PASSES:
+        raise KernelInputError(f"conv3x3_head: Cin {cin} over "
+                               f"{64 * _HEAD_MAX_PASSES}: the weights of an "
+                               "N tile would not fit in shared memory")
+    return tile_width(cout, tuple(n for n in HEAD_WIDTHS
+                                  if n * npass <= 128))
+
+
+def head_plan(n: int, h: int, w: int, cin: int, cout: int,
+              sms: int) -> dict:
+    """The head 3x3 form's launch on a card of ``sms`` SMs for x (n, h, w,
+    cin): its N width and tiles (``head_tile_width``), its 4 x 16-pixel
+    tiles, the blocks a N tile (one an SM, split evenly between the N
+    tiles, at most one for every two tiles), the grid and the dynamic
+    shared memory, which the C entry point checks against its own layout:
+    two staging tiles of 64 pixels x N, the N tile's weights, three patch
+    slots, the barriers and N biases."""
+    nw, n_tiles = head_tile_width(cin, cout)
+    npass = -(-cin // 64)
+    tiles = n * -(-h // 4) * -(-w // 16)
+    per_nt = max(1, min(sms // n_tiles, -(-tiles // 2)))
+    stg = -(-64 * nw * 2 // 1024) * 1024
+    p_off = -(-(2 * stg + npass * 9 * 64 * nw * 2) // 128) * 128
+    smem = p_off + 3 * _HEAD_SLOT + 8 * 7 + 4 * nw
+    assert smem <= _HEAD_MAX_SMEM
+    return {"n_width": nw, "n_tiles": n_tiles, "tiles": tiles,
+            "per_nt": per_nt, "grid": per_nt * n_tiles, "smem": smem}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def packed_numel(cin: int, cout: int, taps: int = 3,
                  head: bool = False) -> int:
     """Values in ``pack_conv3x3_weights(w, head)`` of a (3, 3, cin, cout)
     weight, or with ``taps`` 2 in ``pack_conv2x2_weights`` of a (2, 2, cin,
     cout) one (the folded head's forms: 64-channel passes)."""
     if taps == 2 or head:
-        nw, tiles = tile_width_2x2(cout)
+        nw, tiles = (tile_width_2x2(cout) if taps == 2
+                     else head_tile_width(cin, cout))
         return tiles * taps * taps * (-(-cin // 64) * 64) * nw
     nw, tiles = tile_width(cout)
     return tiles * 9 * _padded_cin(cin) * nw
@@ -103,8 +165,9 @@ def pack_conv3x3_weights(w: torch.Tensor, head: bool = False
     """HWIO weights (3, 3, Cin, Cout) -> the kernel's flat bf16 image.
 
     With N, tiles = ``tile_width(Cout)``, kc = ``pass_width(Cin)`` (with
-    ``head``, for the folded head's 3x3 form: ``tile_width_2x2(Cout)`` and
-    kc = 64) and Kp = Cin rounded up to kc, the buffer holds tiles x 9 x Kp x N values, zero
+    ``head``, for the folded head's 3x3 form: ``head_tile_width(Cin,
+    Cout)`` and kc = 64) and Kp = Cin rounded up to kc, the buffer holds
+    tiles x 9 x Kp x N values, zero
     past Cin and Cout. Per N tile, slab i = (pass i // 9, tap i % 9, tap =
     3 ky + kx) is kc x N contiguous values at i * kc * N: what the kernel
     copies into shared memory with one bulk copy. In a slab the 16-channel
@@ -116,7 +179,7 @@ def pack_conv3x3_weights(w: torch.Tensor, head: bool = False
     """
     _, _, cin, cout = w.shape
     if head:
-        return _pack(w, 64, *tile_width_2x2(cout))
+        return _pack(w, 64, *head_tile_width(cin, cout))
     return _pack(w, pass_width(cin), *tile_width(cout))
 
 
@@ -269,40 +332,95 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
     device, x 16-byte aligned; ``packed`` is ``pack_conv3x3_weights(w)``
     (made here when None). Returns (N, H, W, Cout) bf16, or with ``d2s``
     its depth-to-space form (N, 2H, 2W, Cout / 4); ``round_first`` rounds
-    to bf16 before the LeakyReLU (``conv3x3_plain``). Either runs the
-    folded head's 3x3 form, whose ``packed`` is ``pack_conv3x3_weights(w,
-    head=True)``. A float32 x goes to ``conv3x3_f32`` (``packed``
-    unused). Anything else raises ``KernelInputError``.
+    to bf16 before the LeakyReLU (``conv3x3_plain``). Either goes to the
+    folded head's 3x3 form, ``conv3x3_head`` (whose ``packed`` is
+    ``pack_conv3x3_weights(w, head=True)``). A float32 x goes to
+    ``conv3x3_f32`` (``packed`` unused). Anything else raises
+    ``KernelInputError``.
     """
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, bias, lrelu, d2s, round_first)
     if not x.is_cuda:
         raise KernelInputError(f"conv3x3: no kernel for device {x.device}")
+    if d2s or round_first:
+        return conv3x3_head(x, w, bias, lrelu, packed, d2s, round_first)
     if x.dtype == torch.float32:
-        return conv3x3_f32(x, w, bias, lrelu, d2s)
-    _check_bf16("conv3x3", x, w, bias, 3, d2s)
+        return conv3x3_f32(x, w, bias, lrelu)
+    _check_bf16("conv3x3", x, w, bias, 3, False)
     n, h, wd, cin = x.shape
     cout = w.shape[3]
-    head = d2s or round_first
     if packed is None:
-        packed = pack_conv3x3_weights(w, head)
-    _check_packed("conv3x3", packed, x, cin, cout, 3, head)
+        packed = pack_conv3x3_weights(w)
+    _check_packed("conv3x3", packed, x, cin, cout, 3, False)
     lib = _build.load_library()
-    y = torch.empty(_out_shape(n, h, wd, cout, d2s), dtype=torch.bfloat16,
-                    device=x.device)
+    y = torch.empty((n, h, wd, cout), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.nesr_conv3x3(
             x.data_ptr(), packed.data_ptr(),
             bias.data_ptr() if bias is not None else None, y.data_ptr(),
-            n, h, wd, cin, cout,
-            (tile_width_2x2 if head else tile_width)(cout)[0],
-            _flags(lrelu, round_first, False, d2s), _build.stream_ptr())
+            n, h, wd, cin, cout, tile_width(cout)[0], _flags(lrelu),
+            _build.stream_ptr())
     _build.check("conv3x3", err)
     conv3x3.launches += 1
     return y
 
 
 conv3x3.launches = 0
+
+
+def conv3x3_head(x: torch.Tensor, w: torch.Tensor,
+                 bias: torch.Tensor | None = None, lrelu: bool = False,
+                 packed: torch.Tensor | None = None, d2s: bool = False,
+                 round_first: bool = False) -> torch.Tensor:
+    """The folded head's 3x3 form (up1, up2): the SAME 3x3 conv of
+    ``conv3x3`` with ``round_first`` and ``d2s`` as ``conv3x3_plain`` has
+    them, on K1's head kernel (``csrc/conv3x3_head.cu``; plain version
+    ``conv3x3_plain``).
+
+    x (N, H, W, Cin) and w (3, 3, Cin, Cout) bf16, bias (Cout,) fp32 (or
+    None), contiguous on one device, x 16-byte aligned, Cin at most 1024;
+    ``packed`` is ``pack_conv3x3_weights(w, head=True)`` (made here when
+    None). A Cin that is not a multiple of 8 is zero-padded to one first
+    (a copy of x: the kernel's tensor map steps pixels in 16-byte units).
+    Returns (N, H, W, Cout) bf16, or with ``d2s`` (Cout % 4 == 0) its
+    depth-to-space form (N, 2H, 2W, Cout / 4). A float32 x goes to
+    ``conv3x3_head_f32``; a CPU tensor to the plain version. Anything else
+    raises ``KernelInputError``.
+    """
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w, bias, lrelu, d2s, round_first)
+    if not x.is_cuda:
+        raise KernelInputError(f"conv3x3_head: no kernel for device "
+                               f"{x.device}")
+    if x.dtype == torch.float32:
+        return conv3x3_head_f32(x, w, bias, lrelu, d2s)
+    _check_bf16("conv3x3_head", x, w, bias, 3, d2s)
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    if packed is None:
+        packed = pack_conv3x3_weights(w, head=True)
+    _check_packed("conv3x3_head", packed, x, cin, cout, 3, True)
+    if cin % 8:
+        x = F.pad(x, (0, 8 - cin % 8))
+        cin = x.shape[3]
+    plan = head_plan(n, h, wd, cin, cout, _sm_count(x.device.index
+                                                     or 0))
+    lib = _build.load_library()
+    y = torch.empty(_out_shape(n, h, wd, cout, d2s), dtype=torch.bfloat16,
+                    device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.nesr_conv3x3_head(
+            x.data_ptr(), packed.data_ptr(),
+            bias.data_ptr() if bias is not None else None, y.data_ptr(),
+            n, h, wd, cin, cout, plan["n_width"],
+            _flags(lrelu, round_first, False, d2s), plan["grid"],
+            plan["smem"], _build.stream_ptr())
+    _build.check("conv3x3_head", err)
+    conv3x3_head.launches += 1
+    return y
+
+
+conv3x3_head.launches = 0
 
 
 def conv2x2_s2d(x: torch.Tensor, w: torch.Tensor,
@@ -392,7 +510,8 @@ def conv3x3_f32(x: torch.Tensor, w: torch.Tensor,
 
     On the GPU: x (N, H, W, Cin), w (3, 3, Cin, Cout) and bias (Cout,) (or
     None) float32 and contiguous on one device. Returns (N, H, W, Cout)
-    float32, or with ``d2s`` its depth-to-space form. On the CPU:
+    float32; with ``d2s``, its depth-to-space form by the folded head's
+    float32 3x3 form (``conv3x3_head_f32``). On the CPU:
     ``conv3x3_plain``. Anything else raises ``KernelInputError``.
     """
     if x.device.type == "cpu":
@@ -400,24 +519,58 @@ def conv3x3_f32(x: torch.Tensor, w: torch.Tensor,
     if not x.is_cuda:
         raise KernelInputError(f"conv3x3_f32: no kernel for device "
                                f"{x.device}")
-    _check_f32("conv3x3_f32", x, w, bias, 3, d2s)
+    if d2s:
+        return conv3x3_head_f32(x, w, bias, lrelu, d2s)
+    _check_f32("conv3x3_f32", x, w, bias, 3, False)
     n, h, wd, cin = x.shape
     cout = w.shape[3]
     lib = _build.load_library()
-    y = torch.empty(_out_shape(n, h, wd, cout, d2s), dtype=torch.float32,
-                    device=x.device)
+    y = torch.empty((n, h, wd, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.nesr_conv3x3_f32(
             x.data_ptr(), w.data_ptr(),
             bias.data_ptr() if bias is not None else None, y.data_ptr(),
-            n, h, wd, cin, cout, _flags(lrelu, False, False, d2s),
-            _build.stream_ptr())
+            n, h, wd, cin, cout, _flags(lrelu), _build.stream_ptr())
     _build.check("conv3x3_f32", err)
     conv3x3_f32.launches += 1
     return y
 
 
 conv3x3_f32.launches = 0
+
+
+def conv3x3_head_f32(x: torch.Tensor, w: torch.Tensor,
+                     bias: torch.Tensor | None = None, lrelu: bool = False,
+                     d2s: bool = False) -> torch.Tensor:
+    """K1f's head 3x3 form (``csrc/conv3x3_head_f32.cu``): the folded
+    head's up1 and up2 in float32, the SAME 3x3 conv with bias, LeakyReLU
+    and, with ``d2s``, the depth-to-space store (the JAX package's rounding
+    order is moot in float32). x, w, bias float32 and contiguous on one
+    device. On the CPU: ``conv3x3_plain``. Anything else raises
+    ``KernelInputError``."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w, bias, lrelu, d2s)
+    if not x.is_cuda:
+        raise KernelInputError(f"conv3x3_head_f32: no kernel for device "
+                               f"{x.device}")
+    _check_f32("conv3x3_head_f32", x, w, bias, 3, d2s)
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    lib = _build.load_library()
+    y = torch.empty(_out_shape(n, h, wd, cout, d2s), dtype=torch.float32,
+                    device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.nesr_conv3x3_head_f32(
+            x.data_ptr(), w.data_ptr(),
+            bias.data_ptr() if bias is not None else None, y.data_ptr(),
+            n, h, wd, cin, cout, _flags(lrelu, False, False, d2s),
+            _build.stream_ptr())
+    _build.check("conv3x3_head_f32", err)
+    conv3x3_head_f32.launches += 1
+    return y
+
+
+conv3x3_head_f32.launches = 0
 
 
 def conv2x2_s2d_f32(x: torch.Tensor, w: torch.Tensor,

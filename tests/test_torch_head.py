@@ -19,10 +19,11 @@ import torch.nn.functional as F
 from neural_enhanced_super_resolution_tpu.models import rrdbnet as jr
 from neural_enhanced_super_resolution_torch.kernels import (
     KernelInputError, conv2x2_s2d, conv2x2_s2d_f32, conv2x2_s2d_plain,
-    conv3x3_plain)
+    conv3x3, conv3x3_f32, conv3x3_head, conv3x3_head_f32, conv3x3_plain)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
-    TILE_WIDTHS_2X2, pack_conv2x2_weights, pack_conv3x3_weights,
-    packed_numel, tile_width, tile_width_2x2)
+    HEAD_WIDTHS, TILE_WIDTHS_2X2, head_plan, head_tile_width,
+    pack_conv2x2_weights, pack_conv3x3_weights, packed_numel, tile_width,
+    tile_width_2x2)
 from neural_enhanced_super_resolution_torch.models import (
     RRDBNet, RRDBNetConfig, TrainableRRDBNet, init_rrdbnet, params_from_jax)
 from neural_enhanced_super_resolution_torch.models.rrdbnet import (
@@ -226,7 +227,8 @@ def _unpack_head(packed, kt, cin, cout, lbo=128, sbo=256):
     `tile` at (tile * T * Kp + i * 64) * N, k-step s at s * 16 * N,
     element (k, n) at byte (n // 8) * SBO + (n % 8) * 16 + (k // 8) * LBO
     + (k % 8) * 2."""
-    nw, tiles = tile_width_2x2(cout)
+    nw, tiles = tile_width_2x2(cout) if kt == 2 else head_tile_width(cin,
+                                                                     cout)
     kp, taps = -(-cin // 64) * 64, kt * kt
     flat = packed.view(torch.int16)
     out = torch.zeros((kt, kt, kp, tiles * nw), dtype=torch.int16)
@@ -250,9 +252,11 @@ def _unpack_head(packed, kt, cin, cout, lbo=128, sbo=256):
 @pytest.mark.parametrize("kt,cin,cout,want", [
     (2, 256, 256, (128, 2)), (2, 256, 12, (16, 1)), (2, 64, 64, (64, 1)),
     (2, 32, 12, (16, 1)), (2, 32, 32, (64, 1)), (2, 64, 320, (128, 3)),
-    (3, 64, 256, (128, 2)), (3, 8, 32, (64, 1))],
+    (3, 64, 256, (128, 2)), (3, 8, 32, (64, 1)), (3, 128, 256, (64, 4)),
+    (3, 320, 48, (16, 3)), (3, 600, 12, (8, 2))],
     ids=["hr_nf64", "last_nf64", "hr_nf16", "last_nf8", "hr_nf8",
-         "two_tiles", "up_nf64", "up_nf8"])
+         "two_tiles", "up_nf64", "up_nf8", "up_cin128_two_passes",
+         "up_cin320_five_passes", "up_cin600_ten_passes"])
 def test_pack_head_weights_matches_descriptor_layout(kt, cin, cout, want):
     """The folded head's two packings (pack_conv2x2_weights, and
     pack_conv3x3_weights(head=True) for up1 and up2) read back through the
@@ -262,7 +266,13 @@ def test_pack_head_weights_matches_descriptor_layout(kt, cin, cout, want):
         (kt, kt, cin, cout)).astype(np.float32)).bfloat16()
     packed = (pack_conv2x2_weights(w) if kt == 2
               else pack_conv3x3_weights(w, head=True))
-    assert tile_width_2x2(cout) == want and want[0] in TILE_WIDTHS_2X2
+    if kt == 2:
+        assert tile_width_2x2(cout) == want and want[0] in TILE_WIDTHS_2X2
+    else:
+        # the head kernel keeps an N tile's weights resident: passes x N
+        # at most 128
+        assert head_tile_width(cin, cout) == want and want[0] in HEAD_WIDTHS
+        assert -(-cin // 64) * want[0] <= 128
     assert packed.numel() == packed_numel(cin, cout, taps=kt, head=True)
     got, hits = _unpack_head(packed, kt, cin, cout)
     assert torch.equal(got[:, :, :cin, :cout], w)
@@ -288,6 +298,72 @@ def test_pack_head_3x3_weights_keep_their_layout(cin, cout):
         5, 1, 0, 2, 6, 3, 7, 4).reshape(-1)
     assert torch.equal(got, want)
     assert got.numel() == packed_numel(cin, cout, taps=3, head=True)
+
+
+@pytest.mark.parametrize("cin,cout", [(256, 256), (256, 12), (32, 12),
+                                      (64, 320)])
+def test_pack_conv2x2_weights_keeps_its_image(cin, cout):
+    """The 2x2 form's image (csrc/conv2x2.cu) is unchanged by the head 3x3
+    form's own widths: N tiles of 16, 64 or 128 by ``tile_width_2x2`` and
+    the SAME conv's slab order with 4 taps and 64-channel passes."""
+    w = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (2, 2, cin, cout)).astype(np.float32)).bfloat16()
+    nw, tiles = tile_width(cout, (16, 64, 128))
+    kp = -(-cin // 64) * 64
+    wz = torch.zeros((2, 2, kp, tiles * nw), dtype=torch.bfloat16)
+    wz[:, :, :cin, :cout] = w
+    want = wz.reshape(4, kp // 64, 4, 2, 8, tiles, nw // 8, 8).permute(
+        5, 1, 0, 2, 6, 3, 7, 4).reshape(-1)
+    assert torch.equal(pack_conv2x2_weights(w), want)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((4, 268, 268, 64, 256), (128, 2, 4556, 66, 132, 227640)),
+    ((4, 536, 536, 64, 256), (128, 2, 18224, 66, 132, 227640)),
+    ((1, 17, 9, 64, 256), (128, 2, 5, 3, 6, 227640)),
+    ((1, 4, 16, 64, 256), (128, 2, 1, 1, 2, 227640)),
+    ((2, 21, 37, 16, 48), (64, 1, 36, 18, 18, 137272)),
+    ((1, 9, 17, 128, 256), (64, 4, 6, 3, 12, 211000)),
+    ((1, 8, 8, 1024, 12), (8, 2, 2, 1, 2, 196440))],
+    ids=["up1", "up2", "ragged_one_block_a_pair", "one_tile",
+         "nf12_padded", "cin128", "cin1024"])
+def test_head_plan(shape, want):
+    """The head 3x3 form's launch on a 132-SM card: N width and tiles,
+    4 x 16-pixel tiles, blocks an N tile (one an SM, at most one for every
+    two tiles), grid, and shared memory within a block's 227 KB."""
+    plan = head_plan(*shape, sms=132)
+    assert (plan["n_width"], plan["n_tiles"], plan["tiles"], plan["per_nt"],
+            plan["grid"], plan["smem"]) == want
+    assert plan["smem"] <= 232448
+    assert 2 * (plan["per_nt"] - 1) < plan["tiles"]
+
+
+def test_head_tile_width_refuses_weights_past_shared_memory():
+    with pytest.raises(KernelInputError, match="Cin 1025"):
+        head_tile_width(1025, 256)
+
+
+@pytest.mark.parametrize("name", ["conv3x3_head", "conv3x3_head_f32",
+                                  "conv3x3", "conv3x3_f32"])
+def test_conv3x3_head_wrappers_take_the_plain_version_only_on_the_cpu(name):
+    """The head 3x3 forms (and the public wrappers that route d2s and
+    round_first to them) call conv3x3_plain on a CPU tensor, launch
+    nothing there, and refuse a device without a kernel."""
+    x = torch.zeros((1, 4, 4, 8))
+    w = torch.zeros((3, 3, 8, 12))
+    fn = {"conv3x3_head": conv3x3_head, "conv3x3_head_f32": conv3x3_head_f32,
+          "conv3x3": conv3x3, "conv3x3_f32": conv3x3_f32}[name]
+    launches = (conv3x3_head.launches, conv3x3_head_f32.launches)
+    calls = conv3x3_plain.calls
+    kw = {} if name.endswith("f32") else {"round_first": True}
+    assert fn(x, w, None, True, d2s=True, **kw).shape == (1, 8, 8, 3)
+    assert conv3x3_plain.calls == calls + 1
+    assert (conv3x3_head.launches, conv3x3_head_f32.launches) == launches
+    for dt in (torch.bfloat16, torch.float32):
+        with pytest.raises(KernelInputError, match="no kernel"):
+            fn(x.to("meta", dt), w.to("meta", dt), None, False, d2s=True,
+               **kw)
+    assert conv3x3_plain.calls == calls + 1
 
 
 def test_conv2x2_wrappers_take_the_plain_version_only_on_the_cpu():

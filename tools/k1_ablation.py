@@ -43,10 +43,10 @@ VARIANTS = {
     "base": [],
     # the output's global stores skipped (the tile still goes through
     # shared memory, so the MMAs stay live)
-    "no_store": [("          if (gy < p.Ho && gx < p.Wo)\n"
-                  "            *reinterpret_cast<uint4*>(",
-                  "          if (gy < p.Ho && gx < p.Wo && p.Cout < 0)\n"
-                  "            *reinterpret_cast<uint4*>(")],
+    "no_store": [("        if (gy < p.Ho && gx < p.Wo)\n"
+                  "          *reinterpret_cast<uint4*>(",
+                  "        if (gy < p.Ho && gx < p.Wo && p.Cout < 0)\n"
+                  "          *reinterpret_cast<uint4*>(")],
     # the MMAs skipped (loads, barriers and ldmatrix kept)
     "no_mma": [("    nesr::wgmma_rs<N>(acc, a[kk],",
                 "    if (bs == 1u) nesr::wgmma_rs<N>(acc, a[kk],")],
