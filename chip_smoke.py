@@ -37,18 +37,23 @@ weights:
 * the full-width SD x4 upscaler (written as a diffusers-layout snapshot):
   one UNet pass at a 128^2 latent and one VAE decode, with K3 against the
   same forward on the plain attention;
-* the stages without a kernel at their path's shapes, each against the
-  same function on the CPU: SegFormer-b0 (written as an HF-layout
-  snapshot) at 512x512 in bf16, and NL-means on one tile batch of the
-  denoise path and on a whole 768x576 image, with device time, wall,
-  launches a call and the bound;
+* SegFormer-b0 (no kernel; written as an HF-layout snapshot) at 512x512
+  in bf16 against the CPU; NL-means' kernel (``csrc/nlmeans.cu``: one
+  launch a call) against its plain version on the card at five shapes
+  (a 32-tile chunk of the denoise path, a whole 768x576 image, a ragged
+  batch, a 9x11 image, the one-field form with sigma on a float image),
+  each with its time, launches a call, the plain version's time, the
+  bound and the SFU floor of the exps, then the denoise on the card
+  against the CPU;
 * the ESRGAN-only product path (the CLI in a subprocess, ``enhance_image``
   in process), then ESRGAN + diffusion ensembled (the CLI at 128x128 and
   ``enhance_image`` on a ragged 104x72 input for two iterations), then the
   JAX package's default config (the CLI at 128x128: NL-means denoise,
   segmentation, ESRGAN and diffusion) and a 1024x768 ESRGAN request with
-  denoise and segmentation on their tiled path, each path with the launch
-  counts zeroed before it and read after it;
+  denoise and segmentation on their tiled path (then in turns with the
+  plain NL-means), each path with the launch counts zeroed before it and
+  read after it, every denoise path on NL-means' kernel and never its
+  plain version;
 * SwinIR-M x4 (embed 180, 6 x 6 STLs, window 8; written as an official
   .pth and loaded with its config inferred) on one 268^2 tile against the
   same model on K1's plain version, with device time, wall, launches, the
@@ -236,7 +241,8 @@ CLI_COUNTED = (
     "    conv3x3_head_f32, conv3x3_int8,\n"
     "    conv3x3_int8_plain, conv3x3_int8_rdb, conv3x3_int8_rdb_plain,\n"
     "    conv3x3_plain, conv3x3_rdb, conv3x3_rdb_plain, flash_attention,\n"
-    "    flash_attention_plain, int8_amax, int8_amax_plain)\n"
+    "    flash_attention_plain, int8_amax, int8_amax_plain,\n"
+    "    nl_means_fields, nl_means_fields_plain)\n"
     "sys.argv = ['neural_enhanced_super_resolution_torch'] + sys.argv[1:]\n"
     "rc = 0\n"
     "try:\n"
@@ -260,7 +266,9 @@ CLI_COUNTED = (
     "    'conv3x3_int8_rdb_plain': conv3x3_int8_rdb_plain.calls,\n"
     "    'int8_amax': int8_amax.launches,\n"
     "    'int8_amax_plain': int8_amax_plain.calls,\n"
-    "    'flash_attention_plain': flash_attention_plain.calls}))\n"
+    "    'flash_attention_plain': flash_attention_plain.calls,\n"
+    "    'nl_means_fields': nl_means_fields.launches,\n"
+    "    'nl_means_fields_plain': nl_means_fields_plain.calls}))\n"
     "sys.exit(rc)\n")
 
 
@@ -269,21 +277,34 @@ def log(*args):
 
 
 def _zero_steps():
-    """Zeroes the launches of the K1 step and of the folded head's 3x3
-    forms (K1's, K1f's), and the step's plain version's calls."""
+    """Zeroes the launches of the K1 step, of the folded head's 3x3 forms
+    (K1's, K1f's) and of NL-means' kernel, and the step's and NL-means'
+    plain versions' calls."""
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv3x3_head, conv3x3_head_f32, conv3x3_rdb, conv3x3_rdb_plain)
+        conv3x3_head, conv3x3_head_f32, conv3x3_rdb, conv3x3_rdb_plain,
+        nl_means_fields, nl_means_fields_plain)
     conv3x3_rdb.launches = conv3x3_rdb_plain.calls = 0
     conv3x3_head.launches = conv3x3_head_f32.launches = 0
+    nl_means_fields.launches = nl_means_fields_plain.calls = 0
 
 
 def _step_counts() -> dict:
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv3x3_head, conv3x3_head_f32, conv3x3_rdb, conv3x3_rdb_plain)
+        conv3x3_head, conv3x3_head_f32, conv3x3_rdb, conv3x3_rdb_plain,
+        nl_means_fields, nl_means_fields_plain)
     return {"conv3x3_rdb": conv3x3_rdb.launches,
             "conv3x3_rdb_plain": conv3x3_rdb_plain.calls,
             "conv3x3_head": conv3x3_head.launches,
-            "conv3x3_head_f32": conv3x3_head_f32.launches}
+            "conv3x3_head_f32": conv3x3_head_f32.launches,
+            "nl_means_fields": nl_means_fields.launches,
+            "nl_means_fields_plain": nl_means_fields_plain.calls}
+
+
+def _nlm_ran(counts: dict) -> bool:
+    """NL-means denoise ran on its kernel: launched, its plain version
+    never called."""
+    return (counts["nl_means_fields"] > 0
+            and counts["nl_means_fields_plain"] == 0)
 
 
 def _steps_ran(counts: dict) -> bool:
@@ -307,9 +328,19 @@ PEAK_FP32_FLOPS = 67e12
 # two 7x7 box sums as 2 x 12 shift-adds, 2 divisions, 2 scalings, 2 exps,
 # 3 weighted products, 3 numerator and 2 denominator sums.
 NLM_OPS_PER_OFFSET = 3 + 3 + 1 + 24 + 2 + 2 + 2 + 3 + 3 + 2
+# The one-field form over 3 channels with sigma (_nl_means_f32): 3
+# differences, 3 squares, 2 channel sums, one 7x7 box sum as 2 x 12 adds,
+# a division, the sigma subtraction and clamp, a scaling, an exp, 3
+# weighted products, 3 numerator sums and a denominator sum.
+NLM_OPS_ONE_FIELD = 3 + 3 + 2 + 24 + 1 + 2 + 1 + 1 + 3 + 3 + 1
 NLM_OFFSETS = 21 * 21
 NLM_BATCH = (32, 544, 544)   # one 32-tile chunk of the 512 + 2 * 16 tiles
 NLM_IMAGE = (576, 768)       # a whole image, under the 768-px tile threshold
+# The kernel's exps run on the SFUs: 16 a clock an SM (CUDA programming
+# guide, compute capability 9.0), 132 SMs at the 1.98 GHz boost clock of
+# the 67 TFLOP/s figure (128 FMA lanes x 2 x 132 x 1.98 GHz).
+PEAK_SFU_OPS = 16 * 132 * 1.98e9
+TOL_NLM = 1e-5               # the kernel's float32 against its plain version
 SEG_INPUT = 512              # SegFormer's input size
 
 
@@ -501,7 +532,8 @@ def build_kernels() -> None:
                                 ("rdb_int8_step_kernel", "K4 step"),
                                 ("rdb_bf16_step_kernel", "K1 step"),
                                 ("conv2x2_kernel", "K1 2x2"),
-                                ("conv3x3_head_kernel", "K1 head 3x3")):
+                                ("conv3x3_head_kernel", "K1 head 3x3"),
+                                ("nlmeans_kernel", "NL-means")):
                 if "Compiling entry function" in line and kernel in line:
                     rest = line.split("'")[1].split(kernel, 1)[1]
                     args = [p.split("E")[0] for p in rest.split("Li")[1:3]
@@ -1049,21 +1081,121 @@ def nlmeans_agreement(lab, ref_lab, rgb, ref_rgb) -> tuple:
                 f" (bar 1e-3), {vals[4]} where the Lab agrees (bar 1)")
 
 
-def check_nlmeans(torch, np, name: str) -> None:
-    """NL-means (denoise_level 0.5: h = h_color = 5) on the card, on one
-    tile batch of the denoise path and on a whole 768x576 image, against
-    the same function on the CPU (the batch's first tile there), by
-    nlmeans_agreement. Device time, wall and launches a call of
-    nl_means_colored, and the bound max(FLOPs / PEAK_FP32_FLOPS, bytes /
-    PEAK_HBM_BYTES) with FLOPs = offsets x pixels x NLM_OPS_PER_OFFSET and
-    bytes = the uint8 image read once and written once."""
+def _nlm_case(torch, np, kind: str, shape: tuple, seed: int):
+    """The kernel's float32 input for one check_nlmeans case on the card,
+    and the uint8 image behind it (None for the float case): the linear
+    Lab of seeded noisy images as _denoised_lab makes it, or a float image
+    of the same content."""
+    from neural_enhanced_super_resolution_torch.ops.color import rgb_to_lab
+    img = _noisy_images(np, *shape, seed)
+    if kind == "one field, sigma 6":
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(np.clip(img + rng.uniform(
+            -0.5, 0.5, img.shape), 0, 255).astype(np.float32)).to(
+                "cuda"), None
+    x = torch.from_numpy(img).to("cuda")
+    return rgb_to_lab(x.flip(-1), srgb=False).float().contiguous(), x
+
+
+# check_nlmeans' cases: (label, kind, (B, H, W)).
+NLM_CASES = [("32-tile chunk", "Lab", NLM_BATCH),
+             ("768x576 image", "Lab", (1, *NLM_IMAGE)),
+             ("ragged batch", "Lab", (2, 37, 23)),
+             ("9x11 image (reflects twice)", "Lab", (1, 9, 11)),
+             ("float image", "one field, sigma 6", (1, 96, 80))]
+
+
+def check_nlmeans(torch, np, name: str) -> dict:
+    """NL-means' kernel (csrc/nlmeans.cu, nl_means_fields) against its
+    plain version on the card at NLM_CASES: the Lab joint pass (h =
+    h_color = 5, denoise_level 0.5) on one 32-tile chunk of the denoise
+    path, a whole 768x576 image, a ragged batch and an image narrower than
+    the 13-pixel reach, and the one-field form (h 9, sigma 6) on a float
+    image. Bars: float32 max|kernel - plain| <= TOL_NLM max|plain| (the
+    offsets summed in another order); for the Lab cases the rounded uint8
+    Lab and the RGB output by nlmeans_agreement. Each case prints the
+    kernel's time a call and the plain version's (CUDA events), the
+    kernel's launches a call (its counter, and the PyTorch ops a call
+    dispatches: allocations only), the bound max(FLOPs / PEAK_FP32_FLOPS,
+    bytes / PEAK_HBM_BYTES) (FLOPs = offsets x pixels x operations an
+    offset, bytes = the float32 input read once and output written once)
+    and beside it the SFU floor of the exps. Then the denoise itself (nl_means_colored, on the kernel)
+    against the same function on the CPU: the chunk's first tile and the
+    whole image. Returns the chunk's row of the kernels line."""
+    from neural_enhanced_super_resolution_torch.kernels import (
+        nl_means_fields, nl_means_fields_plain)
+    from neural_enhanced_super_resolution_torch.ops.blur import saturate_like
     from neural_enhanced_super_resolution_torch.ops.nlmeans import (
         _denoised_lab, _lab_to_output, nl_means_colored)
+
+    failed, row = [], None
+    for i, (label, kind, shape) in enumerate(NLM_CASES):
+        x, img = _nlm_case(torch, np, kind, shape, SEED + 20 + i)
+        lab = kind == "Lab"
+        fields = ((((0,), 5.0), ((1, 2), 5.0)) if lab
+                  else (((0, 1, 2), 9.0),))
+        sigma = 0.0 if lab else 6.0
+
+        def kern():
+            return nl_means_fields(x, fields, sigma)
+
+        def plain():
+            return nl_means_fields_plain(x, fields, sigma, 7, 21)
+
+        launched = nl_means_fields.launches
+        got = kern()
+        ref = plain()
+        err = (got - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        ok = (nl_means_fields.launches == launched + 1
+              and tuple(got.shape) == tuple(x.shape)
+              and bool(torch.isfinite(got).all()) and rel <= TOL_NLM)
+        summary = f"float32 max|err| {err:.3g}, rel {rel:.3g} (bar {TOL_NLM})"
+        if lab:
+            lab_k, lab_p = (saturate_like(t, torch.uint8) for t in (got, ref))
+            agree, text = nlmeans_agreement(
+                lab_k.cpu(), lab_p.cpu(),
+                _lab_to_output(lab_k, img.shape).cpu(),
+                _lab_to_output(lab_p, img.shape).cpu())
+            ok, summary = ok and agree, summary + "; " + text
+        pix = x.numel() // x.shape[-1]
+        ops = NLM_OPS_PER_OFFSET if lab else NLM_OPS_ONE_FIELD
+        bms, by = bound(NLM_OFFSETS * pix * ops, 2.0 * 4 * x.numel(),
+                        PEAK_FP32_FLOPS)
+        sfu_ms = NLM_OFFSETS * pix * (2 if lab else 1) / PEAK_SFU_OPS * 1e3
+        # CUDA events: torch.profiler lost this kernel's events late in a
+        # full run (0 launches, part of the time). A call is one launch,
+        # and the PyTorch ops it dispatches are allocations only.
+        dev = best_ms(kern, tries=3, reps=5)
+        plain_ms = cuda_ms(plain, reps=1)
+        launched = nl_means_fields.launches
+        dispatched = sorted(set(aten_ops(kern)))
+        per_call = nl_means_fields.launches - launched
+        plain_calls = launches_per_call(plain, reps=1)
+        ok = ok and per_call == 1 and all(
+            op.startswith("aten.empty") for op in dispatched)
+        log(f"NL-means kernel {label} {kind} {tuple(x.shape)}: {summary}; "
+            f"{dev:.4f} ms a call (CUDA events), {per_call} launch a call "
+            f"(the counter; PyTorch ops dispatched {dispatched}); plain "
+            f"{plain_ms:.3f} ms (events) in {plain_calls:.0f} launches "
+            f"(torch.profiler) ({plain_ms / dev:.1f}x); bound {bms:.4f} ms "
+            f"({by}: {ops} ops "
+            f"x {NLM_OFFSETS} offsets x {pix} px at "
+            f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32), bound/device "
+            f"{bms / dev:.4f}; SFU floor of the exps {sfu_ms:.4f} ms "
+            f"({'the FLOP bound sets it' if bms >= sfu_ms else 'the SFUs set it'}"
+            f") on {name}")
+        if not ok:
+            failed.append(f"{label}: {summary}")
+        if label == "32-tile chunk":
+            row = {"max_abs_err": err, "ms": dev, "plain_ms": plain_ms,
+                   "bound_ms": bms, "bound_by": by, "library_ms": None}
+        del x, got, ref
+        torch.cuda.empty_cache()
 
     cases = [("tile batch", _noisy_images(np, *NLM_BATCH, SEED + 6), 1),
              ("whole image", _noisy_images(np, 1, *NLM_IMAGE, SEED + 7)[0],
               None)]
-    failed = []
     for label, img, cpu_tiles in cases:
         x = torch.from_numpy(img).to("cuda")
         lab = _denoised_lab(x, 5.0, 5.0)
@@ -1080,25 +1212,21 @@ def check_nlmeans(torch, np, name: str) -> None:
         def fn():
             return nl_means_colored(x, h=5.0, h_color=5.0)
 
-        dev = device_ms(fn, reps=2)
+        launched = nl_means_fields.launches
         wms = wall_ms(fn, reps=2)
-        launches = launches_per_call(fn, reps=1)
-        pix = img.size // 3
-        bms, by = bound(NLM_OFFSETS * pix * NLM_OPS_PER_OFFSET,
-                        2.0 * img.size, PEAK_FP32_FLOPS)
-        log(f"NL-means {label} {img.shape} uint8: card vs CPU "
+        log(f"NL-means {label} {img.shape} uint8: card (kernel) vs CPU "
             f"({'first tile' if cpu_tiles else 'whole'}, {cpu_s:.2f} s on "
-            f"the CPU): {summary}; device {dev:.3f} ms, wall {wms:.3f} ms a "
-            f"call, {launches:.0f} launches a call; bound {bms:.4f} ms "
-            f"({by}: {NLM_OPS_PER_OFFSET} ops x {NLM_OFFSETS} offsets x {pix}"
-            f" px at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32), "
-            f"bound/device {bms / dev:.4f} on {name}")
-        if tuple(got.shape) != img.shape or not ok:
-            failed.append(f"{label}: {summary}")
+            f"the CPU): {summary}; nl_means_colored wall {wms:.3f} ms a "
+            f"call, {nl_means_fields.launches - launched} kernel launches "
+            f"in 3 calls on {name}")
+        if (tuple(got.shape) != img.shape or not ok
+                or nl_means_fields.launches - launched != 3):
+            failed.append(f"{label} vs CPU: {summary}")
         del x, lab, got
     torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"NL-means card vs CPU: {failed}")
+        raise AssertionError(f"NL-means: {failed}")
+    return row
 
 
 def drive_product_path(torch, np, ckpt: str) -> dict:
@@ -1468,18 +1596,21 @@ def drive_default_config(torch, np, ckpt: str, snap: str, seg: str,
                       imread_rgb(out), 1, counts, 1, stages)
     missing = {"pre/denoise", "pre/contrast", "segmentation"} - set(stages)
     if missing or counts["flash_attention"] != sd_cli_counts[
-            "flash_attention"]:
+            "flash_attention"] or not _nlm_ran(counts):
         raise AssertionError(f"default-config CLI: stages lack "
                              f"{sorted(missing)}; counts {counts}, SD CLI "
                              f"request {sd_cli_counts}")
     return counts
 
 
-def timed_request(torch, pipe, img, label: str, name: str, prompt=None):
+def timed_request(torch, pipe, img, label: str, name: str, prompt=None,
+                  info: dict | None = None):
     """One request in process, then the same request profiled: its stage
     times (a fresh StageTimer), and the device-busy share of the profiled
     run (kernel and copy time on the card over the wall; the StageTimer's
-    nesr/ ranges are annotations, not device work). Returns the output."""
+    nesr/ ranges are annotations, not device work). Returns the output and
+    the stage times; fills ``info`` with the wall, the profiled wall and
+    the device-busy seconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from neural_enhanced_super_resolution_torch.runtime.profiler import (
@@ -1506,6 +1637,8 @@ def timed_request(torch, pipe, img, label: str, name: str, prompt=None):
                and not e.name.startswith("nesr/")) / 1e6
     log(f"{label} profiled: wall {pwall:.3f} s, device busy {busy:.3f} s "
         f"({100 * busy / pwall:.1f}% busy) on {name}")
+    if info is not None:
+        info.update(wall=wall, pwall=pwall, busy=busy)
     return out, stages
 
 
@@ -1537,8 +1670,9 @@ def drive_default_in_process(torch, np, ckpt: str, snap: str, seg: str,
     _check_sd_request(np, "default-config request in process", img, out, 1,
                       counts, 2, stages)
     missing = {"pre/denoise", "pre/contrast", "segmentation"} - set(stages)
-    if missing:
-        raise AssertionError(f"default-config request lacks {missing}")
+    if missing or not _nlm_ran(counts):
+        raise AssertionError(f"default-config request lacks {missing} or "
+                             f"NL-means' kernel: counts {counts}")
     return counts
 
 
@@ -1546,10 +1680,15 @@ def drive_denoise_segmentation(torch, np, ckpt: str, seg: str,
                                name: str) -> dict:
     """A 1024x768 ESRGAN request with NL-means denoise and segmentation at
     their defaults, in process, one iteration: both new stages take the
-    tiled path (an edge above 768)."""
+    tiled path (an edge above 768). NL-means must run on its kernel. Then
+    the same request in turns (plain, kernel, kernel, plain) against the
+    NL-means of ops/nlmeans.py before the kernel (nl_means_fields_plain on
+    the card, the plain form moved unchanged): pre/denoise, the request
+    wall and the device-busy share of each turn."""
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
     from neural_enhanced_super_resolution_torch.kernels import (
-        conv3x3, conv3x3_plain)
+        conv3x3, conv3x3_plain, nl_means_fields_plain)
+    from neural_enhanced_super_resolution_torch.ops import nlmeans as ops_nlm
     pipe = SuperResolutionPipeline("cuda", {
         "use_diffusion": False, "esrgan_model_path": ckpt,
         "segmentation_model_path": seg, "iterations": 1,
@@ -1560,18 +1699,39 @@ def drive_denoise_segmentation(torch, np, ckpt: str, seg: str,
     img = _noisy_images(np, 1, 768, 1024, SEED + 8)[0]
     conv3x3.launches = conv3x3_plain.calls = 0
     _zero_steps()
-    out, stages = timed_request(torch, pipe, img,
-                                "request 1024x768 -n 1 (ESRGAN, denoise 0.5,"
-                                " segmentation, tiled stages)", name)
+    label = "request 1024x768 -n 1 (ESRGAN, denoise 0.5, segmentation, " \
+            "tiled stages)"
+    out, stages = timed_request(torch, pipe, img, label, name)
     counts = {"conv3x3": conv3x3.launches,
               "conv3x3_plain": conv3x3_plain.calls, **_step_counts()}
     log(f"request 1024x768 counts (both runs) {counts}")
     missing = {"pre/denoise", "pre/contrast", "segmentation"} - set(stages)
     if (out.shape != (3072, 4096, 3) or out.std() == 0 or missing
             or counts["conv3x3"] == 0 or counts["conv3x3_plain"]
-            or not _steps_ran(counts)):
+            or not _steps_ran(counts) or not _nlm_ran(counts)):
         raise AssertionError(f"1024x768 request: output {out.shape}, "
                              f"missing stages {missing}, counts {counts}")
+
+    kernel_fn = ops_nlm.nl_means_fields
+    turns = []
+    for form in ("plain", "kernel", "kernel", "plain"):
+        ops_nlm.nl_means_fields = (nl_means_fields_plain if form == "plain"
+                                   else kernel_fn)
+        info: dict = {}
+        try:
+            turn_out, turn_stages = timed_request(
+                torch, pipe, img, f"{label}, NL-means {form}", name,
+                info=info)
+        finally:
+            ops_nlm.nl_means_fields = kernel_fn
+        if not np.array_equal(turn_out.shape, out.shape):
+            raise AssertionError(f"turn {form}: output {turn_out.shape}")
+        turns.append(f"{form} pre/denoise {turn_stages['pre/denoise']:.4f} "
+                     f"s, wall {info['wall']:.4f} s, profiled "
+                     f"{info['pwall']:.4f} s at "
+                     f"{100 * info['busy'] / info['pwall']:.1f}% busy")
+    log("request 1024x768 with denoise and segmentation, in turns "
+        "against the plain NL-means: " + "; ".join(turns) + f" on {name}")
     return counts
 
 
@@ -1823,7 +1983,7 @@ def drive_swinir_requests(torch, np, ckpt: str, swin: str, snap: str,
     counts = _sd_counts()
     _check_sd_request(np, "default config + SwinIR in process", img, out, 1,
                       counts, 2, stages)
-    if (calls != [(1, SWIN_K1_PER_FORWARD)] * 2
+    if (calls != [(1, SWIN_K1_PER_FORWARD)] * 2 or not _nlm_ran(counts)
             or not {"pre/denoise", "segmentation", "esrgan", "swinir",
                     "ensemble"} <= set(stages)):
         raise AssertionError(f"default + SwinIR: calls {calls}, stages "
@@ -1887,7 +2047,7 @@ def drive_batch_cli(np, ckpt: str, swin: str, seg: str) -> dict:
            for f in sorted(os.listdir(dst))}
     log(f"batch CLI outputs {got}; counts {counts}")
     if (got != want or counts["conv3x3"] == 0 or counts["conv3x3_plain"]
-            or not _steps_ran(counts)):
+            or not _steps_ran(counts) or not _nlm_ran(counts)):
         raise AssertionError(f"batch CLI: outputs {got} (want {want}), "
                              f"counts {counts}")
     return counts
@@ -3549,7 +3709,8 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
     from neural_enhanced_super_resolution_torch.kernels import (
         conv2x2_s2d, conv2x2_s2d_plain, conv3x3, conv3x3_head, conv3x3_plain,
-        conv3x3_rdb, conv3x3_rdb_plain, flash_attention, flash_attention_plain)
+        conv3x3_rdb, conv3x3_rdb_plain, flash_attention, flash_attention_plain,
+        nl_means_fields, nl_means_fields_plain)
     from neural_enhanced_super_resolution_torch.models import (
         RRDBNet, RRDBNetConfig, init_rrdbnet)
     from neural_enhanced_super_resolution_torch.models.diffusion import (
@@ -3583,8 +3744,7 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
         + (" (the one card listed 4 times: every time below is a one-card "
            "rehearsal, not a multi-card speed)" if repeated else ""))
     counts = {"conv3x3": 0, "conv2x2_s2d": 0, "conv3x3_rdb": 0,
-              "conv3x3_head": 0,
-              "flash_attention": 0}
+              "conv3x3_head": 0, "flash_attention": 0, "nl_means_fields": 0}
     warnings = _Warnings()
     logging.getLogger("nesr").addHandler(warnings)
 
@@ -3594,10 +3754,12 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
         conv3x3_plain.calls = flash_attention_plain.calls = 0
         conv3x3_rdb.launches = conv3x3_rdb_plain.calls = 0
         conv3x3_head.launches = 0
+        nl_means_fields.launches = nl_means_fields_plain.calls = 0
 
     def no_plain(label):
         if (conv3x3_plain.calls or flash_attention_plain.calls
-                or conv2x2_s2d_plain.calls or conv3x3_rdb_plain.calls):
+                or conv2x2_s2d_plain.calls or conv3x3_rdb_plain.calls
+                or nl_means_fields_plain.calls):
             raise AssertionError(f"{label}: plain versions ran on the card")
 
     def k1_per(forwards: int) -> bool:
@@ -3846,6 +4008,8 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
             small_img, PROMPT))
     k1, k3, steps = (conv3x3.launches, flash_attention.launches,
                      conv3x3_rdb.launches)
+    nlm = nl_means_fields.launches
+    counts["nl_means_fields"] += nlm
     no_plain("default config over the mesh")
     equal = np.array_equal(out_multi, out_one)
     log(f"multi-device default config 128x128 -n 1 (denoise, segmentation, "
@@ -3866,7 +4030,7 @@ def drive_multi_device(torch, np, sd, ckpt: str, snap: str, seg: str,
             len(layout["slots"]) == max(1, n - max(1, n // 4))
             and layout["diffusion_slot"] == n - 1) or \
             k3 != SD_ATTN_PER_PASS * 2 * SD_STEPS + 1 or k1 == 0 or \
-            steps == 0:
+            steps == 0 or nlm == 0:
         raise AssertionError(f"default config over the mesh: layout "
                              f"{layout}, equal {equal}, K1 {k1}, K3 {k3}, "
                              f"K1 step {steps}")
@@ -4566,7 +4730,7 @@ def main() -> int:
     vae_counts = drive_vae_encode(torch, snap, name)
     seg = write_segformer_snapshot(torch)
     check_segformer(torch, seg, name)
-    check_nlmeans(torch, np, name)
+    results["nl_means"] = check_nlmeans(torch, np, name)
     counts = drive_product_path(torch, np, ckpt)
     sd_counts, sd_cli_counts = drive_diffusion_path(torch, np, ckpt, snap)
     default_counts = drive_default_config(torch, np, ckpt, snap, seg,
@@ -4645,7 +4809,23 @@ def main() -> int:
                 "conv2x2_s2d_f32": f32_counts["conv2x2_s2d_f32"] + fwd_k1f[1],
                 "conv3x3_head_f32": f32_counts["conv3x3_head_f32"]
                 + fwd_k1f[2],
-                "flash_attention_f32": f32_counts["flash_attention_f32"]}
+                "flash_attention_f32": f32_counts["flash_attention_f32"],
+                "nl_means": default_counts["nl_means_fields"]
+                + default_ip_counts["nl_means_fields"]
+                + tiled_counts["nl_means_fields"]
+                + swin_counts["nl_means_fields"]
+                + batch_counts["nl_means_fields"]
+                + md_counts["nl_means_fields"]}
+    # NL-means' plain version ran on no path: every path that zeroes the
+    # counts reads it (the paths without denoise included).
+    plain_nlm = {label: c["nl_means_fields_plain"] for label, c in (
+        ("product", counts), ("diffusion", sd_counts),
+        ("default CLI", default_counts), ("default", default_ip_counts),
+        ("1024x768 denoise", tiled_counts), ("SwinIR", swin_counts),
+        ("batch CLI", batch_counts), ("streamed", stream_counts),
+        ("float32", f32_counts))}
+    if any(plain_nlm.values()):
+        raise AssertionError(f"NL-means' plain version ran: {plain_nlm}")
     sources = {"conv3x3": "csrc/conv3x3.cu", "rdb_fused": "csrc/rdb_fused.cu",
                "conv3x3_head": "csrc/conv3x3_head.cu",
                "conv3x3_head_f32": "csrc/conv3x3_head_f32.cu",
@@ -4656,7 +4836,8 @@ def main() -> int:
                "conv3x3_int8_rdb": "csrc/rdb_int8.cu",
                "int8_amax": "csrc/rdb_int8.cu",
                "conv3x3_f32": "csrc/conv3x3_f32.cu",
-               "flash_attention_f32": "csrc/flash_attn_f32.cu"}
+               "flash_attention_f32": "csrc/flash_attn_f32.cu",
+               "nl_means": "csrc/nlmeans.cu"}
     # K1 also carries the math of kernels/conv3x3_v2.py:103 and of
     # rdb_pallas.py:190 (rows_s2d_conv3x3), whose trunk shapes the K1 step
     # runs on the main path.
@@ -4692,7 +4873,10 @@ def main() -> int:
         "conv2x2_s2d_f32": "neural_enhanced_super_resolution_tpu/models/"
                            "rrdbnet.py:586",
         "flash_attention_f32": "neural_enhanced_super_resolution_tpu/"
-                               "kernels/attention.py:125"}
+                               "kernels/attention.py:125",
+        # no Pallas kernel: XLA's NL-means, the joint Lab pass (and
+        # _nl_means_f32 at :80, the one-field form)
+        "nl_means": "neural_enhanced_super_resolution_tpu/ops/nlmeans.py:109"}
     # ms, plain_ms, bound_ms and library_ms at one shape a kernel: K1 at
     # conv_body on the tile batch, its 2x2 form and K1f's at the folded
     # head's hr on the tile batch (4 x 536^2 x 256 -> 4 x 537^2 x 256), its
@@ -4716,7 +4900,7 @@ def main() -> int:
                          "conv3x3_rdb", "rdb_fused", "flash_attention",
                          "conv3x3_int8_rdb", "int8_amax", "conv3x3_f32",
                          "conv3x3_head_f32", "conv2x2_s2d_f32",
-                         "flash_attention_f32")]
+                         "flash_attention_f32", "nl_means")]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels no path launched: {idle}")

@@ -15,6 +15,8 @@ from neural_enhanced_super_resolution_torch.kernels.conv3x3_rdb import (
     conv3x3_rdb, conv3x3_rdb_plain)
 from neural_enhanced_super_resolution_torch.kernels.rdb_fused import (
     rdb_fused, rdb_fused_plain)
+from neural_enhanced_super_resolution_torch.kernels.nlmeans import (
+    nl_means_fields, nl_means_fields_plain)
 
 __all__ = ["KernelError", "KernelInputError", "attention_auto",
            "conv2x2_s2d", "conv2x2_s2d_f32", "conv2x2_s2d_plain", "conv3x3",
@@ -24,5 +26,5 @@ __all__ = ["KernelError", "KernelInputError", "attention_auto",
            "int8_amax_plain",
            "conv3x3_plain", "conv3x3_rdb", "conv3x3_rdb_plain",
            "flash_attention", "flash_attention_f32",
-           "flash_attention_plain", "rdb_fused",
-           "rdb_fused_plain"]
+           "flash_attention_plain", "nl_means_fields",
+           "nl_means_fields_plain", "rdb_fused", "rdb_fused_plain"]

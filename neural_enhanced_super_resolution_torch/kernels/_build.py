@@ -174,6 +174,9 @@ def load_library() -> ctypes.CDLL:
         lib.nesr_rdb_int8_occupancy.restype = ci
         lib.nesr_rdb_fused.argtypes = [vp] * 8 + [ci, ci, ci, vp]
         lib.nesr_rdb_fused.restype = ci
+        cf = ctypes.c_float
+        lib.nesr_nl_means.argtypes = [vp] * 2 + [ci] * 5 + [cf] * 3 + [vp]
+        lib.nesr_nl_means.restype = ci
         lib.nesr_flash_attn.argtypes = [vp] * 4 + [ci] * 5 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, vp]
         lib.nesr_flash_attn.restype = ci

@@ -9,107 +9,31 @@ channel 0 as B), converts with the linear Lab of cv2 (uint8), denoises L
 with ``h`` and (a, b) jointly with ``h_color`` in one pass, rounds, and
 converts back. Borders are numpy ``reflect`` (cv2 BORDER_REFLECT_101).
 
-Formulated for a GPU as a few large ops instead of one XLA program: the
-loop runs over the 21 search rows, and each step takes all 21 column
-offsets of its row at once, as an ``unfold`` view of the padded planes
-(B, 21, C, H, W) — a tile batch and a row of offsets per op, about 14
-launches a row. The box sum is two 1-D ``avg_pool2d`` passes with divisor
-1: for uint8 data every partial sum is an integer below 2^24, so it is
-exact in float32 and equal to the JAX package's shift-adds. Weights and
-sums are float32, summed over the offsets of a row before they join the
-running sums (the JAX package adds them one offset at a time), so results
-agree up to float32 summation order.
+The NL-means itself is ``kernels.nlmeans.nl_means_fields``: on the GPU one
+launch of the hand-written kernel ``csrc/nlmeans.cu``, on the CPU its plain
+version.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
+from neural_enhanced_super_resolution_torch.kernels.nlmeans import (
+    nl_means_fields)
 from neural_enhanced_super_resolution_torch.ops.blur import saturate_like
 from neural_enhanced_super_resolution_torch.ops.color import (lab_to_rgb,
                                                               rgb_to_lab)
-from neural_enhanced_super_resolution_torch.ops.pad import reflect_pad
 
 __all__ = ["nl_means", "nl_means_colored"]
-
-
-def _inv_h2(h: float) -> float:
-    """1 / h^2 computed in float32, as the JAX package computes it."""
-    h32 = torch.tensor(h, dtype=torch.float32)
-    return float(1.0 / (h32 * h32))
-
-
-def _nl_planes(x: torch.Tensor, fields, sigma: float, template: int,
-               search: int) -> torch.Tensor:
-    """NL-means on planar float32 (B, C, H, W) in [0, 255].
-
-    fields: ((channels, h), ...): the channels whose squared differences
-    form one weight field, and its filter strength. Returns (B, C, H, W).
-    """
-    b, c, h, w = x.shape
-    tr, sr = template // 2, search // 2
-    pad = sr + tr
-    ext = reflect_pad(reflect_pad(x, 2, pad, pad), 3, pad, pad)
-    hh, ww = h + 2 * tr, w + 2 * tr
-    center = ext[:, None, :, sr:sr + hh, sr:sr + ww]
-    # Per channel: the patch area of its field and -1/h^2; a field's sum
-    # is gathered in its first channel and copied to the others.
-    area = torch.empty(c, dtype=torch.float32)
-    neg_inv = torch.empty(c, dtype=torch.float32)
-    for chans, strength in fields:
-        area[list(chans)] = float(template * template * len(chans))
-        neg_inv[list(chans)] = -_inv_h2(strength)
-    area = area.view(1, 1, c, 1, 1).to(x.device)
-    neg_inv = neg_inv.view(1, 1, c, 1, 1).to(x.device)
-    two_sigma2 = float(torch.tensor(2.0, dtype=torch.float32)
-                       * torch.tensor(sigma, dtype=torch.float32) ** 2)
-
-    num = torch.zeros((b, c, h, w), dtype=torch.float32, device=x.device)
-    den = torch.zeros_like(num)
-    diff = torch.empty((b, search, c, hh, ww), dtype=torch.float32,
-                       device=x.device)
-    for dy in range(search):
-        # The row's 21 column offsets as one view: (B, 21, C, hh, ww).
-        shifted = ext[:, :, dy:dy + hh].unfold(3, ww, 1).permute(0, 3, 1, 2,
-                                                                  4)
-        torch.sub(center, shifted, out=diff)
-        diff.square_()
-        wgt = F.avg_pool2d(
-            F.avg_pool2d(diff.view(b * search, c, hh, ww), (template, 1),
-                         stride=1, divisor_override=1),
-            (1, template), stride=1, divisor_override=1).view(
-                b, search, c, h, w)
-        for chans, _ in fields:
-            for ch in chans[1:]:
-                wgt[:, :, chans[0]].add_(wgt[:, :, ch])
-            for ch in chans[1:]:
-                wgt[:, :, ch].copy_(wgt[:, :, chans[0]])
-        wgt.div_(area)
-        if sigma > 0:
-            wgt.sub_(two_sigma2).clamp_(min=0.0)
-        wgt.mul_(neg_inv).exp_()
-        den.add_(wgt.sum(1))
-        vals = ext[:, :, dy + tr:dy + tr + h, tr:tr + w + 2 * sr].unfold(
-            3, w, 1).permute(0, 3, 1, 2, 4)
-        num.add_(wgt.mul_(vals).sum(1))
-    return num / den
-
-
-def _nl_nhwc(x: torch.Tensor, fields, sigma: float, template: int,
-             search: int) -> torch.Tensor:
-    """_nl_planes on float32 (B, H, W, C); returns (B, H, W, C)."""
-    planes = x.permute(0, 3, 1, 2).float().contiguous()
-    return _nl_planes(planes, fields, sigma, template, search).permute(
-        0, 2, 3, 1)
 
 
 def _nl_means_f32(img: torch.Tensor, h: float, sigma: float = 0.0,
                   template: int = 7, search: int = 21) -> torch.Tensor:
     """NL-means on float32 (B, H, W, C) in [0, 255], one field over all
     channels."""
-    return _nl_nhwc(img, ((tuple(range(img.shape[-1])), h),), sigma,
-                    template, search)
+    return nl_means_fields(img.float().contiguous(),
+                           ((tuple(range(img.shape[-1])), h),), sigma,
+                           template, search)
 
 
 def _nl_means_lab_joint(lab: torch.Tensor, h: float, h_color: float,
@@ -117,8 +41,9 @@ def _nl_means_lab_joint(lab: torch.Tensor, h: float, h_color: float,
                         ) -> torch.Tensor:
     """One joint pass over float32 (B, H, W, 3) Lab: L with ``h``, (a, b)
     jointly with ``h_color`` (sigma 0, as cv2's colored variant)."""
-    return _nl_nhwc(lab, (((0,), h), ((1, 2), h_color)), 0.0, template,
-                    search)
+    return nl_means_fields(lab.float().contiguous(),
+                           (((0,), h), ((1, 2), h_color)), 0.0, template,
+                           search)
 
 
 def _batched(img: torch.Tensor) -> torch.Tensor:

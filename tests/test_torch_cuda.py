@@ -16,9 +16,11 @@ the dense-block assembly) equals the composition it replaces (five K1
 convs with the assembly in PyTorch) bit for bit; K3 (flash attention) 2e-2 of max|plain| with no
 floor, on q and k
 of std 2 so that each softmax row is peaked. The float32 forms (K1f, K3f)
-1e-5 of max|plain| (float32 sums in another order), 1e-4 for a forward. The stages without a kernel
-against the same function on the CPU: NL-means' uint8 Lab max |diff| <= 1
-on <= 1e-3 of the values (its RGB: the test's docstring); SegFormer's
+1e-5 of max|plain| (float32 sums in another order), 1e-4 for a forward.
+NL-means' kernel (csrc/nlmeans.cu) 1e-5 of max|plain| in float32 and,
+rounded to uint8, max |diff| <= 1 on <= 1e-3 of the values; on the card
+against the CPU its uint8 Lab max |diff| <= 1 on <= 1e-3 of the values
+(its RGB: the test's docstring). SegFormer (no kernel) against the CPU:
 bf16 logits 3e-2 * max(1, max|CPU f32|).
 """
 
@@ -32,7 +34,7 @@ from neural_enhanced_super_resolution_torch.kernels import (
     conv3x3_int8_rdb_plain, conv3x3_plain, conv3x3_rdb, conv3x3_rdb_plain,
     flash_attention,
     flash_attention_f32, flash_attention_plain, int8_amax, int8_amax_plain,
-    rdb_fused, rdb_fused_plain)
+    nl_means_fields, nl_means_fields_plain, rdb_fused, rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
     pack_conv3x3_int8_weights)
 from neural_enhanced_super_resolution_torch.models import (
@@ -40,8 +42,10 @@ from neural_enhanced_super_resolution_torch.models import (
 from neural_enhanced_super_resolution_torch.models.rrdbnet import FusedRDB
 from neural_enhanced_super_resolution_torch.models.segformer import (
     SegFormerConfig, load_segformer, write_synthetic_segformer)
+from neural_enhanced_super_resolution_torch.ops.blur import saturate_like
+from neural_enhanced_super_resolution_torch.ops.color import rgb_to_lab
 from neural_enhanced_super_resolution_torch.ops.nlmeans import (
-    _denoised_lab, _lab_to_output, nl_means_colored)
+    _denoised_lab, _lab_to_output, nl_means, nl_means_colored)
 
 pytestmark = pytest.mark.cuda
 
@@ -624,6 +628,76 @@ def test_nl_means_on_the_card_matches_the_cpu(cuda):
     assert (dlab > 0).float().mean().item() <= 1e-3
     assert (drgb > 0).float().mean().item() <= 1e-3
     assert (drgb * (dlab == 0).all(-1, keepdim=True)).max().item() <= 1
+
+
+# NL-means' kernel (csrc/nlmeans.cu) at the chip check's shapes: the
+# 32 x 544^2 tile chunk of the denoise path, a whole 768x576 image, a
+# ragged batch and an image narrower than the 13-pixel reach (the Lab
+# joint pass), and one field with sigma > 0 on a float image.
+NLM_CASES = [("lab", (32, 544, 544)), ("lab", (1, 576, 768)),
+             ("lab", (2, 37, 23)), ("lab", (1, 9, 11)),
+             ("one_sigma", (1, 96, 80))]
+
+
+def _nlm_input(kind, shape, seed):
+    """Flat 16 x 16 patches with noise of std 12, as linear Lab (float32)
+    the way _denoised_lab makes it, or as a float image."""
+    g = np.random.default_rng(seed)
+    n, h, w = shape
+    flat = g.integers(0, 256, (n, h // 16 + 1, w // 16 + 1, 3))
+    img = np.kron(flat, np.ones((1, 16, 16, 1)))[:, :h, :w]
+    img = np.clip(img + g.normal(0, 12, img.shape), 0, 255)
+    if kind == "one_sigma":
+        return torch.from_numpy(img.astype(np.float32))
+    x = torch.from_numpy(img.astype(np.uint8))
+    return rgb_to_lab(x.flip(-1), srgb=False).float()
+
+
+@pytest.mark.parametrize("kind,shape", NLM_CASES,
+                         ids=[f"{k}_{'x'.join(map(str, s))}"
+                              for k, s in NLM_CASES])
+def test_nl_means_kernel_matches_plain(cuda, kind, shape):
+    """One launch, no plain call; float32 within 1e-5 of max|plain| (the
+    offsets summed in another order); the rounded uint8 Lab within one
+    level on <= 1e-3 of the values."""
+    x = _nlm_input(kind, shape, sum(shape)).to(cuda)
+    fields, sigma = ((((0,), 5.0), ((1, 2), 5.0)), 0.0) if kind == "lab" \
+        else ((((0, 1, 2), 9.0),), 6.0)
+    launches, calls = nl_means_fields.launches, nl_means_fields_plain.calls
+    got = nl_means_fields(x, fields, sigma)
+    assert nl_means_fields.launches == launches + 1
+    assert nl_means_fields_plain.calls == calls
+    ref = nl_means_fields_plain(x, fields, sigma, 7, 21)
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    d = (saturate_like(got, torch.uint8).int()
+         - saturate_like(ref, torch.uint8).int()).abs()
+    assert d.max().item() <= 1
+    assert (d > 0).float().mean().item() <= 1e-3
+
+
+def test_nl_means_paths_launch_the_kernel_once(cuda):
+    img = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (2, 40, 52, 3), dtype=np.uint8)).to(cuda)
+    launches, calls = nl_means_fields.launches, nl_means_fields_plain.calls
+    nl_means_colored(img, h=5.0, h_color=5.0)
+    nl_means(img[0, ..., 0], h=9.0, sigma=4.0)
+    assert nl_means_fields.launches == launches + 2
+    assert nl_means_fields_plain.calls == calls
+
+
+def test_nl_means_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 16, 16, 3), device=cuda)
+    fields = (((0,), 5.0), ((1, 2), 5.0))
+    with pytest.raises(KernelInputError, match="7x7 template"):
+        nl_means_fields(x, fields, 0.0, 5, 21)
+    with pytest.raises(KernelInputError, match="fields"):
+        nl_means_fields(x, fields, 2.0)
+    with pytest.raises(KernelInputError, match="float32"):
+        nl_means_fields(x.double(), fields)
+    with pytest.raises(KernelInputError, match="C 1..4"):
+        nl_means_fields(torch.zeros((1, 8, 8, 5), device=cuda),
+                        ((tuple(range(5)), 5.0),))
 
 
 def test_segformer_on_the_card_matches_the_cpu(cuda, tmp_path):
