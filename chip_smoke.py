@@ -1676,6 +1676,36 @@ def drive_default_in_process(torch, np, ckpt: str, snap: str, seg: str,
     return counts
 
 
+def _nlm_events(torch, ops_nlm, fn, events: list):
+    """Points ops/nlmeans' NL-means at ``fn`` with CUDA events recorded
+    around each call, appended to ``events``; returns the undo."""
+    before = ops_nlm.nl_means_fields
+
+    def timed(*args, **kwargs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*args, **kwargs)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    ops_nlm.nl_means_fields = timed
+    return lambda: setattr(ops_nlm, "nl_means_fields", before)
+
+
+def _nlm_split(torch, events: list, stage_s: float) -> str:
+    """The first of a request's two runs (timed_request: timed, then
+    profiled): its NL-means calls' device ms (events) beside its
+    pre/denoise wall."""
+    torch.cuda.synchronize()
+    first = events[:len(events) // 2]
+    ms = sum(e0.elapsed_time(e1) for e0, e1 in first)
+    return (f"pre/denoise {stage_s:.4f} s, of it NL-means {ms:.4f} ms of "
+            f"device time in {len(first)} calls (CUDA events), the rest "
+            f"{1e3 * stage_s - ms:.4f} ms")
+
+
 def drive_denoise_segmentation(torch, np, ckpt: str, seg: str,
                                name: str) -> dict:
     """A 1024x768 ESRGAN request with NL-means denoise and segmentation at
@@ -1684,7 +1714,9 @@ def drive_denoise_segmentation(torch, np, ckpt: str, seg: str,
     the same request in turns (plain, kernel, kernel, plain) against the
     NL-means of ops/nlmeans.py before the kernel (nl_means_fields_plain on
     the card, the plain form moved unchanged): pre/denoise, the request
-    wall and the device-busy share of each turn."""
+    wall and the device-busy share of each turn. Each pre/denoise stands
+    beside the device time of its NL-means calls (CUDA events around each
+    call of the request's first run)."""
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
     from neural_enhanced_super_resolution_torch.kernels import (
         conv3x3, conv3x3_plain, nl_means_fields_plain)
@@ -1701,10 +1733,16 @@ def drive_denoise_segmentation(torch, np, ckpt: str, seg: str,
     _zero_steps()
     label = "request 1024x768 -n 1 (ESRGAN, denoise 0.5, segmentation, " \
             "tiled stages)"
-    out, stages = timed_request(torch, pipe, img, label, name)
+    events: list = []
+    undo = _nlm_events(torch, ops_nlm, ops_nlm.nl_means_fields, events)
+    try:
+        out, stages = timed_request(torch, pipe, img, label, name)
+    finally:
+        undo()
     counts = {"conv3x3": conv3x3.launches,
               "conv3x3_plain": conv3x3_plain.calls, **_step_counts()}
-    log(f"request 1024x768 counts (both runs) {counts}")
+    log(f"request 1024x768 counts (both runs) {counts}; "
+        + _nlm_split(torch, events, stages.get("pre/denoise", 0.0)))
     missing = {"pre/denoise", "pre/contrast", "segmentation"} - set(stages)
     if (out.shape != (3072, 4096, 3) or out.std() == 0 or missing
             or counts["conv3x3"] == 0 or counts["conv3x3_plain"]
@@ -1715,19 +1753,21 @@ def drive_denoise_segmentation(torch, np, ckpt: str, seg: str,
     kernel_fn = ops_nlm.nl_means_fields
     turns = []
     for form in ("plain", "kernel", "kernel", "plain"):
-        ops_nlm.nl_means_fields = (nl_means_fields_plain if form == "plain"
-                                   else kernel_fn)
+        events = []
+        undo = _nlm_events(torch, ops_nlm, nl_means_fields_plain
+                           if form == "plain" else kernel_fn, events)
         info: dict = {}
         try:
             turn_out, turn_stages = timed_request(
                 torch, pipe, img, f"{label}, NL-means {form}", name,
                 info=info)
         finally:
-            ops_nlm.nl_means_fields = kernel_fn
+            undo()
         if not np.array_equal(turn_out.shape, out.shape):
             raise AssertionError(f"turn {form}: output {turn_out.shape}")
-        turns.append(f"{form} pre/denoise {turn_stages['pre/denoise']:.4f} "
-                     f"s, wall {info['wall']:.4f} s, profiled "
+        turns.append(f"{form} " + _nlm_split(
+                         torch, events, turn_stages["pre/denoise"])
+                     + f", wall {info['wall']:.4f} s, profiled "
                      f"{info['pwall']:.4f} s at "
                      f"{100 * info['busy'] / info['pwall']:.1f}% busy")
     log("request 1024x768 with denoise and segmentation, in turns "

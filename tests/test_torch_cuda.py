@@ -676,6 +676,26 @@ def test_nl_means_kernel_matches_plain(cuda, kind, shape):
     assert (d > 0).float().mean().item() <= 1e-3
 
 
+@pytest.mark.parametrize("channels,shape,sigma", [
+    (1, (3, 70, 130), 4.0), (2, (1, 45, 61), 0.0), (4, (1, 45, 61), 5.0),
+    (4, (2, 300, 200), 0.0)],
+    ids=["gray_27_tiles", "two_channels", "four_channels",
+         "four_channels_many_tiles"])
+def test_nl_means_kernel_one_field_channels(cuda, channels, shape, sigma):
+    """The one-field form at every channel count, on grids that split the
+    search rows between a cluster's blocks and on one that does not: the
+    same bars as test_nl_means_kernel_matches_plain."""
+    x = _nlm_input("one_sigma", shape, sum(shape))
+    x = x[..., [i % 3 for i in range(channels)]].contiguous().to(cuda)
+    fields = ((tuple(range(channels)), 9.0),)
+    launches = nl_means_fields.launches
+    got = nl_means_fields(x, fields, sigma)
+    assert nl_means_fields.launches == launches + 1
+    ref = nl_means_fields_plain(x, fields, sigma, 7, 21)
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
 def test_nl_means_paths_launch_the_kernel_once(cuda):
     img = torch.from_numpy(np.random.default_rng(4).integers(
         0, 256, (2, 40, 52, 3), dtype=np.uint8)).to(cuda)
