@@ -165,6 +165,8 @@ def load_library() -> ctypes.CDLL:
         lib.nesr_rdb_int8_step.restype = ci
         lib.nesr_rdb_bf16_step.argtypes = [vp] * 8 + [ci] * 15 + [vp]
         lib.nesr_rdb_bf16_step.restype = ci
+        lib.nesr_rdb_f32_step.argtypes = [vp] * 8 + [ci] * 8 + [vp]
+        lib.nesr_rdb_f32_step.restype = ci
         lib.nesr_int8_amax.argtypes = [vp, ci, ctypes.c_longlong, ci, vp,
                                        ci, vp]
         lib.nesr_int8_amax.restype = ci

@@ -1,15 +1,18 @@
-"""The K1 step: one conv of the bf16 residual dense block with its share of
-the dense-block assembly in the epilogue.
+"""The RDB step: one conv of the fused trunk's residual dense block with
+its share of the dense-block assembly in the epilogue, in bf16 (the K1
+step) or float32 (the parity mode).
 
 ``conv3x3_rdb`` launches the hand-written Hopper kernel
-(``csrc/rdb_bf16.cu``) on a CUDA tensor and takes the plain PyTorch version
-``conv3x3_rdb_plain`` only for a tensor on the CPU. Five steps (k = 0..4)
-make one RDB of the fused trunk: the JAX package's ``_rdb_fused``
-(``models/rrdbnet.py:167``), XLA's bias-free bf16 convs with their
-assembly, which is no Pallas kernel. Step k is K1's conv k
-(``conv3x3`` without bias, rounded to bf16 once) followed by step k's
-slice of the assembly that ``models/rrdbnet.FusedRDB._composition`` runs
-in PyTorch, with its rounding points; the two agree bit for bit.
+(``csrc/rdb_bf16.cu``) on a bf16 CUDA tensor, its float32 form
+``conv3x3_rdb_f32`` (``csrc/rdb_f32.cu``) on a float32 one, and takes the
+plain PyTorch version ``conv3x3_rdb_plain`` only for a tensor on the CPU.
+Five steps (k = 0..4) make one RDB of the fused trunk: the JAX package's
+``_rdb_fused`` (``models/rrdbnet.py:167``), XLA's bias-free convs with
+their assembly, which is no Pallas kernel. Step k is K1's conv k
+(``conv3x3`` without bias, rounded to bf16 once; in float32 K1f's)
+followed by step k's slice of the assembly that
+``models/rrdbnet.FusedRDB._composition`` runs in PyTorch, with its
+rounding points; the two agree bit for bit.
 
 Layout: NHWC activations, HWIO weights (3, 3, Cin, Cout) from
 ``models/rrdbnet.fuse_rdb`` (Cout 4g + nf, 3g + nf, 2g + nf, g + nf, nf),
@@ -17,11 +20,13 @@ read as K1 reads them, packed by ``pack_conv3x3_weights``. The slots are
 one (N, H, W, 4g + nf) buffer laid out as conv 0's output: conv k's
 channel j is slot channel k g + j.
 
-The launch is ``step_plan``'s: a persistent grid of at most one block an
-SM, each block two consumer warpgroups on 4 x 16-pixel tiles of their own
+The bf16 launch is ``step_plan``'s: a persistent grid of at most one block
+an SM, each block two consumer warpgroups on 4 x 16-pixel tiles of their own
 and two producer warps; a sweep's packed weights resident in shared
 memory (every N tile where they fit, else one N tile a sweep) and
-``step_smem`` the layout the kernel takes.
+``step_smem`` the layout the kernel takes. The float32 launch is K1f's
+(``csrc/conv3x3_f32_body.cuh``): a block an 8R x 16-pixel tile and every
+output channel up to 192, a thread 8 pixels x one 8-channel granule.
 """
 
 from __future__ import annotations
@@ -41,8 +46,9 @@ from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
     rdb_growth)
 
-__all__ = ["conv3x3_rdb", "conv3x3_rdb_plain", "StepPlan", "step_plan",
-           "step_smem", "step_tiles", "STEP_SMEM", "STEP_TILE"]
+__all__ = ["conv3x3_rdb", "conv3x3_rdb_f32", "conv3x3_rdb_plain",
+           "StepPlan", "step_plan", "step_smem", "step_tiles", "STEP_SMEM",
+           "STEP_TILE"]
 
 # The kernel's geometry (csrc/rdb_bf16.cu): a consumer's tile is
 # STEP_TILE = (rows, columns) output pixels, its patch two rows and two
@@ -178,8 +184,11 @@ def conv3x3_rdb_plain(k: int, src: torch.Tensor, w: torch.Tensor,
 conv3x3_rdb_plain.calls = 0
 
 
-def _check_step(k, src, w, b, slots, xn, x, skip, packed):
-    name = "conv3x3_rdb"
+def _check_step(k, src, w, b, slots, xn, x, skip, packed,
+                name="conv3x3_rdb"):
+    """The checks before a launch (raise ``KernelInputError``): src, w,
+    slots, xn, x and skip all bf16 or all float32, b float32; ``packed``
+    (bf16 only) ``pack_conv3x3_weights(w)``. Returns (g, nf, Cout)."""
     if not 0 <= k <= 4:
         raise KernelInputError(f"{name}: step {k} is not 0..4")
     if src.dim() != 4 or slots.dim() != 4 or slots.shape[:3] != src.shape[:3]:
@@ -192,36 +201,40 @@ def _check_step(k, src, w, b, slots, xn, x, skip, packed):
         raise KernelInputError(f"{name}: step {k} of src {tuple(src.shape)}, "
                                f"slots width {cs} and w {tuple(w.shape)} is "
                                "no RDB conv")
-    if any(t.dtype != torch.bfloat16 for t in (src, w, slots)) or (
-            b.dtype != torch.float32 or b.shape != (cs,)):
-        raise KernelInputError(f"{name}: needs bf16 src, w and slots and "
-                               f"float32 ({cs},) biases, got {src.dtype}, "
-                               f"{w.dtype}, {slots.dtype}, {b.dtype}")
+    dt = src.dtype
+    acts = [t for t in (src, w, slots, xn, x, skip) if t is not None]
+    if (dt not in (torch.bfloat16, torch.float32)
+            or any(t.dtype != dt for t in acts)
+            or b.dtype != torch.float32 or b.shape != (cs,)):
+        raise KernelInputError(
+            f"{name}: needs bf16 (or float32) src, w, slots, xn, x and skip "
+            f"alike and float32 ({cs},) biases, got "
+            f"{[str(t.dtype) for t in acts]}, b {b.dtype}")
     if (k == 4) != (x is not None) or (skip is not None and k != 4):
         raise KernelInputError(f"{name}: x (and skip) belong to step 4")
     extra = [t for t in (x, skip) if t is not None]
-    if any(t.shape != (*src.shape[:3], nf) or t.dtype != torch.bfloat16
-           for t in extra):
+    if any(t.shape != (*src.shape[:3], nf) for t in extra):
         raise KernelInputError(f"{name}: x and skip must be ({nf},)-channel "
-                               "bf16 tensors")
-    if xn is not None and (k == 4 or xn.shape != (*src.shape[:3], g)
-                           or xn.dtype != torch.bfloat16):
+                               "tensors")
+    if xn is not None and (k == 4 or xn.shape != (*src.shape[:3], g)):
         raise KernelInputError(f"{name}: xn is step k < 4's "
-                               f"({g},)-channel bf16 x_(k+1)")
+                               f"({g},)-channel x_(k+1)")
     ops = [t for t in (src, w, b, slots, packed, xn, *extra) if t is not None]
     if any(t.device != src.device for t in ops):
         raise KernelInputError(f"{name}: operands on different devices")
     if not all(t.is_contiguous() for t in ops):
         raise KernelInputError(f"{name}: operands must be contiguous")
-    if src.data_ptr() % 16 or packed.data_ptr() % 16:
-        raise KernelInputError(f"{name}: src and packed must be 16-byte "
-                               "aligned")
     if xn is not None and xn.data_ptr() == src.data_ptr():
         raise KernelInputError(f"{name}: x_(k+1) must not overwrite x_k, "
                                "whose halo other blocks still read")
     if src.shape[0] > 65535 or min(src.shape[1:3]) < 1:
         raise KernelInputError(f"{name}: unsupported shape "
                                f"{tuple(src.shape)}")
+    if dt == torch.float32:
+        return g, nf, cout
+    if src.data_ptr() % 16 or packed.data_ptr() % 16:
+        raise KernelInputError(f"{name}: src and packed must be 16-byte "
+                               "aligned")
     if (packed.dtype != torch.bfloat16
             or packed.numel() != packed_numel(cin, cout)):
         raise KernelInputError(f"{name}: packed is not "
@@ -250,7 +263,8 @@ def conv3x3_rdb(k: int, src: torch.Tensor, w: torch.Tensor,
 
     On the GPU one launch of ``csrc/rdb_bf16.cu`` as ``step_plan`` lays it
     out, everything bf16 but b; ``packed`` is ``pack_conv3x3_weights(w)``
-    (made here when None).
+    (made here when None). A float32 src goes to ``conv3x3_rdb_f32``
+    (``packed`` unused).
     Anything the kernel does not take raises ``KernelInputError``.
     """
     if src.device.type == "cpu":
@@ -258,6 +272,8 @@ def conv3x3_rdb(k: int, src: torch.Tensor, w: torch.Tensor,
     if not src.is_cuda:
         raise KernelInputError(f"conv3x3_rdb: no kernel for device "
                                f"{src.device}")
+    if src.dtype == torch.float32:
+        return conv3x3_rdb_f32(k, src, w, b, slots, xn, x, skip)
     if packed is None:
         packed = pack_conv3x3_weights(w)
     g, nf, cout = _check_step(k, src, w, b, slots, xn, x, skip, packed)
@@ -291,3 +307,47 @@ def conv3x3_rdb(k: int, src: torch.Tensor, w: torch.Tensor,
 
 
 conv3x3_rdb.launches = 0
+
+
+def conv3x3_rdb_f32(k: int, src: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor, slots: torch.Tensor,
+                    xn: torch.Tensor | None = None,
+                    x: torch.Tensor | None = None,
+                    skip: torch.Tensor | None = None) -> torch.Tensor:
+    """The float32 RDB step (``csrc/rdb_f32.cu``): step k of
+    ``conv3x3_rdb`` with every operand float32, one launch of K1f's
+    bias-free conv with step k's slice of the assembly in its epilogue.
+    Its arguments and result are ``conv3x3_rdb``'s. On the CPU:
+    ``conv3x3_rdb_plain``. Anything else raises ``KernelInputError``."""
+    if src.device.type == "cpu":
+        return conv3x3_rdb_plain(k, src, w, b, slots, xn, x, skip)
+    if not src.is_cuda:
+        raise KernelInputError(f"conv3x3_rdb_f32: no kernel for device "
+                               f"{src.device}")
+    g, nf, cout = _check_step(k, src, w, b, slots, xn, x, skip, None,
+                              "conv3x3_rdb_f32")
+    if src.dtype != torch.float32:
+        raise KernelInputError(f"conv3x3_rdb_f32: needs float32 operands, "
+                               f"got {src.dtype}")
+    n, h, wd, cin = src.shape
+    if k < 4:
+        y = xn if xn is not None else torch.empty(
+            (n, h, wd, g), dtype=torch.float32, device=src.device)
+        out = None
+    else:
+        y = out = torch.empty_like(x)
+    lib = _build.load_library()
+    with torch.cuda.device(src.device):
+        err = lib.nesr_rdb_f32_step(
+            src.data_ptr(), w.data_ptr(), b.data_ptr(), slots.data_ptr(),
+            None if k == 4 else y.data_ptr(),
+            None if x is None else x.data_ptr(),
+            None if skip is None else skip.data_ptr(),
+            None if out is None else out.data_ptr(),
+            n, h, wd, cin, cout, k, g, 4 * g + nf, _build.stream_ptr())
+    _build.check("conv3x3_rdb_f32", err)
+    conv3x3_rdb_f32.launches += 1
+    return y
+
+
+conv3x3_rdb_f32.launches = 0

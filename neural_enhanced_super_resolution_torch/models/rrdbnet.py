@@ -7,11 +7,12 @@ accumulates in fp32. The trunk is one of:
 
 * ``"fused"`` (config ``esrgan_trunk`` unset or ``"xla"``): the source-major
   fused RDB (``fuse_rdb``), the JAX package's ``_rdb_fused``: five launches
-  of the K1 step (``kernels.conv3x3_rdb``) an RDB, each K1's bias-free conv
+  of the RDB step (``kernels.conv3x3_rdb``) an RDB, each K1's bias-free conv
   rounded to bf16 with its share of the dense-block assembly (the same
   additions in the same order) in its epilogue, and each RRDB's residual
   folded into its third RDB's last step; in float32 (the parity mode) the
-  five convs are K1f and the assembly runs in PyTorch between them;
+  same five launches of its float32 form (``kernels.conv3x3_rdb_f32``:
+  K1f's conv with the assembly in its epilogue);
 * ``"dform"``: one K2 launch (``kernels.rdb_fused``) per RDB, bf16 only;
 * ``"int8"``: the fused RDB with per-output-channel int8 weights and
   dynamic per-tensor int8 activations: the JAX package's
@@ -348,14 +349,16 @@ class _StockRDB(nn.Module):
 
 
 class FusedRDB(nn.Module):
-    """Source-major fused RDB: five launches of the K1 step
+    """Source-major fused RDB: five launches of the RDB step
     (``conv3x3_rdb``: K1's conv with its share of the dense-block assembly
-    in the epilogue) in bf16, or one K2 (``kernel``).
+    in the epilogue; in float32, the parity mode, K1f's), or one K2
+    (``kernel``, bf16).
 
     fw: w0..w4 HWIO (from ``fuse_rdb``), fb: the (4g + nf,) biases;
-    p0..p4 are their packed images, which K1, its step and K2 read alike.
-    In float32 (the parity mode) the RDB is ``_composition``: five K1f
-    convs and the assembly in PyTorch."""
+    p0..p4 are their packed images, which K1, its step and K2 read alike
+    (the float32 step reads the HWIO weights, as K1f does).
+    ``_composition`` (five K1 / K1f convs and the assembly in PyTorch) is
+    the steps' yardstick, on no path."""
 
     def __init__(self, fw, fb, dtype, device, kernel: bool):
         super().__init__()
@@ -376,13 +379,15 @@ class FusedRDB(nn.Module):
         return [self.p0, self.p1, self.p2, self.p3, self.p4]
 
     def folds_skip(self, x: torch.Tensor) -> bool:
-        """Whether ``forward`` runs the K1 step on x, and so takes
-        ``skip``: the source-major trunk in bf16."""
-        return not self.kernel and x.dtype == torch.bfloat16
+        """Whether ``forward`` runs the RDB step, and so takes ``skip``:
+        the source-major trunk, in bf16 and in float32. (The tests and
+        ``chip_smoke.py`` patch it false to run the trunk on
+        ``_composition``.)"""
+        return not self.kernel
 
     def forward(self, x: torch.Tensor, plain: bool = False,
                 skip: torch.Tensor | None = None) -> torch.Tensor:
-        """skip (the K1 step only): an RRDB's input, which makes the
+        """skip (the RDB step only): an RRDB's input, which makes the
         result the RRDB's, skip + 0.2 * out."""
         if self.kernel:
             if plain:
@@ -391,7 +396,7 @@ class FusedRDB(nn.Module):
                              packed=self.packed())
         if not self.folds_skip(x):
             if skip is not None:
-                raise ValueError("skip is folded by the K1 step (bf16) only")
+                raise ValueError("skip is folded by the RDB step only")
             return self._composition(x, plain)
         x = x.contiguous()
         n, h, wd, _ = x.shape
@@ -412,8 +417,8 @@ class FusedRDB(nn.Module):
     def _composition(self, x: torch.Tensor, plain: bool = False
                      ) -> torch.Tensor:
         """The RDB as five bias-free K1 (K1f) convs with the dense-block
-        assembly in PyTorch between them: the K1 step's plain composition,
-        and the float32 trunk."""
+        assembly in PyTorch between them: what the RDB step equals bit
+        for bit, and its yardstick."""
         g, b, dt = self.gc, self.b, x.dtype
         w = self.weights()
         p = self.packed()
@@ -542,8 +547,9 @@ class _RRDB(nn.Module):
         whose [0] is max|x| (made here when None); the third RDB's last
         step adds the residual x + 0.2 * out and fills [15] with its
         max, the next RRDB's scale. Where the RDBs fold the residual
-        (``folds_skip``: the K1 step, the int8 trunk), the third takes x
-        as ``skip``; otherwise it is a separate add."""
+        (``folds_skip``: the RDB step in bf16 and float32, the int8
+        trunk), the third takes x as ``skip``; otherwise (K2, the stock
+        RDB) it is a separate add."""
         if not self.rdbs[0].folds_skip(x):
             out = x
             for rdb in self.rdbs:

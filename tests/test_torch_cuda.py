@@ -13,7 +13,9 @@ integer sums, the same float32 epilogue), and so does its redesign, the
 int8 RDB step (conv3x3_int8_rdb: x_{k+1} or out, the slots and the scale
 chain), with int8_amax; the bf16 RDB step (conv3x3_rdb: K1's conv with
 the dense-block assembly) equals the composition it replaces (five K1
-convs with the assembly in PyTorch) bit for bit; K3 (flash attention) 2e-2 of max|plain| with no
+convs with the assembly in PyTorch) bit for bit, and its float32 form
+(conv3x3_rdb_f32) equals the composition on K1f bit for bit and its plain
+version within 1e-5; K3 (flash attention) 2e-2 of max|plain| with no
 floor, on q and k
 of std 2 so that each softmax row is peaked. The float32 forms (K1f, K3f)
 1e-5 of max|plain| (float32 sums in another order), 1e-4 for a forward.
@@ -31,8 +33,8 @@ import torch
 from neural_enhanced_super_resolution_torch.kernels import (
     KernelError, KernelInputError, attention_auto, conv3x3, conv3x3_f32,
     conv3x3_int8, conv3x3_int8_plain, conv3x3_int8_rdb,
-    conv3x3_int8_rdb_plain, conv3x3_plain, conv3x3_rdb, conv3x3_rdb_plain,
-    flash_attention,
+    conv3x3_int8_rdb_plain, conv3x3_plain, conv3x3_rdb, conv3x3_rdb_f32,
+    conv3x3_rdb_plain, flash_attention,
     flash_attention_f32, flash_attention_plain, int8_amax, int8_amax_plain,
     nl_means_fields, nl_means_fields_plain, rdb_fused, rdb_fused_plain)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_int8 import (
@@ -458,6 +460,95 @@ def test_rdb_step_refuses_what_it_does_not_take(cuda):
         conv3x3_rdb(1, xk, w[:, :, :8, 8:].contiguous(), b, slots, xn=xk)
 
 
+def _k1f_step(k, src, w, b, slots, x=None, skip=None):
+    """Step k as FusedRDB._composition takes it: K1f's bias-free conv,
+    then the step's slice of the assembly in PyTorch (slots updated in
+    place)."""
+    c = conv3x3_f32(src, w)
+    g = src.shape[-1] if k else (w.shape[3] - src.shape[-1]) // 4
+    lo = k * g
+    if k == 4:
+        y = x + 0.2 * (slots[..., lo:] + c + b[lo:])
+        return y if skip is None else skip + 0.2 * y
+    t = c[..., :g] if k == 0 else slots[..., lo:lo + g] + c[..., :g]
+    if k == 0:
+        slots[..., g:] = c[..., g:]
+    else:
+        slots[..., lo + g:] += c[..., g:]
+    return torch.nn.functional.leaky_relu(t + b[lo:lo + g], 0.2)
+
+
+@pytest.mark.parametrize("nf,g,shape", [(64, 32, (2, 37, 45)),
+                                        (16, 8, (1, 33, 20)),
+                                        (12, 4, (2, 21, 35)),
+                                        (64, 32, (1, 13, 9)),
+                                        (10, 6, (1, 11, 19))],
+                         ids=["trunk", "fixture", "g4", "ragged",
+                              "widths_off_4"])
+@pytest.mark.parametrize("skip", [False, True], ids=["", "skip"])
+def test_rdb_f32_step_matches_the_composition(cuda, nf, g, shape, skip):
+    """The float32 RDB step's five launches equal FusedRDB._composition on
+    K1f bit for bit (with the RRDB skip: skip + 0.2 * it), with no K1f,
+    bf16 step or plain call; each step (x_{k+1} or out, and the slots)
+    equals the composition's step on K1f bit for bit and is within 1e-5 of
+    the plain step (cuDNN, TF32 off). At g 4 a granule holds x_{k+1} and
+    slot channels; at nf 10 / g 6 Cin and Cout are off 4 (4-byte staging,
+    scalar epilogue)."""
+    gen = torch.Generator().manual_seed(nf + g + 1)
+    fw = [torch.randn((3, 3, ci, co), generator=gen) * 0.05
+          for ci, co in ((nf, 4 * g + nf), (g, 3 * g + nf), (g, 2 * g + nf),
+                         (g, g + nf), (g, nf))]
+    rdb = FusedRDB(fw, torch.randn((4 * g + nf,), generator=gen) * 0.1,
+                   torch.float32, cuda, kernel=False)
+    x, sk = ((torch.randn((*shape, nf), generator=gen) * 0.5).to(cuda)
+             for _ in range(2))
+    sk = sk if skip else None
+    counts = (conv3x3_rdb_f32.launches, conv3x3_f32.launches,
+              conv3x3_rdb.launches, conv3x3_rdb_plain.calls)
+    got = rdb(x, skip=sk)
+    torch.cuda.synchronize()
+    assert (conv3x3_rdb_f32.launches, conv3x3_f32.launches,
+            conv3x3_rdb.launches, conv3x3_rdb_plain.calls) == (
+        counts[0] + 5, *counts[1:])
+    ref = rdb._composition(x)
+    ref = ref if sk is None else sk + 0.2 * ref
+    assert torch.equal(_bits(got), _bits(ref))
+    slots = torch.zeros((*shape, 4 * g + nf), device=cuda)
+    slots_c, slots_p, t = slots.clone(), slots.clone(), x
+    for k, w in enumerate(rdb.weights()):
+        extra = dict(x=x, skip=sk) if k == 4 else {}
+        y = conv3x3_rdb(k, t, w, rdb.b, slots, **extra)
+        comp = _k1f_step(k, t, w, rdb.b, slots_c, **extra)
+        plain = conv3x3_rdb_plain(k, t, w, rdb.b, slots_p, **extra)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(y), _bits(comp)), k
+        assert torch.equal(_bits(slots), _bits(slots_c)), k
+        assert _rel(y, plain) <= 1e-5, k
+        assert _rel(slots[..., (k + 1) * g:],
+                    slots_p[..., (k + 1) * g:]) <= 1e-5, k
+        t = y
+
+
+def test_rdb_f32_step_refuses_what_it_does_not_take(cuda):
+    """A float32 source with bf16 slots (or a bf16 x_{k+1}), and x_{k+1}
+    written over x_k, raise before a launch."""
+    x = torch.zeros((1, 8, 8, 16), device=cuda)
+    w = torch.zeros((3, 3, 16, 48), device=cuda)
+    b = torch.zeros(48, device=cuda)
+    slots = torch.zeros((1, 8, 8, 48), device=cuda)
+    launches = conv3x3_rdb_f32.launches
+    with pytest.raises(KernelInputError, match="bf16"):
+        conv3x3_rdb(0, x, w, b, slots.bfloat16())
+    with pytest.raises(KernelInputError, match="bf16"):
+        conv3x3_rdb_f32(0, x, w, b, slots,
+                        xn=torch.zeros((1, 8, 8, 8), dtype=torch.bfloat16,
+                                       device=cuda))
+    xk = torch.zeros((1, 8, 8, 8), device=cuda)
+    with pytest.raises(KernelInputError, match="overwrite"):
+        conv3x3_rdb(1, xk, w[:, :, :8, 8:].contiguous(), b, slots, xn=xk)
+    assert conv3x3_rdb_f32.launches == launches
+
+
 def _swinir_ckpt(path, depths=(2, 2)):
     """SwinIR-M's width (embed 180, heads 6, window 8, nearest+conv) at a
     cut depth, seeded, as an official .pth."""
@@ -816,11 +907,17 @@ def test_float32_request_on_the_card_matches_the_cpu(cuda, tmp_path):
                                                     dtype=np.uint8),
                   np.ones((8, 8, 1), np.uint8))[:150, :136]
     ref = SuperResolutionPipeline("cpu", base).enhance_array(img)
-    before = (conv3x3.launches, conv3x3_f32.launches, conv3x3_plain.calls)
+    before = (conv3x3.launches, conv3x3_f32.launches, conv3x3_plain.calls,
+              conv3x3_rdb_f32.launches, conv3x3_rdb.launches,
+              conv3x3_rdb_plain.calls)
     got = SuperResolutionPipeline("cuda", base).enhance_array(img)
     assert conv3x3.launches == before[0]
     assert conv3x3_f32.launches > before[1]
     assert conv3x3_plain.calls == before[2]
+    # the trunk on the float32 RDB step: 15 launches an RRDB a forward
+    steps = conv3x3_rdb_f32.launches - before[3]
+    assert steps > 0 and steps % 15 == 0
+    assert (conv3x3_rdb.launches, conv3x3_rdb_plain.calls) == before[4:]
     diff = np.abs(got.astype(int) - ref.astype(int))
     assert got.shape == ref.shape == (600, 544, 3)
     assert diff.max() <= 1 and np.mean(diff == 0) >= 0.999

@@ -1,9 +1,11 @@
-"""The K1 step, the bf16 trunk's RDB step, against ``FusedRDB._composition``
-and the JAX package's ``_rdb_fused``, on the CPU.
+"""The RDB step, the fused trunk's RDB step in bf16 (the K1 step) and in
+float32 (its float32 form), against ``FusedRDB._composition`` and the JAX
+package's ``_rdb_fused``, on the CPU.
 
-``conv3x3_rdb`` takes its plain version ``conv3x3_rdb_plain`` on a CPU
-tensor: ``conv3x3_plain`` without bias (rounded to the working dtype),
-then step k's slice of the dense-block assembly. Five steps make one RDB.
+``conv3x3_rdb`` (and ``conv3x3_rdb_f32``) takes its plain version
+``conv3x3_rdb_plain`` on a CPU tensor: ``conv3x3_plain`` without bias
+(rounded to the working dtype), then step k's slice of the dense-block
+assembly. Five steps make one RDB.
 Inputs are made with numpy from a seed. Tolerances:
 
 * bf16 and float32: bit for bit against the composition (five bias-free
@@ -35,7 +37,8 @@ import torch
 from neural_enhanced_super_resolution_tpu.models import rrdbnet as jr
 from neural_enhanced_super_resolution_tpu.models import weights as jw
 from neural_enhanced_super_resolution_torch.kernels import (
-    KernelInputError, conv3x3_plain, conv3x3_rdb, conv3x3_rdb_plain)
+    KernelInputError, conv3x3_plain, conv3x3_rdb, conv3x3_rdb_f32,
+    conv3x3_rdb_plain)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3_rdb import (
     STEP_SMEM, _bulk_fits, _check_step, step_plan, step_smem, step_tiles)
 from neural_enhanced_super_resolution_torch.kernels.conv3x3 import (
@@ -57,6 +60,30 @@ needs_fixture = pytest.mark.skipif(not os.path.exists(FIXTURE),
 SOURCES = [pytest.param("fixture", marks=needs_fixture), "narrow_seeded",
            "wide_seeded"]
 DTYPES = [torch.bfloat16, torch.float32]
+
+
+def _over_dtypes(cases):
+    """Each case (a tuple of a test's other parameters, with its id) in
+    both dtypes: the bf16 case keeps the id it had when the test was bf16
+    only, the float32 one adds "-float32"."""
+    out = []
+    for dtype in DTYPES:
+        for values, ident, marks in cases:
+            suffix = "-float32" if dtype == torch.float32 else ""
+            out.append(pytest.param(dtype, *values, id=ident + suffix,
+                                    marks=marks))
+    return out
+
+
+def _sources_by(scales):
+    """(arch_scale, source) cases with pytest's ids "scale-source"."""
+    cases = []
+    for scale in scales:
+        for s in SOURCES:
+            name, marks = (s.values[0], s.marks) if hasattr(s, "values") \
+                else (s, ())
+            cases.append(((scale, name), f"{scale}-{name}", marks))
+    return cases
 
 
 def _source(name):
@@ -116,8 +143,7 @@ def _bits(t):
                                          ((1, 13, 9), 4.0)])
 def test_steps_equal_the_composition(source, dtype, shape, scale):
     """Five plain steps are FusedRDB's composition bit for bit, and so is
-    FusedRDB on its own path (the steps in bf16, the composition in
-    float32)."""
+    FusedRDB on its own path, the steps, in both dtypes."""
     arch, _, model = _model(source, dtype)
     rdb = model.body[0].rdbs[1]
     x = _x(arch, shape, sum(shape), dtype, scale)
@@ -126,7 +152,7 @@ def test_steps_equal_the_composition(source, dtype, shape, scale):
     assert got.dtype == dtype
     assert torch.equal(_bits(got), _bits(ref))
     assert torch.equal(_bits(rdb(x)), _bits(ref))
-    assert rdb.folds_skip(x) == (dtype == torch.bfloat16)
+    assert rdb.folds_skip(x)
 
 
 @pytest.mark.parametrize("source", SOURCES)
@@ -199,7 +225,8 @@ def test_slot_map_matches_the_assembly(source, dtype):
 def test_rrdb_residual_fold_matches_the_rrdb(source, dtype):
     """The third RDB's last step with skip = the RRDB input is the RRDB's
     x + 0.2 * out (JAX _rrdb's residual) bit for bit; the RRDB folds it
-    in bf16 and keeps the separate add in float32."""
+    in both dtypes. The composition (the trunk where folds_skip is
+    patched false) takes no skip."""
     arch, _, model = _model(source, dtype)
     block = model.body[0]
     x = _x(arch, (2, 12, 18), 11, dtype)
@@ -209,27 +236,26 @@ def test_rrdb_residual_fold_matches_the_rrdb(source, dtype):
     ref = x + 0.2 * out
     assert torch.equal(_bits(block(x)), _bits(ref))
     assert torch.equal(_bits(block(x, plain=True)), _bits(ref))
-    if dtype == torch.bfloat16:
-        folded = block.rdbs[2](block.rdbs[1](block.rdbs[0](x)), skip=x)
-        assert torch.equal(_bits(folded), _bits(ref))
-    else:
-        with pytest.raises(ValueError, match="skip"):
-            block.rdbs[2](x, skip=x)
+    folded = block.rdbs[2](block.rdbs[1](block.rdbs[0](x)), skip=x)
+    assert torch.equal(_bits(folded), _bits(ref))
+    block.rdbs[2].folds_skip = lambda t: False
+    with pytest.raises(ValueError, match="skip"):
+        block.rdbs[2](x, skip=x)
 
 
-@pytest.mark.parametrize("source", SOURCES)
-@pytest.mark.parametrize("arch_scale", [4, 2])
+@pytest.mark.parametrize("dtype,arch_scale,source",
+                         _over_dtypes(_sources_by([4, 2])))
 def test_fused_forward_on_the_steps_equals_the_composition(
-        source, arch_scale, monkeypatch):
-    """The whole bf16 fused forward on the steps (residuals folded) equals
-    the forward on the composition (each RRDB's residual a separate add)
-    bit for bit, and runs 15 steps an RRDB and no composition; at x4 and
-    in the x2plus form (3 channels, pixel-unshuffled to conv_first's 12)."""
+        dtype, arch_scale, source, monkeypatch):
+    """The whole fused forward on the steps (residuals folded) equals the
+    forward on the composition (each RRDB's residual a separate add) bit
+    for bit, and runs 15 steps an RRDB and no composition, in bf16 and in
+    float32; at x4 and in the x2plus form (3 channels, pixel-unshuffled to
+    conv_first's 12)."""
     arch, sd = _source(source)
     cfg = dict(arch, scale=arch_scale,
                num_in_ch=3 if arch_scale == 2 else arch["num_in_ch"])
-    model = RRDBNet(RRDBNetConfig(**cfg), sd, torch.bfloat16, "cpu",
-                    "fused")
+    model = RRDBNet(RRDBNetConfig(**cfg), sd, dtype, "cpu", "fused")
     x = torch.from_numpy(np.random.default_rng(2).uniform(
         0, 1, (2, 14, 10, cfg["num_in_ch"])).astype(np.float32))
     calls = conv3x3_rdb_plain.calls
@@ -252,20 +278,42 @@ def test_step_counts_one_plain_call_per_step_on_the_cpu():
     assert conv3x3_rdb.launches == launches
 
 
-@pytest.mark.parametrize("k", [0, 4])
-def test_wrapper_refuses_a_device_without_a_kernel(k):
+def test_float32_step_takes_the_plain_version_only_on_the_cpu():
+    """A float32 RDB on the CPU: five plain calls, no launch of either
+    step; conv3x3_rdb_f32 on CPU tensors is the plain step."""
+    arch, _, model = _model("narrow_seeded", torch.float32)
+    rdb = model.body[0].rdbs[0]
+    x = _x(arch, (1, 9, 9), 4, torch.float32)
+    counts = (conv3x3_rdb_plain.calls, conv3x3_rdb.launches,
+              conv3x3_rdb_f32.launches)
+    rdb(x)
+    assert (conv3x3_rdb_plain.calls - counts[0], conv3x3_rdb.launches,
+            conv3x3_rdb_f32.launches) == (5, *counts[1:])
+    slots = torch.zeros((1, 9, 9, rdb.b.numel()))
+    slots_p = slots.clone()
+    got = conv3x3_rdb_f32(0, x, rdb.w0, rdb.b, slots)
+    ref = conv3x3_rdb_plain(0, x, rdb.w0, rdb.b, slots_p)
+    assert torch.equal(_bits(got), _bits(ref))
+    assert torch.equal(_bits(slots), _bits(slots_p))
+
+
+@pytest.mark.parametrize("dtype,k", _over_dtypes(
+    [((0,), "0", ()), ((4,), "4", ())]))
+def test_wrapper_refuses_a_device_without_a_kernel(dtype, k):
     m = dict(device="meta")
     cin = 16 if k == 0 else 8
     cout = 48 if k == 0 else 16
-    extra = {"x": torch.zeros((1, 4, 4, 16), dtype=torch.bfloat16, **m)} \
+    extra = {"x": torch.zeros((1, 4, 4, 16), dtype=dtype, **m)} \
         if k == 4 else {}
+    args = (k, torch.zeros((1, 4, 4, cin), dtype=dtype, **m),
+            torch.zeros((3, 3, cin, cout), dtype=dtype, **m),
+            torch.zeros(48, **m),
+            torch.zeros((1, 4, 4, 48), dtype=dtype, **m))
     with pytest.raises(KernelInputError, match="no kernel"):
-        conv3x3_rdb(k, torch.zeros((1, 4, 4, cin), dtype=torch.bfloat16, **m),
-                    torch.zeros((3, 3, cin, cout), dtype=torch.bfloat16,
-                                **m),
-                    torch.zeros(48, **m),
-                    torch.zeros((1, 4, 4, 48), dtype=torch.bfloat16, **m),
-                    **extra)
+        conv3x3_rdb(*args, **extra)
+    if dtype == torch.float32:
+        with pytest.raises(KernelInputError, match="no kernel"):
+            conv3x3_rdb_f32(*args, **extra)
 
 
 def _operands(k=1, nf=16, g=8, dtype=torch.bfloat16):
@@ -282,6 +330,8 @@ def _operands(k=1, nf=16, g=8, dtype=torch.bfloat16):
     ("ok", None),
     ("step5", "not 0..4"),
     ("float32", "needs bf16"),
+    ("mixed_xn", "needs bf16"),
+    ("bf16_bias", "needs bf16"),
     ("bad_w", "no RDB conv"),
     ("x_early", "belong to step 4"),
     ("xn_is_src", "must not overwrite"),
@@ -289,12 +339,22 @@ def _operands(k=1, nf=16, g=8, dtype=torch.bfloat16):
 ])
 def test_step_checks(case, match):
     """The checks the wrapper makes before a launch (the kernel's
-    contract), on CPU tensors."""
+    contract), on CPU tensors: operands all bf16 or all float32, with
+    float32 biases."""
     o = _operands()
     if case == "step5":
         o["k"] = 5
     elif case == "float32":
+        # all float32 is the float32 step's (packed unused); a mix is
+        # refused
         o = _operands(dtype=torch.float32)
+        assert _check_step(**o) == (8, 16, 40)
+        o["slots"] = o["slots"].bfloat16()
+    elif case == "mixed_xn":
+        o["xn"] = torch.zeros((1, 5, 6, 8))
+    elif case == "bf16_bias":
+        o = _operands(dtype=torch.float32)
+        o["b"] = o["b"].bfloat16()
     elif case == "bad_w":
         o["w"] = torch.zeros((3, 3, 8, 30), dtype=torch.bfloat16)
     elif case == "x_early":

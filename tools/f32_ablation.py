@@ -5,10 +5,11 @@ CUDA GPU.
     python3 tools/f32_ablation.py [--baseline CSRC_DIR] [--only k1f|k3f]
 
 Copies ``csrc/`` into ``build/f32_ablation/<variant>/``, edits each copy's
-``conv3x3_f32.cu`` or ``flash_attn_f32.cu`` as listed in K1F_VARIANTS and
-K3F_VARIANTS (textual edits; one whose text no longer matches fails
-loudly), and builds each copy's source alone with its own nvcc (all at
-once), printing the ptxas report (registers, spills) of the base build.
+K1f mainloop (``conv3x3_f32_body.cuh``, or ``conv3x3_f32.cu`` where a
+``csrc`` has no such header) or ``flash_attn_f32.cu`` as listed in
+K1F_VARIANTS and K3F_VARIANTS (textual edits; one whose text no longer
+matches fails loudly), and builds each copy's source alone with its own
+nvcc (all at once), printing the ptxas report (registers, spills) of the base build.
 With ``--baseline`` the float32 kernels of another ``csrc`` directory (for
 example a ``git archive`` of the parent commit under ``build/``) are built
 and timed too, so two designs are compared within one call. The variants
@@ -60,7 +61,7 @@ K3F_SHAPES = [("vae 1920^2 d512", 1, 1, 1920, 1920, 512),
               ("ragged 13x9 d128", 1, 8, 117, 117, 128),
               ("ragged 4000 d512", 1, 1, 4000, 4000, 512),
               ("cross 200x330 d64", 1, 8, 200, 330, 64)]
-# variant: [(old text, new text), ...] applied to conv3x3_f32.cu
+# variant: [(old text, new text), ...] applied to K1f's mainloop
 K1F_VARIANTS = {
     # no FMAs: the staging and the barriers alone
     "no_fma": [("    for (int q = 0; q < nq; ++q) {",
@@ -225,6 +226,7 @@ def main() -> int:
     for kern in kernels:
         source = "conv3x3_f32.cu" if kern == "k1f" else "flash_attn_f32.cu"
         variants = K1F_VARIANTS if kern == "k1f" else K3F_VARIANTS
+        headers = ("conv3x3_f32_body.cuh",) if kern == "k1f" else ()
         jobs = {"base": prepare(OUT, f"{kern}_base", source, ptxas=True)}
         if args.baseline:
             jobs["baseline"] = prepare(OUT, f"{kern}_baseline", source,
@@ -232,7 +234,7 @@ def main() -> int:
                                        ptxas=True)
         for name, edits in variants.items():
             jobs[name] = prepare(OUT, f"{kern}_{name}", source, edits,
-                                 ptxas=True)
+                                 ptxas=True, headers=headers)
         builds = {}
         for name, (so, text, proc) in jobs.items():
             split_api = "int nsplit" in text
