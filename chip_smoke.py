@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's hand-written kernels from ``csrc/`` (one nvcc per source,
-in parallel), checks in the library's SASS that every K1, K2 and K3
+Prints the machine's identity first (the card, its UUID, SMs, clocks
+and NVIDIA driver, the CUDA runtime, cuDNN, nvcc; after the build the
+kernel library's hash). Builds the port's hand-written kernels from ``csrc/``
+(one nvcc per source, in parallel), checks in the library's SASS that every K1, K2 and K3
 instantiation issues bf16 ``wgmma`` (HGMMA) and every K4 and K4 step one
 the int8 form (IGMMA), prints the K4 step's registers, spills and
 occupancy, and holds each kernel against its plain PyTorch version at the
@@ -77,8 +79,11 @@ weights:
   the same request on the plain attention, both on the float32 forms of
   K1 and K3 (K1f, K3f) and the float32 RDB step; the full-width RRDBNet x4
   in float32 on the 4-tile batch (345 step and 2 K1f launches) against
-  the same forward on the plain versions, with its device time split by
-  kernel family; then K1f against its plain version at the shapes of that
+  the same forward on the plain versions, against itself run again (bit
+  for bit) and, on a crop of one tile, against the plain forward in
+  float64, with its device time split by kernel family; before it the
+  step's scalar forms and K1f's forms with every pointer 4 bytes off a
+  16-byte boundary; then K1f against its plain version at the shapes of that
   forward, of the requests and of the step phase's composition, and
   K3f at every FLASH_SHAPES row and the request's shapes (with the split
   count of each);
@@ -238,6 +243,14 @@ TOL_F32 = 1e-5               # K1f, K3f: float32 sums in another order
 # sums run in another order (~1e-6 of its output); the 69 RDBs and the head
 # carry that through 351 convs, so the bar is ten times one conv's.
 TOL_F32_FORWARD = 1e-4
+# The float32 forward's 64 x 64 crop (the centre of tile 0's output)
+# against the same forward of that tile on the plain path in float64
+# (cuDNN's float64 convs, whose algorithm choice moves nothing at this
+# bar): max|err| / max(1, max|ref|). The float32 forward's sums round at
+# ~1e-7 of each conv's output, carried through the same 351 convs as
+# against the plain forward: the same bar.
+F64_CROP = 64
+TOL_F64_CROP = TOL_F32_FORWARD
 F32_VAE_SHAPE = (1, 1, 1920, 1920, 512)   # the 48x40 request's VAE mid-block
 # K1f's JSON row: conv_body of the full-width float32 forward on TILE_BATCH
 # (since the float32 trunk runs the float32 RDB step, K1f's trunk shapes
@@ -551,6 +564,50 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+
+
+def machine_line(torch) -> str:
+    """What tells this machine from another: the card (name, UUID, PCI
+    bus, SMs, power limit, the SM and memory clocks now and at most), the
+    NVIDIA driver and the CUDA version it supports, the CUDA runtime,
+    cuDNN and torch in this process, and the nvcc that builds the
+    kernels."""
+    import ctypes
+    from neural_enhanced_super_resolution_torch.kernels import _build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,uuid,pci.bus_id,power.limit,"
+         "clocks.sm,clocks.max.sm,clocks.mem,clocks.max.mem,driver_version",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    name, uuid, bus, power, sm, sm_max, mem, mem_max, driver = (
+        v.strip() for v in smi.split(","))
+    version = ctypes.c_int()
+    ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(ctypes.byref(version))
+    nvcc = subprocess.run([_build.cuda_tool("nvcc"), "--version"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout
+    release = next((ln.split("release", 1)[1].strip() for ln in
+                    nvcc.splitlines() if "release" in ln), "unknown")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (f"machine: {name} uuid {uuid} pci {bus}, {sms} SMs, power "
+            f"limit {power}, SM clock {sm} (max {sm_max}),"
+            f" memory clock {mem} (max {mem_max}); driver {driver} (CUDA "
+            f"{version.value // 1000}.{version.value % 1000 // 10}); CUDA "
+            f"runtime {torch.version.cuda}, cuDNN "
+            f"{torch.backends.cudnn.version()}, torch {torch.__version__}, "
+            f"python {sys.version.split()[0]}; nvcc release {release}")
+
+
+def library_line() -> str:
+    """The kernel library this process loaded: its file (named by the
+    hash of the sources it was built from) and the hash of its bytes."""
+    import hashlib
+    from neural_enhanced_super_resolution_torch.kernels import _build
+    path = _build.library_path()
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return (f"kernel library: {os.path.basename(path)} (named by the hash "
+            f"of csrc/), sha256 of the file {digest}")
 
 
 def build_kernels() -> None:
@@ -2827,20 +2884,40 @@ def k1f_step(k, src, w, b, slots, x=None, skip=None):
     return F.leaky_relu(t + b[lo:lo + g], 0.2)
 
 
-def check_rdb_f32_steps(torch, rdb, x, skip, label: str) -> tuple:
+def _misaligned(torch, t):
+    """A contiguous copy of float32 t that starts 4 bytes past a 16-byte
+    boundary: the float32 kernels' 16-byte paths give way to their scalar
+    forms there (csrc/rdb_f32.cu's epilogue, K1f's patch staging)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    if view.data_ptr() % 16 != 4:
+        raise AssertionError(f"misaligned copy at {view.data_ptr()}")
+    return view
+
+
+def check_rdb_f32_steps(torch, rdb, x, skip, label: str,
+                        misalign: bool = False) -> tuple:
     """The float32 RDB step at one RDB's five steps, each against the
     composition's step on K1f (k1f_step: x_{k+1} or out and the whole slot
     buffer, bit for bit) and against conv3x3_rdb_plain (cuDNN, TF32 off;
     TOL_F32), on the same inputs; then the RDB on the steps against
     FusedRDB._composition (bit for bit; printed as the count of unequal
-    values). Returns the failures and the RDB's max|err| against its
-    plain steps."""
+    values). With ``misalign`` the slots, x and skip sit 4 bytes past a
+    16-byte boundary (_misaligned): every step's epilogue takes its scalar
+    form and step 0's patch its 4-byte copies, and in the RDB (which makes
+    its own slots) step 0's patch and step 4's epilogue. Returns the
+    failures and the RDB's max|err| against its plain steps."""
     from neural_enhanced_super_resolution_torch.kernels.conv3x3_rdb import (
         conv3x3_rdb, conv3x3_rdb_plain)
     failed, notes = [], []
     n, h, w, _ = x.shape
     g = rdb.gc
     slots = torch.zeros((n, h, w, rdb.b.numel()), device="cuda")
+    if misalign:
+        slots, x = _misaligned(torch, slots), _misaligned(torch, x)
+        skip = None if skip is None else _misaligned(torch, skip)
+        label += " (slots, x and skip at +4 bytes)"
     src = x
     for k, wk in enumerate(rdb.weights()):
         sl_c, sl_p = slots.clone(), slots.clone()
@@ -2888,7 +2965,10 @@ def check_conv3x3_rdb_f32(torch, gen) -> tuple:
     steps (check_rdb_f32_steps) on TILE_BATCH at full width (nf 64,
     growth 32) with and without the RRDB skip, at nf 16 / g 8 on 1 x 80^2,
     at nf 12 / g 4 (a granule holds x_{k+1} and slot channels) with the
-    skip, and on a ragged 1 x 13 x 9 at full width with and without it;
+    skip, on a ragged 1 x 13 x 9 at full width with and without it, and,
+    with and without the skip, its scalar forms: at full width on 1 x 72
+    x 56 with the slots, x and skip 4 bytes off a 16-byte boundary, and at
+    nf 18 / g 6 on 2 x 21 x 35 (K1f's 4-byte staging too);
     the RRDB fold (three RDBs, the third with skip) against the RRDB on
     the composition, bit for bit; by torch.profiler, that an RDB launches
     five rdb_f32_step_kernel and nothing else (and dispatches nothing but
@@ -2930,6 +3010,25 @@ def check_conv3x3_rdb_f32(torch, gen) -> tuple:
         failed += check_rdb_f32_steps(
             torch, rdb, xr, _rnd(torch, gen, 1, 13, 9, 64, scale=0.5,
                                  dtype=torch.float32), "ragged")[0]
+        # The forms the checks above never reach (their own generator, so
+        # that every later phase draws what it drew before): the scalar
+        # epilogue at full width, its tensors 4 bytes off a 16-byte
+        # boundary; g and nf not multiples of 4 (nf 18 / g 6: the scalar
+        # epilogue, and K1f's 4-byte copies of the patch and the weights,
+        # Cin 18 and 6), each with and without the skip.
+        more = torch.Generator().manual_seed(SEED + 24)
+        xs = _rnd(torch, more, 1, 72, 56, 64, scale=0.5, dtype=torch.float32)
+        ss = _rnd(torch, more, 1, 72, 56, 64, scale=0.5, dtype=torch.float32)
+        failed += check_rdb_f32_steps(torch, rdb, xs, None, "scalar",
+                                      misalign=True)[0]
+        failed += check_rdb_f32_steps(torch, rdb, xs, ss, "scalar",
+                                      misalign=True)[0]
+        odd6 = _fused_rdb_f32(torch, more, 18, 6)
+        x6 = _rnd(torch, more, 2, 21, 35, 18, scale=0.5, dtype=torch.float32)
+        failed += check_rdb_f32_steps(torch, odd6, x6, None, "nf 18 g 6")[0]
+        failed += check_rdb_f32_steps(
+            torch, odd6, x6, _rnd(torch, more, 2, 21, 35, 18, scale=0.5,
+                                  dtype=torch.float32), "nf 18 g 6")[0]
         # The RRDB's residual folded into its third RDB's last step.
         folded = rdb(rdb(rdb(x)), skip=x)
         ref = x + 0.2 * rdb._composition(rdb._composition(
@@ -3012,6 +3111,56 @@ def check_conv3x3_rdb_f32(torch, gen) -> tuple:
     torch.cuda.empty_cache()
     return ({"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
              "library_ms": None, "max_abs_err": err}, sorted(k1f_shapes))
+
+
+def check_f32_unaligned(torch) -> None:
+    """K1f's SAME conv and its head 3x3 and 2x2 forms through their C
+    entries with x, w, the bias and y each 4 bytes past a 16-byte boundary
+    (the wrappers allocate y themselves, always aligned; an allocator that
+    does not would hand the kernels such a y), bit for bit against the
+    wrappers' aligned results: the epilogue's float4 stores take a y that
+    is 16-byte aligned only, else a float at a time (before that check a
+    misaligned y faulted with a misaligned address)."""
+    from neural_enhanced_super_resolution_torch.kernels import (
+        _build, conv2x2_s2d_f32, conv3x3_f32, conv3x3_head_f32)
+    lib, stream = _build.load_library(), _build.stream_ptr()
+    gen = torch.Generator().manual_seed(SEED + 25)
+    lrelu, mask, d2s = 1, 4, 8
+    cases = [  # (label, entry, x, Cout, taps, pad, flags, wrapper)
+        ("K1f 64->64", "nesr_conv3x3_f32", (1, 40, 40, 64), 64, 3, None,
+         lrelu, lambda x, w, b: conv3x3_f32(x, w, b, True)),
+        ("head 3x3 up1 64->256 d2s", "nesr_conv3x3_head_f32",
+         (1, 40, 40, 64), 256, 3, None, lrelu | d2s,
+         lambda x, w, b: conv3x3_head_f32(x, w, b, True, True)),
+        ("head 3x3 up2 64->256", "nesr_conv3x3_head_f32", (1, 80, 80, 64),
+         256, 3, None, lrelu, lambda x, w, b: conv3x3_head_f32(x, w, b,
+                                                               True)),
+        ("2x2 hr 256->256 pad 1 mask", "nesr_conv2x2_f32", (1, 40, 40, 256),
+         256, 2, 1, lrelu | mask,
+         lambda x, w, b: conv2x2_s2d_f32(x, w, b, True, 1, True, False))]
+    notes, failed = [], []
+    for label, entry, shape, cout, taps, pad, flags, wrap in cases:
+        x = _rnd(torch, gen, *shape, dtype=torch.float32)
+        w = _rnd(torch, gen, taps, taps, shape[3], cout, scale=0.05,
+                 dtype=torch.float32)
+        b = _rnd(torch, gen, cout, scale=0.1, dtype=torch.float32)
+        ref = wrap(x, w, b)
+        xs, ws, bs = (_misaligned(torch, t) for t in (x, w, b))
+        ys = _misaligned(torch, torch.full_like(ref, float("nan")))
+        dims = [*shape, cout] + ([] if pad is None else [pad])
+        err = getattr(lib, entry)(xs.data_ptr(), ws.data_ptr(), bs.data_ptr(),
+                                  ys.data_ptr(), *dims, flags, stream)
+        _build.check(entry, err)
+        torch.cuda.synchronize()
+        unequal = int((ys != ref).sum())
+        notes.append(f"{label} {unequal} of {ref.numel()} unequal")
+        if not _same(ys, ref):
+            failed.append(label)
+    log("float32 forms through their C entries with x, w, bias and y at "
+        "+4 bytes (scalar stores) against the wrappers' aligned results: "
+        + "; ".join(notes) + " (target bit for bit)")
+    if failed:
+        raise AssertionError(f"float32 forms at +4 bytes differ: {failed}")
 
 
 def check_forward_int8(torch, gen, sd, name: str) -> None:
@@ -3800,7 +3949,12 @@ def check_forward_f32(torch, gen, sd, name: str):
     K1f's SAME conv, the head forms and the rest (by kernel name); the
     folded head (check_head, bar TOL_F32_FORWARD). Returns the launches
     (K1f SAME conv, 2x2 form, head 3x3 form, the step) and the shapes
-    K1f's SAME conv, 2x2 and head 3x3 forms were given."""
+    K1f's SAME conv, 2x2 and head 3x3 forms were given. The forward also
+    runs twice and must be bit-equal to itself, and a
+    F64_CROP-square crop of tile 0's output is held against the plain
+    forward of that tile in float64 (TOL_F64_CROP), the float32 plain
+    forward's crop printed beside it; a miss of any bar prints
+    _forward_f32_diagnosis."""
     from neural_enhanced_super_resolution_torch.models import (
         RRDBNet, RRDBNetConfig)
     from neural_enhanced_super_resolution_torch.models.rrdbnet import (
@@ -3821,8 +3975,24 @@ def check_forward_f32(torch, gen, sd, name: str):
         out = model(x)
     counts = dict(_f32_counts(), composition=comp[0])
     d, r = rel_err(out, ref)
-    why = ("" if r <= TOL_F32_FORWARD and torch.isfinite(out).all()
-           else _forward_f32_diagnosis(torch, model, x, out, ref))
+    # Twice, bit for bit; and a crop of tile 0 against the plain forward
+    # in float64, the float32 plain reference's crop beside it: which of
+    # the two is off, where they disagree.
+    again = model(x)
+    repeat = _same(out, again)
+    repeat_unequal = int((out != again).sum())
+    del again
+    c0 = (out.shape[1] - F64_CROP) // 2
+    crop = (0, slice(c0, c0 + F64_CROP), slice(c0, c0 + F64_CROP))
+    ref_crop = ref[crop].clone()
+    f64 = RRDBNet(cfg, sd, torch.float64, "cuda", "fused")(
+        x[:1], plain=True)[crop].double()
+    _, r64 = rel_err(out[crop].double(), f64)
+    _, r64_ref = rel_err(ref_crop.double(), f64)
+    del f64
+    ok = (r <= TOL_F32_FORWARD and bool(torch.isfinite(out).all())
+          and repeat and r64 <= TOL_F64_CROP)
+    why = "" if ok else _forward_f32_diagnosis(torch, model, x, out, ref)
     del ref
     torch.cuda.empty_cache()
     nf, g = ARCH["num_feat"], ARCH["num_grow_ch"]
@@ -3858,7 +4028,12 @@ def check_forward_f32(torch, gen, sd, name: str):
             floor_ms=flops / PEAK_FP32_FLOPS * 1e3))
     log(f"forward float32 (the float32 RDB step + K1f) 12ch x4 nf64 nb23 "
         f"gc32 on {tuple(x.shape)}: max_abs_err {d:.6g} rel {r:.3g} vs the "
-        f"plain forward on the card (tol {TOL_F32_FORWARD}); device ms "
+        f"plain forward on the card (tol {TOL_F32_FORWARD}); a second "
+        f"forward bit-equal to the first {repeat} ({repeat_unequal} values "
+        f"unequal); the {F64_CROP}x{F64_CROP} crop of tile 0 at ({c0}, {c0})"
+        f" against the tile's plain forward in float64: rel {r64:.3g} (tol "
+        f"{TOL_F64_CROP}), the float32 plain forward's crop rel "
+        f"{r64_ref:.3g}; device ms "
         f"{total:.3f} (wall {wall:.3f}; bound "
         f"{flops / PEAK_FP32_FLOPS * 1e3:.3f}, {flops / 1e12:.3f} TFLOP at 67 "
         f"TFLOP/s): the step "
@@ -3874,8 +4049,7 @@ def check_forward_f32(torch, gen, sd, name: str):
     want = (K1F_FOLDED, K1_2X2, K1_HEAD, RDB_STEPS)
     got = (counts["conv3x3_f32"], counts["conv2x2_s2d_f32"],
            counts["conv3x3_head_f32"], counts["conv3x3_rdb_f32"])
-    if (not (r <= TOL_F32_FORWARD and torch.isfinite(out).all())
-            or got != want
+    if (not ok or got != want
             or any(counts[k] for k in ("conv3x3", "conv2x2_s2d",
                                        "conv3x3_head",
                                        "flash_attention", "conv3x3_plain",
@@ -3883,10 +4057,12 @@ def check_forward_f32(torch, gen, sd, name: str):
                                        "flash_attention_plain",
                                        "conv3x3_rdb", "conv3x3_rdb_plain",
                                        "composition"))):
-        raise AssertionError(f"float32 forward: rel err {r}, counts {counts}"
-                             f" (want {want} launches of K1f, its 2x2 and "
-                             "head 3x3 forms and the step, nothing else)"
-                             + why)
+        raise AssertionError(f"float32 forward: rel err {r}, bit-equal to "
+                             f"itself {repeat}, the crop against float64 rel"
+                             f" {r64} (the plain forward's {r64_ref}), "
+                             f"counts {counts} (want {want} launches of K1f, "
+                             "its 2x2 and head 3x3 forms and the step, "
+                             "nothing else)" + why)
     del out
     check_head(torch, model, x, TOL_F32_FORWARD, name)
     del model
@@ -3896,12 +4072,14 @@ def check_forward_f32(torch, gen, sd, name: str):
 
 
 def _forward_f32_diagnosis(torch, model, x, out, ref) -> str:
-    """Where a float32 forward that missed its bar went wrong, for the
+    """Where a float32 forward that missed a bar went wrong, for the
     failure's message (the phase fails all the same): the forward and its
     plain reference run again, each compared with its first run and with
     the other's; the tiles, rows and columns where the first run is off;
-    each RDB of a third run held against FusedRDB._composition on its own
-    input, bit for bit."""
+    in a third run each RDB held against FusedRDB._composition on its own
+    input, bit for bit, and K1f's conv_first and conv_body and the folded
+    head's four launches each against its plain version on its own
+    input."""
     from neural_enhanced_super_resolution_torch.models.rrdbnet import (
         FusedRDB)
     out2, ref2 = model(x), model(x, plain=True)
@@ -3924,17 +4102,39 @@ def _forward_f32_diagnosis(torch, model, x, out, ref) -> str:
         seen[0] += 1
         return y
 
+    # K1f's two convs and the four head launches, each against its plain
+    # version on the input it gets in the same run.
+    convs = []
+    mods = [(model.conv_first, "conv_first"), (model.conv_body, "conv_body")]
+    mods += [(getattr(model.folded_head, k), k)
+             for k in ("up1", "up2", "hr", "last")]
+
+    def holding(mod, label):
+        run = mod.forward
+
+        def forward(t, *args, **kw):
+            y = run(t, *args, **kw)
+            plain = run(t, *args, **dict(kw, plain=True))
+            convs.append(f"{label} rel {rel_err(y, plain)[1]:.3g}")
+            return y
+        return forward
+
     FusedRDB.forward = held
+    for mod, label in mods:
+        mod.forward = holding(mod, label)
     try:
         model(x)
     finally:
         FusedRDB.forward = fwd
+        for mod, _ in mods:
+            del mod.forward
     return (f"; diagnosis: {box}; a second forward rel err "
             f"{rel_err(out2, ref)[1]:.3g} (bit-equal to the first "
             f"{torch.equal(out2, out)}), the first against a second plain "
             f"reference {rel_err(out, ref2)[1]:.3g} (references bit-equal "
             f"{torch.equal(ref2, ref)}); RDBs unequal to the composition "
-            f"{len(unequal)} of {seen[0]} {unequal[:8]}")
+            f"{len(unequal)} of {seen[0]} {unequal[:8]}; against their "
+            f"plain versions (bar {TOL_F32}) {', '.join(convs)}")
 
 
 class _Tally(list):
@@ -5147,11 +5347,13 @@ def main() -> int:
     log(card)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"CUDA {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    log(machine_line(torch))
     gen = torch.Generator().manual_seed(SEED)
     t_start = time.perf_counter()
 
     drive_precompile(name)
     build_kernels()
+    log(library_line())
     results = {}
     (results["conv3x3"], results["conv2x2_s2d"],
      results["conv3x3_head"]) = check_conv3x3(torch, gen)
@@ -5163,6 +5365,7 @@ def main() -> int:
     results["conv3x3_rdb"] = check_conv3x3_rdb(torch, gen)
     results["conv3x3_rdb_f32"], k1f_trunk_shapes = check_conv3x3_rdb_f32(
         torch, gen)
+    check_f32_unaligned(torch)
     sd = init_rrdbnet(RRDBNetConfig(**ARCH), torch.Generator().manual_seed(
         SEED))
     check_forward(torch, gen, sd, name)

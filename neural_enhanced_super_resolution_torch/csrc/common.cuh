@@ -61,7 +61,8 @@ __device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
 }
 
 // Orders this thread's ordinary stores to shared memory before reads by
-// the async proxy (wgmma operands).
+// the async proxy (wgmma operands), and its ordinary reads before writes
+// by the async proxy (bulk copies into a stage it has read).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

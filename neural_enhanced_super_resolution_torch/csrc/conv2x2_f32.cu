@@ -67,6 +67,7 @@ struct Args {
   int stage;     // floats a ring stage: weights then patch
   int vec_x;     // patch by 16-byte cp.async (Cin % 4 == 0, aligned)
   int vec_w;     // weights by bulk copy (Cin, Cout % 4 == 0, aligned)
+  int vec_y;     // y 16-byte aligned: 8 channels in one piece by float4
 };
 
 __device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
@@ -203,7 +204,12 @@ conv2x2_f32_kernel(const Args a) {
   issue(0);
 #pragma unroll 1
   for (int p = 0; p < passes; ++p) {
-    __syncthreads();   // every thread is done with the other stage
+    // Every thread is done with the other stage. Where the next pass is
+    // staged into a stage read before, the reads are ordered before its
+    // copies (the bulk copies are the async proxy's) by the proxy fence,
+    // then the barrier, as the bf16 kernels' consumers release a stage.
+    if (p > 0 && p + 1 < passes) nesr::fence_proxy_async();
+    __syncthreads();
     if (p + 1 < passes) issue(p + 1);
     nesr::mbar_wait(bar0 + 8 * (p & 1), (p >> 1) & 1);
     const float* sw = ring + (p & 1) * a.stage + 8 * gran;
@@ -257,7 +263,7 @@ conv2x2_f32_kernel(const Args a) {
   // 8 channels in one piece: one group of D % 8 == 0 channels under MASK
   // or D2S.
   const bool whole = !(a.flags & (MASK | D2S)) || a.D % 8 == 0;
-  const bool vec_y = (Cout & 3) == 0 && cb + 8 <= Cout && whole;
+  const bool vec_y = a.vec_y && (Cout & 3) == 0 && cb + 8 <= Cout && whole;
 #pragma unroll
   for (int t = 0; t < 8; ++t) {
     const int ox = tx0 + 8 * half + t;
@@ -307,7 +313,8 @@ int launch(Args a, int N, int groups, int rows, cudaStream_t stream) {
 // The 2x2 form at padding `pad` (0 or 1): x (N, H, W, Cin), w (2, 2, Cin,
 // Cout), bias (Cout,) or null, y (N, H + 2 pad - 1, W + 2 pad - 1, Cout)
 // or its depth-to-space form under D2S, all float32 and contiguous
-// (kernels/conv3x3.py checks); y is 16-byte aligned (torch.empty).
+// (kernels/conv3x3.py checks); a y that is not 16-byte aligned is
+// stored a float at a time.
 extern "C" int nesr_conv2x2_f32(const void* x, const void* w,
                                 const void* bias, void* y, int N, int H,
                                 int W, int Cin, int Cout, int pad, int flags,
@@ -339,6 +346,7 @@ extern "C" int nesr_conv2x2_f32(const void* x, const void* w,
   a.tiles_x = (a.Wo + TW - 1) / TW;
   a.vec_x = Cin % 4 == 0 && ((uintptr_t)x & 15) == 0;
   a.vec_w = Cin % 4 == 0 && Cout % 4 == 0 && ((uintptr_t)w & 15) == 0;
+  a.vec_y = ((uintptr_t)y & 15) == 0;
   a.ws = a.vec_w && groups == 1 ? Cout : 8 * a.G;
   cudaStream_t s = (cudaStream_t)stream;
   return a.G >= 16 ? launch<16>(a, N, groups, rows, s)

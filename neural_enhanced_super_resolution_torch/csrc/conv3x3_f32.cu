@@ -57,6 +57,7 @@ struct Args : ConvF32Params {
   const float* bias;
   float* y;
   int flags;
+  int vec_y;   // y 16-byte aligned: a granule's 8 channels by two float4
 };
 
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -70,7 +71,7 @@ conv3x3_f32_kernel(const Args a) {
 #pragma unroll
   for (int c = 0; c < 8; ++c)
     bv[c] = a.bias != nullptr && cb + c < Cout ? a.bias[cb + c] : 0.f;
-  const bool vec_y = (Cout & 3) == 0 && cb + 8 <= Cout;
+  const bool vec_y = a.vec_y && (Cout & 3) == 0 && cb + 8 <= Cout;
 #pragma unroll
   for (int t = 0; t < 8; ++t) {
     const int ox = p.tx0 + 8 * p.half + t;
@@ -103,6 +104,7 @@ int launch_f32(const void* x, const void* w, const void* bias, void* y,
   a.bias = (const float*)bias;
   a.y = (float*)y;
   a.flags = flags;
+  a.vec_y = ((uintptr_t)y & 15) == 0;
   cudaError_t err = cudaFuncSetAttribute(
       conv3x3_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       l.smem);
@@ -114,8 +116,8 @@ int launch_f32(const void* x, const void* w, const void* bias, void* y,
 }  // namespace
 
 // x (N, H, W, Cin), w (3, 3, Cin, Cout), bias (Cout,) or null, y (N, H, W,
-// Cout), all float32 and contiguous (kernels/conv3x3.py checks); y is
-// 16-byte aligned (torch.empty); flags: LRELU 1.
+// Cout), all float32 and contiguous (kernels/conv3x3.py checks); a y that
+// is not 16-byte aligned is stored a float at a time; flags: LRELU 1.
 extern "C" int nesr_conv3x3_f32(const void* x, const void* w,
                                 const void* bias, void* y, int N, int H,
                                 int W, int Cin, int Cout, int flags,

@@ -225,7 +225,12 @@ __device__ __forceinline__ ConvF32Place conv_f32_mainloop(
   issue(0);
 #pragma unroll 1
   for (int p = 0; p < passes; ++p) {
-    __syncthreads();   // every thread is done with the other stage
+    // Every thread is done with the other stage. Where the next pass is
+    // staged into a stage read before, the reads are ordered before its
+    // copies (the bulk copies are the async proxy's) by the proxy fence,
+    // then the barrier, as the bf16 kernels' consumers release a stage.
+    if (p > 0 && p + 1 < passes) nesr::fence_proxy_async();
+    __syncthreads();
     if (p + 1 < passes) issue(p + 1);
     nesr::mbar_wait(bar0 + 8 * (p & 1), (p >> 1) & 1);
     const float* sw = ring + (p & 1) * a.stage + 8 * gran;

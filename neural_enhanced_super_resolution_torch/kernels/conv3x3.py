@@ -225,10 +225,11 @@ def _plain(x, w, bias, lrelu, pad, round_first, mask=False,
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     dt = x.dtype
-    y = F.conv2d(x.float().permute(0, 3, 1, 2),
-                 w.to(dt).float().permute(3, 2, 0, 1), padding=pad)
+    acc = torch.float64 if dt == torch.float64 else torch.float32
+    y = F.conv2d(x.to(acc).permute(0, 3, 1, 2),
+                 w.to(dt).to(acc).permute(3, 2, 0, 1), padding=pad)
     if bias is not None:
-        y = y + bias.float().view(1, -1, 1, 1)
+        y = y + bias.to(acc).view(1, -1, 1, 1)
     if round_first:
         y = y.to(dt)
     if lrelu:
@@ -246,7 +247,8 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
                   lrelu: bool = False, d2s: bool = False,
                   round_first: bool = False) -> torch.Tensor:
     """The plain version: ``F.conv2d`` on operands rounded to ``x.dtype``,
-    computed in fp32, with bias and LeakyReLU in fp32, rounded to
+    computed in fp32 (in float64 for float64 operands: the card's float64
+    reference forward), with bias and LeakyReLU in fp32, rounded to
     ``x.dtype`` once at the end; with ``round_first``, rounded before the
     LeakyReLU, which then runs on the ``x.dtype`` value (``0.2 * y``
     rounded again). ``d2s``: the output in depth-to-space form."""

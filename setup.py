@@ -12,7 +12,7 @@ setup(
         "neural_enhanced_super_resolution_tpu",
         "neural_enhanced_super_resolution_tpu.*", "nesr",
         "neural_enhanced_super_resolution_torch",
-        "neural_enhanced_super_resolution_torch.*"]),
+        "neural_enhanced_super_resolution_torch.*", "nesr_torch"]),
     # the PyTorch port's CUDA kernel sources, built with nvcc at first use
     package_data={"neural_enhanced_super_resolution_torch": [
         "csrc/*.cu", "csrc/*.cuh"]},

@@ -268,6 +268,46 @@ def test_fused_forward_on_the_steps_equals_the_composition(
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("skip", [False, True])
+def test_float32_steps_at_growth_6_equal_the_composition(skip):
+    """nf 18 / g 6, where neither g nor nf is a multiple of 4 (on the card
+    the float32 step's scalar epilogue and K1f's 4-byte copies of patch and
+    weights): five plain steps in float32 are the composition bit for bit,
+    with and without the RRDB skip, and so is FusedRDB on the steps."""
+    rng = np.random.default_rng(24)
+    nf, g = 18, 6
+    fw = [torch.from_numpy((rng.standard_normal(
+        (3, 3, nf if k == 0 else g, 4 * g + nf - k * g)) * 0.05).astype(
+            np.float32)) for k in range(5)]
+    b = torch.from_numpy((rng.standard_normal(4 * g + nf) * 0.1).astype(
+        np.float32))
+    rdb = FusedRDB(fw, b, torch.float32, "cpu", kernel=False)
+    x, res = (torch.from_numpy((rng.standard_normal((2, 21, 35, nf))
+                                * 0.5).astype(np.float32)) for _ in range(2))
+    skip = res if skip else None
+    ref = rdb._composition(x)
+    ref = ref if skip is None else skip + 0.2 * ref
+    got, _, _ = _steps(rdb, x, skip)
+    assert torch.equal(_bits(got), _bits(ref))
+    assert torch.equal(_bits(rdb(x, skip=skip)), _bits(ref))
+
+
+def test_float64_plain_forward_agrees_with_float32():
+    """The plain path with float64 operands (the card's reference for a
+    crop of the float32 forward in chip_smoke.py) against the float32
+    plain forward: a 2-RRDB net at nf 16 / g 8 (seeded, 3x init scale), to
+    1e-5 of max(1, max|ref|) (float32's rounding carried through 38
+    convs), and not bit-equal (its convs run in float64)."""
+    arch, sd = _source("narrow_seeded")
+    cfg = RRDBNetConfig(**arch)
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 1, (2, 14, 10, arch["num_in_ch"])).astype(np.float32))
+    y64 = RRDBNet(cfg, sd, torch.float64, "cpu", "fused")(x, plain=True)
+    y32 = RRDBNet(cfg, sd, torch.float32, "cpu", "fused")(x, plain=True)
+    err = (y64 - y32).abs().max() / max(1.0, y64.abs().max().item())
+    assert 0 < err <= 1e-5, err
+
+
 def test_step_counts_one_plain_call_per_step_on_the_cpu():
     arch, _, model = _model("narrow_seeded", torch.bfloat16)
     rdb = model.body[0].rdbs[0]

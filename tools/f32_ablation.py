@@ -2,7 +2,8 @@
 with one part taken out and, optionally, against another ``csrc``, on one
 CUDA GPU.
 
-    python3 tools/f32_ablation.py [--baseline CSRC_DIR] [--only k1f|k3f]
+    python3 tools/f32_ablation.py [--baseline CSRC_DIR]
+                                  [--only k1f|k3f|step]
 
 Copies ``csrc/`` into ``build/f32_ablation/<variant>/``, edits each copy's
 K1f mainloop (``conv3x3_f32_body.cuh``, or ``conv3x3_f32.cu`` where a
@@ -23,7 +24,10 @@ over REPS launches after a warm-up, in the order baseline, base, variants,
 base, baseline, and prints each beside the bound (67 TFLOP/s float32,
 3.35 TB/s) and the one PyTorch call computing the same function (cuDNN's
 float32 conv with its bias, TF32 off; SDPA in float32). Prints the
-card (name, power limit) first.
+card (name, power limit) first. ``step`` (the float32 RDB step,
+``rdb_f32.cu``, which shares K1f's mainloop) has no variants: with
+``--baseline`` it times the two builds' steps at an RDB's five launches on
+the tile batch, in the same turns; no PyTorch call computes a step.
 """
 
 from __future__ import annotations
@@ -104,6 +108,9 @@ def _bind(lib, split_api) -> None:
     if hasattr(lib, "nesr_conv3x3_f32"):
         lib.nesr_conv3x3_f32.argtypes = [vp] * 4 + [ci] * 6 + [vp]
         lib.nesr_conv3x3_f32.restype = ci
+    if hasattr(lib, "nesr_rdb_f32_step"):
+        lib.nesr_rdb_f32_step.argtypes = [vp] * 8 + [ci] * 8 + [vp]
+        lib.nesr_rdb_f32_step.restype = ci
     if hasattr(lib, "nesr_flash_attn_f32"):
         lib.nesr_flash_attn_f32.argtypes = (
             [vp] * 6 + [ci] * 5 + [ll, ctypes.c_float] + [ci] * 4 + [vp]
@@ -148,6 +155,49 @@ def _k1f(torch, builds, order) -> None:
               ", ".join(f"{name} {ms:.4f}" for name, ms in times) +
               " ms a launch", flush=True)
         del x, y
+
+
+def _step(torch, builds, order) -> None:
+    """The float32 RDB step at each of an RDB's five launches (nf 64, g 32)
+    on the tile batch, and the five together."""
+    gen = torch.Generator().manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    n, h, w = K1F_SHAPES[0][1:4]
+    nf, g = 64, 32
+    cs = 4 * g + nf
+    x = torch.randn((n, h, w, nf), generator=gen).to("cuda")
+    srcs = [x] + [torch.randn((n, h, w, g), generator=gen).to("cuda")
+                  for _ in range(4)]
+    ws = [(torch.randn((3, 3, nf if k == 0 else g, cs - k * g),
+                       generator=gen) * 0.05).to("cuda") for k in range(5)]
+    b = (torch.randn((cs,), generator=gen) * 0.1).to("cuda")
+    slots = torch.zeros((n, h, w, cs), device="cuda")
+    xn = torch.empty((n, h, w, g), device="cuda")
+    out = torch.empty_like(x)
+
+    def run(lib, k):
+        err = lib.nesr_rdb_f32_step(
+            srcs[k].data_ptr(), ws[k].data_ptr(), b.data_ptr(),
+            slots.data_ptr(), None if k == 4 else xn.data_ptr(),
+            x.data_ptr() if k == 4 else None, None,
+            out.data_ptr() if k == 4 else None, n, h, w,
+            srcs[k].shape[3], cs - k * g, k, g, cs, stream)
+        if err:
+            raise SystemExit(f"step {k} launch failed: CUDA error {err}")
+
+    pix = n * h * w
+    for k in (*range(5), None):
+        ks = range(5) if k is None else (k,)
+        flops = sum(2.0 * pix * 9 * srcs[j].shape[3] * (cs - j * g)
+                    for j in ks)
+        bms, by = _bound(flops, 4.0 * pix * (nf + cs))
+        times = [(name, timed(torch, lambda lib=builds[name][0]: [
+            run(lib, j) for j in ks], REPS)) for name in order]
+        label = "an RDB (5 launches)" if k is None else f"step {k}"
+        print(f"float32 RDB step {label} on {(n, h, w)}: bound {bms:.4f} ms "
+              f"({by}); " + ", ".join(f"{name} {ms:.4f}"
+                                      for name, ms in times) + " ms a call",
+              flush=True)
 
 
 def _k3f(torch, builds, order) -> None:
@@ -210,7 +260,7 @@ def _k3f(torch, builds, order) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", help="another csrc directory to time")
-    ap.add_argument("--only", choices=("k1f", "k3f"))
+    ap.add_argument("--only", choices=("k1f", "k3f", "step"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -222,10 +272,12 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    kernels = [k for k in ("k1f", "k3f") if args.only in (None, k)]
+    kernels = [k for k in ("k1f", "k3f", "step") if args.only in (None, k)]
     for kern in kernels:
-        source = "conv3x3_f32.cu" if kern == "k1f" else "flash_attn_f32.cu"
-        variants = K1F_VARIANTS if kern == "k1f" else K3F_VARIANTS
+        source = {"k1f": "conv3x3_f32.cu", "k3f": "flash_attn_f32.cu",
+                  "step": "rdb_f32.cu"}[kern]
+        variants = {"k1f": K1F_VARIANTS, "k3f": K3F_VARIANTS,
+                    "step": {}}[kern]
         headers = ("conv3x3_f32_body.cuh",) if kern == "k1f" else ()
         jobs = {"base": prepare(OUT, f"{kern}_base", source, ptxas=True)}
         if args.baseline:
@@ -250,10 +302,11 @@ def main() -> int:
         order = ([n for n in ("baseline", "base") if n in builds]
                  + list(variants) + [n for n in ("base", "baseline")
                                      if n in builds])
-        if kern == "k1f":
-            _k1f(torch, {n: (lib,) for n, (lib, _) in builds.items()}, order)
-        else:
+        if kern == "k3f":
             _k3f(torch, builds, order)
+        else:
+            (_k1f if kern == "k1f" else _step)(
+                torch, {n: (lib,) for n, (lib, _) in builds.items()}, order)
         torch.cuda.empty_cache()
     return 0
 
