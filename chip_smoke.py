@@ -1598,7 +1598,7 @@ def drive_diffusion_path(torch, np, ckpt: str, snap: str) -> dict:
 
     base = {"use_diffusion": True, "diffusion_model_path": snap,
             "segment_enhancement": False, "denoise_level": 0,
-            "esrgan_model_path": ckpt, "sd_stage_detail": True,
+            "esrgan_model_path": ckpt,
             "output_dir": os.path.join(OUT, "sd_out")}
     rng = np.random.default_rng(SEED + 3)
     paths = {}
@@ -1676,7 +1676,6 @@ def drive_default_config(torch, np, ckpt: str, snap: str, seg: str,
                                                                  imwrite_rgb)
     cfg = {"use_diffusion": True, "diffusion_model_path": snap,
            "esrgan_model_path": ckpt, "segmentation_model_path": seg,
-           "sd_stage_detail": True,
            "output_dir": os.path.join(OUT, "default_out")}
     rng = np.random.default_rng(SEED + 3)
     small = rng.integers(0, 256, (17, 17, 3), dtype=np.uint8)
@@ -1767,7 +1766,7 @@ def drive_default_in_process(torch, np, ckpt: str, snap: str, seg: str,
     pipe = SuperResolutionPipeline("cuda", {
         "use_diffusion": True, "diffusion_model_path": snap,
         "esrgan_model_path": ckpt, "segmentation_model_path": seg,
-        "iterations": 1, "sd_stage_detail": True,
+        "iterations": 1,
         "output_dir": os.path.join(OUT, "default_out")})
     pipe._load_models()   # set-up: weights to the card before the window
     if set(pipe.models) != {"esrgan", "diffusion", "segmentation"}:
@@ -2120,7 +2119,6 @@ def drive_swinir_requests(torch, np, ckpt: str, swin: str, snap: str,
         "use_diffusion": True, "diffusion_model_path": snap,
         "esrgan_model_path": ckpt, "segmentation_model_path": seg,
         "use_swinir": True, "swinir_model_path": swin, "iterations": 1,
-        "sd_stage_detail": True,
         "output_dir": os.path.join(OUT, "swinir_default_out")})
     pipe._load_models()
     if set(pipe.models) != {"esrgan", "swinir", "diffusion", "segmentation"}:

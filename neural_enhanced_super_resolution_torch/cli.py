@@ -59,7 +59,8 @@ def parse_arguments(argv=None):
     parser.add_argument("--intermediate_saves", action="store_true",
                         help="Save the image after each iteration")
     parser.add_argument("--bench", action="store_true",
-                        help="Print per-stage timing at the end")
+                        help="Print each stage's and span's host and device "
+                             "time, and the counters, at the end")
     return parser.parse_args(argv)
 
 

@@ -14,8 +14,10 @@ device). PyTorch runs the denoise loop eagerly, step by step.
   (image noise, initial latents, then the DDPM step noises); ``_denoise``
   takes them as tensors, so ``__call__`` and ``trace_latents`` (noise
   injected from outside) run the same ops.
-* With a ``StageTimer`` in ``timer``, the call is timed as
-  ``diffusion/clip``, ``diffusion/denoise`` and ``diffusion/vae``.
+* With a ``StageTimer`` in ``timer`` (``runtime/profiler``), the call is
+  traced as the spans ``diffusion/clip``, ``diffusion/denoise`` (with
+  ``diffusion/step``, one CFG step: both UNet passes, the guidance and the
+  scheduler update) and ``diffusion/vae``; spans never synchronise.
 * ``to_device`` moves the pipeline (and its seeded draws) to another
   device (the stage-overlap slot); with a two-device ``cfg_shard_mesh``
   (``cfg_shard.cfg_mesh``) the uncond and cond passes run on one device
@@ -25,7 +27,6 @@ device). PyTorch runs the denoise loop eagerly, step by step.
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import os
 import zlib
@@ -47,6 +48,8 @@ from neural_enhanced_super_resolution_torch.models.diffusion.vae import (
     AutoencoderKL, VAEConfig, vae_decode)
 from neural_enhanced_super_resolution_torch.parallel.mesh import module_on
 from neural_enhanced_super_resolution_torch.runtime.device import torch_dtype
+from neural_enhanced_super_resolution_torch.runtime.profiler import (
+    NULL_TIMER)
 
 logger = logging.getLogger("nesr.diffusion")
 
@@ -85,7 +88,7 @@ class UpscalePipeline:
         self.tokenizer = tokenizer
         self.max_noise_level = max_noise_level
         self.device = unet.conv_in.weight.device
-        self.timer = None  # a StageTimer times the three sub-stages
+        self.timer = None  # a StageTimer traces the call
         self.cfg_shard_mesh = None  # two devices: split CFG across them
         self._unet_replicas: dict = {}
 
@@ -155,24 +158,26 @@ class UpscalePipeline:
         kv = precompute_context_kv(self.unet, embeds)
         kv_uncond = {k: (a[:n], b[:n]) for k, (a, b) in kv.items()}
         kv_cond = {k: (a[n:], b[n:]) for k, (a, b) in kv.items()}
+        timer = self.timer or NULL_TIMER
         latents = init_latents
         for i, t in enumerate(int(s) for s in timesteps):
             prev_t = int(timesteps[i + 1]) if i + 1 < len(timesteps) else -1
-            if self.cfg_split:
-                unet_in = torch.cat([latents, noisy], dim=-1)
-                eps_u = unet_forward(self.unet, unet_in, t, embeds[:n],
-                                     labels, kv_uncond)
-                eps_c = unet_forward(self.unet, unet_in, t, embeds[n:],
-                                     labels, kv_cond)
-            else:
-                unet_in = torch.cat([torch.cat([latents, latents]),
-                                     torch.cat([noisy, noisy])], dim=-1)
-                eps_u, eps_c = unet_forward(
-                    self.unet, unet_in, t, embeds, labels.repeat(2),
-                    kv).chunk(2)
-            latents = guided_step(
-                self.scheduler, eps_u, eps_c, guidance_scale, t, prev_t,
-                latents, None if step_noises is None else step_noises[i])
+            with timer.span("diffusion/step", self.device):
+                if self.cfg_split:
+                    unet_in = torch.cat([latents, noisy], dim=-1)
+                    eps_u = unet_forward(self.unet, unet_in, t, embeds[:n],
+                                         labels, kv_uncond)
+                    eps_c = unet_forward(self.unet, unet_in, t, embeds[n:],
+                                         labels, kv_cond)
+                else:
+                    unet_in = torch.cat([torch.cat([latents, latents]),
+                                         torch.cat([noisy, noisy])], dim=-1)
+                    eps_u, eps_c = unet_forward(
+                        self.unet, unet_in, t, embeds, labels.repeat(2),
+                        kv).chunk(2)
+                latents = guided_step(
+                    self.scheduler, eps_u, eps_c, guidance_scale, t, prev_t,
+                    latents, None if step_noises is None else step_noises[i])
             if trace is not None:
                 trace.append(latents)
         return latents
@@ -222,10 +227,7 @@ class UpscalePipeline:
         if noise_level > self.max_noise_level:
             raise ValueError(f"noise_level {noise_level} > max "
                              f"{self.max_noise_level}")
-        devices = (self.device, *(self.cfg_shard_mesh or ()))
-        stage = ((lambda name: self.timer.stage(name, devices=devices))
-                 if self.timer is not None
-                 else lambda name: contextlib.nullcontext())
+        timer = self.timer or NULL_TIMER
         img = self._image(image)
         n, h, w, _ = img.shape
         lat_ch = self.unet.cfg.out_channels
@@ -239,13 +241,13 @@ class UpscalePipeline:
         init_latents = normal(n, h, w, lat_ch)
         step_noises = (normal(len(timesteps), n, h, w, lat_ch)
                        if isinstance(self.scheduler, DDPMScheduler) else None)
-        with stage("diffusion/clip"):
+        with timer.span("diffusion/clip", self.device):
             embeds = self.encode_prompt(prompt)
-        with stage("diffusion/denoise"):
+        with timer.span("diffusion/denoise", self.device):
             latents = self._denoise(embeds, img, image_noise, init_latents,
                                     step_noises, timesteps, noise_level,
                                     guidance_scale)
-        with stage("diffusion/vae"):
+        with timer.span("diffusion/vae", self.device):
             return self._decode(latents)[0]
 
 

@@ -28,6 +28,8 @@ import torch
 from neural_enhanced_super_resolution_torch.ops.pad import reflect_pad
 from neural_enhanced_super_resolution_torch.parallel.tiling import (
     TilingCancelled, _tile_grid, stitch_tiles)
+from neural_enhanced_super_resolution_torch.runtime.profiler import (
+    NULL_TIMER)
 
 __all__ = ["process_tiled_sharded", "halo_exchange_strips",
            "process_strips_sharded"]
@@ -43,8 +45,8 @@ def process_tiled_sharded(model_fn: ModelFn, image: torch.Tensor,
                           mesh: Sequence[torch.device], tile_size: int = 512,
                           halo: int = 16, scale: int = 2,
                           batch_tiles: int | None = None,
-                          cancel_check: Callable[[], bool] | None = None
-                          ) -> torch.Tensor:
+                          cancel_check: Callable[[], bool] | None = None,
+                          timer=NULL_TIMER) -> torch.Tensor:
     """Tile-batch data parallelism over ``mesh``.
 
     model_fn: (n, T+2h, T+2h, C) on a slot's device to
@@ -53,13 +55,14 @@ def process_tiled_sharded(model_fn: ModelFn, image: torch.Tensor,
     tail is padded by repeating the last tile up to a power-of-two count a
     slot (at most the chunk), the padded outputs are dropped. Returns
     (H*scale, W*scale, C') on slot 0's device. ``cancel_check`` is polled
-    between chunks (``TilingCancelled``).
+    between chunks (``TilingCancelled``); ``timer`` takes the tile grid's
+    counters (``parallel/tiling``), the padded tail's tiles among those run.
     """
     mesh = tuple(mesh)
     n_dev = len(mesh)
     home = mesh[0]
     tiles, ny, nx, orig_h, orig_w = _tile_grid(image.to(home), tile_size,
-                                               halo)
+                                               halo, timer)
     n = tiles.shape[0]
     step = n if batch_tiles is None else max(n_dev, batch_tiles * n_dev)
     chunks = []
@@ -77,6 +80,9 @@ def process_tiled_sharded(model_fn: ModelFn, image: torch.Tensor,
         if valid < target:
             chunk = torch.cat([chunk, chunk[-1:].expand(
                 target - valid, *chunk.shape[1:])], dim=0)
+            # the padded tail runs too
+            timer.count("tiles", target - valid)
+            timer.count("tile_px", (target - valid) * int(tiles.shape[1]) ** 2)
         per = target // n_dev
         # every slot's shard is dispatched before any output is gathered
         outs = [model_fn(chunk[i * per:(i + 1) * per]

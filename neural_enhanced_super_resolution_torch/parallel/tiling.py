@@ -11,6 +11,18 @@ compute, and returns exactly what ``process_tiled(...).cpu()`` returns. A
 partial last chunk runs at its own size: the JAX package pads it to a
 power of two (``tile_tail``) to reuse a compiled shape, which eager
 PyTorch does not need.
+
+With a ``StageTimer`` in ``timer`` (``runtime/profiler``), a tiled path
+counts at ``_tile_grid`` the tiles run (``tiles``), the pixels they run
+(``tile_px``: tiles x (tile + 2 halo)^2) and the image's (``tile_image_px``);
+``process_tiled_sharded`` adds its padded tail, and ``ops/enhance``'s op
+tiling passes no timer, so it is not counted. ``process_tiled_to_host``
+adds the spans ``tiling/grid`` (pad and cut),
+``tiling/chunk`` (a chunk's forward and crop), ``tiling/copy`` (a chunk's
+copy, on the copy stream), ``tiling/land`` (a chunk's landing in the
+canvas; on the GPU on a fetch thread, host clock only and no range) and
+``tiling/drain`` (the calling thread's waits on a landing slot and on the
+last landings).
 """
 
 from __future__ import annotations
@@ -27,6 +39,8 @@ from neural_enhanced_super_resolution_torch.kernels._build import (
 from neural_enhanced_super_resolution_torch.ops.pad import (reflect_index,
                                                             reflect_pad)
 from neural_enhanced_super_resolution_torch.ops.resize import resize
+from neural_enhanced_super_resolution_torch.runtime.profiler import (
+    NULL_TIMER)
 
 logger = logging.getLogger("nesr.tiling")
 
@@ -87,24 +101,28 @@ def _chunks(tiles: torch.Tensor, batch_tiles: int | None,
         yield start, tiles[start:start + step].contiguous()
 
 
-def _tile_grid(image: torch.Tensor, tile_size: int, halo: int):
+def _tile_grid(image: torch.Tensor, tile_size: int, halo: int,
+               timer=NULL_TIMER):
     padded, orig_h, orig_w = pad_to_grid(image, tile_size)
     ny = int(padded.shape[0]) // tile_size
     nx = int(padded.shape[1]) // tile_size
+    timer.count("tiles", ny * nx)
+    timer.count("tile_px", ny * nx * (tile_size + 2 * halo) ** 2)
+    timer.count("tile_image_px", orig_h * orig_w)
     return extract_tiles(padded, tile_size, halo), ny, nx, orig_h, orig_w
 
 
 def process_tiled(model_fn: Callable[[torch.Tensor], torch.Tensor],
                   image: torch.Tensor, tile_size: int = 512, halo: int = 16,
                   scale: int = 2, batch_tiles: int | None = None,
-                  cancel_check: Callable[[], bool] | None = None
-                  ) -> torch.Tensor:
+                  cancel_check: Callable[[], bool] | None = None,
+                  timer=NULL_TIMER) -> torch.Tensor:
     """Batched uniform tiled processing.
 
     model_fn: (N, T+2h, T+2h, C) -> (N, s(T+2h), s(T+2h), C') on the
     image's device. Returns (H*scale, W*scale, C') on that device.
     """
-    tiles, ny, nx, orig_h, orig_w = _tile_grid(image, tile_size, halo)
+    tiles, ny, nx, orig_h, orig_w = _tile_grid(image, tile_size, halo, timer)
     outs = [model_fn(chunk)
             for _, chunk in _chunks(tiles, batch_tiles, cancel_check)]
     out_tiles = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
@@ -123,8 +141,8 @@ def process_tiled_to_host(model_fn: Callable[[torch.Tensor], torch.Tensor],
                           image: torch.Tensor, tile_size: int = 512,
                           halo: int = 16, scale: int = 2,
                           batch_tiles: int = 16,
-                          cancel_check: Callable[[], bool] | None = None
-                          ) -> np.ndarray:
+                          cancel_check: Callable[[], bool] | None = None,
+                          timer=NULL_TIMER) -> np.ndarray:
     """process_tiled whose output lands chunk by chunk in a host canvas,
     each chunk's copy to the host overlapping the next chunk's compute.
 
@@ -138,47 +156,59 @@ def process_tiled_to_host(model_fn: Callable[[torch.Tensor], torch.Tensor],
     Cancellation raises ``TilingCancelled`` between chunks; errors of the
     model or the copies propagate.
     """
-    tiles, ny, nx, orig_h, orig_w = _tile_grid(image, tile_size, halo)
+    dev = image.device
+    with timer.span("tiling/grid", dev):
+        tiles, ny, nx, orig_h, orig_w = _tile_grid(image, tile_size, halo,
+                                                   timer)
     to, ho = tile_size * scale, halo * scale
     if image.is_cuda:
         canvas = _streamed_to_host(model_fn, tiles, nx, ny, to, ho,
-                                   batch_tiles, cancel_check)
+                                   batch_tiles, cancel_check, timer)
     else:
         canvas = None
         for start, chunk in _chunks(tiles, batch_tiles, cancel_check):
-            cores = model_fn(chunk)[:, ho:ho + to, ho:ho + to, :].numpy()
+            with timer.span("tiling/chunk", dev):
+                cores = model_fn(chunk)[:, ho:ho + to, ho:ho + to, :].numpy()
             if canvas is None:
                 canvas = np.empty((ny * to, nx * to, cores.shape[-1]),
                                   dtype=cores.dtype)
-            _land(canvas, cores, start, nx, to)
+            with timer.span("tiling/land"):
+                _land(canvas, cores, start, nx, to)
     return canvas[:orig_h * scale, :orig_w * scale, :]
 
 
 def _streamed_to_host(model_fn, tiles: torch.Tensor, nx: int, ny: int,
                       to: int, ho: int, batch_tiles: int,
-                      cancel_check) -> np.ndarray:
+                      cancel_check, timer=NULL_TIMER) -> np.ndarray:
     """The GPU body of process_tiled_to_host. Two pinned output buffers
     take turns; a buffer is refilled only after its last chunk landed."""
     import concurrent.futures
 
     depth = 2
-    compute = torch.cuda.current_stream(tiles.device)
-    d2h = torch.cuda.Stream(tiles.device)
+    dev = tiles.device
+    compute = torch.cuda.current_stream(dev)
+    d2h = torch.cuda.Stream(dev)
     bufs: list[torch.Tensor] = []
     landing: list = [None] * depth
     canvas = None
 
+    parent = timer.current()   # the landings' parent, on another thread
+
     def land(done, cores, start):
         done.synchronize()   # this chunk's copy, not the whole device
-        _land(canvas, cores, start, nx, to)
+        with timer.span("tiling/land", parent=parent):
+            _land(canvas, cores, start, nx, to)
 
     with concurrent.futures.ThreadPoolExecutor(depth) as pool:
         for i, (start, chunk) in enumerate(
                 _chunks(tiles, batch_tiles, cancel_check)):
-            core = model_fn(chunk)[:, ho:ho + to, ho:ho + to, :].contiguous()
+            with timer.span("tiling/chunk", dev):
+                core = model_fn(chunk)[:, ho:ho + to, ho:ho + to, :]
+                core = core.contiguous()
             slot = i % depth
             if landing[slot] is not None:
-                landing[slot].result()
+                with timer.span("tiling/drain", dev):
+                    landing[slot].result()
             if len(bufs) <= slot:
                 bufs.append(torch.empty(
                     (batch_tiles or tiles.shape[0],) + tuple(core.shape[1:]),
@@ -189,14 +219,16 @@ def _streamed_to_host(model_fn, tiles: torch.Tensor, nx: int, ny: int,
                                   dtype=host.numpy().dtype)
             d2h.wait_stream(compute)
             with torch.cuda.stream(d2h):
-                host.copy_(core, non_blocking=True)
-                done = torch.cuda.Event(blocking=True)
+                with timer.span("tiling/copy", dev):
+                    host.copy_(core, non_blocking=True)
+                done = torch.cuda.Event(enable_timing=True, blocking=True)
                 done.record(d2h)
             core.record_stream(d2h)
             landing[slot] = pool.submit(land, done, host.numpy(), start)
-        for fut in landing:
-            if fut is not None:
-                fut.result()
+        with timer.span("tiling/drain", dev):
+            for fut in landing:
+                if fut is not None:
+                    fut.result()
     return canvas
 
 

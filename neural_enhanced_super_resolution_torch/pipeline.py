@@ -379,14 +379,18 @@ class SuperResolutionPipeline:
 
     # ------------------------------------------------------------ helpers --
 
-    def _sync_devices(self) -> tuple:
-        """The devices a stage synchronises: the home device, the layout's
-        tile mesh and diffusion slot, and the split-CFG pair, each once."""
+    def _home_device(self) -> torch.device:
+        """The device a request starts and ends on (its index resolved)."""
         home = torch.device(self.device)
         if home.type == "cuda" and home.index is None:
             home = torch.device("cuda", torch.cuda.current_device())
+        return home
+
+    def _sync_devices(self) -> tuple:
+        """The devices a stage synchronises: the home device, the layout's
+        tile mesh and diffusion slot, and the split-CFG pair, each once."""
         layout = self._parallel_layout()
-        devs = [home, *(layout["mesh"] or ())]
+        devs = [self._home_device(), *(layout["mesh"] or ())]
         if layout["diffusion_device"] is not None:
             devs.append(layout["diffusion_device"])
         devs.extend(getattr(self.models.get("diffusion"), "cfg_shard_mesh",
@@ -394,8 +398,7 @@ class SuperResolutionPipeline:
         return tuple(dict.fromkeys(torch.device(d) for d in devs))
 
     def _stage(self, name: str, **sync):
-        return self.timer.stage(name + getattr(self, "_stage_sfx", ""),
-                                devices=self._sync_devices(), **sync)
+        return self.timer.stage(name, devices=self._sync_devices(), **sync)
 
     def _callback(self, stage, iteration, total, message):
         cb = self.config.get("progress_callback")
@@ -496,14 +499,15 @@ class SuperResolutionPipeline:
                 return sharded.process_tiled_sharded(
                     model_fn, image, mesh, tile_size=tile_size, halo=halo,
                     scale=scale, batch_tiles=batch_tiles,
-                    cancel_check=self._cancel_check())
+                    cancel_check=self._cancel_check(), timer=self.timer)
             except Exception as exc:  # noqa: BLE001 - ladder
                 _reraise(exc, "sharded tiling")
                 logger.warning("Sharded tile path failed (%s); falling back "
                                "to single-device tiling", exc)
         return process_tiled(model_fn, image, tile_size=tile_size, halo=halo,
                              scale=scale, batch_tiles=batch_tiles,
-                             cancel_check=self._cancel_check())
+                             cancel_check=self._cancel_check(),
+                             timer=self.timer)
 
     def _esrgan_whole(self, image, three_channel: bool):
         """model(image) at its raw scale; above half a tile the forward runs
@@ -634,10 +638,8 @@ class SuperResolutionPipeline:
                     image.shape[0] * image.shape[1] / 1e6,
                     float(self.config["diffusion_max_megapixels"]))
                 return None
-            detail = (os.environ.get("NESR_SD_STAGE_DETAIL") == "1"
-                      or self.config.get("sd_stage_detail"))
             pipe = self.models["diffusion"]
-            pipe.timer = self.timer if detail else None
+            pipe.timer = self.timer
             steps = self.config.get("num_inference_steps")
             if steps is None:
                 # the reference's tiers by device: cuda 20, cpu 10
@@ -717,24 +719,30 @@ class SuperResolutionPipeline:
             halo=max(4, int(cfg.get("tile_halo", 16))),
             scale=self._esrgan_out_scale(),
             batch_tiles=int(cfg.get("tile_batch") or 16),
-            cancel_check=self._cancel_check())
+            cancel_check=self._cancel_check(), timer=self.timer)
 
     # --------------------------------------------------------------- main --
 
     def enhance_array(self, image: np.ndarray, prompt: str | None = None,
                       iterations: int | None = None) -> np.ndarray:
         """Array in, array out (RGB uint8). ``prompt`` steers the diffusion
-        branch."""
+        branch. One request of ``timer`` (``runtime/profiler``): its spans
+        read the home device's clock, resolved when it ends."""
         self._load_models()
         if not self.models:
             logger.warning("No models were loaded. Using basic upscaling only.")
         iterations = iterations or self.config["iterations"]
         if prompt is None and self.config["use_diffusion"]:
             prompt = "a high resolution, detailed photograph"
-        current = torch.tensor(np.asarray(image), device=self.device)
-        detail = os.environ.get("NESR_STAGE_DETAIL") == "1"
+        with self.timer.request(self._home_device()):
+            with self.timer.span("request/upload"):
+                current = torch.tensor(np.asarray(image), device=self.device)
+            return self._iterate(current, prompt, iterations)
+
+    def _iterate(self, current: torch.Tensor, prompt: str | None,
+                 iterations: int) -> np.ndarray:
+        """enhance_array's iterations on the uploaded image."""
         for iteration in range(iterations):
-            self._stage_sfx = f"@i{iteration + 1}" if detail else ""
             t0 = time.time()
             self._check_cancelled()
             logger.info("Starting iteration %d/%d", iteration + 1, iterations)
@@ -873,5 +881,5 @@ class SuperResolutionPipeline:
                        self.config["iterations"],
                        f"Enhancement complete: {original_w}x{original_h} → "
                        f"{final_w}x{final_h} (x{scale_achieved})")
-        self.timer.log_summary(final_h * final_w / 1e6)
+        self.timer.log_summary()
         return final_path

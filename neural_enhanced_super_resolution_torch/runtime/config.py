@@ -103,7 +103,6 @@ def default_config() -> dict[str, Any]:
         "streamed_output": True,
         "denoise_max_megapixels": None,
         "diffusion_max_megapixels": None,
-        "sd_stage_detail": False,
         "num_inference_steps": None,
         "sd_cfg_split": None,
         # Split the two CFG UNet passes over the last two devices

@@ -506,13 +506,21 @@ def _sr(tmp_path, snap, ckpt=None, **overrides):
 
 
 def test_product_path_diffusion_only(tiny_snapshot, tmp_path, test_image):
-    """8x8 -> 16x16 (the tiny VAE upsamples once), sub-stages timed."""
-    pipe, _ = _sr(tmp_path, tiny_snapshot, adaptive_sharpening=False,
-                  sd_stage_detail=True)
+    """8x8 -> 16x16 (the tiny VAE upsamples once), sub-stages traced: the
+    always-on spans nest in the ``diffusion`` stage, one ``diffusion/step``
+    a step run."""
+    pipe, _ = _sr(tmp_path, tiny_snapshot, adaptive_sharpening=False)
     out = pipe.enhance_array(np.array(test_image[:8, :8]))
     assert "diffusion" in pipe.models and out.shape == (16, 16, 3)
+    timer = pipe.timer
     assert {"diffusion/clip", "diffusion/denoise",
-            "diffusion/vae"} <= set(pipe.timer.totals)
+            "diffusion/vae"} <= set(timer.totals)
+    assert timer.counts["diffusion/step"] == 2   # num_inference_steps
+    spans = timer.requests[-1].spans
+    steps = [sp for sp in spans if sp.name == "diffusion/step"]
+    assert [sp.parent.name for sp in steps] == ["diffusion/denoise"] * 2
+    assert steps[0].parent.parent.name == "diffusion"
+    assert {sp.request for sp in spans} == {timer.requests[-1].id}
 
 
 def test_product_path_esrgan_plus_diffusion(tiny_snapshot, esrgan_ckpt,
@@ -524,7 +532,9 @@ def test_product_path_esrgan_plus_diffusion(tiny_snapshot, esrgan_ckpt,
     assert out.shape == (32, 32, 3)
     assert stages == ["Enhancement", "Preprocessing", "ESRGAN", "Diffusion",
                       "Ensemble", "Postprocessing"]
-    assert "diffusion/denoise" not in pipe.timer.totals  # no sub-stages
+    # the sub-stages are spans, on without a switch
+    assert "diffusion/denoise" in pipe.timer.totals
+    assert pipe.timer.counts["diffusion/step"] == 2
 
 
 def test_product_path_cap_skips_diffusion(tiny_snapshot, esrgan_ckpt,
@@ -533,7 +543,7 @@ def test_product_path_cap_skips_diffusion(tiny_snapshot, esrgan_ckpt,
     ESRGAN's alone."""
     img = np.array(test_image[:8, :8])
     pipe, _ = _sr(tmp_path, tiny_snapshot, esrgan_ckpt,
-                  diffusion_max_megapixels=1e-5, sd_stage_detail=True)
+                  diffusion_max_megapixels=1e-5)
     ref, _ = _sr(tmp_path, tiny_snapshot, esrgan_ckpt, use_diffusion=False)
     np.testing.assert_array_equal(pipe.enhance_array(img),
                                   ref.enhance_array(img))

@@ -746,7 +746,9 @@ def test_stage_timer_synchronises_every_gpu(monkeypatch):
                      devices=cards):
         pass
     assert synced == cards
-    assert timer.counts == {"a": 1, "b": 1, "esrgan": 1, "diffusion": 1}
+    # and the timer counts its waits: 6 + 2 + 3 synchronizations
+    assert timer.counts == {"a": 1, "b": 1, "esrgan": 1, "diffusion": 1,
+                            "sync": 11}
 
 
 @pytest.mark.parametrize("mode,used", [("off", 1), ("auto", 4)])

@@ -97,6 +97,8 @@ def main() -> int:
         print("needs a CUDA GPU", file=sys.stderr)
         return 3
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    from neural_enhanced_super_resolution_torch.runtime.profiler import (
+        StageTimer)
     from neural_enhanced_super_resolution_torch.models import (
         RRDBNet, RRDBNetConfig, init_rrdbnet, save_state_dict)
     from neural_enhanced_super_resolution_torch.utils.io import (imread_rgb,
@@ -146,8 +148,7 @@ def main() -> int:
         pipe.enhance_image(src)   # warm-up
         walls = []
         for _ in range(3):
-            pipe.timer.totals.clear()
-            pipe.timer.counts.clear()
+            pipe.timer = StageTimer()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             pipe.enhance_image(src)

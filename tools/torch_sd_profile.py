@@ -109,6 +109,8 @@ def main() -> int:
         print("needs a CUDA GPU", file=sys.stderr)
         return 3
     from neural_enhanced_super_resolution_torch import SuperResolutionPipeline
+    from neural_enhanced_super_resolution_torch.runtime.profiler import (
+        StageTimer)
     from neural_enhanced_super_resolution_torch.models import (
         RRDBNetConfig, init_rrdbnet, save_state_dict)
     from neural_enhanced_super_resolution_torch.models.diffusion import (
@@ -171,7 +173,7 @@ def main() -> int:
     sr = SuperResolutionPipeline("cuda", {
         "use_diffusion": True, "diffusion_model_path": snap,
         "segment_enhancement": False, "denoise_level": 0, "iterations": 1,
-        "esrgan_model_path": ckpt, "sd_stage_detail": True,
+        "esrgan_model_path": ckpt,
         "output_dir": os.path.join(OUT, "o")})
     t0 = time.perf_counter()
     sr._load_models()
@@ -183,8 +185,7 @@ def main() -> int:
     print("\n".join(sr.timer.summary_lines()))
     walls = []
     for _ in range(3):
-        sr.timer.totals.clear()
-        sr.timer.counts.clear()
+        sr.timer = StageTimer()
         t0 = time.perf_counter()
         sr.enhance_image(src)
         walls.append(time.perf_counter() - t0)
